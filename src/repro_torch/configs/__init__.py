@@ -1,0 +1,26 @@
+"""Architecture registry: each ``--arch`` id maps to an ArchBundle.
+
+Counterpart of ``repro.configs``, registering only the SNN configs the
+port can run so far (the frozen serving path): ``snn-fused`` and ``snn``.
+"""
+from __future__ import annotations
+
+from repro_torch.configs.base import ArchBundle, ModelConfig, ParallelConfig  # noqa: F401
+
+_REGISTRY = {}
+
+
+def register(name):
+    def deco(fn):
+        _REGISTRY[name] = fn
+        return fn
+    return deco
+
+
+def get_bundle(name: str) -> ArchBundle:
+    if name not in _REGISTRY:
+        from repro_torch.configs import snn_fused, snn_serve  # noqa: F401 (registers)
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
+    return _REGISTRY[name]()
+

@@ -1,0 +1,67 @@
+"""Kernel B1: masked synaptic product + LIF step on Hopper.
+
+Counterpart of ``repro.kernels.lif_step`` (``_fused_kernel`` /
+``fused_lif_step``). The CUDA source is ``csrc/lif_step.cu``; its plain
+twin is :func:`repro_torch.kernels.ref.fused_lif_step_ref`. The wrapper
+runs the twin for tensors on the CPU and launches the kernel for tensors on
+the card; anything else raises. ``launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import MODES, LIFStepOut, fused_lif_step_ref
+
+launches = 0
+
+
+def fused_lif_step(s, w, c, v, r, drive, v_th, leak, r_ref, gain, i_bias, v_reset,
+                   *, mode: str = "fixed_leak") -> LIFStepOut:
+    """One fused tick: ``(v', r', y')`` from ``s @ (w*c)`` (+ drive).
+
+    Shapes: ``s`` (B, K) and ``v``, ``r``, ``drive`` (B, N) for one network,
+    or each with a leading slot axis S; ``w``, ``c`` (K, N), or (S, K, N)
+    per slot; the six per-neuron rows (N,) or (S, N). ``drive`` may be None.
+    f32 everywhere except int32 ``r`` and ``r_ref``. No padding: the kernel
+    bounds-checks its ragged edges.
+    """
+    if mode not in MODES:
+        raise ValueError(f"the lif_step kernel supports {MODES}, got {mode!r}")
+    if v.device.type == "cpu":
+        return fused_lif_step_ref(s, w, c, v, r, drive, v_th, leak, r_ref, gain,
+                                  i_bias, v_reset, mode=mode)
+    if v.device.type != "cuda":
+        raise ValueError(f"fused_lif_step runs on cuda or cpu tensors, got {v.device}")
+    return _launch(s, w, c, v, r, drive, (v_th, leak, r_ref, gain, i_bias, v_reset),
+                   mode)
+
+
+def _launch(s, w, c, v, r, drive, rows, mode) -> LIFStepOut:
+    global launches
+    slotted = v.dim() == 3
+    if not slotted:
+        s, v, r = s.unsqueeze(0), v.unsqueeze(0), r.unsqueeze(0)
+        drive = None if drive is None else drive.unsqueeze(0)
+    S, B, K = s.shape
+    N = v.shape[-1]
+    dev, f32, i32 = v.device, torch.float32, torch.int32
+    _build.expect(s, "s", f32, (S, B, K), dev)
+    _build.expect(v, "v", f32, (S, B, N), dev)
+    _build.expect(r, "r", i32, (S, B, N), dev)
+    if drive is not None:
+        _build.expect(drive, "drive", f32, (S, B, N), dev)
+    w_slot = _build.expect_slotted(w, "w", f32, (K, N), S, dev)
+    c_slot = _build.expect_slotted(c, "c", f32, (K, N), S, dev)
+    row_slot = _build.expect_rows(rows, N, S, dev)
+    v_out, r_out, y_out = torch.empty_like(v), torch.empty_like(r), torch.empty_like(v)
+    P = _build.ptr
+    err = _build.library().repro_lif_step(
+        P(s), s.stride(0), P(w), w_slot, P(c), c_slot, P(v), P(r), P(drive),
+        *(P(p) for p in rows), row_slot, P(v_out), P(r_out), P(y_out),
+        S, B, K, N, MODES.index(mode), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check("lif_step", err)
+    launches += 1
+    if not slotted:
+        v_out, r_out, y_out = v_out[0], r_out[0], y_out[0]
+    return LIFStepOut(v=v_out, r=r_out, y=y_out)

@@ -1,0 +1,131 @@
+"""Plain PyTorch twins of the port's kernels (the counterpart of
+``repro.kernels.ref``).
+
+Each hand-written kernel has its twin here, with the arithmetic written out
+step by step in the reference's order: the CPU tests hold the twins against
+the JAX package, ``chip_smoke.py`` holds each kernel against its twin on the
+card, and a kernel wrapper runs its twin for a tensor on the CPU.
+
+Shapes follow the kernel wrappers: ``(B, ...)`` for one network, or with a
+leading slot axis ``(S, B, ...)`` where the weights are ``(S, K, N)`` (or
+``(K, N)`` shared) and the per-neuron rows ``(S, N)`` (or ``(N,)``).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+MODES = ("fixed_leak", "euler")
+
+
+class LIFStepOut(NamedTuple):
+    v: torch.Tensor
+    r: torch.Tensor
+    y: torch.Tensor
+
+
+def spike_matmul_ref(s: torch.Tensor, w: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Masked synaptic product ``s @ (w * c)`` with f32 accumulation."""
+    wc = (w * c.to(w.dtype)).to(torch.float32)
+    return s.to(torch.float32) @ wc
+
+
+def _row(p: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-neuron row, shaped to broadcast against ``like``: ``(N,)`` as is,
+    ``(S, N)`` against ``(S, B, N)`` as ``(S, 1, N)``."""
+    return p.unsqueeze(-2) if p.dim() == 2 and like.dim() == 3 else p
+
+
+def lif_epilogue_ref(acc, v, r, drive, v_th, leak, r_ref, gain, i_bias, v_reset,
+                     mode: str):
+    """The shared LIF epilogue (``repro.kernels.lif_step._lif_epilogue``)."""
+    v_th, leak, r_ref, gain, i_bias, v_reset = (
+        _row(p, v) for p in (v_th, leak, r_ref, gain, i_bias, v_reset))
+    syn = acc if drive is None else acc + drive
+    if mode == "euler":
+        v_tilde = (1.0 - leak) * v + gain * (syn + i_bias)
+    elif mode == "fixed_leak":
+        active = (v != 0).to(torch.float32)
+        leak_step = torch.minimum(leak * active, torch.abs(v))
+        v_tilde = v + syn + i_bias - torch.sign(v) * leak_step
+    else:
+        raise ValueError(f"the kernels support {MODES}, got {mode!r}")
+    spiked = (v_tilde >= v_th) & (r == 0)
+    v_new = torch.where(spiked | (r > 0), v_reset, v_tilde).to(v.dtype)
+    r_new = torch.where(spiked, r_ref, torch.clamp_min(r - 1, 0)).to(r.dtype)
+    return LIFStepOut(v=v_new, r=r_new, y=spiked.to(v.dtype))
+
+
+def fused_lif_step_ref(s, w, c, v, r, drive, v_th, leak, r_ref, gain, i_bias, v_reset,
+                       *, mode: str = "fixed_leak") -> LIFStepOut:
+    """Twin of kernel B1: ``s @ (w*c)`` (+ drive) then the LIF epilogue."""
+    acc = spike_matmul_ref(s, w, c)
+    return lif_epilogue_ref(acc, v, r, drive, v_th, leak, r_ref, gain, i_bias,
+                            v_reset, mode)
+
+
+def delayed_product(ring: torch.Tensor, slot: torch.Tensor, wc: torch.Tensor,
+                    delays: torch.Tensor) -> torch.Tensor:
+    """Per-synapse delays: synapse ``(p, q)`` with delay ``d`` reads ring slot
+    ``(slot - (d - 1)) % D``, as the d-major flattened contraction
+    ``(..., D*K) @ (D*K, N)`` of the reference einsum. A delay outside
+    ``[1, D]`` routes nothing. ``slot`` is a 0-d device tensor: no host sync.
+    """
+    D = ring.shape[-2]
+    back = torch.arange(D, device=ring.device, dtype=slot.dtype)
+    hist = ring.index_select(-2, torch.remainder(slot - back, D).long())
+    planes = torch.stack([wc * (delays == d + 1).to(wc.dtype) for d in range(D)], dim=-3)
+    return hist.flatten(-2) @ planes.flatten(-3, -2)
+
+
+def check_ring(delays, dly_full, dly_out) -> None:
+    """The ring-write contract shared by kernel B2 and its twin: ``dly_out is
+    dly_full`` writes the fresh spikes in place, which is race-free only when
+    the tick reads one ring slot and writes another."""
+    if dly_out is None:
+        return
+    if dly_full is None:
+        raise ValueError("dly_out needs dly_full: there is no ring to write")
+    if dly_out is dly_full:
+        if delays is not None:
+            raise ValueError(
+                "per-synapse delays read every ring slot, the write slot "
+                "included: write dly' to a separate buffer, not in place")
+        if dly_full.shape[-2] < 2:
+            raise ValueError("an in-place ring write needs max_delay > 1")
+
+
+def fused_tick_ref(slots, dly_read, w, c, delays, v, r, drive, dly_full,
+                   v_th, leak, r_ref, gain, i_bias, v_reset, *,
+                   mode: str = "fixed_leak", dly_out=None):
+    """Twin of kernel B2, with the same signature as its wrapper.
+
+    ``slots`` is the device int32 pair ``[tick % D, (tick+1) % D]``;
+    ``dly_read`` the ``(..., B, Dr, K)`` history (the previous ``y`` as
+    ``Dr = 1`` when the ring is degenerate); ``w`` the premasked ``W*C``
+    when ``c`` is None. ``dly_full`` is the ring to write through (None: no
+    write); ``dly_out`` its target: None for a fresh buffer, ``dly_full``
+    itself to write in place, or a spare buffer. Returns
+    ``(v', r', y', dly')``.
+    """
+    check_ring(delays, dly_full, dly_out)
+    wc = w if c is None else w * c.to(w.dtype)
+    if delays is None:
+        s = dly_read.index_select(-2, slots[:1].long()).squeeze(-2)
+        acc = s @ wc
+    else:
+        acc = delayed_product(dly_read, slots[0], wc, delays)
+    out = lif_epilogue_ref(acc, v, r, drive, v_th, leak, r_ref, gain, i_bias,
+                           v_reset, mode)
+    ring = None
+    if dly_full is not None:
+        write = slots[1:].long()
+        fresh = out.y.unsqueeze(-2)
+        if dly_out is dly_full:
+            ring = dly_full.index_copy_(-2, write, fresh)
+        else:
+            ring = dly_full.index_copy(-2, write, fresh)
+            if dly_out is not None:
+                ring = dly_out.copy_(ring)
+    return out.v, out.r, out.y, ring

@@ -1,0 +1,105 @@
+"""Kernel B2: the whole network tick in one launch on Hopper.
+
+Counterpart of ``repro.kernels.tick_fused`` (``_tick_kernel`` /
+``fused_tick``). The CUDA source is ``csrc/tick_fused.cu``; its plain twin
+is :func:`repro_torch.kernels.ref.fused_tick_ref`, with the same signature.
+The wrapper runs the twin for tensors on the CPU and launches the kernel for
+tensors on the card; anything else raises. ``launches`` counts kernel
+launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import MODES, check_ring, fused_tick_ref
+
+launches = 0
+
+
+def fused_tick(slots, dly_read, w, c, delays, v, r, drive, dly_full,
+               v_th, leak, r_ref, gain, i_bias, v_reset, *,
+               mode: str = "fixed_leak", dly_out=None):
+    """One whole tick: ring read, masked product, LIF epilogue, ring write.
+
+    Shapes, for one network (a leading slot axis S on every state operand,
+    and optionally on ``w``/``c``/``delays``/rows, serves S networks):
+
+    * ``slots``: (2,) int32 on the device, ``[tick % D, (tick+1) % D]``.
+    * ``dly_read``: (B, Dr, K) spike history; the previous ``y`` viewed as
+      (B, 1, K) when ``D == 1``. Uniform delays read slot ``slots[0]``;
+      per-synapse delays read all ``Dr`` slots.
+    * ``w``: (K, N) f32, premasked ``W*C`` when ``c`` is None.
+    * ``delays``: (K, N) int32 in ``[1, Dr]``, or None.
+    * ``v``, ``drive``: (B, N) f32 (``drive`` may be None); ``r`` (B, N) int32.
+    * ``dly_full``: (B, D, N) ring to write, or None; ``dly_out``: see
+      :func:`repro_torch.kernels.ref.check_ring` -- in place only without
+      per-synapse delays, otherwise a separate buffer (fresh when None).
+    * six per-neuron rows (N,), ``r_ref`` int32.
+
+    Returns ``(v', r', y', dly')``; ``y'`` is always a fresh buffer.
+    """
+    if mode not in MODES:
+        raise ValueError(f"fused tick supports {MODES}, got {mode!r}")
+    check_ring(delays, dly_full, dly_out)
+    if v.device.type == "cpu":
+        return fused_tick_ref(slots, dly_read, w, c, delays, v, r, drive, dly_full,
+                              v_th, leak, r_ref, gain, i_bias, v_reset,
+                              mode=mode, dly_out=dly_out)
+    if v.device.type != "cuda":
+        raise ValueError(f"fused_tick runs on cuda or cpu tensors, got {v.device}")
+    return _launch(slots, dly_read, w, c, delays, v, r, drive, dly_full,
+                   (v_th, leak, r_ref, gain, i_bias, v_reset), mode, dly_out)
+
+
+def _launch(slots, dly_read, w, c, delays, v, r, drive, dly_full, rows, mode, dly_out):
+    global launches
+    slotted = v.dim() == 3
+    if not slotted:
+        dly_read, v, r = dly_read.unsqueeze(0), v.unsqueeze(0), r.unsqueeze(0)
+        drive = None if drive is None else drive.unsqueeze(0)
+        in_place = dly_out is not None and dly_out is dly_full
+        dly_full = None if dly_full is None else dly_full.unsqueeze(0)
+        if dly_out is not None:
+            dly_out = dly_full if in_place else dly_out.unsqueeze(0)
+    S, B, n_read, K = dly_read.shape
+    N = v.shape[-1]
+    dev, f32, i32 = v.device, torch.float32, torch.int32
+    _build.expect(slots, "slots", i32, (2,), dev)
+    _build.expect(dly_read, "dly_read", f32, (S, B, n_read, K), dev)
+    _build.expect(v, "v", f32, (S, B, N), dev)
+    _build.expect(r, "r", i32, (S, B, N), dev)
+    if drive is not None:
+        _build.expect(drive, "drive", f32, (S, B, N), dev)
+    w_slot = _build.expect_slotted(w, "w", f32, (K, N), S, dev)
+    c_slot = 0 if c is None else _build.expect_slotted(c, "c", f32, (K, N), S, dev)
+    d_slot = 0 if delays is None else _build.expect_slotted(
+        delays, "delays", i32, (K, N), S, dev)
+    row_slot = _build.expect_rows(rows, N, S, dev)
+    ring_in = ring_out = None
+    n_ring = 0
+    if dly_full is not None:
+        n_ring = dly_full.shape[-2]
+        _build.expect(dly_full, "dly_full", f32, (S, B, n_ring, N), dev)
+        if dly_out is dly_full:
+            ring_out = dly_full          # uniform delays: read and write slots differ
+        else:
+            ring_in = dly_full
+            ring_out = torch.empty_like(dly_full) if dly_out is None else dly_out
+            _build.expect(ring_out, "dly_out", f32, (S, B, n_ring, N), dev)
+            if ring_out.data_ptr() in (dly_full.data_ptr(), dly_read.data_ptr()):
+                raise ValueError("dly_out must not alias the ring it is read from")
+    v_out, r_out, y_out = torch.empty_like(v), torch.empty_like(r), torch.empty_like(v)
+    P = _build.ptr
+    err = _build.library().repro_tick_fused(
+        P(slots), P(dly_read), dly_read.stride(0), dly_read.stride(1), n_read,
+        P(w), w_slot, P(c), c_slot, P(delays), d_slot, P(v), P(r), P(drive),
+        *(P(p) for p in rows), row_slot, P(v_out), P(r_out), P(y_out),
+        P(ring_in), P(ring_out), 0 if ring_out is None else ring_out.stride(0), n_ring,
+        S, B, K, N, MODES.index(mode), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check("tick_fused", err)
+    launches += 1
+    if not slotted:
+        v_out, r_out, y_out = v_out[0], r_out[0], y_out[0]
+        ring_out = None if ring_out is None else ring_out[0]
+    return v_out, r_out, y_out, ring_out

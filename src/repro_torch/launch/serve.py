@@ -1,0 +1,432 @@
+"""Multi-tenant SNN serving: many resident networks, one tick datapath.
+
+Counterpart of ``repro.launch.serve`` for the wave path and frozen tenants.
+S independent networks -- each its own ``W/C/thresholds/leak`` register
+image, loaded through :func:`repro_torch.core.network.params_from_registers`
+and zero-padded onto the ``n_max`` fabric -- ride one tick loop with a slot
+axis written out: every state leaf is ``(S, n_max)`` and the kernels take S
+as a launch-grid dimension. Swapping a tenant in is rewriting a slot's
+registers; nothing is rebuilt.
+
+The reference runs every wave through the learning tick body and gives
+frozen tenants an all-zero plastic mask, which makes STDP an exact no-op
+for them; serving them through the frozen rollout (``W*C`` hoisted) gives
+the same rasters. Plastic tenants, the event program, telemetry, metrics,
+continuous admission and the LM server arrive with later slices.
+
+Usage (on a machine with an NVIDIA GPU):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch snn-fused
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch snn --smoke --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch import device as _device
+from repro_torch.configs import get_bundle
+from repro_torch.core.engine import LATER, EngineOptions, TickEngine
+from repro_torch.core.lif import LIFParams
+from repro_torch.core.network_types import SNNParams, SNNState
+from repro_torch.kernels import lif_step, tick_fused
+
+
+@dataclasses.dataclass
+class ServeRequest:
+    """One request: the SNN fields of the reference's unified request type
+    (the LM and reward fields arrive with their slices)."""
+
+    rid: int
+    tenant: str = ""
+    ext: Optional[np.ndarray] = None      # (T_req, n_in) input spike train
+    n_ticks: int = 0                      # tick budget for this request
+    counts: Optional[np.ndarray] = None   # (n_out,) rate-decoded counts
+    pred: Optional[int] = None            # argmax over output neurons
+    t_submit: float = 0.0
+    t_first: Optional[float] = None
+    t_done: Optional[float] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeResult:
+    """Immutable completion record, one per served request."""
+
+    rid: int
+    tenant: str = ""
+    counts: Optional[np.ndarray] = None
+    pred: Optional[int] = None
+    t_submit: float = 0.0
+    t_first: Optional[float] = None
+    t_done: Optional[float] = None
+
+    @property
+    def ttft_s(self) -> float:
+        if self.t_first is None:
+            return 0.0
+        return max(0.0, self.t_first - self.t_submit)
+
+    @classmethod
+    def of(cls, r: ServeRequest) -> "ServeResult":
+        return cls(rid=r.rid, tenant=r.tenant, counts=r.counts, pred=r.pred,
+                   t_submit=r.t_submit, t_first=r.t_first, t_done=r.t_done)
+
+
+_PAD_VTH = 1e30  # padded neurons can never reach threshold
+
+
+@dataclasses.dataclass
+class Tenant:
+    """One resident network: a register image padded onto the fabric
+    (neurons past ``n`` carry an unreachable threshold and a zero mask)."""
+
+    name: str
+    n: int
+    n_in: int
+    n_out: int
+    params: SNNParams          # fabric-shaped (n_max, ...) on the server's device
+    density: float = 1.0
+    backend: str = "jnp"
+
+
+def pad_tenant_params(params: SNNParams, n_max: int) -> SNNParams:
+    """Zero-pad an ``(n, n)`` register image onto the ``n_max`` fabric."""
+    n = params.w.shape[0]
+    if n > n_max:
+        raise ValueError(f"tenant has {n} neurons; fabric holds {n_max}")
+    p2 = lambda a: F.pad(a, (0, n_max - a.shape[1], 0, n_max - a.shape[0]))
+    p1 = lambda a, v=0.0: F.pad(a, (0, n_max - n), value=v)
+    lif = LIFParams(
+        v_th=p1(params.lif.v_th, _PAD_VTH),
+        leak=p1(params.lif.leak),
+        r_ref=p1(params.lif.r_ref, 0),
+        gain=p1(params.lif.gain, 1.0),
+        i_bias=p1(params.lif.i_bias),
+        v_reset=p1(params.lif.v_reset),
+    )
+    return SNNParams(w=p2(params.w), c=p2(params.c), w_in=p2(params.w_in), lif=lif)
+
+
+def _stack(trees: List[SNNParams]) -> SNNParams:
+    """Slot-stack S fabric-shaped register images: every leaf gains axis S."""
+    lif = LIFParams(**{f.name: torch.stack([getattr(t.lif, f.name) for t in trees])
+                       for f in dataclasses.fields(LIFParams)})
+    return SNNParams(w=torch.stack([t.w for t in trees]),
+                     c=torch.stack([t.c for t in trees]),
+                     w_in=torch.stack([t.w_in for t in trees]), lif=lif)
+
+
+class SNNServer:
+    """Slot-batched multi-tenant serving of frozen tenants.
+
+    Every wave runs S slots x ``max_ticks`` ticks of one engine, with
+    static shapes ``(S, n_max)``; per-request tick budgets are runtime masks
+    at decode, and tenant swaps only change array values. Nothing is traced,
+    so ``compiles`` counts the resident programs in use (one per backend)
+    and ``recompiles_after_warmup`` is always 0.
+    """
+
+    def __init__(self, *, n_max: int, slots: int = 8, max_ticks: int = 32,
+                 mode: str = "fixed_leak", backend: str = "jnp", plasticity=None,
+                 event_density: Optional[float] = None, telemetry: bool = False,
+                 options: Optional[EngineOptions] = None, device=None):
+        """``device=None`` serves on the CUDA card (raising without one);
+        ``plasticity``, ``event_density`` and ``telemetry`` belong to later
+        slices and raise when set."""
+        if options is not None:
+            mode, backend, telemetry = options.mode, options.backend, options.telemetry
+            plasticity = options.plasticity if plasticity is None else plasticity
+        if plasticity is not None:
+            raise NotImplementedError(LATER["plasticity"])
+        if event_density is not None:
+            raise NotImplementedError(LATER["event"])
+        self.device = _device.resolve(device)
+        self.n_max = int(n_max)
+        self.slots = int(slots)
+        self.max_ticks = int(max_ticks)
+        self.backend = backend
+        self.engine = TickEngine(EngineOptions(mode=mode, backend=backend,
+                                               telemetry=telemetry))
+        self.tenants: Dict[str, Tenant] = {}
+        self._programs = set()   # backends that have run a wave
+        self.requests_rejected = 0
+
+    @property
+    def compiles(self) -> int:
+        return len(self._programs)
+
+    # -- tenant registry ---------------------------------------------------
+
+    def add_tenant(self, name: str, bank, *, n_in: int, n_out: int,
+                   plastic: bool = False) -> Tenant:
+        """Register a tenant from its :class:`RegisterBank` image."""
+        from repro_torch.core.network import params_from_registers
+
+        if plastic:
+            raise NotImplementedError(LATER["plasticity"])
+        params = params_from_registers(bank, device=self.device)
+        return self.add_tenant_params(name, params, n_in=n_in, n_out=n_out)
+
+    def add_tenant_params(self, name: str, params: SNNParams, *, n_in: int, n_out: int,
+                          plastic: bool = False) -> Tenant:
+        if plastic:
+            raise NotImplementedError(LATER["plasticity"])
+        n = params.w.shape[0]
+        if not (0 < n_in <= n and 0 < n_out <= n):
+            raise ValueError(
+                f"tenant {name!r}: n_in={n_in}, n_out={n_out} must lie in "
+                f"[1, {n}] (the tenant's live neuron count)")
+        density = float(params.c.sum()) / max(1, n * n)
+        t = Tenant(name=name, n=n, n_in=n_in, n_out=n_out,
+                   params=pad_tenant_params(params, self.n_max), density=density,
+                   backend=self.backend)
+        self.tenants[name] = t
+        return t
+
+    # -- one wave ------------------------------------------------------------
+
+    def _assemble(self, reqs: List[ServeRequest]):
+        """Slot-stacked params, ``(T, S, N)`` drive and ``(S,)`` budgets."""
+        S, T, N = self.slots, self.max_ticks, self.n_max
+        params = _stack([self.tenants[r.tenant].params for r in reqs])
+        ext = np.zeros((T, S, N), np.float32)
+        budget = np.zeros((S,), np.int32)
+        for i, r in enumerate(reqs):
+            t = min(r.ext.shape[0], T)
+            ext[:t, i, : r.ext.shape[1]] = r.ext[:t]
+            budget[i] = 0 if r.rid < 0 else min(r.n_ticks, T)
+        return (params, torch.from_numpy(ext).to(self.device),
+                torch.from_numpy(budget).to(self.device))
+
+    def _wave_fn(self, params: SNNParams, ext_seq: torch.Tensor,
+                 budget: torch.Tensor) -> torch.Tensor:
+        """``(S, N)`` rate-decoded spike counts of one wave; ticks at or past
+        a slot's budget run but do not count."""
+        T, N = self.max_ticks, self.n_max
+        st = SNNState.zeros((self.slots,), N, device=self.device)
+        _, raster = self.engine.rollout(params, st, ext_seq, T)      # (T, S, N)
+        ticks = torch.arange(T, device=self.device)
+        tmask = (ticks[:, None] < budget[None, :]).to(raster.dtype)  # (T, S)
+        return (raster * tmask[:, :, None]).sum(dim=0)
+
+    def run_wave(self, reqs: List[ServeRequest]) -> None:
+        """One wave: S register images in, S rate-decoded outputs out."""
+        counts = self._wave_fn(*self._assemble(reqs)).cpu().numpy()
+        self._programs.add(self.backend)
+        now = time.time()
+        for i, r in enumerate(reqs):
+            if r.rid < 0:
+                continue
+            t = self.tenants[r.tenant]
+            out = counts[i, t.n - t.n_out: t.n]
+            r.counts = out
+            r.pred = int(out.argmax())
+            r.t_first = r.t_done = now
+
+    # -- the request loop ------------------------------------------------------
+
+    def _stats(self, *, mode: str, done: List[ServeRequest], n_rejected: int,
+               waves: int = 0, chunks: int = 0, ticks: int = 0, slot_ticks: int = 0,
+               wall_s: float = 0.0) -> Dict:
+        """The reference's stats schema, key for key."""
+        wall = max(1e-9, wall_s)
+        ttfts = [r.t_first - r.t_submit for r in done]
+        useful = sum(min(int(r.n_ticks), self.max_ticks) for r in done)
+        total_spikes = float(sum(r.counts.sum() for r in done)) if done else 0.0
+        return {
+            "mode": mode,
+            "n_requests": len(done),
+            "requests_served": len(done),
+            "requests_rejected": n_rejected,
+            "n_tenants": len({r.tenant for r in done}),
+            "waves": waves,
+            "chunks": chunks,
+            "ticks": ticks,
+            "useful_slot_ticks": useful,
+            "spikes_out": total_spikes,
+            "wall_s": round(wall_s, 3),
+            "spikes_per_s": round(total_spikes / wall, 1) if done else 0.0,
+            "slot_ticks_per_s": round(slot_ticks / wall, 1) if done else 0.0,
+            "goodput_slot_ticks_per_s": round(useful / wall, 1) if done else 0.0,
+            "mean_ttft_s": round(float(np.mean(ttfts)), 4) if done else 0.0,
+            "p99_ttft_s": round(float(np.percentile(ttfts, 99)), 4) if done else 0.0,
+            "compiles": self.compiles,
+            "recompiles_after_warmup": 0,
+            "backends": {
+                b: sum(1 for r in done if self.tenants[r.tenant].backend == b)
+                for b in sorted({self.tenants[r.tenant].backend for r in done})},
+            "preds": {r.rid: r.pred for r in done},
+            "results": [ServeResult.of(r) for r in done],
+        }
+
+    def serve(self, requests: List[ServeRequest]) -> Dict:
+        """Wave admission over a request queue; returns the stats dict.
+
+        Requests naming an unregistered tenant are rejected and counted
+        (``requests_rejected``), never a KeyError mid-wave. Each wave holds
+        up to ``slots`` requests; a short wave is padded with budget-0 slots.
+        """
+        rejected = [r for r in requests if r.tenant not in self.tenants]
+        requests = [r for r in requests if r.tenant in self.tenants]
+        self.requests_rejected += len(rejected)
+        if not requests:
+            return self._stats(mode="wave", done=[], n_rejected=len(rejected))
+        now = time.time()
+        for r in requests:
+            if not r.t_submit:   # TTFT from enqueue: keep the caller's stamp
+                r.t_submit = now
+        done: List[ServeRequest] = []
+        waves = 0
+        for start in range(0, len(requests), self.slots):
+            wave = requests[start:start + self.slots]
+            while len(wave) < self.slots:
+                wave.append(ServeRequest(rid=-1, tenant=wave[0].tenant,
+                                         ext=np.zeros((1, 1), np.float32), n_ticks=0))
+            self.run_wave(wave)
+            done.extend(r for r in wave if r.rid >= 0)
+            waves += 1
+        t0 = min(r.t_submit for r in done)
+        t1 = max(r.t_done for r in done)
+        return self._stats(mode="wave", done=done, n_rejected=len(rejected), waves=waves,
+                           ticks=waves * self.max_ticks,
+                           slot_ticks=waves * self.max_ticks * self.slots, wall_s=t1 - t0)
+
+
+def make_demo_tenants(server: SNNServer, n_tenants: int = 8, *, seed: int = 0) -> List[str]:
+    """Register ``n_tenants`` heterogeneous frozen networks on the fabric:
+    layered / ring / sparse-random / all-to-all topologies with per-tenant
+    thresholds and leaks, all through the byte-exact RegisterBank format.
+    (The reference makes its last tenant plastic; here every one is frozen.)"""
+    from repro_torch.core import connectivity
+    from repro_torch.core.registers import RegisterBank, WeightLayout
+
+    rng = np.random.default_rng(seed)
+    names: List[str] = []
+    n_max = server.n_max
+    for i in range(n_tenants):
+        kind = ("layered", "ring", "sparse", "dense")[i % 4]
+        n = int(rng.integers(max(6, n_max // 3), n_max + 1))
+        if kind == "layered":
+            n_in = max(2, n // 3)
+            n_out = max(2, n // 4)
+            hidden = n - n_in - n_out
+            sizes = [n_in, hidden, n_out] if hidden > 0 else [n_in, n_out]
+            c = connectivity.layered(sizes)
+        elif kind == "ring":
+            c = connectivity.ring(n, k=1 + i % 2)
+            n_in, n_out = n, n
+        elif kind == "sparse":
+            c = connectivity.sparse_random(n, 0.1, seed=seed + i)
+            n_in, n_out = n, n
+        else:
+            c = connectivity.all_to_all(n)
+            n_in, n_out = n, n
+        bank = RegisterBank(n, weight_layout=WeightLayout.PER_SYNAPSE)
+        bank.set_connection_list(c)
+        bank.set_weights((rng.integers(40, 200, (n, n)) * c).astype(np.uint8))
+        bank.set_thresholds(rng.integers(60, 160, (n,)).astype(np.uint8))
+        bank.set_leak(int(rng.integers(0, 8)))
+        bank.set_refractory(int(rng.integers(0, 3)))
+        name = f"{kind}-{i}"
+        server.add_tenant(name, bank, n_in=n_in, n_out=n_out)
+        names.append(name)
+    return names
+
+
+def make_demo_requests(server: SNNServer, names: List[str], n_requests: int, *,
+                       seed: int = 0) -> List[ServeRequest]:
+    """Requests with u8-magnitude impulse drive (paper Fig. 5) and tick
+    budgets in ``[4, max_ticks]`` -- the reference's generator, draw for draw."""
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(n_requests):
+        t = server.tenants[names[i % len(names)]]
+        ticks = int(rng.integers(4, server.max_ticks + 1))
+        ext = ((rng.random((ticks, t.n_in)) < 0.3)
+               * rng.integers(80, 255, (ticks, t.n_in))).astype(np.float32)
+        reqs.append(ServeRequest(rid=i, tenant=t.name, ext=ext, n_ticks=ticks))
+    return reqs
+
+
+def profiled_serve(server: SNNServer, reqs: List[ServeRequest], out_dir=None) -> Dict:
+    """Serve ``reqs`` under ``torch.profiler``; print device time by kernel
+    and the device's busy share of the wall time (kernels on one stream do
+    not overlap, so their summed time is the busy time). ``out_dir`` also
+    receives a Chrome trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = server.device.type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        stats = server.serve(reqs)
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # Device-side events only (kernels and copies): the CPU ops that launched
+    # them carry the same device time and would count it twice.
+    rows = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    busy_s = sum(r[0] for r in rows) / 1e6
+    print(f"profile: wall {wall:.6f} s, device busy {busy_s:.6f} s "
+          f"({busy_s / wall:.4f} of wall), by kernel:")
+    for us, count, key in rows[:12]:
+        print(f"  {us / 1e3:10.3f} ms  {count:6d}x  {key[:90]}")
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out_dir, "serve_trace.json"))
+    return stats
+
+
+def serve_snn_main(cfg, args) -> Dict:
+    server = SNNServer(n_max=cfg.n_neurons, slots=args.slots, max_ticks=cfg.n_ticks,
+                       mode=cfg.snn_mode, backend=cfg.snn_backend, device=args.device)
+    names = make_demo_tenants(server, max(8, args.slots))
+    print(f"serving SNN fabric n_max={server.n_max} on {server.device}: {len(names)} "
+          f"resident tenants, {args.slots} slots, backend {server.backend}")
+    n_req = max(args.requests, len(names))
+    if args.profile:
+        server.serve(make_demo_requests(server, names, n_req, seed=1))   # warm-up
+    reqs = make_demo_requests(server, names, n_req)
+    lif_step.launches = tick_fused.launches = 0
+    if args.profile:
+        stats = profiled_serve(server, reqs, args.profile)
+    else:
+        stats = server.serve(reqs)
+    for k, v in stats.items():
+        if k != "results":
+            print(f"{k}: {v}")
+    print(f"kernel launches: tick_fused={tick_fused.launches} "
+          f"lif_step={lif_step.launches}")
+    return stats
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="snn-fused")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--profile", metavar="DIR", default=None,
+                    help="serve once to warm up, then serve under torch.profiler: "
+                         "print device time by kernel, write a Chrome trace to DIR")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card; 'cpu' runs the "
+                         "kernels' plain twins)")
+    args = ap.parse_args(argv)
+    bundle = get_bundle(args.arch)
+    cfg = bundle.smoke if args.smoke else bundle.model
+    if cfg.family != "snn":
+        raise SystemExit(f"{args.arch}: only the SNN server is ported")
+    return serve_snn_main(cfg, args)
+
+
+if __name__ == "__main__":
+    main()
