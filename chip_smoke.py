@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's hand-written kernels from ``src/repro_torch/csrc``
-with ``nvcc`` for ``sm_90a``, then runs four phases, each of which fails the
+with ``nvcc`` for ``sm_90a``, then runs these phases, each of which fails the
 script on any mismatch:
 
 1. kernels: kernel B2 (``tick_fused``) in every variant (premasked ``W*C`` or
@@ -16,19 +16,44 @@ script on any mismatch:
    (``lif_step``), each against its plain PyTorch twin on the card, at
    4096 neurons with 8 slots of one row and with one network of 8 rows.
    Inputs sit on the u8 weight grid, so equality is exact (tolerance 0).
+   Then kernel B5 (``stdp_update``) against its twin: ``stdp`` and ``rstdp``
+   with per-slot rewards, the ``learn_until`` gate open and closed per slot,
+   all-zero, full and partial plastic masks, ``w``/``elig`` in place, at
+   the serving shape (8 slots of one row, 4096 x 4096) and at a ragged
+   width (37), bitwise; one shared network of 8 rows to ``rtol=atol=1e-6``
+   (the batch sum's order differs from cuBLAS's).
    Then each kernel's median time over 30 runs (CUDA events), its bound,
-   its twin's time and one ``torch.matmul`` of the product part.
+   its twin's time and one library call of the same product
+   (``torch.matmul`` for B1/B2, ``torch.baddbmm`` for B5's outer product),
+   and B2's time when it streams ``w`` and ``c`` as a learning tick does.
 2. rollout: ``network.rollout`` at the ``snn-fused`` width (4096 neurons,
    32 ticks, batch 8) on ``pallas`` and ``pallas_fused`` against ``jnp``,
    for ``max_delay`` 1 and 4 and per-synapse delays; rasters and final
    state must be bitwise equal. Kernel B1's launches are counted here (the
    ``pallas`` backend's path).
-3. serve: ``SNNServer`` at the ``snn-fused`` FULL config (n_max 4096, 8
-   slots, 32 ticks, ``pallas_fused``), 8 frozen RegisterBank tenants and
-   16 requests in 2 waves; each request's counts and prediction must equal
-   the same server's on ``jnp``, and kernel B2 must launch exactly
-   waves x 32 times.
-4. a JSON line of the kernels, the card's name and power limit, and the
+3. learning rollout: ``network.learning_rollout`` at the same width with one
+   shared weight matrix, ``stdp`` and ``rstdp`` (a nonzero reward sequence),
+   on ``pallas_fused`` and ``pallas``; B5 must launch rollouts x 32 times.
+   Each rollout is then checked tick by tick from a shared carry: one tick
+   through the kernels and one through the plain ``jnp`` path must agree
+   (``v``, ``w``, ``elig``, traces to ``rtol=1e-5, atol=1e-3``), and every
+   spike that differs must be a rounding tie (the plain path's
+   pre-threshold potential within ``1e-4 * max(1, |v_th|)`` of ``v_th``;
+   the tie's own neuron and weight column are then left out). The ties
+   are counted and printed.
+4. serve: ``SNNServer`` at the ``snn-fused`` FULL config (n_max 4096, 8
+   slots, 32 ticks, ``pallas_fused``) with the 8 demo RegisterBank tenants
+   (the last, ``dense-7``, plastic), against the same server on ``jnp``,
+   twice. First the 14 of the 16 demo requests that go to frozen tenants:
+   these waves hold no plastic tenant and run the frozen rollout (``W*C``
+   hoisted); every count and prediction must be bitwise equal, B2 must
+   launch waves x 32 times and B5 never. Then all 16 requests in 2 waves:
+   frozen tenants' counts and predictions must be equal, the learning waves
+   pass the tick-by-tick check above, the plastic tenant's weights move,
+   stay in ``[w_min, w_max]`` and round-trip through ``weights_to_bank``
+   byte-exactly, no wave holds two of its requests, and B2 launches waves x
+   32 times and B5 learning waves x 32 times.
+5. a JSON line of the kernels, the card's name and power limit, and the
    result line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA device is visible or
@@ -53,6 +78,7 @@ ROWS = 8          # batch rows when one network is shared
 TICKS = 32        # snn-fused FULL ticks per wave
 RING = 4          # delay-ring depth for the ring variants
 RUNS = 30         # timed runs per measurement, after warm-up
+TIE = 1e-4        # a spike decision within TIE * max(1, |v_th|) of v_th is a rounding tie
 
 # Per-card peaks: memory bytes/s and f32 (non-tensor-core) FLOP/s.
 CARDS = {"H200": (4.8e12, 67e12), "PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12)}
@@ -273,6 +299,166 @@ def time_kernels(dev, gen, card):
     return timed
 
 
+def stdp_hyper(rule: str) -> dict:
+    """The serving default rule (``stdp``) or its R-STDP variant, as the
+    kernel's keyword arguments."""
+    from repro_torch.plasticity import PlasticityParams
+    from repro_torch.plasticity.rules import hyper_kwargs
+
+    return hyper_kwargs(PlasticityParams.make(rule, a_plus=0.5, a_minus=0.25,
+                                               lr_reward=0.5))
+
+
+def stdp_inputs(gen, dev, S, B, K, N, *, slotted=True, masks="mixed"):
+    """Inputs of one B5 call: 0/1 spikes, traces in [0, 1), weights in
+    [0, 255), normal eligibility. ``masks="mixed"``: slot 0 frozen (all-zero
+    mask), slot 1 fully plastic, the others half; ``"ones"``: every synapse
+    learns."""
+    import torch
+
+    lead = (S,) if slotted else ()
+    u = lambda shape: torch.rand(lead + shape, generator=gen, device=dev)
+    c = (u((K, N)) < 0.5).float() if masks == "mixed" else torch.ones(lead + (K, N), device=dev)
+    if masks == "mixed" and slotted and S > 1:
+        c[0] = 0.0
+        c[1] = 1.0
+    return {"s_pre": (u((B, K)) < 0.2).float(), "x_pre": u((B, K)),
+            "s_post": (u((B, N)) < 0.2).float(), "x_post": u((B, N)),
+            "w": u((K, N)) * 255.0, "c": c,
+            "elig": torch.randn(lead + (K, N), generator=gen, device=dev)}
+
+
+STDP_ARGS = ("s_pre", "x_pre", "s_post", "x_post", "w", "c", "elig")
+
+
+def run_stdp_kernel_phase(dev, gen):
+    """B5 against its twin: bitwise at B = 1 (the serving shape and a ragged
+    width), ``rtol=atol=1e-6`` for one shared network of 8 rows."""
+    import torch
+
+    from repro_torch.kernels import ref, stdp_update
+
+    err, cases = 0.0, 0
+    for S, n in ((SLOTS, N), (3, 37)):
+        inp = stdp_inputs(gen, dev, S, 1, n, n)
+        reward = torch.linspace(-1.5, 2.0, S, device=dev)
+        tick = torch.tensor(7, dtype=torch.int32, device=dev)
+        until = torch.tensor([8, 7, 0, 100, 8, 7, 9, 3][:S], dtype=torch.int32, device=dev)
+        for rule in ("stdp", "rstdp"):
+            for gate in ({}, {"tick": tick, "learn_until": until}):
+                args = [inp[k] for k in STDP_ARGS]
+                want = ref.fused_stdp_step_ref(*args, reward, **gate, **stdp_hyper(rule))
+                w, e = inp["w"].clone(), inp["elig"].clone()
+                got = stdp_update.fused_stdp_step(*args[:4], w, args[5], e, reward,
+                                                  in_place=True, **gate, **stdp_hyper(rule))
+                torch.cuda.synchronize()
+                if got.w is not w or got.elig is not e:
+                    raise AssertionError("stdp_update: in-place outputs are not the inputs")
+                case_err = max_abs_err(got, want)
+                err = max(err, case_err)
+                if case_err != 0.0 or not all(torch.equal(g, x) for g, x in zip(got, want)):
+                    raise AssertionError(f"stdp_update S={S} n={n} {rule} gate={bool(gate)}: "
+                                         f"max |err| {case_err}")
+                cases += 1
+        # Out of place: the inputs stay as they were.
+        w0 = inp["w"].clone()
+        stdp_update.fused_stdp_step(*[inp[k] for k in STDP_ARGS], reward,
+                                    **stdp_hyper("rstdp"))
+        torch.cuda.synchronize()
+        if not torch.equal(inp["w"], w0):
+            raise AssertionError("stdp_update wrote w without in_place")
+        del inp
+    inp = stdp_inputs(gen, dev, 1, ROWS, N, N, slotted=False)
+    for rule in ("stdp", "rstdp"):
+        args = [inp[k] for k in STDP_ARGS]
+        r = torch.tensor(0.75, device=dev)
+        want = ref.fused_stdp_step_ref(*args, r, **stdp_hyper(rule))
+        got = stdp_update.fused_stdp_step(*args, r, **stdp_hyper(rule))
+        torch.cuda.synchronize()
+        for g, x in zip(got, want):
+            torch.testing.assert_close(g, x, rtol=1e-6, atol=1e-6)
+        err = max(err, max_abs_err(got, want))
+        cases += 1
+    del inp
+    log(f"stdp_update: {cases - 2} cases bitwise equal to the twin at B=1 (slot axis, "
+        f"masks all-zero/full/partial, gate open/closed, in place, n={N} and 37); "
+        f"2 cases at B={ROWS} within rtol=atol=1e-6; max |err| {err}")
+    return err
+
+
+def stdp_bytes(inp, reward, rule, open_slots):
+    """Bytes B5 must move on these inputs: in every slot whose gate is open
+    the mask, ``w`` read and written where c > 0 and, for R-STDP, ``elig``
+    read and written (a closed slot reads no matrix); spikes and traces in,
+    traces out."""
+    c = inp["c"]
+    K, N = c.shape[-2:]
+    opened = [s for s, o in enumerate(open_slots) if o]
+    if c.dim() == 3:
+        open_c = c[opened]
+        learn = int((open_c > 0).sum().item())
+    else:
+        open_c = c if opened else c[:0]
+        learn = int((c > 0).sum().item()) * len(opened)
+    moved = nbytes(open_c, reward) + 8 * learn
+    if rule == "rstdp":
+        moved += 8 * K * N * len(opened)
+    traces = nbytes(inp["s_pre"], inp["x_pre"], inp["s_post"], inp["x_post"])
+    return moved + traces + nbytes(inp["x_pre"], inp["x_post"])
+
+
+def time_stdp(dev, gen, card):
+    """B5 at the serving shape (8 slots of one row, 4096 x 4096), every synapse
+    plastic (the JSON row), then R-STDP and a served learning wave (the gate
+    open in slot 7 only, as ``learn_until`` leaves it for one plastic tenant);
+    the twin and ``torch.baddbmm`` beside each. Returns the JSON row's numbers
+    and B2's time when it streams w and c."""
+    import torch
+
+    from repro_torch.kernels import ref, stdp_update, tick_fused
+
+    bw, flops = card
+    inp = stdp_inputs(gen, dev, SLOTS, 1, N, N, masks="ones")
+    reward = torch.full((SLOTS,), 0.5, device=dev)
+    tick = torch.zeros((), dtype=torch.int32, device=dev)
+    served = torch.tensor([0] * (SLOTS - 1) + [TICKS], dtype=torch.int32, device=dev)
+    rows = {}
+    for rule, label in (("stdp", "stdp, every synapse plastic"),
+                        ("rstdp", "rstdp, every synapse plastic"),
+                        ("stdp", "stdp, served learning wave (gate open in slot 7 only)")):
+        gate = {}
+        open_slots = [True] * SLOTS
+        if label.startswith("stdp, served"):
+            gate = {"tick": tick, "learn_until": served}
+            open_slots = [False] * (SLOTS - 1) + [True]
+        args = [inp[k] for k in STDP_ARGS]
+        hyper = stdp_hyper(rule)
+        t_ms = median_ms(lambda: stdp_update.fused_stdp_step(*args, reward, in_place=True,
+                                                             **gate, **hyper))
+        p_ms = median_ms(lambda: ref.fused_stdp_step_ref(*args, reward, **gate, **hyper))
+        x_pre_new = inp["x_pre"].transpose(-1, -2)
+        l_ms = median_ms(lambda: torch.baddbmm(inp["w"], x_pre_new, inp["s_post"]))
+        moved = stdp_bytes(inp, reward, rule, open_slots)
+        # LTP, LTD, dw, update and clip per synapse of an open slot
+        ops = 10 * sum(open_slots) * N * N
+        bound = max(moved / bw, ops / flops) * 1e3
+        log(f"time stdp_update ({label}): {t_ms:.4f} ms (bound {bound:.4f} ms, "
+            f"{moved / 2**20:.1f} MiB; plain {p_ms:.4f} ms, torch.baddbmm {l_ms:.4f} ms) "
+            f"at S={SLOTS} B=1 N=K={N}")
+        rows[label] = {"ms": t_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": bound,
+                       "bound_by": "bytes" if moved / bw >= ops / flops else "operations"}
+    del inp, args
+    # B2 as a learning tick runs it: w and c streamed, not the hoisted W*C.
+    kin = kernel_inputs(gen, dev, SLOTS, 1, True)
+    targs, _ = tick_case(kin, premasked=False, ring=False, delays=False, drive=True,
+                         in_place=False)
+    b2_ms = median_ms(lambda: tick_fused.fused_tick(*targs))
+    b2_bound = nbytes(kin["w"], kin["c"]) / bw * 1e3
+    log(f"time tick_fused streaming w and c (the learning tick): {b2_ms:.4f} ms "
+        f"(bound {b2_bound:.4f} ms) at S={SLOTS} B=1 N=K={N}")
+    return rows["stdp, every synapse plastic"], b2_ms
+
+
 # ---------------------------------------------------------------------------
 # phase 2: rollout at the snn-fused width
 # ---------------------------------------------------------------------------
@@ -326,52 +512,385 @@ def run_rollout_phase(dev, gen):
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the serving path at snn-fused FULL
+# the tick-by-tick check of a learning run (gate (c))
 # ---------------------------------------------------------------------------
 
-def run_serve_phase(dev):
+def pre_threshold(carry, params, ext):
+    """The plain path's pre-threshold potential of one fixed-leak tick from
+    ``carry`` (``max_delay == 1``): ``v + syn + i_bias - sign(v) * leak_step``."""
     import torch
 
+    from repro_torch.kernels import ops
+
+    st = carry.state
+    S = ops.slot_count(params)
+    w = params.w if carry.w is None else carry.w
+    syn = ops.flatten_state(st.lif.y, S) @ (w * params.c)
+    drive = ops.drive_of(ext, params.w_in, S)
+    if drive is not None:
+        syn = syn + drive
+    row = (lambda p: p.unsqueeze(-2)) if S is not None else (lambda p: p)
+    v = ops.flatten_state(st.lif.v, S)
+    leak = row(params.lif.leak)
+    leak_step = torch.minimum(leak * (v != 0).float(), v.abs())
+    return v + syn + row(params.lif.i_bias) - torch.sign(v) * leak_step, row(params.lif.v_th)
+
+
+def check_learning_ticks(kernel_eng, plain_eng, params, carry, n_ticks, ext_at, reward_at,
+                         *, plastic_c=None, learn_until=None, what=""):
+    """Gate (c): from the kernel path's carry, one tick through the kernels
+    and one through the plain path, for every tick. ``v``, ``w``, ``elig``
+    and the traces must agree to rtol=1e-5, atol=1e-3 outside the neurons
+    (and weight columns) of rounding ties; every spike that differs must be
+    a tie. Returns ``(final kernel carry, ties, max |dv|, max |dw|)``."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    S = ops.slot_count(params)
+    ties, dv, dw = 0, 0.0, 0.0
+    close = lambda a, b, ok: bool((torch.isclose(a, b, rtol=1e-5, atol=1e-3) | ~ok).all())
+    for t in range(n_ticks):
+        xs = (ext_at(t), reward_at(t))
+        kw = dict(params=params, plastic_c=plastic_c, learn_until=learn_until)
+        ck, yk = kernel_eng.tick_body(carry, xs, **kw)
+        cp, yp = plain_eng.tick_body(carry, xs, **kw)
+        diff = ops.flatten_state(yk != yp, S)                      # (S|1, B, N)
+        if diff.any():
+            v_tilde, v_th = pre_threshold(carry, params, xs[0])
+            tie = (v_tilde - v_th).abs() <= TIE * v_th.abs().clamp_min(1.0)
+            if (diff & ~tie).any():
+                raise AssertionError(f"{what} tick {t}: {int((diff & ~tie).sum())} spikes "
+                                     "differ from the plain path and are no rounding tie")
+            ties += int(diff.sum())
+        same = ~diff
+        cols = ~diff.any(dim=-2, keepdim=True)                       # (S|1, 1, N)
+        wcols = cols if S is not None else cols[0]
+        flat = lambda x: ops.flatten_state(x, S)
+        checks = [
+            ("v", flat(ck.state.lif.v), flat(cp.state.lif.v), same),
+            ("r", flat(ck.state.lif.r).float(), flat(cp.state.lif.r).float(), same),
+            ("x_pre", flat(ck.plast.x_pre), flat(cp.plast.x_pre), torch.ones_like(same)),
+            ("x_post", flat(ck.plast.x_post), flat(cp.plast.x_post), same),
+            ("w", ck.w, cp.w, wcols.expand_as(ck.w)),
+            ("elig", ck.plast.elig, cp.plast.elig, wcols.expand_as(ck.plast.elig)),
+        ]
+        for name, a, b, ok in checks:
+            if not close(a, b, ok):
+                raise AssertionError(f"{what} tick {t}: {name} differs from the plain path "
+                                     "beyond rtol=1e-5, atol=1e-3")
+        dv = max(dv, ((flat(ck.state.lif.v) - flat(cp.state.lif.v)).abs() * same).max().item())
+        dw = max(dw, ((ck.w - cp.w).abs() * wcols).max().item())
+        carry = ck
+    return carry, ties, dv, dw
+
+
+# ---------------------------------------------------------------------------
+# phase 3: learning rollouts at the snn-fused width
+# ---------------------------------------------------------------------------
+
+def learning_net(dev, gen):
+    """One shared network at the snn-fused width for the learning phase:
+    a 5 % connection list with u8 weights on it, thresholds 500-5000."""
+    import torch
+
+    from repro_torch.core import network
+    from repro_torch.core.lif import LIFParams
+
+    i32 = torch.int32
+    rnd = lambda lo, hi, shape: torch.randint(lo, hi, shape, generator=gen, device=dev,
+                                              dtype=i32)
+    c = (torch.rand((N, N), generator=gen, device=dev) < 0.05).float()
+    params = network.SNNParams(
+        w=rnd(0, 256, (N, N)).float() * c, c=c, w_in=torch.eye(N, device=dev),
+        lif=LIFParams(v_th=rnd(500, 5000, (N,)).float(), leak=rnd(0, 9, (N,)).float(),
+                      r_ref=rnd(0, 4, (N,)), gain=torch.ones(N, device=dev),
+                      i_bias=torch.zeros(N, device=dev), v_reset=torch.zeros(N, device=dev)))
+    ext = ((torch.rand((TICKS, ROWS, N), generator=gen, device=dev) < 0.1).float()
+           * rnd(80, 256, (TICKS, ROWS, N)).float())
+    return params, ext
+
+
+def run_learning_phase(dev, gen):
+    """``network.learning_rollout`` (4096 neurons x 32 ticks x batch 8, one
+    shared w) for ``stdp`` and ``rstdp`` on ``pallas_fused`` and ``pallas``;
+    B5 launches must equal rollouts x 32; then each rollout tick by tick."""
+    import torch
+
+    from repro_torch.core import network
+    from repro_torch.core.engine import EngineOptions, TickCarry, TickEngine
+    from repro_torch.kernels import lif_step, stdp_update, tick_fused
+    from repro_torch.plasticity import PlasticityParams, PlasticityState
+
+    params, ext = learning_net(dev, gen)
+    rewards = torch.where(torch.arange(TICKS, device=dev) % 4 == 3, 1.0, -0.25)
+    rules = {"stdp": PlasticityParams.make("stdp", a_plus=0.5, a_minus=0.25),
+             "rstdp": PlasticityParams.make("rstdp", a_plus=0.5, a_minus=0.25,
+                                            lr_reward=2.0)}
+    runs = [(rule, backend) for rule in rules for backend in ("pallas_fused", "pallas")]
+    st0 = network.SNNState.zeros((ROWS,), N, device=dev)
+    pst0 = PlasticityState.zeros((ROWS,), N, device=dev)
+    w0 = params.w.clone()
+    out = {}
+    torch.cuda.synchronize()
+    lif_step.launches = tick_fused.launches = stdp_update.launches = 0
+    t0 = time.perf_counter()
+    for rule, backend in runs:
+        out[rule, backend] = network.learning_rollout(
+            params, st0, pst0, ext, TICKS, plasticity=rules[rule], backend=backend,
+            rewards=rewards if rule == "rstdp" else None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"stdp_update": stdp_update.launches, "tick_fused": tick_fused.launches,
+                "lif_step": lif_step.launches}
+    if launches != {"stdp_update": len(runs) * TICKS, "tick_fused": 2 * TICKS,
+                    "lif_step": 2 * TICKS}:
+        raise AssertionError(f"learning rollouts: launches {launches}, expected "
+                             f"stdp_update {len(runs)} x {TICKS}, tick_fused and lif_step "
+                             f"2 x {TICKS}")
+    if not torch.equal(params.w, w0):
+        raise AssertionError("learning_rollout wrote the caller's weights")
+    log(f"learning rollouts ({len(runs)} x {TICKS} ticks, batch {ROWS}, {N} neurons): "
+        f"launches {launches}; wall {wall:.3f} s")
+    for rule, backend in runs:
+        (fs, fp, fw), raster = out[rule, backend]
+        if raster.shape != (TICKS, ROWS, N) or not torch.isfinite(fw).all():
+            raise AssertionError(f"learning {rule}/{backend}: bad raster or non-finite w")
+        moved = (fw - w0).abs().max().item()
+        if moved == 0.0 or fw.min() < 0.0 or fw.max() > 255.0:
+            raise AssertionError(f"learning {rule}/{backend}: w moved {moved}, range "
+                                 f"[{fw.min().item()}, {fw.max().item()}]")
+        kernel_eng = TickEngine(EngineOptions(backend=backend, plasticity=rules[rule]))
+        plain_eng = TickEngine(EngineOptions(backend="jnp", plasticity=rules[rule],
+                                             plasticity_backend="jnp"))
+        carry0 = TickCarry(state=st0, plast=pst0, w=params.w)
+        reward_at = (lambda t: rewards[t]) if rule == "rstdp" else (lambda t: None)
+        ck, ties, dv, dw = check_learning_ticks(
+            kernel_eng, plain_eng, params, carry0, TICKS, lambda t: ext[t], reward_at,
+            plastic_c=params.c, what=f"learning {rule}/{backend}")
+        if not (torch.equal(ck.w, fw) and torch.equal(ck.state.lif.v, fs.lif.v)
+                and torch.equal(ck.plast.elig, fp.elig)):
+            raise AssertionError(f"learning {rule}/{backend}: the tick-by-tick kernel chain "
+                                 "differs from the rollout (in place vs out of place)")
+        (_, _, pw), praster = network.learning_rollout(
+            params, st0, pst0, ext, TICKS, plasticity=rules[rule], backend="jnp",
+            rewards=rewards if rule == "rstdp" else None)
+        log(f"learning {rule}/{backend}: tick by tick == plain path (rtol=1e-5, atol=1e-3), "
+            f"{ties} rounding ties, max |dv| {dv:.3g}, max |dw| {dw:.3g}; |w - w0| up to "
+            f"{moved:.3f}, spike rate {raster.mean().item():.4f}; free-running against jnp: "
+            f"{int((praster != raster).sum())} raster entries differ, max |dw| "
+            f"{(pw - fw).abs().max().item():.3g}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the serving path at snn-fused FULL
+# ---------------------------------------------------------------------------
+
+def serve_config():
+    """The snn-fused FULL configuration the serve phase runs."""
     from repro_torch.configs import get_bundle
-    from repro_torch.kernels import lif_step, tick_fused
+
+    return get_bundle("snn-fused").model
+
+
+def serve_once(dev, cfg, backend, *, frozen_only=False):
+    """Serve the demo tenants' 16 requests (``frozen_only``: those of the
+    frozen tenants) on a fresh server; returns the server, the requests, the
+    stats, the kernel launches, the wall time, the waves' request ids and the
+    plastic tenants' weights before and after each wave (copies taken around
+    ``run_wave``)."""
+    import torch
+
+    from repro_torch.kernels import lif_step, stdp_update, tick_fused
     from repro_torch.launch.serve import SNNServer, make_demo_requests, make_demo_tenants
 
-    cfg = get_bundle("snn-fused").model
-    results = {}
-    for backend in ("jnp", cfg.snn_backend):
-        server = SNNServer(n_max=cfg.n_neurons, slots=SLOTS, max_ticks=cfg.n_ticks,
-                           mode=cfg.snn_mode, backend=backend, device=dev)
-        names = make_demo_tenants(server, SLOTS, seed=0)
-        reqs = make_demo_requests(server, names, 2 * SLOTS, seed=1)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        lif_step.launches = tick_fused.launches = 0
-        t0 = time.perf_counter()
-        stats = server.serve(reqs)
-        wall = time.perf_counter() - t0
-        log(f"serve {backend}: peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-        launches = {"tick_fused": tick_fused.launches, "lif_step": lif_step.launches}
-        results[backend] = (reqs, stats, launches, wall)
-        del server
-    reqs_j, stats_j, _, wall_j = results["jnp"]
-    reqs_f, stats_f, launches, wall_f = results[cfg.snn_backend]
+    server = SNNServer(n_max=cfg.n_neurons, slots=SLOTS, max_ticks=cfg.n_ticks,
+                       mode=cfg.snn_mode, backend=backend, device=dev)
+    names = make_demo_tenants(server, SLOTS, seed=0)
+    reqs = make_demo_requests(server, names, 2 * SLOTS, seed=1)
+    plastic = [n for n in names if server.tenants[n].plastic]
+    if frozen_only:
+        reqs = [r for r in reqs if r.tenant not in plastic]
+    waves, snaps = [], {n: [server.tenants[n].params.w.clone()] for n in plastic}
+    run_wave = server.run_wave
+
+    def logged(wave):
+        waves.append([(r.rid, r.tenant) for r in wave if r.rid >= 0])
+        run_wave(wave)
+        for n in plastic:
+            snaps[n].append(server.tenants[n].params.w.clone())
+
+    server.run_wave = logged
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lif_step.launches = tick_fused.launches = stdp_update.launches = 0
+    t0 = time.perf_counter()
+    stats = server.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"tick_fused": tick_fused.launches, "lif_step": lif_step.launches,
+                "stdp_update": stdp_update.launches}
+    log(f"serve {backend}{' (frozen tenants only)' if frozen_only else ''}: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    del server.run_wave   # no cycle through the closure: the server frees on last use
+    return server, reqs, stats, launches, wall, waves, snaps
+
+
+def serve_both(dev, cfg, **kw):
+    """:func:`serve_once` on ``jnp``, then on the config's kernel backend; the
+    ``jnp`` server is dropped first, so each peak holds one server."""
+    plain = (None,) + serve_once(dev, cfg, "jnp", **kw)[1:]
+    return plain, serve_once(dev, cfg, cfg.snn_backend, **kw)
+
+
+def check_learning_waves(server, reqs, waves, snaps):
+    """Gate (c) on every learning wave of the kernel server: rebuild the
+    wave's inputs with the plastic tenant's weights as they were before it,
+    run it tick by tick through the kernels and the plain path, and require
+    the kernel chain to end on the weights the served wave wrote back."""
+    import dataclasses
+
+    from repro_torch.core.engine import EngineOptions, TickCarry, TickEngine
+    from repro_torch.core.network_types import SNNState
+    from repro_torch.launch.serve import ServeRequest
+    from repro_torch.plasticity import PlasticityState
+
+    import numpy as np
+    import torch
+
+    plain = TickEngine(dataclasses.replace(server.engine.options, backend="jnp",
+                                           plasticity_backend="jnp"))
+    by_rid = {r.rid: r for r in reqs}
+    total_ties, n_checked = 0, 0
+    for i, wave in enumerate(waves):
+        learners = [t for _, t in wave if server.tenants[t].plastic]
+        if not learners:
+            continue
+        for t in learners:
+            server.tenants[t].params = dataclasses.replace(server.tenants[t].params,
+                                                           w=snaps[t][i].clone())
+        wave_reqs = [by_rid[rid] for rid, _ in wave]
+        while len(wave_reqs) < server.slots:
+            wave_reqs.append(ServeRequest(rid=-1, tenant=wave_reqs[0].tenant,
+                                          ext=np.zeros((1, 1), np.float32), n_ticks=0))
+        params, ext, _, learn_until, rewards = server._assemble(wave_reqs)
+        S, N = server.slots, server.n_max
+        carry = TickCarry(state=SNNState.zeros((S,), N, device=server.device),
+                          plast=PlasticityState.zeros((), N, device=server.device, slots=S),
+                          w=params.w)
+        ck, ties, dv, dw = check_learning_ticks(
+            server.engine, plain, params, carry, server.max_ticks, lambda t: ext[t],
+            lambda t: rewards[t], learn_until=learn_until,
+            what=f"serve wave {i + 1}")
+        for slot, (_, t) in enumerate(wave):
+            if server.tenants[t].plastic and not torch.equal(ck.w[slot], snaps[t][i + 1]):
+                raise AssertionError(f"serve wave {i + 1}: the tick-by-tick kernel chain "
+                                     f"ends off the weights written back to {t}")
+        total_ties += ties
+        n_checked += 1
+        log(f"serve wave {i + 1} (learns {learners}): tick by tick == plain path "
+            f"(rtol=1e-5, atol=1e-3), {ties} rounding ties, max |dv| {dv:.3g}, "
+            f"max |dw| {dw:.3g}")
+    return n_checked, total_ties
+
+
+def run_frozen_serve(dev, cfg):
+    """The frozen-only waves (no plastic tenant in them): the hoisted frozen
+    rollout, bitwise equal to the ``jnp`` server on every request."""
+    import torch
+
+    plain, kernel = serve_both(dev, cfg, frozen_only=True)
+    _, reqs_j, stats_j, _, wall_j, waves_j, _ = plain
+    server, reqs_f, stats_f, launches, wall_f, waves, snaps = kernel
+    if not reqs_f or any(server.tenants[r.tenant].plastic for r in reqs_f):
+        raise AssertionError("serve (frozen): expected requests of frozen tenants only")
     for rj, rf in zip(reqs_j, reqs_f):
-        if rf.counts is None or not np_equal(rf.counts, rj.counts) or rf.pred != rj.pred:
-            raise AssertionError(f"serve: request {rf.rid} differs from jnp")
-    waves = stats_f["waves"]
-    if stats_f["n_requests"] != 2 * SLOTS or waves < 2:
-        raise AssertionError(f"serve: expected {2 * SLOTS} requests in >= 2 waves")
-    if launches["tick_fused"] != waves * cfg.n_ticks:
-        raise AssertionError(f"serve: tick_fused launched {launches['tick_fused']} times, "
-                             f"expected waves x ticks = {waves * cfg.n_ticks}")
+        if not np_equal(rf.counts, rj.counts) or rf.pred != rj.pred:
+            raise AssertionError(f"serve (frozen): request {rf.rid} differs from jnp")
+    n_waves = stats_f["waves"]
+    if waves != waves_j or stats_f["n_requests"] != len(reqs_f) or n_waves < 2:
+        raise AssertionError("serve (frozen): expected >= 2 waves, the same on both servers")
+    expected = {"tick_fused": n_waves * cfg.n_ticks, "lif_step": 0, "stdp_update": 0}
+    if launches != expected:
+        raise AssertionError(f"serve (frozen): launches {launches}, expected {expected}")
+    if not all(torch.equal(w, ws[0]) for ws in snaps.values() for w in ws):
+        raise AssertionError("serve (frozen): a plastic tenant's weights changed")
+    log(f"serve (frozen tenants only): {stats_f['n_requests']} requests in {n_waves} waves, "
+        f"every count and prediction == jnp bitwise; wall per wave {wall_f / n_waves:.4f} s "
+        f"({cfg.snn_backend}), {wall_j / stats_j['waves']:.4f} s (jnp); launches {launches}")
+    return launches
+
+
+def run_serve_phase(dev):
+    import numpy as np
+
+    from repro_torch.core.registers import RegisterBank, WeightLayout
+    from repro_torch.plasticity import quantize_weights, weights_to_bank
+
+    cfg = serve_config()
+    frozen_launches = run_frozen_serve(dev, cfg)
+    plain, kernel = serve_both(dev, cfg)
+    _, reqs_j, stats_j, _, wall_j, waves_j, snaps_j = plain
+    server, reqs_f, stats_f, launches, wall_f, waves, snaps = kernel
+    plastic = sorted(snaps)
+    if len(plastic) != 1:
+        raise AssertionError(f"serve: expected one plastic demo tenant, got {plastic}")
+    learner = plastic[0]
+    n_diff = 0
+    for rj, rf in zip(reqs_j, reqs_f):
+        if rf.counts is None:
+            raise AssertionError(f"serve: request {rf.rid} got no counts")
+        if server.tenants[rf.tenant].plastic:
+            n_diff += int((rf.counts != rj.counts).sum())
+        elif not np_equal(rf.counts, rj.counts) or rf.pred != rj.pred:
+            raise AssertionError(f"serve: frozen request {rf.rid} differs from jnp")
+    n_waves = stats_f["waves"]
+    learning_waves = sum(any(server.tenants[t].plastic for _, t in w) for w in waves)
+    if stats_f["n_requests"] != 2 * SLOTS or n_waves < 2 or waves != waves_j:
+        raise AssertionError(f"serve: expected {2 * SLOTS} requests in >= 2 waves, the same "
+                             "waves on both servers")
+    if any(sum(t == learner for _, t in w) > 1 for w in waves):
+        raise AssertionError(f"serve: a wave held two requests of the plastic {learner}")
+    if learning_waves < 2:
+        raise AssertionError(f"serve: {learner} learned in {learning_waves} waves, expected 2")
+    expected = {"tick_fused": n_waves * cfg.n_ticks, "lif_step": 0,
+                "stdp_update": learning_waves * cfg.n_ticks}
+    if launches != expected:
+        raise AssertionError(f"serve: launches {launches}, expected {expected} "
+                             "(waves x ticks, learning waves x ticks)")
+    t = server.tenants[learner]
+    w_final = t.params.w
+    pp = server.engine.options.plasticity
+    live = w_final[:t.n, :t.n]
+    moved = (w_final - snaps[learner][0]).abs().max().item()
+    if moved == 0.0 or live.min() < pp.w_min or live.max() > pp.w_max:
+        raise AssertionError(f"serve: {learner} moved {moved}, range "
+                             f"[{live.min().item()}, {live.max().item()}]")
+    if (w_final[t.n:].abs().sum() + w_final[:, t.n:].abs().sum()).item() != 0.0:
+        raise AssertionError(f"serve: {learner}'s padding learned")
+    bank = RegisterBank(t.n, weight_layout=WeightLayout.PER_SYNAPSE)
+    bank.set_connection_list(t.params.c[:t.n, :t.n].cpu().numpy() > 0)
+    stored = weights_to_bank(bank, live)
+    echo = RegisterBank(t.n, weight_layout=WeightLayout.PER_SYNAPSE)
+    echo.load_bytes(bank.serialize())
+    if echo.serialize() != bank.serialize() or not np.array_equal(echo.weights, stored) \
+            or not np.array_equal(stored, quantize_weights(live)):
+        raise AssertionError(f"serve: {learner}'s learned weights do not round-trip "
+                             "through the register bank")
+    n_checked, ties = check_learning_waves(server, reqs_f, waves, snaps)
+    dw_servers = (snaps_j[learner][-1] - w_final).abs().max().item()
     for k, v in stats_f.items():
         if k != "results":
             log(f"serve {k}: {v}")
-    log(f"serve: {stats_f['n_requests']} requests == jnp on the card (counts and preds); "
-        f"wall per wave {wall_f / waves:.4f} s ({cfg.snn_backend}), "
+    log(f"serve: {stats_f['n_requests']} requests in {n_waves} waves ({learning_waves} "
+        f"learning); frozen tenants == jnp on the card (counts and preds); plastic "
+        f"{learner}: {n_diff} counts differ from jnp, max |dw| against the jnp server "
+        f"{dw_servers:.3g}, |w - w0| up to {moved:.3f}, u8 bank round trip byte-exact; "
+        f"{n_checked} learning waves tick by tick == plain path, {ties} rounding ties; "
+        f"wall per wave {wall_f / n_waves:.4f} s ({cfg.snn_backend}), "
         f"{wall_j / stats_j['waves']:.4f} s (jnp); launches {launches}")
-    return launches
+    return launches, frozen_launches
 
 
 def np_equal(a, b) -> bool:
@@ -405,24 +924,35 @@ def main() -> int:
     gen.manual_seed(0)
 
     errs = run_kernel_phase(dev, gen)
+    errs["stdp_update"] = run_stdp_kernel_phase(dev, gen)
     timed = time_kernels(dev, gen, card)
+    timed["stdp_update"], b2_streamed_ms = time_stdp(dev, gen, card)
     b1_launches = run_rollout_phase(dev, gen)
-    launches = run_serve_phase(dev)
+    learn_launches = run_learning_phase(dev, gen)
+    launches, frozen_launches = run_serve_phase(dev)
     launches["lif_step"] = b1_launches
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    if min(launches.values()) < 1 or min(learn_launches.values()) < 1 \
+            or frozen_launches["tick_fused"] < 1:
+        raise AssertionError(f"a kernel of a path never launched: serve and rollouts "
+                             f"{launches}, frozen serve {frozen_launches}, learning "
+                             f"rollouts {learn_launches}")
 
     sources = {
         "tick_fused": ("src/repro_torch/csrc/tick_fused.cu", "src/repro/kernels/tick_fused.py:66"),
         "lif_step": ("src/repro_torch/csrc/lif_step.cu", "src/repro/kernels/lif_step.py:93"),
+        "stdp_update": ("src/repro_torch/csrc/stdp_update.cu",
+                        "src/repro/kernels/stdp_update.py:100"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": errs[name],
                         **timed[name]})
-    log(f"kernels launched: tick_fused {launches['tick_fused']} (serve), "
-        f"lif_step {launches['lif_step']} (pallas rollouts)")
+    log(f"kernels launched: tick_fused {launches['tick_fused']} (serve), stdp_update "
+        f"{launches['stdp_update']} (serve), lif_step {launches['lif_step']} (pallas "
+        f"rollouts); frozen-only serve {frozen_launches}; learning rollouts "
+        f"{learn_launches}; B2 streaming w and c "
+        f"{b2_streamed_ms:.4f} ms")
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """TickEngine: ONE tick body behind every rollout flavour.
 
-Counterpart of ``repro.core.engine`` for frozen weights. The tick -- delay
+Counterpart of ``repro.core.engine``. The tick -- delay
 line read, masked synaptic accumulation (the mux fabric), LIF update, delay
 line write -- exists only in :meth:`TickEngine.tick_body`, and the backend
 is decided in exactly one branch there. The reference's backend names carry
@@ -19,13 +19,17 @@ over unchanged, so ``ModelConfig.snn_backend`` values mean the same:
 On CPU tensors the kernel backends run their kernels' plain twins, which is
 how the parity tests reach them.
 
-The frozen rollout hoists ``W*C`` once, outside the tick loop. ``scan`` is
-a Python loop over ticks with no host sync inside: the tick counter and the
-ring pointers stay on the device, and the raster is written into a
-preallocated ``(T, ..., n)`` tensor.
+The frozen rollout hoists ``W*C`` once, outside the tick loop. A learning
+rollout carries the mutable ``w`` instead: every tick streams it and ``c``
+into the tick (kernel B2 or B1, or ``w*c`` on ``jnp``), then runs the
+plasticity hook -- kernel B5 (``csrc/stdp_update.cu``) on the kernel
+backends, its plain twin on ``jnp``. ``scan`` is a Python loop over ticks
+with no host sync inside: the tick counter, the ring pointers, the rewards
+and the ``learn_until`` gate stay on the device, and the raster is written
+into a preallocated ``(T, ..., n)`` tensor.
 
-Learning (plasticity), telemetry, the sharded mesh and the event backend
-arrive with later slices; asking for them raises ``NotImplementedError``.
+Telemetry, the sharded mesh and the event backend arrive with later slices;
+asking for them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -37,12 +41,13 @@ import torch
 from repro_torch.core.lif import LIFParams, lif_step
 from repro_torch.core.network_types import SNNParams, SNNState, masked_weights
 from repro_torch.kernels import ops, ref
+from repro_torch.plasticity import rules as plasticity_rules
+from repro_torch.plasticity.stdp import PlasticityState
 
 _BACKENDS = ("jnp", "pallas", "pallas_fused", "event")
 _MODES = ("fixed_leak", "euler", "int")
 LATER = {
     "event": "the event backend arrives with the event slice (ROADMAP A.7)",
-    "plasticity": "plasticity arrives with the STDP slice (ROADMAP A.8)",
     "telemetry": "telemetry arrives with the observability slice (ROADMAP A.9)",
     "mesh": "the sharded fabric arrives with the sharding slice (ROADMAP A.11)",
     "surrogate": "surrogate-gradient training arrives with the classifier slice "
@@ -52,10 +57,21 @@ LATER = {
 
 @dataclasses.dataclass(frozen=True)
 class TickCarry:
-    """What one tick hands the next. The reference's learning (``plast``,
-    ``w``), telemetry and knee-policy slots arrive with their slices."""
+    """What one tick hands the next.
+
+    Attributes:
+      state: the network state (LIF + delay line + tick counter).
+      plast: plasticity traces and eligibility, or None on the frozen path.
+      w: the mutable weight matrix, or None on the frozen path (frozen
+        weights stay in the parameters, so the hoisted ``W*C`` is valid for
+        the whole rollout).
+
+    The reference's telemetry and knee-policy slots arrive with their slices.
+    """
 
     state: SNNState
+    plast: Optional[PlasticityState] = None
+    w: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,12 +80,19 @@ class EngineOptions:
 
     Same field names and defaults as the reference; the fields of slices
     not ported yet raise ``NotImplementedError`` when set.
+
+    ``plasticity`` (a :class:`~repro_torch.plasticity.stdp.PlasticityParams`)
+    arms the plasticity hook for carries that hold weights;
+    ``plasticity_backend`` picks its backend and defaults to following
+    ``backend`` (``"pallas_fused"`` maps to the ``"pallas"`` pass, kernel
+    B5).
     """
 
     mode: str = "fixed_leak"
     surrogate: bool = False
     backend: str = "jnp"
     plasticity: Optional[Any] = None
+    plasticity_backend: Optional[str] = None
     telemetry: bool = False
     mesh: Optional[Any] = None
     event_k_active: Optional[int] = None
@@ -84,14 +107,23 @@ class EngineOptions:
             raise ValueError(f"backend must be one of {_BACKENDS}, got {self.backend!r}")
         if self.mode not in _MODES:
             raise ValueError(f"mode must be one of {_MODES}, got {self.mode!r}")
+        if self.plasticity_backend not in (None,) + _BACKENDS:
+            raise ValueError(f"plasticity_backend must be None or one of {_BACKENDS}, "
+                             f"got {self.plasticity_backend!r}")
         event_defaults = (None, "fallback", "auto", None, 0.75, False)
         event_fields = (self.event_k_active, self.event_overflow, self.event_dispatch,
                         self.event_knee, self.event_hysteresis, self.event_ext_diag)
-        if self.backend == "event" or event_fields != event_defaults:
+        if "event" in (self.backend, self.plasticity_backend) or event_fields != event_defaults:
             raise NotImplementedError(LATER["event"])
-        for name in ("plasticity", "telemetry", "mesh", "surrogate"):
+        for name in ("telemetry", "mesh", "surrogate"):
             if getattr(self, name) not in (None, False):
                 raise NotImplementedError(LATER[name])
+
+    def plasticity_pass(self) -> str:
+        """The plasticity hook's backend: ``"pallas"`` (kernel B5) or ``"jnp"``
+        (its plain twin)."""
+        pb = self.plasticity_backend or self.backend
+        return "pallas" if pb == "pallas_fused" else pb
 
 
 def _row_params(lif: LIFParams, slotted: bool) -> LIFParams:
@@ -125,24 +157,35 @@ class TickEngine:
         wc: Optional[torch.Tensor] = None,
         delays: Optional[torch.Tensor] = None,
         ring_out: Optional[torch.Tensor] = None,
+        plastic_c: Optional[torch.Tensor] = None,
+        learn_until: Optional[torch.Tensor] = None,
+        in_place: bool = False,
     ) -> Tuple[TickCarry, torch.Tensor]:
         """One synchronous tick: delay-line read -> synaptic input -> LIF
-        step -> delay-line write.
+        step -> delay-line write [-> plasticity hook].
 
         Args:
-          xs: ``(ext, reward)``; ``reward`` belongs to learning and must be None.
-          wc: the premasked ``W*C`` hoisted by :meth:`scan`; None derives it.
+          xs: ``(ext, reward)``: this tick's drive and dopamine (0-d, or
+            ``(S,)`` per slot); either may be None.
+          wc: the premasked ``W*C`` hoisted by :meth:`scan` (frozen path);
+            None derives it (from the carried ``w`` when learning).
           delays: optional per-synapse delays ``(n, n)`` int in ``[1, D]``.
           ring_out: ``"pallas_fused"`` only -- the buffer the kernel writes the
             new ring into (see :func:`repro_torch.kernels.ops.fused_tick`);
             None leaves the input ring untouched.
+          plastic_c: the learnable-synapse mask (default ``params.c``).
+          learn_until: optional device int32 tick bound, 0-d or ``(S,)``: the
+            plasticity hook commits nothing from that tick on.
+          in_place: the caller owns the carry's ``w`` and ``plast.elig`` and
+            lets kernel B5 update them in their buffers (:meth:`scan` does).
         """
         ext, reward = xs
-        if reward is not None:
-            raise NotImplementedError(LATER["plasticity"])
         opts = self.options
         st = carry.state
         backend = opts.backend
+        learning = carry.w is not None
+        # A learning tick streams this tick's w and c into the kernels.
+        p = dataclasses.replace(params, w=carry.w) if learning else params
         if params.c is None and backend in ("pallas", "pallas_fused"):
             raise ValueError(
                 "c=None (implicit all-to-all) needs the jnp backend: the kernels "
@@ -151,20 +194,21 @@ class TickEngine:
 
         if backend == "pallas_fused":
             lif_state, delay_buf = ops.fused_tick(
-                st, params, ext, wc=wc, delays=delays, mode=opts.mode,
+                st, p, ext, wc=wc, delays=delays, mode=opts.mode,
                 ring_out=ring_out)
             state2 = SNNState(lif=lif_state, delay_buf=delay_buf, tick=st.tick + 1)
-            return TickCarry(state=state2), lif_state.y
+            return self._tick_tail(carry, st, state2, reward, params, plastic_c,
+                                   learn_until, in_place)
 
         S = ops.slot_count(params)
         slot = torch.remainder(st.tick, D)
         if wc is None and (delays is not None or backend != "pallas"):
-            wc = masked_weights(params)
+            wc = masked_weights(p)
         if delays is None:
             arriving = (st.delay_buf.index_select(-2, slot.reshape(1).long()).squeeze(-2)
                         if D > 1 else st.lif.y)
             if backend == "pallas":
-                lif_state = ops.fused_lif_step(st.lif, arriving, params, ext,
+                lif_state = ops.fused_lif_step(st.lif, arriving, p, ext,
                                                mode=opts.mode)
             else:
                 # (the int datapath emits int32 spikes; the product is f32)
@@ -184,7 +228,30 @@ class TickEngine:
         else:
             delay_buf = st.delay_buf
         state2 = SNNState(lif=lif_state, delay_buf=delay_buf, tick=st.tick + 1)
-        return TickCarry(state=state2), lif_state.y
+        return self._tick_tail(carry, st, state2, reward, params, plastic_c,
+                               learn_until, in_place)
+
+    def _tick_tail(self, carry: TickCarry, st: SNNState, state2: SNNState, reward,
+                   params: SNNParams, plastic_c, learn_until,
+                   in_place: bool) -> Tuple[TickCarry, torch.Tensor]:
+        """The plasticity hook (when the carry holds weights) and the new carry.
+
+        ``s_pre`` is ``st.lif.y``, the previous tick's emissions (what arrives
+        with ``max_delay == 1``, which learning requires); ``s_post`` is this
+        tick's. The hook runs after the tick kernel, as its own pass over
+        ``(w, elig, traces)``; the ``learn_until`` gate is folded into it.
+        """
+        y = state2.lif.y
+        plasticity = self.options.plasticity
+        if carry.w is None or plasticity is None:
+            return dataclasses.replace(carry, state=state2), y
+        pst2, w2 = plasticity_rules.plasticity_step(
+            carry.plast, st.lif.y, y, carry.w,
+            params.c if plastic_c is None else plastic_c, plasticity, reward,
+            backend=self.options.plasticity_pass(),
+            tick=None if learn_until is None else st.tick, learn_until=learn_until,
+            in_place=in_place)
+        return TickCarry(state=state2, plast=pst2, w=w2), y
 
     def _lif(self, st: SNNState, syn: torch.Tensor, params: SNNParams,
              ext: Optional[torch.Tensor], S: Optional[int]):
@@ -209,21 +276,28 @@ class TickEngine:
         ext_seq: Optional[torch.Tensor],
         n_ticks: int,
         *,
+        rewards: Optional[torch.Tensor] = None,
         delays: Optional[torch.Tensor] = None,
+        plastic_c: Optional[torch.Tensor] = None,
+        learn_until=None,
     ) -> Tuple[TickCarry, torch.Tensor]:
         """Run ``n_ticks`` ticks (``len(ext_seq)`` when given); returns
         ``(final_carry, raster)`` with the raster ``(T, ..., n)``.
 
-        ``W*C`` is hoisted once for the loop. On ``"pallas_fused"`` with
-        ``D > 1`` the loop owns its ring buffers (the caller's state is never
-        written): without per-synapse delays kernel B2 writes the new spikes
-        into the one ring in place; with them it writes into a second buffer,
-        and the two alternate tick by tick.
+        Frozen carries (``carry0.w is None``) get ``W*C`` hoisted once for
+        the loop. Learning carries stream their ``w`` every tick; ``rewards``
+        is ``(T,)`` or, per slot, ``(T, S)``. The caller's tensors are never
+        written: on ``"pallas_fused"`` with ``D > 1`` the loop owns its ring
+        buffers (kernel B2 writes the new spikes into the one ring in place,
+        or with per-synapse delays into a second buffer, the two alternating
+        tick by tick), and a learning loop on kernel B5 clones ``w`` and
+        ``elig`` once and then updates them in place.
         """
         opts = self.options
         T = int(n_ticks) if ext_seq is None else int(ext_seq.shape[0])
+        learning = carry0.w is not None
         wc = None
-        if opts.backend != "pallas" or delays is not None:
+        if not learning and (opts.backend != "pallas" or delays is not None):
             wc = masked_weights(params)
         state = carry0.state
         D = state.delay_buf.shape[-2]
@@ -234,16 +308,31 @@ class TickEngine:
             if delays is not None:
                 spare = torch.empty_like(state.delay_buf)
         carry = dataclasses.replace(carry0, state=state)
+        in_place = (learning and opts.plasticity is not None
+                    and opts.plasticity_pass() == "pallas")
+        if in_place:
+            # B5 leaves elig untouched under rule="stdp": only R-STDP writes it.
+            elig = carry.plast.elig
+            if opts.plasticity.rule == "rstdp":
+                elig = elig.clone()
+            plast = dataclasses.replace(carry.plast, elig=elig)
+            carry = dataclasses.replace(carry, w=carry.w.clone(), plast=plast)
+        if learn_until is not None:
+            learn_until = torch.as_tensor(learn_until, dtype=torch.int32,
+                                          device=state.tick.device)
         y0 = state.lif.y
         raster = torch.empty((T,) + tuple(y0.shape), dtype=y0.dtype, device=y0.device)
         for t in range(T):
             ext = None if ext_seq is None else ext_seq[t]
+            reward = None if rewards is None else rewards[t]
             ring_in = carry.state.delay_buf
             ring_out = None
             if fused_ring:
                 ring_out = ring_in if delays is None else spare
-            carry, y = self.tick_body(carry, (ext, None), params=params, wc=wc,
-                                      delays=delays, ring_out=ring_out)
+            carry, y = self.tick_body(carry, (ext, reward), params=params, wc=wc,
+                                      delays=delays, ring_out=ring_out,
+                                      plastic_c=plastic_c, learn_until=learn_until,
+                                      in_place=in_place)
             if fused_ring and delays is not None:
                 spare = ring_in
             raster[t] = y
@@ -267,12 +356,61 @@ class TickEngine:
                                   delays=delays)
         return final.state, raster
 
-    def learning_rollout(self, *args, **kwargs):
-        raise NotImplementedError(LATER["plasticity"])
+    def _learning_defaults(self, params: SNNParams, rewards, plastic_c, n_ticks: int,
+                           device, what: str):
+        """Rewards default to zeros, the plastic mask to ``params.c``."""
+        if rewards is None:
+            rewards = torch.zeros((n_ticks,), dtype=torch.float32, device=device)
+        if plastic_c is None:
+            if params.c is None:
+                raise ValueError(
+                    f"{what} with c=None (implicit all-to-all) needs an explicit "
+                    "plastic_c mask (pass torch.ones((n, n)) to learn every synapse)")
+            plastic_c = params.c
+        return rewards, plastic_c
+
+    def learning_rollout(self, params: SNNParams, state: SNNState,
+                         plast_state: PlasticityState, ext_seq: Optional[torch.Tensor],
+                         n_ticks: int, *, rewards: Optional[torch.Tensor] = None,
+                         plastic_c: Optional[torch.Tensor] = None, learn_until=None):
+        """Learning rollout: the carry holds mutable weights; returns
+        ``((final_state, final_plast_state, final_w), raster)``.
+
+        ``learn_until`` (0-d or per slot ``(S,)``) freezes the plasticity hook
+        from that tick on -- see :meth:`tick_body`. The caller's ``params.w``
+        and ``plast_state`` are never written."""
+        if self.options.plasticity is None:
+            raise ValueError("learning_rollout needs a TickEngine with plasticity set")
+        if state.delay_buf.shape[-2] != 1:
+            raise ValueError(
+                "learning_rollout requires max_delay == 1 (pair STDP reads the "
+                "previous tick's spikes as the presynaptic events)")
+        rewards, plastic_c = self._learning_defaults(
+            params, rewards, plastic_c, n_ticks, state.tick.device, "learning")
+        carry0 = TickCarry(state=state, plast=plast_state, w=params.w)
+        final, raster = self.scan(params, carry0, ext_seq, n_ticks, rewards=rewards,
+                                  plastic_c=plastic_c, learn_until=learn_until)
+        return (final.state, final.plast, final.w), raster
+
+    def init_learning_carry(self, params: SNNParams, state: SNNState,
+                            plast_state: PlasticityState) -> TickCarry:
+        """The chunk-resumable carry of a fresh learning run (pairs with
+        :meth:`chunk`)."""
+        return TickCarry(state=state, plast=plast_state, w=params.w)
 
     def chunk(self, params: SNNParams, carry: TickCarry,
               ext_seq: Optional[torch.Tensor], n_ticks: int, *,
-              delays: Optional[torch.Tensor] = None) -> Tuple[TickCarry, torch.Tensor]:
+              rewards: Optional[torch.Tensor] = None,
+              delays: Optional[torch.Tensor] = None,
+              plastic_c: Optional[torch.Tensor] = None,
+              learn_until=None) -> Tuple[TickCarry, torch.Tensor]:
         """``n_ticks`` more ticks from an existing carry: K chunks of T ticks
-        equal one rollout of K*T ticks (the tick counter rides the carry)."""
-        return self.scan(params, carry, ext_seq, n_ticks, delays=delays)
+        equal one rollout of K*T ticks (the tick counter, traces and weights
+        ride the carry). On learning carries ``rewards`` default to zeros
+        and ``plastic_c`` to ``params.c``."""
+        if carry.w is not None:
+            rewards, plastic_c = self._learning_defaults(
+                params, rewards, plastic_c, n_ticks, carry.state.tick.device,
+                "a learning chunk")
+        return self.scan(params, carry, ext_seq, n_ticks, rewards=rewards,
+                         delays=delays, plastic_c=plastic_c, learn_until=learn_until)

@@ -5,11 +5,12 @@ synchronous network tick; :func:`rollout` runs many. The tick itself lives
 only in :meth:`repro_torch.core.engine.TickEngine.tick_body`; everything
 here builds an engine and threads a carry through it.
 
-Not ported yet: ``learning_rollout`` (plasticity slice), ``dispatch=`` and
-``neighbors=`` (event slice), ``telemetry=True`` (observability slice).
+Not ported yet: ``dispatch=`` and ``neighbors=`` (event slice),
+``telemetry=True`` (observability slice); they raise.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
@@ -54,8 +55,49 @@ def rollout(params: SNNParams, state: SNNState, ext_seq: Optional[torch.Tensor],
     return eng.rollout(params, state, ext_seq, n_ticks, delays=delays)
 
 
-def learning_rollout(*args, **kwargs):
-    raise NotImplementedError(LATER["plasticity"])
+def learning_rollout(params: SNNParams, state: SNNState, plast_state,
+                     ext_seq: Optional[torch.Tensor], n_ticks: int, *,
+                     plasticity=None, rewards: Optional[torch.Tensor] = None,
+                     plastic_c: Optional[torch.Tensor] = None, mode: str = "fixed_leak",
+                     backend: str = "jnp", plasticity_backend: Optional[str] = None,
+                     neighbors=None, telemetry: bool = False, dispatch=None,
+                     options: Optional[EngineOptions] = None):
+    """Run ``n_ticks`` learning ticks: the carry holds the mutable weights.
+
+    Each tick runs the inference datapath with the current weights, then the
+    plasticity hook on the spikes that tick produced (``s_pre`` the previous
+    tick's emissions, ``max_delay == 1``; ``s_post`` this tick's). Weights
+    stay gated by ``plastic_c`` and clipped to the u8 register domain, so the
+    result serialises straight back through a ``RegisterBank``.
+
+    Args:
+      plast_state: initial :class:`~repro_torch.plasticity.stdp.PlasticityState`
+        with batch dims matching ``state``.
+      plasticity: the :class:`~repro_torch.plasticity.stdp.PlasticityParams`
+        (or set in ``options``).
+      rewards: ``(n_ticks,)`` dopamine on the device; None means zeros.
+      plastic_c: learnable-synapse mask; defaults to ``params.c``.
+      backend / plasticity_backend: as in the reference; the plasticity
+        backend follows ``backend`` by default (``"pallas_fused"`` and
+        ``"pallas"`` run kernel B5, ``"jnp"`` its plain twin).
+      neighbors, dispatch (event slice) and telemetry (observability slice)
+        raise ``NotImplementedError``.
+
+    Returns ``((final_state, final_plast_state, final_w), raster)``. The
+    caller's ``params.w`` and ``plast_state`` are never written.
+    """
+    if neighbors is not None or dispatch is not None:
+        raise NotImplementedError(LATER["event"])
+    if options is not None:
+        if not isinstance(options, EngineOptions):
+            raise TypeError(f"options must be an EngineOptions, got {type(options)}")
+        if options.plasticity is None and plasticity is not None:
+            options = dataclasses.replace(options, plasticity=plasticity,
+                                          plasticity_backend=plasticity_backend)
+    eng = _engine(options, mode=mode, backend=backend, plasticity=plasticity,
+                  plasticity_backend=plasticity_backend, telemetry=telemetry)
+    return eng.learning_rollout(params, state, plast_state, ext_seq, n_ticks,
+                                rewards=rewards, plastic_c=plastic_c)
 
 
 def forward_layered(params: SNNParams, spikes_in: torch.Tensor, layer_sizes,

@@ -5,8 +5,12 @@ a flat dict of numpy arrays keyed by their dotted field path: ``"w"``, ``"c"``
 (absent or None for the implicit all-to-all), ``"w_in"``, ``"lif.v_th"``,
 ``"lif.leak"``, ``"lif.r_ref"``, ``"lif.gain"``, ``"lif.i_bias"``,
 ``"lif.v_reset"`` for parameters; ``"lif.v"``, ``"lif.r"``, ``"lif.y"``,
-``"delay_buf"``, ``"tick"`` for state. Dtypes are preserved (f32 weights
-and state, int32 ``r`` / ``r_ref`` / ``tick``), so a round trip is exact.
+``"delay_buf"``, ``"tick"`` for state; ``"x_pre"``, ``"x_post"``, ``"elig"``
+for a ``PlasticityState``; and for a ``TickCarry`` the state's keys under
+``"state."``, the plasticity state's under ``"plast."`` and ``"w"`` (the two
+learning leaves are absent on a frozen carry). Dtypes are preserved (f32
+weights and state, int32 ``r`` / ``r_ref`` / ``tick``), so a round trip is
+exact.
 """
 from __future__ import annotations
 
@@ -19,9 +23,11 @@ import torch
 from repro_torch import device as _device
 from repro_torch.core.lif import LIFParams, LIFState
 from repro_torch.core.network_types import SNNParams, SNNState
+from repro_torch.plasticity.stdp import PlasticityState
 
 _LIF_PARAMS = tuple(f.name for f in dataclasses.fields(LIFParams))
 _LIF_STATE = tuple(f.name for f in dataclasses.fields(LIFState))
+_PLAST = tuple(f.name for f in dataclasses.fields(PlasticityState))
 
 
 def _to_t(a, dev) -> torch.Tensor:
@@ -62,4 +68,36 @@ def state_to_numpy(state: SNNState) -> Dict[str, np.ndarray]:
     out = {f"lif.{k}": _to_np(getattr(state.lif, k)) for k in _LIF_STATE}
     out["delay_buf"] = _to_np(state.delay_buf)
     out["tick"] = _to_np(state.tick)
+    return out
+
+
+def plast_from_numpy(tree: Dict[str, np.ndarray], device=None) -> PlasticityState:
+    dev = _device.resolve(device)
+    return PlasticityState(**{k: _to_t(tree[k], dev) for k in _PLAST})
+
+
+def plast_to_numpy(plast: PlasticityState) -> Dict[str, np.ndarray]:
+    return {k: _to_np(getattr(plast, k)) for k in _PLAST}
+
+
+def carry_from_numpy(tree: Dict[str, np.ndarray], device=None):
+    """A :class:`~repro_torch.core.engine.TickCarry`: frozen when the tree has
+    no ``"w"``, learning otherwise."""
+    from repro_torch.core.engine import TickCarry
+
+    dev = _device.resolve(device)
+    sub = lambda prefix: {k[len(prefix):]: v for k, v in tree.items()
+                          if k.startswith(prefix)}
+    state = state_from_numpy(sub("state."), dev)
+    if "w" not in tree:
+        return TickCarry(state=state)
+    return TickCarry(state=state, plast=plast_from_numpy(sub("plast."), dev),
+                     w=_to_t(tree["w"], dev))
+
+
+def carry_to_numpy(carry) -> Dict[str, np.ndarray]:
+    out = {f"state.{k}": v for k, v in state_to_numpy(carry.state).items()}
+    if carry.w is not None:
+        out.update({f"plast.{k}": v for k, v in plast_to_numpy(carry.plast).items()})
+        out["w"] = _to_np(carry.w)
     return out

@@ -7,8 +7,8 @@ the checkout. Each ``.cu`` file compiles in its own ``nvcc`` process, all
 started together, and the objects are linked into the library. Nothing here
 runs at import time: the CPU tests import every module without a compiler.
 
-``--fmad=false`` keeps the LIF epilogue's multiply-adds rounding as the
-plain PyTorch twin's separate elementwise ops do.
+``--fmad=false`` keeps the multiply-adds of the LIF epilogue and the STDP
+update rounding as the plain PyTorch twins' separate elementwise ops do.
 """
 from __future__ import annotations
 
@@ -24,13 +24,13 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("lif_step.cu", "tick_fused.cu")
+SOURCES = ("lif_step.cu", "tick_fused.cu", "stdp_update.cu")
 HEADERS = ("lif_epilogue.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 LIB_NAME = "librepro_torch_kernels.so"
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # argtypes of each C entry, in the order of its signature in csrc/.
 SIGNATURES = {
     "repro_lif_step": (
@@ -48,6 +48,14 @@ SIGNATURES = {
         _P, _P, _P,                      # v_out, r_out, y_out
         _P, _P, _L, _I,                  # ring_in, ring_out, ring_slot, n_ring
         _I, _I, _I, _I, _I, _P),         # S, B, K, N, mode, stream
+    "repro_stdp_update": (
+        _P, _P, _P, _P,                  # s_pre, x_pre, s_post, x_post
+        _P, _L, _P, _L, _P, _L,          # w, c, elig (+ slot strides)
+        _P, _L, _P, _P, _L,              # reward (+ stride), tick, learn_until (+ stride)
+        _P, _P,                          # x_pre_out, x_post_out
+        _I, _I, _I, _I, _I,              # S, B, K, N, rstdp
+        _F, _F, _F, _F, _F, _F, _F, _F,  # a_plus .. w_max
+        _P),                             # stream
 }
 
 

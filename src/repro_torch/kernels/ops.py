@@ -4,7 +4,10 @@ Counterpart of ``repro.kernels.ops`` (``fused_lif_step``, ``fused_tick``,
 ``fused_lif_step_slots``). The reference pads every operand to block
 multiples here; the port's kernels bounds-check their ragged edges, so the
 bridges only reshape (views, no copies): the batch dimensions flatten to
-``B``, and a slot axis, when the parameters carry one, stays in front.
+``B``, and a slot axis, when the parameters carry one, stays in front. The
+reference's ``fused_stdp_step`` bridge is only padding, so the port has
+none: :func:`repro_torch.plasticity.rules.plasticity_step` calls kernel B5's
+wrapper directly.
 """
 from __future__ import annotations
 

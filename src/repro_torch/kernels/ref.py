@@ -129,3 +129,60 @@ def fused_tick_ref(slots, dly_read, w, c, delays, v, r, drive, dly_full,
             if dly_out is not None:
                 ring = dly_out.copy_(ring)
     return out.v, out.r, out.y, ring
+
+
+class STDPStepOut(NamedTuple):
+    w: torch.Tensor       # (S?, K, N) updated weights, clipped to [w_min, w_max]
+    elig: torch.Tensor    # (S?, K, N) eligibility (decayed and accumulated iff rstdp)
+    x_pre: torch.Tensor   # (S?, B, K) updated presynaptic traces
+    x_post: torch.Tensor  # (S?, B, N) updated postsynaptic traces
+
+
+def _per_slot(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A scalar or per-slot ``(S,)`` value, shaped to broadcast against a
+    ``(S, ., .)`` tensor ``like`` (a scalar stays a scalar)."""
+    return t.reshape(-1, 1, 1) if t.dim() == 1 and like.dim() == 3 else t
+
+
+def fused_stdp_step_ref(s_pre, x_pre, s_post, x_post, w, c, elig, reward, *,
+                        rule: str, a_plus: float, a_minus: float, decay_pre: float,
+                        decay_post: float, decay_elig: float, lr_reward: float,
+                        w_min: float, w_max: float, tick=None,
+                        learn_until=None) -> STDPStepOut:
+    """Twin of kernel B5: trace decay + pair-STDP outer-product update
+    (``repro.kernels.ref.fused_stdp_step_ref``, in its association order).
+
+    Shapes: ``s_pre, x_pre`` (B, K); ``s_post, x_post`` (B, N); ``w, c,
+    elig`` (K, N); ``reward`` a 0-d tensor -- or each with a leading slot
+    axis S (``c`` may stay shared, ``reward`` may be ``(S,)``). LTP pairs the
+    updated pre trace with this tick's post spikes, LTD this tick's pre
+    spikes with the updated post trace; batch rows sum. Synapses with
+    ``c == 0`` come back bit-identical, not clipped.
+
+    ``tick`` (0-d int32) and ``learn_until`` (0-d or ``(S,)`` int32) gate
+    the whole update, as the reference engine's ``jnp.where`` does: where
+    ``tick >= learn_until`` every output equals its input.
+    """
+    f32 = torch.float32
+    x_pre_new = decay_pre * x_pre.to(f32) + s_pre.to(f32)
+    x_post_new = decay_post * x_post.to(f32) + s_post.to(f32)
+    ltp = x_pre_new.transpose(-1, -2) @ s_post.to(f32)
+    ltd = s_pre.to(f32).transpose(-1, -2) @ x_post_new
+    cf = c.to(f32)
+    dw = (a_plus * ltp - a_minus * ltd) * cf
+    wf = w.to(f32)
+    if rule == "rstdp":
+        elig_new = decay_elig * elig.to(f32) + dw
+        w_new = wf + lr_reward * _per_slot(reward.to(f32), dw) * elig_new
+    else:
+        elig_new = elig.to(f32)
+        w_new = wf + dw
+    w_new = torch.where(cf > 0, torch.clamp(w_new, w_min, w_max), wf)
+    if learn_until is not None:
+        gate = tick < learn_until
+        w_new = torch.where(_per_slot(gate, w_new), w_new, wf)
+        elig_new = torch.where(_per_slot(gate, elig_new), elig_new, elig.to(f32))
+        x_pre_new = torch.where(_per_slot(gate, x_pre_new), x_pre_new, x_pre.to(f32))
+        x_post_new = torch.where(_per_slot(gate, x_post_new), x_post_new, x_post.to(f32))
+    return STDPStepOut(w=w_new.to(w.dtype), elig=elig_new.to(elig.dtype),
+                       x_pre=x_pre_new.to(x_pre.dtype), x_post=x_post_new.to(x_post.dtype))

@@ -1,18 +1,22 @@
 """Multi-tenant SNN serving: many resident networks, one tick datapath.
 
-Counterpart of ``repro.launch.serve`` for the wave path and frozen tenants.
-S independent networks -- each its own ``W/C/thresholds/leak`` register
+Counterpart of ``repro.launch.serve`` for the wave path, frozen and plastic
+tenants. S independent networks -- each its own ``W/C/thresholds/leak`` register
 image, loaded through :func:`repro_torch.core.network.params_from_registers`
 and zero-padded onto the ``n_max`` fabric -- ride one tick loop with a slot
 axis written out: every state leaf is ``(S, n_max)`` and the kernels take S
 as a launch-grid dimension. Swapping a tenant in is rewriting a slot's
 registers; nothing is rebuilt.
 
-The reference runs every wave through the learning tick body and gives
-frozen tenants an all-zero plastic mask, which makes STDP an exact no-op
-for them; serving them through the frozen rollout (``W*C`` hoisted) gives
-the same rasters. Plastic tenants, the event program, telemetry, metrics,
-continuous admission and the LM server arrive with later slices.
+A wave that holds a plastic tenant runs the learning rollout for every
+slot: a frozen slot's ``learn_until`` is 0, which closes kernel B5's gate
+for it (its weights come back bit-identical and its mask is never read),
+and the plastic tenant's learned weights are written back after the wave.
+A wave of frozen tenants only runs the frozen rollout (``W*C`` hoisted),
+which gives the same rasters; the reference runs every wave through the
+learning tick. At most one request per plastic tenant rides a wave. The
+event program, telemetry, metrics, continuous admission and the LM server
+arrive with later slices.
 
 Usage (on a machine with an NVIDIA GPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch snn-fused
@@ -35,18 +39,20 @@ from repro_torch.configs import get_bundle
 from repro_torch.core.engine import LATER, EngineOptions, TickEngine
 from repro_torch.core.lif import LIFParams
 from repro_torch.core.network_types import SNNParams, SNNState
-from repro_torch.kernels import lif_step, tick_fused
+from repro_torch.kernels import lif_step, stdp_update, tick_fused
+from repro_torch.plasticity import PlasticityParams, PlasticityState
 
 
 @dataclasses.dataclass
 class ServeRequest:
     """One request: the SNN fields of the reference's unified request type
-    (the LM and reward fields arrive with their slices)."""
+    (the LM fields arrive with their slice)."""
 
     rid: int
     tenant: str = ""
     ext: Optional[np.ndarray] = None      # (T_req, n_in) input spike train
     n_ticks: int = 0                      # tick budget for this request
+    rewards: Optional[np.ndarray] = None  # (T_req,) dopamine (R-STDP)
     counts: Optional[np.ndarray] = None   # (n_out,) rate-decoded counts
     pred: Optional[int] = None            # argmax over output neurons
     t_submit: float = 0.0
@@ -84,12 +90,14 @@ _PAD_VTH = 1e30  # padded neurons can never reach threshold
 @dataclasses.dataclass
 class Tenant:
     """One resident network: a register image padded onto the fabric
-    (neurons past ``n`` carry an unreachable threshold and a zero mask)."""
+    (neurons past ``n`` carry an unreachable threshold and a zero mask).
+    A plastic tenant learns on its connection list ``params.c``."""
 
     name: str
     n: int
     n_in: int
     n_out: int
+    plastic: bool
     params: SNNParams          # fabric-shaped (n_max, ...) on the server's device
     density: float = 1.0
     backend: str = "jnp"
@@ -123,27 +131,28 @@ def _stack(trees: List[SNNParams]) -> SNNParams:
 
 
 class SNNServer:
-    """Slot-batched multi-tenant serving of frozen tenants.
+    """Slot-batched multi-tenant serving of frozen and plastic tenants.
 
     Every wave runs S slots x ``max_ticks`` ticks of one engine, with
     static shapes ``(S, n_max)``; per-request tick budgets are runtime masks
-    at decode, and tenant swaps only change array values. Nothing is traced,
-    so ``compiles`` counts the resident programs in use (one per backend)
-    and ``recompiles_after_warmup`` is always 0.
+    at decode and bound each slot's learning (``learn_until``), and tenant
+    swaps only change array values. Nothing is traced, so ``compiles``
+    counts the resident programs in use (one per backend) and
+    ``recompiles_after_warmup`` is always 0.
     """
 
     def __init__(self, *, n_max: int, slots: int = 8, max_ticks: int = 32,
                  mode: str = "fixed_leak", backend: str = "jnp", plasticity=None,
                  event_density: Optional[float] = None, telemetry: bool = False,
                  options: Optional[EngineOptions] = None, device=None):
-        """``device=None`` serves on the CUDA card (raising without one);
-        ``plasticity``, ``event_density`` and ``telemetry`` belong to later
-        slices and raise when set."""
+        """``device=None`` serves on the CUDA card (raising without one).
+        ``plasticity`` is the learning rule of plastic tenants (default: the
+        reference's STDP, ``a_plus=0.5, a_minus=0.25`` on ``[0, 255]``);
+        ``event_density`` and ``telemetry`` belong to later slices and raise
+        when set."""
         if options is not None:
             mode, backend, telemetry = options.mode, options.backend, options.telemetry
             plasticity = options.plasticity if plasticity is None else plasticity
-        if plasticity is not None:
-            raise NotImplementedError(LATER["plasticity"])
         if event_density is not None:
             raise NotImplementedError(LATER["event"])
         self.device = _device.resolve(device)
@@ -151,7 +160,11 @@ class SNNServer:
         self.slots = int(slots)
         self.max_ticks = int(max_ticks)
         self.backend = backend
+        if plasticity is None:
+            plasticity = PlasticityParams.make(
+                "stdp", a_plus=0.5, a_minus=0.25, w_min=0.0, w_max=255.0)
         self.engine = TickEngine(EngineOptions(mode=mode, backend=backend,
+                                               plasticity=plasticity,
                                                telemetry=telemetry))
         self.tenants: Dict[str, Tenant] = {}
         self._programs = set()   # backends that have run a wave
@@ -168,22 +181,19 @@ class SNNServer:
         """Register a tenant from its :class:`RegisterBank` image."""
         from repro_torch.core.network import params_from_registers
 
-        if plastic:
-            raise NotImplementedError(LATER["plasticity"])
         params = params_from_registers(bank, device=self.device)
-        return self.add_tenant_params(name, params, n_in=n_in, n_out=n_out)
+        return self.add_tenant_params(name, params, n_in=n_in, n_out=n_out,
+                                      plastic=plastic)
 
     def add_tenant_params(self, name: str, params: SNNParams, *, n_in: int, n_out: int,
                           plastic: bool = False) -> Tenant:
-        if plastic:
-            raise NotImplementedError(LATER["plasticity"])
         n = params.w.shape[0]
         if not (0 < n_in <= n and 0 < n_out <= n):
             raise ValueError(
                 f"tenant {name!r}: n_in={n_in}, n_out={n_out} must lie in "
                 f"[1, {n}] (the tenant's live neuron count)")
         density = float(params.c.sum()) / max(1, n * n)
-        t = Tenant(name=name, n=n, n_in=n_in, n_out=n_out,
+        t = Tenant(name=name, n=n, n_in=n_in, n_out=n_out, plastic=plastic,
                    params=pad_tenant_params(params, self.n_max), density=density,
                    backend=self.backend)
         self.tenants[name] = t
@@ -192,32 +202,56 @@ class SNNServer:
     # -- one wave ------------------------------------------------------------
 
     def _assemble(self, reqs: List[ServeRequest]):
-        """Slot-stacked params, ``(T, S, N)`` drive and ``(S,)`` budgets."""
+        """Slot-stacked params, ``(T, S, N)`` drive, ``(S,)`` budgets, and for a
+        wave that learns the ``(S,)`` learning bounds (the budget for a plastic
+        slot, 0 for a frozen one) and ``(T, S)`` rewards (None otherwise)."""
         S, T, N = self.slots, self.max_ticks, self.n_max
-        params = _stack([self.tenants[r.tenant].params for r in reqs])
+        tenants = [self.tenants[r.tenant] for r in reqs]
+        params = _stack([t.params for t in tenants])
         ext = np.zeros((T, S, N), np.float32)
+        rew = np.zeros((T, S), np.float32)
         budget = np.zeros((S,), np.int32)
+        until = np.zeros((S,), np.int32)
         for i, r in enumerate(reqs):
             t = min(r.ext.shape[0], T)
             ext[:t, i, : r.ext.shape[1]] = r.ext[:t]
+            if r.rewards is not None:
+                rew[: min(len(r.rewards), T), i] = r.rewards[:T]
             budget[i] = 0 if r.rid < 0 else min(r.n_ticks, T)
-        return (params, torch.from_numpy(ext).to(self.device),
-                torch.from_numpy(budget).to(self.device))
+            until[i] = budget[i] if tenants[i].plastic else 0
+        dev = self.device
+        learn_until = rewards = None
+        if any(t.plastic for t in tenants):
+            learn_until = torch.from_numpy(until).to(dev)
+            rewards = torch.from_numpy(rew).to(dev)
+        return (params, torch.from_numpy(ext).to(dev), torch.from_numpy(budget).to(dev),
+                learn_until, rewards)
 
-    def _wave_fn(self, params: SNNParams, ext_seq: torch.Tensor,
-                 budget: torch.Tensor) -> torch.Tensor:
-        """``(S, N)`` rate-decoded spike counts of one wave; ticks at or past
-        a slot's budget run but do not count."""
-        T, N = self.max_ticks, self.n_max
-        st = SNNState.zeros((self.slots,), N, device=self.device)
-        _, raster = self.engine.rollout(params, st, ext_seq, T)      # (T, S, N)
+    def _wave_fn(self, params: SNNParams, ext_seq: torch.Tensor, budget: torch.Tensor,
+                 learn_until: Optional[torch.Tensor] = None,
+                 rewards: Optional[torch.Tensor] = None):
+        """``((S, N) rate-decoded spike counts, (S, N, N) learned weights or
+        None)`` of one wave; ticks at or past a slot's budget run but do not
+        count, and a slot learns (on its ``params.c``) only before its
+        ``learn_until``; None runs the frozen rollout."""
+        T, N, S = self.max_ticks, self.n_max, self.slots
+        st = SNNState.zeros((S,), N, device=self.device)
+        if learn_until is None:
+            w2 = None
+            _, raster = self.engine.rollout(params, st, ext_seq, T)      # (T, S, N)
+        else:
+            pst = PlasticityState.zeros((), N, device=self.device, slots=S)
+            (_, _, w2), raster = self.engine.learning_rollout(
+                params, st, pst, ext_seq, T, rewards=rewards, learn_until=learn_until)
         ticks = torch.arange(T, device=self.device)
         tmask = (ticks[:, None] < budget[None, :]).to(raster.dtype)  # (T, S)
-        return (raster * tmask[:, :, None]).sum(dim=0)
+        return (raster * tmask[:, :, None]).sum(dim=0), w2
 
     def run_wave(self, reqs: List[ServeRequest]) -> None:
-        """One wave: S register images in, S rate-decoded outputs out."""
-        counts = self._wave_fn(*self._assemble(reqs)).cpu().numpy()
+        """One wave: S register images in, S rate-decoded outputs out, and
+        for plastic tenants the learned weights written back."""
+        counts, w2 = self._wave_fn(*self._assemble(reqs))
+        counts = counts.cpu().numpy()
         self._programs.add(self.backend)
         now = time.time()
         for i, r in enumerate(reqs):
@@ -228,6 +262,10 @@ class SNNServer:
             r.counts = out
             r.pred = int(out.argmax())
             r.t_first = r.t_done = now
+            if t.plastic:
+                # Register write-back: the tenant's next wave starts from what
+                # this one learned (a copy, so the wave's stack can be freed).
+                t.params = dataclasses.replace(t.params, w=w2[i].clone())
 
     # -- the request loop ------------------------------------------------------
 
@@ -270,7 +308,11 @@ class SNNServer:
 
         Requests naming an unregistered tenant are rejected and counted
         (``requests_rejected``), never a KeyError mid-wave. Each wave holds
-        up to ``slots`` requests; a short wave is padded with budget-0 slots.
+        up to ``slots`` requests in queue order, but at most ONE request per
+        plastic tenant: two slots learning from the same registers would race
+        on the write-back. A deferred duplicate rides a later wave, which
+        starts from the weights this one learned. A short wave is padded with
+        budget-0 slots.
         """
         rejected = [r for r in requests if r.tenant not in self.tenants]
         requests = [r for r in requests if r.tenant in self.tenants]
@@ -283,8 +325,18 @@ class SNNServer:
                 r.t_submit = now
         done: List[ServeRequest] = []
         waves = 0
-        for start in range(0, len(requests), self.slots):
-            wave = requests[start:start + self.slots]
+        queue = requests
+        while queue:
+            wave, deferred, plastic_in_wave = [], [], set()
+            for r in queue:
+                t = self.tenants[r.tenant]
+                if len(wave) < self.slots and not (t.plastic and r.tenant in plastic_in_wave):
+                    wave.append(r)
+                    if t.plastic:
+                        plastic_in_wave.add(r.tenant)
+                else:
+                    deferred.append(r)
+            queue = deferred
             while len(wave) < self.slots:
                 wave.append(ServeRequest(rid=-1, tenant=wave[0].tenant,
                                          ext=np.zeros((1, 1), np.float32), n_ticks=0))
@@ -299,10 +351,10 @@ class SNNServer:
 
 
 def make_demo_tenants(server: SNNServer, n_tenants: int = 8, *, seed: int = 0) -> List[str]:
-    """Register ``n_tenants`` heterogeneous frozen networks on the fabric:
-    layered / ring / sparse-random / all-to-all topologies with per-tenant
-    thresholds and leaks, all through the byte-exact RegisterBank format.
-    (The reference makes its last tenant plastic; here every one is frozen.)"""
+    """Register ``n_tenants`` heterogeneous networks on the fabric: layered /
+    ring / sparse-random / all-to-all topologies with per-tenant thresholds
+    and leaks, and one plastic (STDP) tenant, the last -- all through the
+    byte-exact RegisterBank format."""
     from repro_torch.core import connectivity
     from repro_torch.core.registers import RegisterBank, WeightLayout
 
@@ -334,7 +386,8 @@ def make_demo_tenants(server: SNNServer, n_tenants: int = 8, *, seed: int = 0) -
         bank.set_leak(int(rng.integers(0, 8)))
         bank.set_refractory(int(rng.integers(0, 3)))
         name = f"{kind}-{i}"
-        server.add_tenant(name, bank, n_in=n_in, n_out=n_out)
+        server.add_tenant(name, bank, n_in=n_in, n_out=n_out,
+                          plastic=(i == n_tenants - 1))
         names.append(name)
     return names
 
@@ -395,7 +448,7 @@ def serve_snn_main(cfg, args) -> Dict:
     if args.profile:
         server.serve(make_demo_requests(server, names, n_req, seed=1))   # warm-up
     reqs = make_demo_requests(server, names, n_req)
-    lif_step.launches = tick_fused.launches = 0
+    lif_step.launches = tick_fused.launches = stdp_update.launches = 0
     if args.profile:
         stats = profiled_serve(server, reqs, args.profile)
     else:
@@ -404,7 +457,7 @@ def serve_snn_main(cfg, args) -> Dict:
         if k != "results":
             print(f"{k}: {v}")
     print(f"kernel launches: tick_fused={tick_fused.launches} "
-          f"lif_step={lif_step.launches}")
+          f"lif_step={lif_step.launches} stdp_update={stdp_update.launches}")
     return stats
 
 

@@ -238,8 +238,9 @@ def test_interop_round_trip_is_exact():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("plasticity", object()), ("telemetry", True), ("mesh", object()),
-    ("backend", "event"), ("event_k_active", 4), ("surrogate", True),
+    ("telemetry", True), ("mesh", object()),
+    ("backend", "event"), ("plasticity_backend", "event"), ("event_k_active", 4),
+    ("surrogate", True),
 ])
 def test_later_slices_raise(field, value):
     with pytest.raises(NotImplementedError, match="slice"):
@@ -247,14 +248,23 @@ def test_later_slices_raise(field, value):
 
 
 def test_options_validate_and_learning_raises():
+    """Invalid options fail at construction; a learning rollout without a
+    learning rule, or with the event slice's arguments, raises."""
     with pytest.raises(ValueError):
         EngineOptions(backend="cuda")
     with pytest.raises(ValueError):
         EngineOptions(mode="bogus")
-    with pytest.raises(NotImplementedError, match="STDP slice"):
-        t_net.learning_rollout()
-    with pytest.raises(NotImplementedError, match="STDP slice"):
-        TickEngine().learning_rollout()
+    with pytest.raises(ValueError, match="plasticity_backend"):
+        EngineOptions(plasticity_backend="cuda")
+    assert EngineOptions(backend="pallas_fused").plasticity_pass() == "pallas"
+    assert EngineOptions(plasticity_backend="pallas_fused").plasticity_pass() == "pallas"
+    assert EngineOptions(backend="pallas", plasticity_backend="jnp").plasticity_pass() == "jnp"
+    p = interop.params_from_numpy(_tree(5, seed=3), "cpu")
+    st = t_net.SNNState.zeros((1,), 5, device="cpu")
+    with pytest.raises(ValueError, match="plasticity set"):
+        TickEngine().learning_rollout(p, st, None, None, 2)
+    with pytest.raises(NotImplementedError, match="event slice"):
+        t_net.learning_rollout(p, st, None, None, 2, neighbors=object())
 
 
 def test_int_mode_runs_on_jnp_and_kernels_refuse_it():

@@ -26,7 +26,9 @@ def _port_modules():
 def test_importing_every_module_pulls_in_no_jax_and_no_repro():
     mods = _port_modules()
     assert {"repro_torch.launch.serve", "repro_torch.kernels.tick_fused",
-            "repro_torch.kernels.lif_step", "repro_torch.kernels._build"} <= set(mods)
+            "repro_torch.kernels.lif_step", "repro_torch.kernels._build",
+            "repro_torch.kernels.stdp_update", "repro_torch.plasticity.stdp",
+            "repro_torch.plasticity.rules", "repro_torch.plasticity.traces"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -1,9 +1,12 @@
 """The port's multi-tenant server against the JAX package's.
 
-Frozen tenants only (the port's first slice): the same RegisterBank images
-and requests go to the reference ``SNNServer(backend="jnp",
-event_density=None)`` and to the port's server on each backend; counts and
-predictions must be bitwise equal (u8 weights and drive: exact sums).
+The same RegisterBank images and requests go to the reference
+``SNNServer(backend="jnp", event_density=None)`` and to the port's server on
+each backend. Counts and predictions must be bitwise equal (u8 weights and
+drive: exact sums, and at these sizes the learned weights keep every spike
+decision away from its threshold). A plastic tenant's written-back weights
+must match the reference's to ``rtol=atol=1e-5``, the reference's own
+tolerance between its learning backends.
 """
 import copy
 
@@ -133,11 +136,23 @@ def test_budget_masks_counts(reference):
 
 
 def test_plastic_and_later_options_raise(reference):
+    """A plastic tenant is accepted: a wave that holds it learns until the
+    plastic slot's budget and not at all in the frozen slots (their
+    ``learn_until`` is 0), a frozen-only wave does not learn; the later
+    slices' options raise."""
     banks = reference[0]
     server = _port_server(banks[:1], "jnp")
     name, bank, n_in, n_out = banks[0]
-    with pytest.raises(NotImplementedError, match="STDP slice"):
-        server.add_tenant("learner", bank, n_in=n_in, n_out=n_out, plastic=True)
+    learner = server.add_tenant("learner", bank, n_in=n_in, n_out=n_out, plastic=True)
+    assert learner.plastic and not server.tenants[name].plastic
+    ext = np.ones((MAX_TICKS, n_in), np.float32)
+    frozen_req = t_serve.ServeRequest(rid=0, tenant=name, ext=ext, n_ticks=5)
+    learner_req = t_serve.ServeRequest(rid=1, tenant="learner", ext=ext, n_ticks=3)
+    _, _, budget, until, rewards = server._assemble([frozen_req, learner_req])
+    assert budget.tolist() == [5, 3, 0, 0] and until.tolist() == [0, 3, 0, 0]
+    assert rewards.shape == (MAX_TICKS, SLOTS) and not rewards.any()
+    _, _, _, until, rewards = server._assemble([frozen_req])
+    assert until is None and rewards is None
     with pytest.raises(NotImplementedError, match="event slice"):
         t_serve.SNNServer(n_max=8, event_density=0.2, device="cpu")
     with pytest.raises(NotImplementedError, match="observability slice"):
@@ -148,3 +163,158 @@ def test_demo_generators_and_cli_smoke(capsys):
     stats = t_serve.main(["--arch", "snn", "--smoke", "--device", "cpu", "--requests", "9"])
     assert stats["n_requests"] == 9 and stats["recompiles_after_warmup"] == 0
     assert "kernel launches" in capsys.readouterr().out
+
+
+# -- plastic tenants -------------------------------------------------------------
+
+
+def _learner_bank(seed=3, n=16):
+    """A dense tenant whose weights can move: mid-range u8 weights."""
+    rng = np.random.default_rng(seed)
+    bank = RegisterBank(n, weight_layout=WeightLayout.PER_SYNAPSE)
+    bank.set_connection_list(connectivity.all_to_all(n))
+    bank.set_weights(rng.integers(60, 160, (n, n)).astype(np.uint8))
+    bank.set_thresholds(rng.integers(60, 160, (n,)).astype(np.uint8))
+    bank.set_leak(2)
+    bank.set_refractory(1)
+    return bank
+
+
+def _learner_requests(n_req, seed, rid0=100, rewards=False):
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n_req):
+        ticks = int(rng.integers(4, MAX_TICKS + 1))
+        ext = ((rng.random((ticks, 16)) < 0.4) * rng.integers(80, 255, (ticks, 16))).astype(
+            np.float32)
+        rew = rng.uniform(-1, 1, ticks).astype(np.float32) if rewards else None
+        out.append((rid0 + i, "learner", ext, ticks, rew))
+    return out
+
+
+def _serve_with_rewards(mod, server, reqs):
+    made = [mod.ServeRequest(rid=i, tenant=t, ext=e.copy(), n_ticks=k,
+                             rewards=None if r is None else r.copy())
+            for i, t, e, k, r in reqs]
+    return made, server.serve(made)
+
+
+def _mixed_requests(banks, rule):
+    """Frozen requests with the learner's interleaved: two learner requests
+    land in the first four, so admission must defer one."""
+    frozen = [r + (None,) for r in _requests(banks, 7, seed=4)]
+    learner = _learner_requests(4, seed=5, rewards=rule == "rstdp")
+    return [frozen[0], learner[0], learner[1], frozen[1], frozen[2], learner[2],
+            frozen[3], frozen[4], frozen[5], learner[3], frozen[6]]
+
+
+RULES = {"stdp": None, "rstdp": dict(a_plus=0.5, a_minus=0.25, lr_reward=2.0)}
+
+
+@pytest.fixture(scope="module", params=sorted(RULES))
+def plastic_reference(request):
+    from repro.plasticity import PlasticityParams as JPP
+
+    rule = request.param
+    banks = _banks()
+    jpp = None if RULES[rule] is None else JPP.make(rule, **RULES[rule])
+    server = j_serve.SNNServer(n_max=N_MAX, slots=SLOTS, max_ticks=MAX_TICKS, backend="jnp",
+                               event_density=None, plasticity=jpp)
+    for name, bank, n_in, n_out in banks:
+        server.add_tenant(name, bank, n_in=n_in, n_out=n_out)
+    server.add_tenant("learner", _learner_bank(), n_in=16, n_out=16, plastic=True)
+    w0 = np.asarray(server.tenants["learner"].params.w).copy()
+    reqs = _mixed_requests(banks, rule)
+    made, stats = _serve_with_rewards(j_serve, server, reqs)
+    return rule, banks, reqs, made, stats, w0, np.asarray(server.tenants["learner"].params.w)
+
+
+@pytest.mark.parametrize("backend", ["jnp", "pallas", "pallas_fused"])
+def test_plastic_tenant_matches_reference(plastic_reference, backend):
+    """Counts and predictions equal across waves, the learner's written-back
+    weights within 1e-5 of the reference's, the same number of waves."""
+    from repro_torch.plasticity import PlasticityParams
+
+    rule, banks, reqs, j_made, j_stats, w0, j_w = plastic_reference
+    pp = None if RULES[rule] is None else PlasticityParams.make(rule, **RULES[rule])
+    server = t_serve.SNNServer(n_max=N_MAX, slots=SLOTS, max_ticks=MAX_TICKS,
+                               backend=backend, device="cpu", plasticity=pp)
+    for name, bank, n_in, n_out in banks:
+        server.add_tenant(name, copy.deepcopy(bank), n_in=n_in, n_out=n_out)
+    server.add_tenant("learner", _learner_bank(), n_in=16, n_out=16, plastic=True)
+    t_made, t_stats = _serve_with_rewards(t_serve, server, reqs)
+    assert t_stats["waves"] == j_stats["waves"] >= 4
+    for jr, tr in zip(j_made, t_made):
+        np.testing.assert_array_equal(tr.counts, jr.counts, err_msg=str(tr.rid))
+        assert tr.pred == jr.pred
+    assert t_stats["preds"] == j_stats["preds"]
+    t_w = server.tenants["learner"].params.w.numpy()
+    assert np.abs(t_w - w0).max() > 1.0, "the learner should learn"
+    np.testing.assert_allclose(t_w, j_w, rtol=1e-5, atol=1e-5)
+    assert t_w.min() >= 0.0 and t_w.max() <= 255.0
+    for name, bank, _, _ in banks:
+        np.testing.assert_array_equal(server.tenants[name].params.w[:bank.n, :bank.n].numpy(),
+                                      bank.weights.astype(np.float32))
+
+
+def test_one_request_per_plastic_tenant_per_wave():
+    """Three learner requests and two frozen ones on four slots: the reference
+    defers the second and third learner request to waves of their own, and the
+    port admits the same waves; each later wave starts from the learned weights."""
+    banks = _banks()[:2]
+    reqs = ([r + (None,) for r in _requests(banks, 2, seed=6)]
+            + _learner_requests(3, seed=7))
+    reqs = [reqs[2], reqs[3], reqs[0], reqs[4], reqs[1]]
+    results = {}
+    for mod, kw in ((j_serve, {"event_density": None}), (t_serve, {"device": "cpu"})):
+        server = mod.SNNServer(n_max=N_MAX, slots=SLOTS, max_ticks=MAX_TICKS, **kw)
+        for name, bank, n_in, n_out in banks:
+            server.add_tenant(name, copy.deepcopy(bank), n_in=n_in, n_out=n_out)
+        server.add_tenant("learner", _learner_bank(), n_in=16, n_out=16, plastic=True)
+        waves = []
+        run_wave = server.run_wave
+        server.run_wave = lambda wave, run=run_wave: (
+            waves.append([r.rid for r in wave if r.rid >= 0]), run(wave))
+        made, stats = _serve_with_rewards(mod, server, reqs)
+        results[mod] = (waves, stats, made)
+    (j_waves, j_stats, j_made), (t_waves, t_stats, t_made) = results[j_serve], results[t_serve]
+    assert t_waves == j_waves and t_stats["waves"] == j_stats["waves"] == 3
+    for wave in t_waves:
+        assert sum(1 for rid in wave if rid >= 100) <= 1
+    for jr, tr in zip(j_made, t_made):
+        np.testing.assert_array_equal(tr.counts, jr.counts)
+
+
+@pytest.mark.parametrize("backend", ["jnp", "pallas", "pallas_fused"])
+def test_frozen_counts_do_not_depend_on_a_plastic_wave(backend):
+    """A frozen tenant's counts are bitwise the same whether its wave runs the
+    frozen rollout (no plastic tenant) or the learning rollout (one there):
+    this pins the port's frozen-wave shortcut."""
+    banks = _banks()
+    server = _port_server(banks, backend)
+    server.add_tenant("learner", _learner_bank(), n_in=16, n_out=16, plastic=True)
+    frozen = _requests(banks, 3, seed=8)
+    alone, _ = _serve(t_serve, server, frozen)
+    learner = _learner_requests(1, seed=9)
+    made, stats = _serve_with_rewards(t_serve, server, [r + (None,) for r in frozen] + learner)
+    assert stats["waves"] == 1
+    for a, m in zip(alone, made):
+        np.testing.assert_array_equal(a.counts, m.counts)
+        assert a.pred == m.pred
+
+
+def test_demo_tenants_mark_the_last_plastic():
+    j_server = j_serve.SNNServer(n_max=24, slots=2, max_ticks=4, event_density=None)
+    t_server = t_serve.SNNServer(n_max=24, slots=2, max_ticks=4, device="cpu")
+    for n_tenants in (4, 8):
+        j_names = j_serve.make_demo_tenants(j_server, n_tenants, seed=n_tenants)
+        t_names = t_serve.make_demo_tenants(t_server, n_tenants, seed=n_tenants)
+        assert t_names == j_names
+        for name in t_names:
+            jt, tt = j_server.tenants[name], t_server.tenants[name]
+            assert tt.plastic == jt.plastic == (name == t_names[-1])
+            # The reference's plastic mask: the connection list of the plastic
+            # tenant, all-zero for a frozen one (whose learn_until is 0 here).
+            want = tt.params.c.numpy() if tt.plastic else 0.0
+            np.testing.assert_array_equal(np.asarray(jt.plastic_c), np.broadcast_to(
+                want, jt.plastic_c.shape))
