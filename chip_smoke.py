@@ -53,7 +53,32 @@ script on any mismatch:
    stay in ``[w_min, w_max]`` and round-trip through ``weights_to_bank``
    byte-exactly, no wave holds two of its requests, and B2 launches waves x
    32 times and B5 learning waves x 32 times.
-5. a JSON line of the kernels, the card's name and power limit, and the
+5. event kernels: kernels B3 (``event_dispatch_db``) and B4
+   (``event_dispatch``) against their plain twin, bitwise, on u8-grid
+   ``W*C`` at the ``snn-event`` FULL shape (16 rows, K = N = 4096, spike
+   lists of a 0.05-rate raster, k = 409) and on zero-spike rows, ragged
+   counts, ``counts == k``, a ragged width (37) and a slot axis, with and
+   without drive, fixed leak and Euler, the device gate set and clear (and
+   kernel B1's matching ``run_if`` gate on the premasked ``W*C``). Then B3,
+   B4, the twin and ``torch.matmul(s, wc)`` timed, and a crossover sweep of
+   B3 against B1 and ``torch.matmul`` at 8 to 4096 spikes per row, which
+   prints where the dense product wins and the gather penalty that implies.
+6. event rollout: ``network.rollout`` on the ``snn-event`` FULL fabric (4096
+   neurons, ``sparse_random(4096, 0.05)``, u8 weights through a
+   ``RegisterBank``, thresholds that keep it subcritical, input rate 0.05,
+   32 ticks, batch 16, ``max_delay`` 4) with ``dispatch="topk"`` (kernel B3,
+   under ``torch.cuda.set_sync_debug_mode("error")``, so a host sync in the
+   tick loop fails it), ``"fan_in"``, ``"dense"``, ``"auto"``, ``topk`` with
+   the knee armed, ``topk`` with a budget small enough to overflow, and
+   ``topk`` on kernel B4; rasters and final state bitwise equal to the
+   ``jnp`` backend. Each run prints its arms (event, dense on overflow, dense
+   by the knee) and launches. Then one event-backend ``learning_rollout``
+   (``stdp``) with the tick-by-tick check of phase 3.
+7. event serve: the serve phase's server with ``event_density=0.2``: the
+   demo's ring and sparse tenants ride the event program (fan-in gather);
+   every frozen tenant's counts and predictions equal the ``jnp`` server's
+   without the event program.
+8. a JSON line of the kernels, the card's name and power limit, and the
    result line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA device is visible or
@@ -62,6 +87,7 @@ the package is missing. Nothing here imports JAX or the ``repro`` package.
 from __future__ import annotations
 
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -79,6 +105,11 @@ TICKS = 32        # snn-fused FULL ticks per wave
 RING = 4          # delay-ring depth for the ring variants
 RUNS = 30         # timed runs per measurement, after warm-up
 TIE = 1e-4        # a spike decision within TIE * max(1, |v_th|) of v_th is a rounding tie
+EVENT_ROWS = 16   # batch rows of the snn-event rollout
+EVENT_K = 409     # the snn-event plan's spike budget: 2 * rate * n at rate 0.05
+EVENT_KNEE = 300  # the knee armed in the event rollout: inside the fabric's spike counts
+EVENT_SMALL_K = 250   # a spike budget the fabric's busier ticks overflow
+CROSSOVER_M = (8, 32, 128, 512, 2048, 4096)   # spikes per row in the crossover sweep
 
 # Per-card peaks: memory bytes/s and f32 (non-tensor-core) FLOP/s.
 CARDS = {"H200": (4.8e12, 67e12), "PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12)}
@@ -119,6 +150,30 @@ def median_ms(fn, runs: int = RUNS) -> float:
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+def device_ms(fn, runs: int = RUNS) -> float:
+    """Mean device time of one call of ``fn``: the summed time of every kernel
+    and copy it ran on the card, from ``torch.profiler``'s CUDA trace over
+    ``runs`` calls after two warm-up calls. Unlike :func:`median_ms` it
+    leaves out the host's launch overhead, which dominates a call shorter
+    than the Python that launches it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    if us <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return us / runs / 1e3
 
 
 def nbytes(*ts) -> int:
@@ -694,19 +749,20 @@ def serve_config():
     return get_bundle("snn-fused").model
 
 
-def serve_once(dev, cfg, backend, *, frozen_only=False):
+def serve_once(dev, cfg, backend, *, frozen_only=False, event_density=None):
     """Serve the demo tenants' 16 requests (``frozen_only``: those of the
-    frozen tenants) on a fresh server; returns the server, the requests, the
-    stats, the kernel launches, the wall time, the waves' request ids and the
-    plastic tenants' weights before and after each wave (copies taken around
-    ``run_wave``)."""
+    frozen tenants) on a fresh server (``event_density``: with the event
+    program); returns the server, the requests, the stats, the kernel
+    launches, the wall time, the waves' request ids and the plastic tenants'
+    weights before and after each wave (copies taken around ``run_wave``)."""
     import torch
 
-    from repro_torch.kernels import lif_step, stdp_update, tick_fused
+    from repro_torch.kernels import event_dispatch, lif_step, stdp_update, tick_fused
     from repro_torch.launch.serve import SNNServer, make_demo_requests, make_demo_tenants
 
     server = SNNServer(n_max=cfg.n_neurons, slots=SLOTS, max_ticks=cfg.n_ticks,
-                       mode=cfg.snn_mode, backend=backend, device=dev)
+                       mode=cfg.snn_mode, backend=backend, device=dev,
+                       event_density=event_density)
     names = make_demo_tenants(server, SLOTS, seed=0)
     reqs = make_demo_requests(server, names, 2 * SLOTS, seed=1)
     plastic = [n for n in names if server.tenants[n].plastic]
@@ -725,12 +781,16 @@ def serve_once(dev, cfg, backend, *, frozen_only=False):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     lif_step.launches = tick_fused.launches = stdp_update.launches = 0
+    event_dispatch.launches = event_dispatch.launches_db = 0
     t0 = time.perf_counter()
     stats = server.serve(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"tick_fused": tick_fused.launches, "lif_step": lif_step.launches,
                 "stdp_update": stdp_update.launches}
+    if event_density is not None:
+        launches.update(event_dispatch_db=event_dispatch.launches_db,
+                        event_dispatch=event_dispatch.launches)
     log(f"serve {backend}{' (frozen tenants only)' if frozen_only else ''}: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     del server.run_wave   # no cycle through the closure: the server frees on last use
@@ -893,6 +953,425 @@ def run_serve_phase(dev):
     return launches, frozen_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the event kernels B3 / B4 against their twin
+# ---------------------------------------------------------------------------
+
+def event_inputs(gen, dev, *, S=1, B=None, n=None, k=None, rate=0.05, euler=False,
+                 slotted=False, spikes_per_row=None):
+    """u8-grid inputs of one event-kernel call (K = N presynaptic rows, ``n``
+    columns, ``B`` rows, default the snn-event FULL shape): ``W*C`` of u8
+    weights on a 5 % mask, the spike lists of a raster at ``rate`` (or with
+    exactly ``spikes_per_row[b]`` spikes in row b), integer state, drive and
+    rows."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    B = EVENT_ROWS if B is None else B
+    n = N if n is None else n
+    k = EVENT_K if k is None else k
+    K = N
+    i32, f32 = torch.int32, torch.float32
+    lead = (S,) if slotted else ()
+    rnd = lambda lo, hi, shape, dt=f32: torch.randint(
+        lo, hi, shape, generator=gen, device=dev, dtype=i32).to(dt)
+    mask = (torch.rand(lead + (K, n), generator=gen, device=dev) < 0.05).to(f32)
+    wc = rnd(0, 256, lead + (K, n)) * mask
+    if spikes_per_row is None:
+        s = (torch.rand(lead + (B, K), generator=gen, device=dev) < rate).to(f32)
+    else:
+        order = torch.rand(lead + (B, K), generator=gen, device=dev).argsort(-1)
+        m = torch.as_tensor(spikes_per_row, device=dev).reshape(B, 1)
+        s = (order.argsort(-1) < m).to(f32)
+    idx, counts, _ = ops.spike_list(s, k)
+    row = lead + (n,)
+    rows = {"v_th": rnd(1, 40000, row),
+            "leak": rnd(0, 16, row) / 16.0 if euler else rnd(0, 9, row),
+            "r_ref": rnd(0, 4, row, i32), "gain": torch.ones(row, device=dev),
+            "i_bias": rnd(0, 4, row), "v_reset": torch.zeros(row, device=dev)}
+    return {"s": s, "idx": idx, "counts": counts, "wc": wc, "wcs": ops.sentinel_rows(wc),
+            "v": rnd(-20, 30000, lead + (B, n)), "r": rnd(0, 3, lead + (B, n), i32),
+            "drive": rnd(0, 256, lead + (B, n)), "rows": tuple(rows.values())}
+
+
+def run_event_kernel_phase(dev, gen):
+    """B3 and B4 against the twin, and kernel B1's ``run_if`` gate on the
+    premasked ``W*C`` against its twin, bitwise, in every case; the gate set
+    leaves the prefilled outputs untouched."""
+    import torch
+
+    from repro_torch.kernels import event_dispatch, lif_step, ref
+
+    half = EVENT_ROWS // 2
+    spike_cases = {
+        "snn-event FULL": {},
+        "zero-spike rows": {"spikes_per_row": [0] * half + [N // 20] * half},
+        "ragged counts": {"spikes_per_row": [b * EVENT_K // EVENT_ROWS
+                                             for b in range(EVENT_ROWS)]},
+        "counts == k and past k": {"spikes_per_row": [EVENT_K, EVENT_K + 60] * half},
+        "N = 37": {"n": 37, "B": 4},
+        "slot axis": {"S": 3, "B": 4, "slotted": True},
+    }
+    errs = {"event_dispatch_db": 0.0, "event_dispatch": 0.0, "lif_step": 0.0}
+    cases = 0
+    for label, kw in spike_cases.items():
+        for euler in (False, True):
+            inp = event_inputs(gen, dev, euler=euler, **kw)
+            mode = "euler" if euler else "fixed_leak"
+            for drive in (True, False):
+                d = inp["drive"] if drive else None
+                base = (inp["v"], inp["r"], d, *inp["rows"])
+                for gate in (None, False, True):
+                    skip = None if gate is None else torch.tensor(gate, device=dev)
+                    for name, fn, w, walk in (
+                            ("event_dispatch_db", event_dispatch.event_lif_dispatch_db,
+                             inp["wc"], "live"),
+                            ("event_dispatch", event_dispatch.event_lif_dispatch,
+                             inp["wcs"], "all")):
+                        want = ref.event_lif_dispatch_ref(inp["idx"], inp["counts"], w, *base,
+                                                          mode=mode, walk=walk)
+                        out = None
+                        if gate is not None:
+                            out = ref.LIFStepOut(torch.full_like(inp["v"], -7.0),
+                                                 torch.full_like(inp["r"], 9),
+                                                 torch.full_like(inp["v"], 3.0))
+                            if gate:
+                                want = ref.LIFStepOut(*(t.clone() for t in out))
+                        extra = {"counts": inp["counts"]} if walk == "live" else {}
+                        got = fn(inp["idx"], w, *base, mode=mode, skip=skip, out=out, **extra)
+                        torch.cuda.synchronize()
+                        err = max_abs_err(got, want)
+                        errs[name] = max(errs[name], err)
+                        if err != 0.0 or not all(torch.equal(g, x) for g, x in zip(got, want)):
+                            raise AssertionError(f"{name} ({label}, {mode}, drive={drive}, "
+                                                 f"gate={gate}): max |err| {err}")
+                        cases += 1
+                    if gate is not None:
+                        # B1's half of the device-side choice, on the premasked W*C.
+                        dense = ref.fused_lif_step_ref(inp["s"], inp["wc"], None, *base,
+                                                       mode=mode)
+                        out = ref.LIFStepOut(torch.full_like(inp["v"], -7.0),
+                                             torch.full_like(inp["r"], 9),
+                                             torch.full_like(inp["v"], 3.0))
+                        want = dense if gate else ref.LIFStepOut(*(t.clone() for t in out))
+                        got = lif_step.fused_lif_step(inp["s"], inp["wc"], None, *base,
+                                                      mode=mode, run_if=skip, out=out)
+                        torch.cuda.synchronize()
+                        err = max_abs_err(got, want)
+                        errs["lif_step"] = max(errs["lif_step"], err)
+                        if err != 0.0:
+                            raise AssertionError(f"lif_step run_if={gate} ({label}, {mode}): "
+                                                 f"max |err| {err}")
+                        cases += 1
+            del inp
+    log(f"event kernels: {cases} cases of event_dispatch_db (B3), event_dispatch (B4) and "
+        "lif_step's gate equal to their plain twins bitwise (tolerance 0): "
+        + ", ".join(spike_cases) + "; fixed_leak and euler; drive on and off; gate "
+        "none / clear / set")
+    return errs
+
+
+def event_bytes(inp):
+    """Bytes the event tick must move on these inputs, and its adds: each
+    distinct live row of ``W*C`` read once (a row that several batch rows
+    spiked is added into each of them from one read, in the same per-row
+    order), the spike lists, the state, drive and rows read once, and v', r',
+    y' written once; the adds are sum of counts x N."""
+    import torch
+
+    idx, counts, wc = inp["idx"], inp["counts"], inp["wc"]
+    N_, K1 = wc.shape[-1], wc.shape[-2] + 1
+    ids = idx.reshape(-1, *idx.shape[-2:]).long()
+    ids = ids + K1 * torch.arange(ids.shape[0], device=ids.device).reshape(-1, 1, 1)
+    live = torch.arange(idx.shape[-1], device=idx.device) < counts.reshape(
+        ids.shape[:2]).unsqueeze(-1)
+    distinct = int(torch.unique(ids[live]).numel())
+    moved = distinct * N_ * 4 + nbytes(idx, counts, inp["v"], inp["r"], inp["drive"],
+                                       *inp["rows"]) + 3 * nbytes(inp["v"])
+    return moved, int(counts.sum().item()) * N_, distinct
+
+
+def time_event(dev, gen, card):
+    """B3, B4, the twin and ``torch.matmul(s, wc)`` at the snn-event FULL
+    shape; then the crossover sweep of B3 against B1 and ``torch.matmul``.
+    Every time is device time (:func:`device_ms`); the CUDA-event time of a
+    launch, host overhead included, is logged beside the kernels'."""
+    import torch
+
+    from repro_torch.kernels import event_dispatch, lif_step, ref
+
+    bw, flops = card
+    inp = event_inputs(gen, dev)
+    base = (inp["v"], inp["r"], inp["drive"], *inp["rows"])
+    moved, adds, distinct = event_bytes(inp)
+    bound = max(moved / bw, adds / flops) * 1e3
+    bound_by = "bytes" if moved / bw >= adds / flops else "operations"
+    lib = device_ms(lambda: torch.matmul(inp["s"], inp["wc"]))
+    rows = {}
+    for name, fn, w, walk, extra in (
+            ("event_dispatch_db", event_dispatch.event_lif_dispatch_db, inp["wc"], "live",
+             {"counts": inp["counts"]}),
+            ("event_dispatch", event_dispatch.event_lif_dispatch, inp["wcs"], "all", {})):
+        t_ms = device_ms(lambda: fn(inp["idx"], w, *base, **extra))
+        e_ms = median_ms(lambda: fn(inp["idx"], w, *base, **extra))
+        p_ms = device_ms(lambda: ref.event_lif_dispatch_ref(inp["idx"], inp["counts"], w,
+                                                            *base, walk=walk), runs=5)
+        rows[name] = {"ms": t_ms, "plain_ms": p_ms, "library_ms": lib, "bound_ms": bound,
+                      "bound_by": bound_by}
+        log(f"time {name}: {t_ms:.4f} ms device time (bound {bound:.4f} ms, "
+            f"{moved / 2**20:.1f} MiB for {distinct} distinct of {int(inp['counts'].sum())} live "
+            f"rows; plain "
+            f"{p_ms:.4f} ms, torch.matmul {lib:.4f} ms; {e_ms:.4f} ms a launch by CUDA "
+            f"events, host overhead included) at B={EVENT_ROWS} K=N={N} k={EVENT_K}")
+    del inp, base
+    # Crossover: B3 against the dense arms, m spikes in every row (k = m).
+    sweep = []
+    for m in CROSSOVER_M:
+        inp = event_inputs(gen, dev, k=m, spikes_per_row=[m] * EVENT_ROWS)
+        base = (inp["v"], inp["r"], inp["drive"], *inp["rows"])
+        t_ev = device_ms(lambda: event_dispatch.event_lif_dispatch_db(
+            inp["idx"], inp["wc"], *base, counts=inp["counts"]))
+        t_b1 = device_ms(lambda: lif_step.fused_lif_step(inp["s"], inp["wc"], None, *base))
+        t_mm = device_ms(lambda: torch.matmul(inp["s"], inp["wc"]))
+        sweep.append((m, t_ev, t_b1, t_mm))
+        log(f"crossover m={m}: device time event_dispatch_db {t_ev:.4f} ms, lif_step "
+            f"(dense, premasked) {t_b1:.4f} ms, torch.matmul {t_mm:.4f} ms")
+        del inp, base
+    for label, col in (("lif_step", 2), ("torch.matmul", 3)):
+        m_star = crossing(sweep, col)
+        if m_star is None:
+            log(f"crossover: {label} never beats event_dispatch_db up to m={CROSSOVER_M[-1]} "
+                "spikes per row")
+        else:
+            log(f"crossover: {label} beats event_dispatch_db from m = {m_star:.1f} spikes per "
+                f"row; implied gather penalty N / m = {N / m_star:.3f} (GATHER_PENALTY['gpu'] "
+                "= 6.0)")
+    return rows
+
+
+def crossing(sweep, col):
+    """The spike count where the dense column's time meets the event time,
+    interpolated linearly between the sweep points that bracket it."""
+    prev = None
+    for point in sweep:
+        m, t_ev, t_dense = point[0], point[1], point[col]
+        if t_dense <= t_ev:
+            if prev is None:
+                return float(m)
+            m0, e0, d0 = prev[0], prev[1], prev[col]
+            gap0, gap1 = e0 - d0, t_ev - t_dense
+            return m0 + (m - m0) * (-gap0) / (gap1 - gap0)
+        prev = point
+    return None
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the event rollout at snn-event FULL
+# ---------------------------------------------------------------------------
+
+def event_net(dev, gen):
+    """The snn-event FULL fabric: ``sparse_random(4096, 0.05)``, u8 weights in
+    [0, 3) through a RegisterBank (thresholds 200-255, leak 0-7, refractory
+    2: subcritical), and a 0.05-rate impulse drive of 255 modulated over 8
+    ticks between 0.02 and 0.08, 32 ticks, batch 16."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_bundle
+    from repro_torch.core import connectivity, network
+    from repro_torch.core.registers import RegisterBank, WeightLayout
+
+    cfg = get_bundle("snn-event").model
+    n = cfg.n_neurons
+    rng = np.random.default_rng(0)
+    c = connectivity.sparse_random(n, cfg.snn_density, seed=0)
+    bank = RegisterBank(n, weight_layout=WeightLayout.PER_SYNAPSE)
+    bank.set_connection_list(c)
+    bank.set_weights((rng.integers(0, 3, (n, n)) * c).astype(np.uint8))
+    bank.set_thresholds(rng.integers(200, 256, n).astype(np.uint8))
+    bank.set_leak(rng.integers(0, 8, n).astype(np.uint8))
+    bank.set_refractory(2)
+    params = network.params_from_registers(bank, device=dev)
+    t = torch.arange(cfg.n_ticks, device=dev, dtype=torch.float32)
+    rate = cfg.snn_rate * (1 + 0.6 * torch.sin(2 * math.pi * t / 8))
+    ext = (torch.rand((cfg.n_ticks, EVENT_ROWS, n), generator=gen, device=dev)
+           < rate[:, None, None]).float() * 255.0
+    return cfg, params, ext
+
+
+def run_event_rollout_phase(dev, gen):
+    """``network.rollout`` on the snn-event FULL fabric through every
+    strategy, each bitwise equal to the jnp backend; returns B3's launches in
+    the ``topk`` run and B4's in the ``grid`` run."""
+    import torch
+
+    from repro_torch.core import dispatch_policy, network
+    from repro_torch.core.engine import EngineOptions
+    from repro_torch.kernels import event_dispatch, lif_step, ops
+    from repro_torch.kernels.ops import EventFanIn
+
+    cfg, params, ext = event_net(dev, gen)
+    T, n = cfg.n_ticks, cfg.n_neurons
+    st0 = network.SNNState.zeros((EVENT_ROWS,), n, max_delay=RING, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fj, rj = network.rollout(params, st0, ext, T)
+    torch.cuda.synchronize()
+    wall_j = time.perf_counter() - t0
+    knee = EVENT_KNEE
+    plan = dispatch_policy.plan(params.c, w_in=params.w_in, batch=EVENT_ROWS)
+    opts = lambda **kw: EngineOptions(backend="event", event_dispatch="topk", **kw)
+    # (label, rollout keywords, whether the tick runs the kernels behind the
+    # device flag: then ops.arm_ticks reads the arm each tick took)
+    runs = [
+        ("topk", dict(dispatch="topk"), True),
+        ("fan_in", dict(dispatch="fan_in", neighbors=EventFanIn.from_dense(params.c)), False),
+        ("dense", dict(dispatch="dense"), False),
+        (f"auto (plan: {plan.strategy}, ext_diag {plan.ext_diag}, cap {plan.cap})",
+         dict(dispatch=plan), plan.strategy == "topk"),
+        (f"topk, knee {knee}", dict(options=opts(event_k_active=EVENT_K, event_knee=knee)),
+         True),
+        (f"topk, k_active {EVENT_SMALL_K}", dict(options=opts(event_k_active=EVENT_SMALL_K)),
+         True),
+        ("topk on B4", dict(options=opts(event_k_active=EVENT_K, event_kernel="grid")), True),
+    ]
+    network.rollout(params, st0, ext[:2], 2, dispatch="topk")       # warm-up
+    launches = {}
+    for label, kw, gated in runs:
+        sync_free = label == "topk"
+        tally = torch.zeros(3, dtype=torch.int64, device=dev)
+        torch.cuda.synchronize()
+        lif_step.launches = event_dispatch.launches = event_dispatch.launches_db = 0
+        ops.arm_ticks = tally
+        t0 = time.perf_counter()
+        if sync_free:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            f, r = network.rollout(params, st0, ext, T, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            ops.arm_ticks = None
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {"event_dispatch_db": event_dispatch.launches_db,
+               "event_dispatch": event_dispatch.launches, "lif_step": lif_step.launches}
+        launches[label] = got
+        same = (torch.equal(r, rj) and torch.equal(f.lif.v, fj.lif.v)
+                and torch.equal(f.lif.r, fj.lif.r) and torch.equal(f.lif.y, fj.lif.y)
+                and torch.equal(f.delay_buf, fj.delay_buf) and torch.equal(f.tick, fj.tick))
+        if not same:
+            raise AssertionError(f"event rollout {label}: differs from jnp")
+        arms = "all ticks on its one arm"
+        ev, over, by_knee = tally.tolist()
+        if gated:
+            arms = (f"arms read on the device: event {ev}, dense on overflow {over}, dense "
+                    f"by the knee {by_knee}")
+            if ev + over + by_knee != T:
+                raise AssertionError(f"event rollout {label}: {arms}, not {T} ticks")
+            kernel = "event_dispatch" if "B4" in label else "event_dispatch_db"
+            if got[kernel] != T or got["lif_step"] != T:
+                raise AssertionError(f"event rollout {label}: launches {got}, expected {T} of "
+                                     f"{kernel} and of the gated lif_step")
+            if label.startswith("topk, knee") and not (ev and by_knee):
+                raise AssertionError(f"event rollout {label}: the knee took one arm only "
+                                     f"({arms})")
+            if label.startswith("topk, k_active") and not (ev and over):
+                raise AssertionError(f"event rollout {label}: no overflow tick ({arms})")
+        elif any(got.values()) or ev + over + by_knee:
+            raise AssertionError(f"event rollout {label}: launched kernels {got}, arms "
+                                 f"{tally.tolist()}")
+        log(f"event rollout {label}: == jnp bitwise (raster and final state); spike rate "
+            f"{r.mean().item():.4f}; {arms}; launches {got}; wall {wall:.4f} s (jnp "
+            f"{wall_j:.4f} s)" + ("; no host sync in the tick loop" if sync_free else ""))
+    return launches["topk"]["event_dispatch_db"], launches["topk on B4"]["event_dispatch"]
+
+
+def run_event_learning(dev, gen):
+    """One ``learning_rollout`` (stdp) on the event backend at snn-event FULL,
+    checked tick by tick against the plain path."""
+    import torch
+
+    from repro_torch.core import network
+    from repro_torch.core.engine import EngineOptions, TickCarry, TickEngine
+    from repro_torch.kernels import event_dispatch, stdp_update
+    from repro_torch.plasticity import PlasticityParams, PlasticityState
+
+    cfg, params, ext = event_net(dev, gen)
+    T, n = cfg.n_ticks, cfg.n_neurons
+    rule = PlasticityParams.make("stdp", a_plus=0.5, a_minus=0.25)
+    st0 = network.SNNState.zeros((EVENT_ROWS,), n, device=dev)
+    pst0 = PlasticityState.zeros((EVENT_ROWS,), n, device=dev)
+    w0 = params.w.clone()
+    torch.cuda.synchronize()
+    event_dispatch.launches_db = stdp_update.launches = 0
+    (fs, fp, fw), raster = network.learning_rollout(params, st0, pst0, ext, T,
+                                                    plasticity=rule, backend="event")
+    torch.cuda.synchronize()
+    got = {"event_dispatch_db": event_dispatch.launches_db,
+           "stdp_update": stdp_update.launches}
+    if got != {"event_dispatch_db": T, "stdp_update": T}:
+        raise AssertionError(f"event learning: launches {got}, expected {T} each")
+    moved = (fw - w0).abs().max().item()
+    if moved == 0.0 or not torch.equal(params.w, w0):
+        raise AssertionError(f"event learning: w moved {moved}, or the caller's w was written")
+    kernel_eng = TickEngine(EngineOptions(backend="event", plasticity=rule))
+    plain_eng = TickEngine(EngineOptions(backend="jnp", plasticity=rule,
+                                         plasticity_backend="jnp"))
+    ck, ties, dv, dw = check_learning_ticks(
+        kernel_eng, plain_eng, params, TickCarry(state=st0, plast=pst0, w=params.w), T,
+        lambda t: ext[t], lambda t: None, plastic_c=params.c, what="event learning")
+    if not torch.equal(ck.w, fw):
+        raise AssertionError("event learning: the tick-by-tick kernel chain differs from "
+                             "the rollout")
+    log(f"event learning stdp ({T} ticks, batch {EVENT_ROWS}, {n} neurons): tick by tick == "
+        f"plain path (rtol=1e-5, atol=1e-3), {ties} rounding ties, max |dv| {dv:.3g}, max "
+        f"|dw| {dw:.3g}; |w - w0| up to {moved:.3f}; launches {got}")
+    return got
+
+
+# ---------------------------------------------------------------------------
+# phase 7: serving with the event program
+# ---------------------------------------------------------------------------
+
+def run_event_serve_phase(dev):
+    """The serve phase's server with ``event_density=0.2`` against the ``jnp``
+    server without the event program: every frozen tenant bitwise equal."""
+    cfg = serve_config()
+    _, reqs_j, stats_j, _, wall_j, _, _ = serve_once(dev, cfg, "jnp")
+    server, reqs_f, stats_f, launches, wall_f, waves, _ = serve_once(
+        dev, cfg, cfg.snn_backend, event_density=0.2)
+    on_event = sorted(n for n, t in server.tenants.items() if t.backend == "event")
+    if not on_event or any(server.tenants[n].plastic for n in on_event):
+        raise AssertionError(f"event serve: tenants on the event program {on_event}")
+    for rj, rf in zip(reqs_j, reqs_f):
+        if server.tenants[rf.tenant].plastic:
+            continue
+        if not np_equal(rf.counts, rj.counts) or rf.pred != rj.pred:
+            raise AssertionError(f"event serve: frozen request {rf.rid} ({rf.tenant}) "
+                                 "differs from jnp")
+    by_backend = {}
+    for wave in waves:
+        backends = {server.tenants[t].backend for _, t in wave}
+        if len(backends) != 1:
+            raise AssertionError(f"event serve: a wave mixed programs {backends}")
+        b = backends.pop()
+        by_backend[b] = by_backend.get(b, 0) + 1
+    learning = sum(any(server.tenants[t].plastic for _, t in w) for w in waves)
+    expected = {"tick_fused": by_backend.get(cfg.snn_backend, 0) * cfg.n_ticks,
+                "lif_step": 0, "stdp_update": learning * cfg.n_ticks,
+                "event_dispatch_db": 0, "event_dispatch": 0}
+    if launches != expected or by_backend.get("event", 0) < 1:
+        raise AssertionError(f"event serve: launches {launches}, expected {expected}; "
+                             f"waves {by_backend}")
+    log(f"event serve: {stats_f['n_requests']} requests in {stats_f['waves']} waves "
+        f"{by_backend} ({learning} learning), event program (fan-in cap {server.event_cap}) "
+        f"for {on_event}; every frozen count and prediction == jnp without the event "
+        f"program; wall {wall_f:.4f} s against {wall_j:.4f} s (jnp, {stats_j['waves']} "
+        f"waves); launches {launches}")
+    return by_backend
+
+
 def np_equal(a, b) -> bool:
     import numpy as np
 
@@ -931,17 +1410,28 @@ def main() -> int:
     learn_launches = run_learning_phase(dev, gen)
     launches, frozen_launches = run_serve_phase(dev)
     launches["lif_step"] = b1_launches
+    event_errs = run_event_kernel_phase(dev, gen)
+    errs["lif_step"] = max(errs["lif_step"], event_errs.pop("lif_step"))
+    errs.update(event_errs)
+    timed.update(time_event(dev, gen, card))
+    launches["event_dispatch_db"], launches["event_dispatch"] = run_event_rollout_phase(dev, gen)
+    event_learn = run_event_learning(dev, gen)
+    event_waves = run_event_serve_phase(dev)
     if min(launches.values()) < 1 or min(learn_launches.values()) < 1 \
-            or frozen_launches["tick_fused"] < 1:
+            or frozen_launches["tick_fused"] < 1 or min(event_learn.values()) < 1:
         raise AssertionError(f"a kernel of a path never launched: serve and rollouts "
                              f"{launches}, frozen serve {frozen_launches}, learning "
-                             f"rollouts {learn_launches}")
+                             f"rollouts {learn_launches}, event learning {event_learn}")
 
     sources = {
         "tick_fused": ("src/repro_torch/csrc/tick_fused.cu", "src/repro/kernels/tick_fused.py:66"),
         "lif_step": ("src/repro_torch/csrc/lif_step.cu", "src/repro/kernels/lif_step.py:93"),
         "stdp_update": ("src/repro_torch/csrc/stdp_update.cu",
                         "src/repro/kernels/stdp_update.py:100"),
+        "event_dispatch_db": ("src/repro_torch/csrc/event_dispatch.cu",
+                              "src/repro/kernels/event_dispatch.py:300"),
+        "event_dispatch": ("src/repro_torch/csrc/event_dispatch.cu",
+                           "src/repro/kernels/event_dispatch.py:187"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
@@ -950,9 +1440,11 @@ def main() -> int:
                         **timed[name]})
     log(f"kernels launched: tick_fused {launches['tick_fused']} (serve), stdp_update "
         f"{launches['stdp_update']} (serve), lif_step {launches['lif_step']} (pallas "
-        f"rollouts); frozen-only serve {frozen_launches}; learning rollouts "
-        f"{learn_launches}; B2 streaming w and c "
-        f"{b2_streamed_ms:.4f} ms")
+        f"rollouts), event_dispatch_db {launches['event_dispatch_db']} (snn-event topk "
+        f"rollout), event_dispatch {launches['event_dispatch']} (snn-event topk rollout on "
+        f"B4); frozen-only serve {frozen_launches}; learning rollouts {learn_launches}; "
+        f"event learning {event_learn}; event serve waves {event_waves}; B2 streaming w "
+        f"and c {b2_streamed_ms:.4f} ms")
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {

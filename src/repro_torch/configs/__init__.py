@@ -1,7 +1,7 @@
 """Architecture registry: each ``--arch`` id maps to an ArchBundle.
 
 Counterpart of ``repro.configs``, registering only the SNN configs the
-port can run so far (the frozen serving path): ``snn-fused`` and ``snn``.
+port can run so far: ``snn-fused``, ``snn`` and ``snn-event``.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ def register(name):
 
 def get_bundle(name: str) -> ArchBundle:
     if name not in _REGISTRY:
-        from repro_torch.configs import snn_fused, snn_serve  # noqa: F401 (registers)
+        from repro_torch.configs import snn_event, snn_fused, snn_serve  # noqa: F401 (registers)
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]()

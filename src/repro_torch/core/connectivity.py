@@ -11,13 +11,15 @@ Convention: ``C[n, m]`` routes *presynaptic* neuron ``n`` -> *postsynaptic*
 neuron ``m``, matching the paper's ``connection list[n][m]``.
 
 The numpy builders of ``repro.core.connectivity``, copied so that the
-port never imports the JAX package. The compressed layouts (CSR, padded
-neighbour lists) and the shard statistics arrive with the event-backend
-and sharding slices.
+port never imports the JAX package: the topologies, the bit packing, and
+the compressed layouts the event backend plans from (CSR, padded
+neighbour lists, :func:`stats`). The shard helpers arrive with the
+sharding slice.
 """
 from __future__ import annotations
 
-from typing import Sequence
+import dataclasses
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -96,3 +98,151 @@ def fan_in(c: np.ndarray) -> np.ndarray:
 
 def fan_out(c: np.ndarray) -> np.ndarray:
     return np.asarray(c).sum(axis=1)
+
+
+# ---------------------------------------------------------------------------
+# Compressed connectivity: CSR + padded neighbor lists (the event backend's
+# data layout -- only the *closed* muxes are named; silent rows cost nothing)
+# ---------------------------------------------------------------------------
+
+
+def to_csr(c: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Dense boolean ``C`` -> CSR ``(indptr, indices)`` over presynaptic rows.
+
+    ``indices[indptr[p]:indptr[p+1]]`` are the postsynaptic targets of
+    neuron ``p``, ascending.  Exact: :func:`csr_to_dense` round-trips.
+    """
+    validate(c)
+    n = c.shape[0]
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(c.sum(axis=1), out=indptr[1:])
+    indices = np.nonzero(c)[1].astype(np.int32)
+    return indptr, indices
+
+
+def csr_to_dense(indptr: np.ndarray, indices: np.ndarray, n: int) -> np.ndarray:
+    """Inverse of :func:`to_csr`."""
+    c = np.zeros((n, n), dtype=np.bool_)
+    for p in range(n):
+        c[p, indices[indptr[p] : indptr[p + 1]]] = True
+    return c
+
+
+@dataclasses.dataclass(frozen=True)
+class PaddedNeighbors:
+    """Fixed-width neighbor lists: row ``i`` of ``idx`` holds the (ascending)
+    neighbors of neuron ``i``, padded to ``cap`` entries; ``mask`` is 1.0 on
+    real entries and 0.0 on padding (padded ``idx`` entries are 0 and must be
+    gated by the mask before use).
+
+    ``axis`` records the direction: ``"out"`` (row i = fan-out targets of
+    presynaptic i, from :func:`padded_neighbors`) or ``"in"`` (row i =
+    fan-in sources of postsynaptic i, from :func:`padded_fan_in`).
+
+    The cap/padding trade-off the stats expose: a tight cap minimizes the
+    gather width (and the event backend's FLOPs/bytes), but the cap must
+    hold the *maximum* degree -- one hub row sets the width for everyone,
+    and ``padding_fraction`` says how much of the padded layout is air.
+    """
+
+    idx: np.ndarray          # (n, cap) int32
+    mask: np.ndarray         # (n, cap) float32, 1.0 = real edge
+    cap: int
+    axis: str                # "out" | "in"
+    n_edges: int
+    max_degree: int
+
+    @property
+    def mean_degree(self) -> float:
+        return self.n_edges / max(1, self.idx.shape[0])
+
+    @property
+    def padding_fraction(self) -> float:
+        """Fraction of the (n, cap) layout that is padding."""
+        slots = self.idx.shape[0] * self.cap
+        return 1.0 - self.n_edges / max(1, slots)
+
+
+def _padded_lists(c: np.ndarray, cap: Optional[int], axis: str) -> PaddedNeighbors:
+    validate(c)
+    rows = c if axis == "out" else c.T
+    degrees = rows.sum(axis=1).astype(np.int64)
+    max_deg = int(degrees.max()) if rows.size else 0
+    if cap is None:
+        cap = max(1, max_deg)
+    if max_deg > cap:
+        raise ValueError(
+            f"fan-{axis} cap {cap} below max degree {max_deg}: a capped "
+            "neighbor list would silently drop synapses (raise the cap or "
+            "prune the topology)")
+    n = rows.shape[0]
+    idx = np.zeros((n, cap), dtype=np.int32)
+    mask = np.zeros((n, cap), dtype=np.float32)
+    for i in range(n):
+        nz = np.nonzero(rows[i])[0]
+        idx[i, : nz.size] = nz
+        mask[i, : nz.size] = 1.0
+    return PaddedNeighbors(idx=idx, mask=mask, cap=int(cap), axis=axis,
+                           n_edges=int(degrees.sum()), max_degree=max_deg)
+
+
+def padded_neighbors(c: np.ndarray, cap: Optional[int] = None) -> PaddedNeighbors:
+    """Padded fan-OUT lists: row ``p`` = postsynaptic targets of ``p``.
+
+    ``cap=None`` picks the tightest cap (the max fan-out).  Raises if an
+    explicit cap is below the max degree -- the builders never truncate.
+    """
+    return _padded_lists(c, cap, "out")
+
+
+def padded_fan_in(c: np.ndarray, cap: Optional[int] = None) -> PaddedNeighbors:
+    """Padded fan-IN lists: row ``m`` = presynaptic sources of ``m``.
+
+    This is the gather-friendly dual of :func:`padded_neighbors`: the
+    event backend's vmap-safe path reads, for every postsynaptic neuron,
+    exactly its ``cap`` (mostly real) in-edges -- no scatter, no
+    data-dependent control flow, FLOPs ``B*n*cap`` instead of ``B*n*n``.
+    """
+    return _padded_lists(c, cap, "in")
+
+
+@dataclasses.dataclass(frozen=True)
+class ConnectivityStats:
+    """Topology statistics the dispatch policy decides from.
+
+    ``padding_fraction_in``/``_out`` are the air fractions of the
+    *tightest* padded layouts (cap == max degree): how much of the
+    fan-in gather / fan-out scatter would multiply zeros.  A hub-heavy
+    topology has a large max/mean gap and a padding fraction near 1 --
+    exactly where the fixed-cap gather stops paying and the policy
+    should pick the dense product or the spike-list path instead.
+    """
+
+    n: int
+    n_edges: int
+    density: float
+    max_fan_in: int
+    mean_fan_in: float
+    max_fan_out: int
+    mean_fan_out: float
+    padding_fraction_in: float
+    padding_fraction_out: float
+
+
+def stats(c: np.ndarray) -> ConnectivityStats:
+    """Host-side summary of a concrete connection list (the dispatch
+    policy's trace-time input -- see :mod:`repro.core.dispatch_policy`)."""
+    validate(np.asarray(c) > 0 if np.asarray(c).dtype != np.bool_ else c)
+    cb = np.asarray(c) > 0
+    n = cb.shape[0]
+    fi = cb.sum(axis=0)
+    fo = cb.sum(axis=1)
+    edges = int(cb.sum())
+    max_fi = int(fi.max()) if n else 0
+    max_fo = int(fo.max()) if n else 0
+    frac = lambda mx: 1.0 - edges / max(1, n * max(1, mx))
+    return ConnectivityStats(
+        n=n, n_edges=edges, density=edges / max(1, n * n),
+        max_fan_in=max_fi, mean_fan_in=float(fi.mean()) if n else 0.0,
+        max_fan_out=max_fo, mean_fan_out=float(fo.mean()) if n else 0.0,
+        padding_fraction_in=frac(max_fi), padding_fraction_out=frac(max_fo))

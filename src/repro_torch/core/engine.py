@@ -13,7 +13,10 @@ over unchanged, so ``ModelConfig.snn_backend`` values mean the same:
                           stay outside, as in the reference
 ``"pallas_fused"``        kernel B2, the whole tick in one launch
                           (``csrc/tick_fused.cu``)
-``"event"``               not ported yet: raises (ROADMAP A.7)
+``"event"``               event-driven dispatch: the spike-list gather
+                          (kernel B3, ``csrc/event_dispatch.cu``; B4 with
+                          ``event_kernel="grid"``), the fan-in gather or the
+                          dense product, as ``event_dispatch`` says
 ========================  =================================================
 
 On CPU tensors the kernel backends run their kernels' plain twins, which is
@@ -28,8 +31,14 @@ with no host sync inside: the tick counter, the ring pointers, the rewards
 and the ``learn_until`` gate stay on the device, and the raster is written
 into a preallocated ``(T, ..., n)`` tensor.
 
-Telemetry, the sharded mesh and the event backend arrive with later slices;
-asking for them raises ``NotImplementedError``.
+The event arm's ``lax.cond``s (overflow fallback, adaptive knee) become a
+device flag: kernel B1 and the event kernel both launch, and the flag opens
+exactly one of them, so the tick loop still never reads back to the host.
+The hysteresis bit rides the carry as a device bool. ``overflow="strict"``
+accumulates a device flag and raises once, after the loop.
+
+Telemetry and the sharded mesh arrive with later slices; asking for them
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -38,6 +47,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from repro_torch.core import dispatch_policy
 from repro_torch.core.lif import LIFParams, lif_step
 from repro_torch.core.network_types import SNNParams, SNNState, masked_weights
 from repro_torch.kernels import ops, ref
@@ -46,8 +56,9 @@ from repro_torch.plasticity.stdp import PlasticityState
 
 _BACKENDS = ("jnp", "pallas", "pallas_fused", "event")
 _MODES = ("fixed_leak", "euler", "int")
+_OVERFLOW = ops.OVERFLOW
+_DISPATCH = ("auto", "fan_in", "topk", "dense")
 LATER = {
-    "event": "the event backend arrives with the event slice (ROADMAP A.7)",
     "telemetry": "telemetry arrives with the observability slice (ROADMAP A.9)",
     "mesh": "the sharded fabric arrives with the sharding slice (ROADMAP A.11)",
     "surrogate": "surrogate-gradient training arrives with the classifier slice "
@@ -65,27 +76,39 @@ class TickCarry:
       w: the mutable weight matrix, or None on the frozen path (frozen
         weights stay in the parameters, so the hoisted ``W*C`` is valid for
         the whole rollout).
+      policy: the adaptive knee's hysteresis bit (a 0-d bool on the
+        device), or None when no knee is armed. True means the previous
+        tick took the dense arm for speed.
 
-    The reference's telemetry and knee-policy slots arrive with their slices.
+    The reference's telemetry slot arrives with its slice.
     """
 
     state: SNNState
     plast: Optional[PlasticityState] = None
     w: Optional[torch.Tensor] = None
+    policy: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineOptions:
     """The engine's configuration, validated at construction.
 
-    Same field names and defaults as the reference; the fields of slices
-    not ported yet raise ``NotImplementedError`` when set.
+    Same field names, defaults and checks as the reference; the fields of
+    slices not ported yet raise ``NotImplementedError`` when set.
 
     ``plasticity`` (a :class:`~repro_torch.plasticity.stdp.PlasticityParams`)
     arms the plasticity hook for carries that hold weights;
     ``plasticity_backend`` picks its backend and defaults to following
-    ``backend`` (``"pallas_fused"`` maps to the ``"pallas"`` pass, kernel
-    B5).
+    ``backend`` (``"pallas_fused"`` and ``"event"`` map to the ``"pallas"``
+    pass, kernel B5; the reference maps ``"event"`` to its jnp pass).
+
+    The ``event_*`` fields configure ``backend="event"``: the spike budget
+    (``event_k_active``, default ``n // 8`` floored at 8), what an overflowing
+    tick does (``event_overflow``), the strategy (``event_dispatch``: ``"auto"``
+    is the fan-in gather when neighbour lists are given, else the spike
+    list), the adaptive knee and its release fraction, and the elementwise
+    diagonal drive. ``event_kernel`` (the port's own field) picks the
+    spike-list kernel: ``"db"`` (B3, the default) or ``"grid"`` (B4).
     """
 
     mode: str = "fixed_leak"
@@ -101,6 +124,7 @@ class EngineOptions:
     event_knee: Optional[int] = None
     event_hysteresis: float = 0.75
     event_ext_diag: bool = False
+    event_kernel: str = "db"
 
     def __post_init__(self):
         if self.backend not in _BACKENDS:
@@ -110,11 +134,30 @@ class EngineOptions:
         if self.plasticity_backend not in (None,) + _BACKENDS:
             raise ValueError(f"plasticity_backend must be None or one of {_BACKENDS}, "
                              f"got {self.plasticity_backend!r}")
-        event_defaults = (None, "fallback", "auto", None, 0.75, False)
-        event_fields = (self.event_k_active, self.event_overflow, self.event_dispatch,
-                        self.event_knee, self.event_hysteresis, self.event_ext_diag)
-        if "event" in (self.backend, self.plasticity_backend) or event_fields != event_defaults:
-            raise NotImplementedError(LATER["event"])
+        if self.event_overflow not in _OVERFLOW:
+            raise ValueError(f"event_overflow must be one of {_OVERFLOW}, "
+                             f"got {self.event_overflow!r}")
+        if self.event_dispatch not in _DISPATCH:
+            raise ValueError(f"event_dispatch must be one of {_DISPATCH}, "
+                             f"got {self.event_dispatch!r}")
+        if self.event_kernel not in ops.KERNELS:
+            raise ValueError(f"event_kernel must be one of {ops.KERNELS}, "
+                             f"got {self.event_kernel!r}")
+        if self.event_k_active is not None and int(self.event_k_active) < 1:
+            raise ValueError(f"event_k_active must be >= 1 (or None for the n//8 "
+                             f"default), got {self.event_k_active}")
+        if self.event_knee is not None:
+            if int(self.event_knee) < 1:
+                raise ValueError(f"event_knee must be >= 1 ticks' spikes (or None to "
+                                 f"disable the adaptive knee), got {self.event_knee}")
+            if self.event_overflow != "fallback":
+                raise ValueError(
+                    "event_knee requires event_overflow='fallback' (the knee routes "
+                    "overflow ticks to the dense arm silently, which contradicts "
+                    "strict/unchecked semantics)")
+        if not (0.0 < float(self.event_hysteresis) <= 1.0):
+            raise ValueError("event_hysteresis is a release *fraction* of the knee and "
+                             f"must lie in (0, 1], got {self.event_hysteresis}")
         for name in ("telemetry", "mesh", "surrogate"):
             if getattr(self, name) not in (None, False):
                 raise NotImplementedError(LATER[name])
@@ -123,15 +166,43 @@ class EngineOptions:
         """The plasticity hook's backend: ``"pallas"`` (kernel B5) or ``"jnp"``
         (its plain twin)."""
         pb = self.plasticity_backend or self.backend
-        return "pallas" if pb == "pallas_fused" else pb
+        return "pallas" if pb in ("pallas_fused", "event") else pb
+
+    def _event_strategy(self, neighbors) -> str:
+        """Resolve ``event_dispatch`` against what the call provided."""
+        strategy = self.event_dispatch
+        if strategy == "auto":
+            strategy = "fan_in" if neighbors is not None else "topk"
+        if strategy == "fan_in" and neighbors is None:
+            raise ValueError(
+                "event_dispatch='fan_in' needs fan-in neighbor lists: pass "
+                "neighbors=EventFanIn.from_dense(c) (or let dispatch_policy.plan "
+                "build them)")
+        return strategy
 
 
-def _row_params(lif: LIFParams, slotted: bool) -> LIFParams:
-    """Per-slot rows ``(S, n)`` broadcast against ``(S, B, n)`` as ``(S, 1, n)``."""
-    if not slotted:
-        return lif
-    return LIFParams(**{f.name: getattr(lif, f.name).unsqueeze(-2)
-                        for f in dataclasses.fields(LIFParams)})
+@dataclasses.dataclass(frozen=True)
+class EventPrep:
+    """The event arm's operands, prepared once per rollout.
+
+    Attributes:
+      strategy: ``"topk"``, ``"fan_in"`` or ``"dense"``.
+      k: the spike budget (:func:`~repro_torch.core.dispatch_policy.resolve_k_active`).
+      fan_in: the fan-in lists with int64 indices (``"fan_in"`` only).
+      w_edges: the per-edge weights, hoisted on the frozen path.
+      sentinel: ``W*C`` with the all-zero row kernel B4 reads, hoisted on
+        the frozen path (``event_kernel="grid"``; a learning tick pads its
+        own ``W*C``).
+      overflow_flag: 0-d device bool set by an overflowing tick under
+        ``event_overflow="strict"``.
+    """
+
+    strategy: str
+    k: int
+    fan_in: Optional[ops.EventFanIn] = None
+    w_edges: Optional[torch.Tensor] = None
+    sentinel: Optional[torch.Tensor] = None
+    overflow_flag: Optional[torch.Tensor] = None
 
 
 class TickEngine:
@@ -160,6 +231,8 @@ class TickEngine:
         plastic_c: Optional[torch.Tensor] = None,
         learn_until: Optional[torch.Tensor] = None,
         in_place: bool = False,
+        neighbors: Optional[ops.EventFanIn] = None,
+        event: Optional[EventPrep] = None,
     ) -> Tuple[TickCarry, torch.Tensor]:
         """One synchronous tick: delay-line read -> synaptic input -> LIF
         step -> delay-line write [-> plasticity hook].
@@ -178,6 +251,11 @@ class TickEngine:
             plasticity hook commits nothing from that tick on.
           in_place: the caller owns the carry's ``w`` and ``plast.elig`` and
             lets kernel B5 update them in their buffers (:meth:`scan` does).
+          neighbors: the ``"event"`` backend's fan-in lists
+            (:class:`~repro_torch.kernels.ops.EventFanIn`); ignored by the
+            dense backends.
+          event: the event arm's operands as :meth:`scan` prepares them once
+            per rollout; None prepares them for this tick alone.
         """
         ext, reward = xs
         opts = self.options
@@ -204,18 +282,25 @@ class TickEngine:
         slot = torch.remainder(st.tick, D)
         if wc is None and (delays is not None or backend != "pallas"):
             wc = masked_weights(p)
+        policy = None
         if delays is None:
             arriving = (st.delay_buf.index_select(-2, slot.reshape(1).long()).squeeze(-2)
                         if D > 1 else st.lif.y)
             if backend == "pallas":
                 lif_state = ops.fused_lif_step(st.lif, arriving, p, ext,
                                                mode=opts.mode)
+            elif backend == "event":
+                if event is None:
+                    event = self.prepare_event(params, wc, neighbors, learning=learning)
+                lif_state, policy = self._event_tick(carry, st, arriving, ext, params, wc,
+                                                     event)
             else:
                 # (the int datapath emits int32 spikes; the product is f32)
                 syn = ops.flatten_state(arriving, S).to(wc.dtype) @ wc
                 lif_state = self._lif(st, syn, params, ext, S)
         else:
-            # Per-synapse delays: the reference einsum, on every dense backend.
+            # Per-synapse delays: the reference einsum, on every backend but
+            # pallas_fused (per-delay history planes defeat one spike list).
             ring = ops.flatten_state(st.delay_buf, S, trailing=2)
             syn = ref.delayed_product(ring, slot, wc, delays)
             lif_state = self._lif(st, syn, params, ext, S)
@@ -228,8 +313,71 @@ class TickEngine:
         else:
             delay_buf = st.delay_buf
         state2 = SNNState(lif=lif_state, delay_buf=delay_buf, tick=st.tick + 1)
+        if policy is not None:
+            carry = dataclasses.replace(carry, policy=policy)
         return self._tick_tail(carry, st, state2, reward, params, plastic_c,
                                learn_until, in_place)
+
+    # -- the event arm -------------------------------------------------------
+
+    def prepare_event(self, params: SNNParams, wc: Optional[torch.Tensor], neighbors, *,
+                      learning: bool) -> EventPrep:
+        """The event arm's per-rollout operands: the strategy and spike budget,
+        the fan-in lists with int64 indices and (frozen) the per-edge
+        weights, kernel B4's sentinel-row operand, the strict-overflow flag."""
+        opts = self.options
+        strategy = opts._event_strategy(neighbors)
+        n = params.w.shape[-2]
+        k = dispatch_policy.resolve_k_active(n, opts.event_k_active)
+        dev = params.w.device
+        fan_in = w_edges = sentinel = flag = None
+        if strategy == "fan_in":
+            fan_in = ops.EventFanIn(idx=neighbors.idx.long(), mask=neighbors.mask)
+            if not learning:
+                w_edges = ops.fan_in_edges(wc, fan_in)
+        elif strategy == "topk":
+            if opts.event_kernel == "grid" and not learning:
+                sentinel = ops.sentinel_rows(wc)
+            if opts.event_overflow == "strict":
+                flag = torch.zeros((), dtype=torch.bool, device=dev)
+        return EventPrep(strategy=strategy, k=k, fan_in=fan_in, w_edges=w_edges,
+                         sentinel=sentinel, overflow_flag=flag)
+
+    def _event_tick(self, carry: TickCarry, st: SNNState, arriving: torch.Tensor,
+                    ext: Optional[torch.Tensor], params: SNNParams, wc: torch.Tensor,
+                    ev: EventPrep):
+        """The event backend's synaptic input + LIF step; returns
+        ``(lif_state, hysteresis bit or None)``."""
+        opts = self.options
+        S = ops.slot_count(params)
+        if ev.strategy == "dense":
+            # The masked product with the (possibly diagonal) drive: bitwise
+            # the jnp tick.
+            syn = ops.flatten_state(arriving, S).to(wc.dtype) @ wc
+            drive = ops.event_drive(ext, params.w_in, S, opts.event_ext_diag)
+            return self._lif(st, syn if drive is None else syn + drive, params, None, S), None
+        kw = dict(mode=opts.mode, ext_diag=opts.event_ext_diag, kernel=opts.event_kernel)
+        if ev.strategy == "fan_in":
+            return ops.event_lif_step(st.lif, arriving, params, ext, wc, fan_in=ev.fan_in,
+                                      w_edges=ev.w_edges, **kw), None
+        if opts.event_knee is None:
+            return ops.event_lif_step(st.lif, arriving, params, ext, wc, k_active=ev.k,
+                                      overflow=opts.event_overflow, wc_sentinel=ev.sentinel,
+                                      overflow_flag=ev.overflow_flag, **kw), None
+        # The adaptive knee: past min(knee, k) spikes in a row the dense arm is
+        # the faster exact one; once dense, stay dense until the count falls
+        # to hysteresis * knee. Overflow (m > k) must go dense for the bits.
+        m = (ops.flatten_state(arriving, S) > 0).sum(-1).max()
+        hi = min(int(opts.event_knee), ev.k)
+        lo = int(hi * opts.event_hysteresis)
+        prev = (carry.policy if carry.policy is not None
+                else torch.zeros((), dtype=torch.bool, device=m.device))
+        dense_mode = (m > hi) | (prev & (m > lo))
+        take_dense = (m > ev.k) | dense_mode
+        lif_state = ops.event_lif_step(st.lif, arriving, params, ext, wc, k_active=ev.k,
+                                       overflow="unchecked", wc_sentinel=ev.sentinel,
+                                       take_dense=take_dense, **kw)
+        return lif_state, (dense_mode if carry.policy is not None else None)
 
     def _tick_tail(self, carry: TickCarry, st: SNNState, state2: SNNState, reward,
                    params: SNNParams, plastic_c, learn_until,
@@ -251,7 +399,7 @@ class TickEngine:
             backend=self.options.plasticity_pass(),
             tick=None if learn_until is None else st.tick, learn_until=learn_until,
             in_place=in_place)
-        return TickCarry(state=state2, plast=pst2, w=w2), y
+        return TickCarry(state=state2, plast=pst2, w=w2, policy=carry.policy), y
 
     def _lif(self, st: SNNState, syn: torch.Tensor, params: SNNParams,
              ext: Optional[torch.Tensor], S: Optional[int]):
@@ -262,7 +410,7 @@ class TickEngine:
         shape = st.lif.v.shape
         flat = dataclasses.replace(
             st.lif, **{f: ops.flatten_state(getattr(st.lif, f), S) for f in "vry"})
-        out = lif_step(flat, syn, _row_params(params.lif, S is not None),
+        out = lif_step(flat, syn, ops.row_params(params.lif, S is not None),
                        mode=self.options.mode)
         return dataclasses.replace(
             out, **{f: getattr(out, f).reshape(shape) for f in "vry"})
@@ -280,6 +428,7 @@ class TickEngine:
         delays: Optional[torch.Tensor] = None,
         plastic_c: Optional[torch.Tensor] = None,
         learn_until=None,
+        neighbors: Optional[ops.EventFanIn] = None,
     ) -> Tuple[TickCarry, torch.Tensor]:
         """Run ``n_ticks`` ticks (``len(ext_seq)`` when given); returns
         ``(final_carry, raster)`` with the raster ``(T, ..., n)``.
@@ -292,6 +441,12 @@ class TickEngine:
         or with per-synapse delays into a second buffer, the two alternating
         tick by tick), and a learning loop on kernel B5 clones ``w`` and
         ``elig`` once and then updates them in place.
+
+        On ``"event"`` the arm's operands are prepared once here
+        (:meth:`prepare_event`), the knee's hysteresis bit is seeded into
+        the carry, and ``event_overflow="strict"`` raises
+        :class:`~repro_torch.kernels.ops.EventOverflowError` after the loop
+        if any tick overflowed.
         """
         opts = self.options
         T = int(n_ticks) if ext_seq is None else int(ext_seq.shape[0])
@@ -308,6 +463,13 @@ class TickEngine:
             if delays is not None:
                 spare = torch.empty_like(state.delay_buf)
         carry = dataclasses.replace(carry0, state=state)
+        event = None
+        if opts.backend == "event" and delays is None:
+            event = self.prepare_event(params, wc, neighbors, learning=learning)
+            if (opts.event_knee is not None and event.strategy == "topk"
+                    and carry.policy is None):
+                carry = dataclasses.replace(carry, policy=torch.zeros(
+                    (), dtype=torch.bool, device=state.tick.device))
         in_place = (learning and opts.plasticity is not None
                     and opts.plasticity_pass() == "pallas")
         if in_place:
@@ -332,28 +494,37 @@ class TickEngine:
             carry, y = self.tick_body(carry, (ext, reward), params=params, wc=wc,
                                       delays=delays, ring_out=ring_out,
                                       plastic_c=plastic_c, learn_until=learn_until,
-                                      in_place=in_place)
+                                      in_place=in_place, neighbors=neighbors, event=event)
             if fused_ring and delays is not None:
                 spare = ring_in
             raster[t] = y
+        if event is not None and event.overflow_flag is not None and bool(event.overflow_flag):
+            # The loop's only host read, after the last tick.
+            raise ops.EventOverflowError(
+                f"event dispatch overflow: a row spiked more than k_active={event.k} "
+                "times on at least one tick")
         return carry, raster
 
     # -- entry points --------------------------------------------------------
 
     def tick(self, state: SNNState, params: SNNParams,
              ext: Optional[torch.Tensor] = None, *,
-             delays: Optional[torch.Tensor] = None) -> SNNState:
-        """One frozen-weight tick (the public ``network.step`` semantics)."""
-        carry, _ = self.tick_body(TickCarry(state=state), (ext, None),
-                                  params=params, delays=delays)
-        return carry.state
+             delays: Optional[torch.Tensor] = None,
+             neighbors: Optional[ops.EventFanIn] = None) -> SNNState:
+        """One frozen-weight tick (the public ``network.step`` semantics): a
+        one-tick :meth:`scan`."""
+        final, _ = self.scan(params, TickCarry(state=state),
+                             None if ext is None else ext.unsqueeze(0), 1, delays=delays,
+                             neighbors=neighbors)
+        return final.state
 
     def rollout(self, params: SNNParams, state: SNNState,
                 ext_seq: Optional[torch.Tensor], n_ticks: int, *,
-                delays: Optional[torch.Tensor] = None):
+                delays: Optional[torch.Tensor] = None,
+                neighbors: Optional[ops.EventFanIn] = None):
         """Frozen-weight rollout; returns ``(final_state, raster)``."""
         final, raster = self.scan(params, TickCarry(state=state), ext_seq, n_ticks,
-                                  delays=delays)
+                                  delays=delays, neighbors=neighbors)
         return final.state, raster
 
     def _learning_defaults(self, params: SNNParams, rewards, plastic_c, n_ticks: int,
@@ -372,7 +543,8 @@ class TickEngine:
     def learning_rollout(self, params: SNNParams, state: SNNState,
                          plast_state: PlasticityState, ext_seq: Optional[torch.Tensor],
                          n_ticks: int, *, rewards: Optional[torch.Tensor] = None,
-                         plastic_c: Optional[torch.Tensor] = None, learn_until=None):
+                         plastic_c: Optional[torch.Tensor] = None, learn_until=None,
+                         neighbors: Optional[ops.EventFanIn] = None):
         """Learning rollout: the carry holds mutable weights; returns
         ``((final_state, final_plast_state, final_w), raster)``.
 
@@ -389,7 +561,8 @@ class TickEngine:
             params, rewards, plastic_c, n_ticks, state.tick.device, "learning")
         carry0 = TickCarry(state=state, plast=plast_state, w=params.w)
         final, raster = self.scan(params, carry0, ext_seq, n_ticks, rewards=rewards,
-                                  plastic_c=plastic_c, learn_until=learn_until)
+                                  plastic_c=plastic_c, learn_until=learn_until,
+                                  neighbors=neighbors)
         return (final.state, final.plast, final.w), raster
 
     def init_learning_carry(self, params: SNNParams, state: SNNState,
@@ -403,7 +576,8 @@ class TickEngine:
               rewards: Optional[torch.Tensor] = None,
               delays: Optional[torch.Tensor] = None,
               plastic_c: Optional[torch.Tensor] = None,
-              learn_until=None) -> Tuple[TickCarry, torch.Tensor]:
+              learn_until=None,
+              neighbors: Optional[ops.EventFanIn] = None) -> Tuple[TickCarry, torch.Tensor]:
         """``n_ticks`` more ticks from an existing carry: K chunks of T ticks
         equal one rollout of K*T ticks (the tick counter, traces and weights
         ride the carry). On learning carries ``rewards`` default to zeros
@@ -413,4 +587,6 @@ class TickEngine:
                 params, rewards, plastic_c, n_ticks, carry.state.tick.device,
                 "a learning chunk")
         return self.scan(params, carry, ext_seq, n_ticks, rewards=rewards,
-                         delays=delays, plastic_c=plastic_c, learn_until=learn_until)
+                         delays=delays, plastic_c=plastic_c, learn_until=learn_until,
+                         neighbors=neighbors)
+

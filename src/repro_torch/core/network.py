@@ -5,8 +5,11 @@ synchronous network tick; :func:`rollout` runs many. The tick itself lives
 only in :meth:`repro_torch.core.engine.TickEngine.tick_body`; everything
 here builds an engine and threads a carry through it.
 
-Not ported yet: ``dispatch=`` and ``neighbors=`` (event slice),
-``telemetry=True`` (observability slice); they raise.
+``dispatch=`` picks the event backend's strategy: a
+:class:`~repro_torch.core.dispatch_policy.DispatchPlan`, ``"auto"`` (plan
+here from ``params.c`` and ``params.w_in``, read on the host once), or a
+strategy string (``"fan_in"``, ``"topk"``, ``"dense"``). Not ported yet:
+``telemetry=True`` (observability slice), which raises.
 """
 from __future__ import annotations
 
@@ -17,42 +20,80 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
-from repro_torch.core.engine import LATER, EngineOptions, TickCarry, TickEngine  # noqa: F401
+from repro_torch.core.engine import EngineOptions, TickCarry, TickEngine  # noqa: F401
 from repro_torch.core.lif import LIFParams
 from repro_torch.core.network_types import (  # noqa: F401 (re-exports)
     SNNParams, SNNState, synaptic_input,
 )
 
 
-def _engine(options: Optional[EngineOptions], **kw) -> TickEngine:
+def _resolve_dispatch(dispatch, params: SNNParams, state: SNNState, neighbors):
+    """Turn ``dispatch`` into engine options (+ fan-in lists): a
+    :class:`~repro_torch.core.dispatch_policy.DispatchPlan` is used as it is,
+    ``"auto"`` plans here from ``params.c`` / ``params.w_in`` at the state's
+    batch size, and a strategy string goes to ``event_dispatch``."""
+    from repro_torch.core import dispatch_policy
+
+    if isinstance(dispatch, dispatch_policy.DispatchPlan):
+        plan = dispatch
+    elif dispatch == "auto":
+        batch = 1
+        for d in state.lif.v.shape[:-1]:
+            batch *= int(d)
+        plan = dispatch_policy.plan(params.c, w_in=params.w_in, batch=batch)
+    else:
+        return dict(backend="event", event_dispatch=str(dispatch)), neighbors
+    if neighbors is None:
+        neighbors = plan.neighbors
+    return plan.engine_kwargs(), neighbors
+
+
+def _build_engine(options: Optional[EngineOptions], kw, dispatch, params, state, neighbors):
+    """The one engine-construction point of the wrappers: ``options`` wins
+    over the per-call keywords in ``kw``, and a ``dispatch`` policy lays its
+    event options over either."""
+    dkw = {}
+    if dispatch is not None:
+        dkw, neighbors = _resolve_dispatch(dispatch, params, state, neighbors)
     if options is not None:
         if not isinstance(options, EngineOptions):
             raise TypeError(f"options must be an EngineOptions, got {type(options)}")
-        return TickEngine(options)
-    return TickEngine(EngineOptions(**kw))
+        opts = dataclasses.replace(options, **dkw)
+    else:
+        opts = EngineOptions(**{**kw, **dkw})
+    return TickEngine(opts), neighbors
 
 
 def step(state: SNNState, params: SNNParams, ext: Optional[torch.Tensor] = None, *,
          mode: str = "fixed_leak", surrogate: bool = False,
-         delays: Optional[torch.Tensor] = None, backend: str = "jnp",
-         options: Optional[EngineOptions] = None) -> SNNState:
-    """One synchronous network tick (``ext``: this tick's drive ``(..., n_in)``)."""
-    eng = _engine(options, mode=mode, surrogate=surrogate, backend=backend)
-    return eng.tick(state, params, ext, delays=delays)
+         delays: Optional[torch.Tensor] = None, backend: str = "jnp", neighbors=None,
+         dispatch=None, options: Optional[EngineOptions] = None) -> SNNState:
+    """One synchronous network tick (``ext``: this tick's drive ``(..., n_in)``).
+
+    ``neighbors`` (an :class:`~repro_torch.kernels.ops.EventFanIn`) switches the
+    ``"event"`` backend to its fan-in gather; ``dispatch``: see the module
+    docstring."""
+    eng, neighbors = _build_engine(options, dict(mode=mode, surrogate=surrogate,
+                                                 backend=backend),
+                                   dispatch, params, state, neighbors)
+    return eng.tick(state, params, ext, delays=delays, neighbors=neighbors)
 
 
 def rollout(params: SNNParams, state: SNNState, ext_seq: Optional[torch.Tensor],
             n_ticks: int, *, mode: str = "fixed_leak", surrogate: bool = False,
-            delays: Optional[torch.Tensor] = None, backend: str = "jnp",
-            telemetry: bool = False, options: Optional[EngineOptions] = None):
+            delays: Optional[torch.Tensor] = None, backend: str = "jnp", neighbors=None,
+            telemetry: bool = False, dispatch=None,
+            options: Optional[EngineOptions] = None):
     """Run ``n_ticks`` ticks; returns ``(final_state, raster)``.
 
     ``ext_seq`` is ``(n_ticks, ..., n_in)`` or None; the raster is
     ``(n_ticks, ..., n)``. ``W*C`` is hoisted out of the tick loop.
+    ``neighbors`` / ``dispatch``: see :func:`step`.
     """
-    eng = _engine(options, mode=mode, surrogate=surrogate, backend=backend,
-                  telemetry=telemetry)
-    return eng.rollout(params, state, ext_seq, n_ticks, delays=delays)
+    eng, neighbors = _build_engine(options, dict(mode=mode, surrogate=surrogate,
+                                                 backend=backend, telemetry=telemetry),
+                                   dispatch, params, state, neighbors)
+    return eng.rollout(params, state, ext_seq, n_ticks, delays=delays, neighbors=neighbors)
 
 
 def learning_rollout(params: SNNParams, state: SNNState, plast_state,
@@ -78,26 +119,25 @@ def learning_rollout(params: SNNParams, state: SNNState, plast_state,
       rewards: ``(n_ticks,)`` dopamine on the device; None means zeros.
       plastic_c: learnable-synapse mask; defaults to ``params.c``.
       backend / plasticity_backend: as in the reference; the plasticity
-        backend follows ``backend`` by default (``"pallas_fused"`` and
-        ``"pallas"`` run kernel B5, ``"jnp"`` its plain twin).
-      neighbors, dispatch (event slice) and telemetry (observability slice)
-        raise ``NotImplementedError``.
+        backend follows ``backend`` by default (``"pallas_fused"``,
+        ``"pallas"`` and ``"event"`` run kernel B5, ``"jnp"`` its plain twin).
+      neighbors, dispatch: the event backend's fan-in lists and strategy
+        (see :func:`step`).
+      telemetry (observability slice) raises ``NotImplementedError``.
 
     Returns ``((final_state, final_plast_state, final_w), raster)``. The
     caller's ``params.w`` and ``plast_state`` are never written.
     """
-    if neighbors is not None or dispatch is not None:
-        raise NotImplementedError(LATER["event"])
-    if options is not None:
-        if not isinstance(options, EngineOptions):
-            raise TypeError(f"options must be an EngineOptions, got {type(options)}")
-        if options.plasticity is None and plasticity is not None:
-            options = dataclasses.replace(options, plasticity=plasticity,
-                                          plasticity_backend=plasticity_backend)
-    eng = _engine(options, mode=mode, backend=backend, plasticity=plasticity,
-                  plasticity_backend=plasticity_backend, telemetry=telemetry)
+    if (isinstance(options, EngineOptions) and options.plasticity is None
+            and plasticity is not None):
+        options = dataclasses.replace(options, plasticity=plasticity,
+                                      plasticity_backend=plasticity_backend)
+    eng, neighbors = _build_engine(
+        options, dict(mode=mode, backend=backend, plasticity=plasticity,
+                      plasticity_backend=plasticity_backend, telemetry=telemetry),
+        dispatch, params, state, neighbors)
     return eng.learning_rollout(params, state, plast_state, ext_seq, n_ticks,
-                                rewards=rewards, plastic_c=plastic_c)
+                                rewards=rewards, plastic_c=plastic_c, neighbors=neighbors)
 
 
 def forward_layered(params: SNNParams, spikes_in: torch.Tensor, layer_sizes,

@@ -6,6 +6,11 @@
 //   acc = s @ (w * c)   (mask applied per element, f32 accumulation)
 //   then the shared LIF epilogue (lif_epilogue.cuh) -> v', r', y'.
 //
+// Two options serve the event backend's dense arm (event_dispatch.cu): c may
+// be null, when w is the premasked W*C, and a device gate (run_if) makes every
+// block return at once unless *run_if is set, so the caller can launch B1 and
+// the event kernel each tick and let the device pick the one that writes.
+//
 // What bounds it on this card: the weight bytes. Every tick streams w and c
 // once, 2 * K * N * 4 bytes per slot (128 MiB at K = N = 4096, about 40 us at
 // 3.35 TB/s), against B * K * N multiply-adds, a few per byte at serving batch.
@@ -41,7 +46,7 @@ struct LifStepArgs {
   long long s_slot;
   const float* w;  // (S | 1, K, N)
   long long w_slot;
-  const float* c;  // (S | 1, K, N) connection mask
+  const float* c;  // (S | 1, K, N) connection mask, or null: w is premasked
   long long c_slot;
   const float* v;      // (S, B, N)
   const int* r;        // (S, B, N)
@@ -51,11 +56,13 @@ struct LifStepArgs {
   float* v_out;
   int* r_out;
   float* y_out;
+  const unsigned char* run_if;  // 0-d device flag, or null: always run
   int B, K, N, mode;
 };
 
-template <int BB>
+template <int BB, bool kMasked>
 __global__ void __launch_bounds__(kBlockN) lif_step_kernel(LifStepArgs a) {
+  if (a.run_if != nullptr && !*a.run_if) return;  // the other arm writes this tick
   __shared__ float sh_s[BB][kChunkK];
   const int n = blockIdx.x * kBlockN + threadIdx.x;
   const int b0 = blockIdx.y * BB;
@@ -64,7 +71,7 @@ __global__ void __launch_bounds__(kBlockN) lif_step_kernel(LifStepArgs a) {
   const bool live = n < a.N;
   const float* s = a.s + slot * a.s_slot + static_cast<long long>(b0) * a.K;
   const float* w = a.w + slot * a.w_slot + n;
-  const float* c = a.c + slot * a.c_slot + n;
+  const float* c = kMasked ? a.c + slot * a.c_slot + n : nullptr;
 
   float acc[BB];
 #pragma unroll
@@ -87,11 +94,11 @@ __global__ void __launch_bounds__(kBlockN) lif_step_kernel(LifStepArgs a) {
       for (int u = 0; u < kUnroll; ++u) {
         const long long off = static_cast<long long>(k0 + k + u) * a.N;
         wv[u] = __ldg(w + off);
-        cv[u] = __ldg(c + off);
+        cv[u] = kMasked ? __ldg(c + off) : 1.0f;
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        const float wc = __fmul_rn(wv[u], cv[u]);
+        const float wc = kMasked ? __fmul_rn(wv[u], cv[u]) : wv[u];
 #pragma unroll
         for (int b = 0; b < BB; ++b)
           acc[b] = __fadd_rn(acc[b], __fmul_rn(sh_s[b][k + u], wc));
@@ -99,7 +106,7 @@ __global__ void __launch_bounds__(kBlockN) lif_step_kernel(LifStepArgs a) {
     }
     for (; k < kc; ++k) {
       const long long off = static_cast<long long>(k0 + k) * a.N;
-      const float wc = __fmul_rn(__ldg(w + off), __ldg(c + off));
+      const float wc = kMasked ? __fmul_rn(__ldg(w + off), __ldg(c + off)) : __ldg(w + off);
 #pragma unroll
       for (int b = 0; b < BB; ++b) acc[b] = __fadd_rn(acc[b], __fmul_rn(sh_s[b][k], wc));
     }
@@ -126,7 +133,10 @@ __global__ void __launch_bounds__(kBlockN) lif_step_kernel(LifStepArgs a) {
 template <int BB>
 cudaError_t launch(const LifStepArgs& a, int S, cudaStream_t stream) {
   const dim3 grid((a.N + kBlockN - 1) / kBlockN, (a.B + BB - 1) / BB, S);
-  lif_step_kernel<BB><<<grid, kBlockN, 0, stream>>>(a);
+  if (a.c != nullptr)
+    lif_step_kernel<BB, true><<<grid, kBlockN, 0, stream>>>(a);
+  else
+    lif_step_kernel<BB, false><<<grid, kBlockN, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -138,8 +148,8 @@ extern "C" int repro_lif_step(
     const void* s, long long s_slot, const void* w, long long w_slot, const void* c,
     long long c_slot, const void* v, const void* r, const void* drive, const void* v_th,
     const void* leak, const void* r_ref, const void* gain, const void* i_bias,
-    const void* v_reset, long long row_slot, void* v_out, void* r_out, void* y_out, int S,
-    int B, int K, int N, int mode, void* stream) {
+    const void* v_reset, long long row_slot, void* v_out, void* r_out, void* y_out,
+    const void* run_if, int S, int B, int K, int N, int mode, void* stream) {
   if (S < 1 || B < 1 || N < 1 || K < 0 || S > 65535 || (mode != 0 && mode != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   LifStepArgs a;
@@ -159,6 +169,7 @@ extern "C" int repro_lif_step(
   a.v_out = static_cast<float*>(v_out);
   a.r_out = static_cast<int*>(r_out);
   a.y_out = static_cast<float*>(y_out);
+  a.run_if = static_cast<const unsigned char*>(run_if);
   a.B = B;
   a.K = K;
   a.N = N;

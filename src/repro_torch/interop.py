@@ -8,9 +8,14 @@ a flat dict of numpy arrays keyed by their dotted field path: ``"w"``, ``"c"``
 ``"delay_buf"``, ``"tick"`` for state; ``"x_pre"``, ``"x_post"``, ``"elig"``
 for a ``PlasticityState``; and for a ``TickCarry`` the state's keys under
 ``"state."``, the plasticity state's under ``"plast."`` and ``"w"`` (the two
-learning leaves are absent on a frozen carry). Dtypes are preserved (f32
+learning leaves are absent on a frozen carry), and the knee's hysteresis bit
+as ``"policy"`` when the carry holds one. Dtypes are preserved (f32
 weights and state, int32 ``r`` / ``r_ref`` / ``tick``), so a round trip is
 exact.
+
+The event backend's inputs travel the same way: fan-in lists as the pair
+``(idx, mask)`` of numpy arrays, and a ``DispatchPlan`` as a dict of its
+fields with the lists under ``"neighbors.idx"`` / ``"neighbors.mask"``.
 """
 from __future__ import annotations
 
@@ -89,10 +94,11 @@ def carry_from_numpy(tree: Dict[str, np.ndarray], device=None):
     sub = lambda prefix: {k[len(prefix):]: v for k, v in tree.items()
                           if k.startswith(prefix)}
     state = state_from_numpy(sub("state."), dev)
+    policy = None if tree.get("policy") is None else _to_t(tree["policy"], dev)
     if "w" not in tree:
-        return TickCarry(state=state)
+        return TickCarry(state=state, policy=policy)
     return TickCarry(state=state, plast=plast_from_numpy(sub("plast."), dev),
-                     w=_to_t(tree["w"], dev))
+                     w=_to_t(tree["w"], dev), policy=policy)
 
 
 def carry_to_numpy(carry) -> Dict[str, np.ndarray]:
@@ -100,4 +106,47 @@ def carry_to_numpy(carry) -> Dict[str, np.ndarray]:
     if carry.w is not None:
         out.update({f"plast.{k}": v for k, v in plast_to_numpy(carry.plast).items()})
         out["w"] = _to_np(carry.w)
+    if carry.policy is not None:
+        out["policy"] = _to_np(carry.policy)
+    return out
+
+
+def fan_in_from_numpy(idx, mask, device=None):
+    """An :class:`~repro_torch.kernels.ops.EventFanIn` from the reference's
+    fan-in lists (``idx`` int32, ``mask`` f32, ``(n, cap)`` or per slot)."""
+    from repro_torch.kernels.ops import EventFanIn
+
+    dev = _device.resolve(device)
+    return EventFanIn(idx=_to_t(np.asarray(idx, np.int32), dev),
+                      mask=_to_t(np.asarray(mask, np.float32), dev))
+
+
+def fan_in_to_numpy(fan_in):
+    """``(idx, mask)`` as numpy arrays."""
+    return _to_np(fan_in.idx), _to_np(fan_in.mask)
+
+
+_PLAN_FIELDS = ("strategy", "k_active", "knee", "hysteresis", "ext_diag", "cap", "costs")
+
+
+def plan_from_numpy(tree: Dict, device=None):
+    """A :class:`~repro_torch.core.dispatch_policy.DispatchPlan` from its
+    fields (the fan-in lists, when present, under ``"neighbors.idx"`` and
+    ``"neighbors.mask"``)."""
+    from repro_torch.core.dispatch_policy import DispatchPlan
+
+    neighbors = None
+    if tree.get("neighbors.idx") is not None:
+        neighbors = fan_in_from_numpy(tree["neighbors.idx"], tree["neighbors.mask"], device)
+    return DispatchPlan(neighbors=neighbors, **{k: tree[k] for k in _PLAN_FIELDS})
+
+
+def plan_to_numpy(plan) -> Dict:
+    """The fields of a ``DispatchPlan`` (of either package) as plain values."""
+    out = {k: getattr(plan, k) for k in _PLAN_FIELDS}
+    out["costs"] = dict(out["costs"])
+    if plan.neighbors is not None:
+        host = lambda a: _to_np(a) if isinstance(a, torch.Tensor) else np.asarray(a)
+        out["neighbors.idx"] = host(plan.neighbors.idx)
+        out["neighbors.mask"] = host(plan.neighbors.mask)
     return out

@@ -24,7 +24,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("lif_step.cu", "tick_fused.cu", "stdp_update.cu")
+SOURCES = ("lif_step.cu", "tick_fused.cu", "stdp_update.cu", "event_dispatch.cu")
 HEADERS = ("lif_epilogue.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -37,7 +37,7 @@ SIGNATURES = {
         _P, _L, _P, _L, _P, _L,          # s, w, c (+ slot strides)
         _P, _P, _P,                      # v, r, drive
         _P, _P, _P, _P, _P, _P, _L,      # six rows + row slot stride
-        _P, _P, _P,                      # v_out, r_out, y_out
+        _P, _P, _P, _P,                  # v_out, r_out, y_out, run_if
         _I, _I, _I, _I, _I, _P),         # S, B, K, N, mode, stream
     "repro_tick_fused": (
         _P,                              # slots
@@ -56,6 +56,13 @@ SIGNATURES = {
         _I, _I, _I, _I, _I,              # S, B, K, N, rstdp
         _F, _F, _F, _F, _F, _F, _F, _F,  # a_plus .. w_max
         _P),                             # stream
+    "repro_event_dispatch": (
+        _P, _P, _I,                      # idx, counts (null: walk all), k
+        _P, _L, _I,                      # w, its slot stride, its rows
+        _P, _P, _P,                      # v, r, drive
+        _P, _P, _P, _P, _P, _P, _L,      # six rows + row slot stride
+        _P, _P, _P, _P,                  # v_out, r_out, y_out, skip
+        _I, _I, _I, _I, _P),             # S, B, N, mode, stream
 }
 
 
@@ -190,3 +197,17 @@ def expect_slotted(t, name: str, dtype, shape, S: int, device) -> int:
         return t.stride(0)
     expect(t, name, dtype, shape, device)
     return 0
+
+
+def outputs(out, v, r, slotted: bool):
+    """The ``(v', r', y')`` buffers a tick kernel writes: fresh ones shaped
+    like ``v`` (which already carries its slot axis), or the caller's ``out``
+    checked against ``v`` and ``r`` and seen with a slot axis."""
+    import torch
+
+    if out is None:
+        return torch.empty_like(v), torch.empty_like(r), torch.empty_like(v)
+    lead = (lambda t: t) if slotted else (lambda t: t.unsqueeze(0))
+    for name, t, like in zip(("v_out", "r_out", "y_out"), out, (v, r, v)):
+        expect(lead(t), name, like.dtype, like.shape, like.device)
+    return tuple(lead(t) for t in out)

@@ -11,33 +11,44 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import MODES, LIFStepOut, fused_lif_step_ref
+from repro_torch.kernels.ref import MODES, LIFStepOut, fused_lif_step_ref, write_gated
 
 launches = 0
 
 
 def fused_lif_step(s, w, c, v, r, drive, v_th, leak, r_ref, gain, i_bias, v_reset,
-                   *, mode: str = "fixed_leak") -> LIFStepOut:
+                   *, mode: str = "fixed_leak", run_if=None, out=None) -> LIFStepOut:
     """One fused tick: ``(v', r', y')`` from ``s @ (w*c)`` (+ drive).
 
     Shapes: ``s`` (B, K) and ``v``, ``r``, ``drive`` (B, N) for one network,
     or each with a leading slot axis S; ``w``, ``c`` (K, N), or (S, K, N)
-    per slot; the six per-neuron rows (N,) or (S, N). ``drive`` may be None.
-    f32 everywhere except int32 ``r`` and ``r_ref``. No padding: the kernel
-    bounds-checks its ragged edges.
+    per slot; the six per-neuron rows (N,) or (S, N). ``drive`` may be None,
+    and so may ``c`` when ``w`` is the premasked ``W*C``. f32 everywhere
+    except int32 ``r`` and ``r_ref``. No padding: the kernel bounds-checks
+    its ragged edges.
+
+    ``out`` (a :class:`LIFStepOut` of buffers shaped like ``v``, ``r``,
+    ``v``) receives the result instead of fresh tensors. ``run_if``, a 0-d
+    bool tensor on the device, gates the launch: where it is False the
+    kernel writes nothing and ``out`` (which must then be given) keeps what
+    it held -- the event backend's dense arm, paired with the event kernel's
+    ``skip`` gate on the same flag.
     """
     if mode not in MODES:
         raise ValueError(f"the lif_step kernel supports {MODES}, got {mode!r}")
+    if run_if is not None and out is None:
+        raise ValueError("run_if needs out: a closed gate leaves the outputs as they were")
     if v.device.type == "cpu":
-        return fused_lif_step_ref(s, w, c, v, r, drive, v_th, leak, r_ref, gain,
-                                  i_bias, v_reset, mode=mode)
+        got = fused_lif_step_ref(s, w, c, v, r, drive, v_th, leak, r_ref, gain,
+                                 i_bias, v_reset, mode=mode)
+        return write_gated(got, out, run_if)
     if v.device.type != "cuda":
         raise ValueError(f"fused_lif_step runs on cuda or cpu tensors, got {v.device}")
     return _launch(s, w, c, v, r, drive, (v_th, leak, r_ref, gain, i_bias, v_reset),
-                   mode)
+                   mode, run_if, out)
 
 
-def _launch(s, w, c, v, r, drive, rows, mode) -> LIFStepOut:
+def _launch(s, w, c, v, r, drive, rows, mode, run_if, out) -> LIFStepOut:
     global launches
     slotted = v.dim() == 3
     if not slotted:
@@ -52,16 +63,20 @@ def _launch(s, w, c, v, r, drive, rows, mode) -> LIFStepOut:
     if drive is not None:
         _build.expect(drive, "drive", f32, (S, B, N), dev)
     w_slot = _build.expect_slotted(w, "w", f32, (K, N), S, dev)
-    c_slot = _build.expect_slotted(c, "c", f32, (K, N), S, dev)
+    c_slot = 0 if c is None else _build.expect_slotted(c, "c", f32, (K, N), S, dev)
     row_slot = _build.expect_rows(rows, N, S, dev)
-    v_out, r_out, y_out = torch.empty_like(v), torch.empty_like(r), torch.empty_like(v)
+    if run_if is not None:
+        _build.expect(run_if, "run_if", torch.bool, (), dev)
+    v_out, r_out, y_out = _build.outputs(out, v, r, slotted)
     P = _build.ptr
     err = _build.library().repro_lif_step(
         P(s), s.stride(0), P(w), w_slot, P(c), c_slot, P(v), P(r), P(drive),
-        *(P(p) for p in rows), row_slot, P(v_out), P(r_out), P(y_out),
+        *(P(p) for p in rows), row_slot, P(v_out), P(r_out), P(y_out), P(run_if),
         S, B, K, N, MODES.index(mode), torch.cuda.current_stream(dev).cuda_stream)
     _build.check("lif_step", err)
     launches += 1
+    if out is not None:
+        return out
     if not slotted:
         v_out, r_out, y_out = v_out[0], r_out[0], y_out[0]
     return LIFStepOut(v=v_out, r=r_out, y=y_out)

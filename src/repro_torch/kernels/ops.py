@@ -1,26 +1,57 @@
 """State bridges between the engine's records and the kernel wrappers.
 
 Counterpart of ``repro.kernels.ops`` (``fused_lif_step``, ``fused_tick``,
-``fused_lif_step_slots``). The reference pads every operand to block
-multiples here; the port's kernels bounds-check their ragged edges, so the
-bridges only reshape (views, no copies): the batch dimensions flatten to
-``B``, and a slot axis, when the parameters carry one, stays in front. The
-reference's ``fused_stdp_step`` bridge is only padding, so the port has
-none: :func:`repro_torch.plasticity.rules.plasticity_step` calls kernel B5's
+``fused_lif_step_slots``, and the event backend's ``EventFanIn``,
+``event_synaptic_input``, ``event_spike_matmul`` and ``event_lif_step``).
+The reference pads every operand to block multiples here; the port's
+kernels bounds-check their ragged edges, so the bridges only reshape
+(views, no copies): the batch dimensions flatten to ``B``, and a slot
+axis, when the parameters carry one, stays in front. The reference's
+``fused_stdp_step`` bridge is only padding, so the port has none:
+:func:`repro_torch.plasticity.rules.plasticity_step` calls kernel B5's
 wrapper directly.
+
+The event bridges build the spike list on the device by a stable
+compaction (ascending spiking ids, then the sentinel ``K``), the order the
+reference's tie-stable ``lax.top_k`` gives, with no host round trip. Where
+the reference branches with ``lax.cond`` (overflow fallback, adaptive
+knee), the port launches the dense kernel B1 and the event kernel every
+tick behind one device flag: the one whose gate is open writes the tick.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.core.lif import LIFState
+from repro_torch.core.lif import LIFParams, LIFState, lif_step
+from repro_torch.kernels import event_dispatch as _event_kernel
 from repro_torch.kernels import lif_step as _lif_kernel
 from repro_torch.kernels import tick_fused as _tick_kernel
+from repro_torch.kernels.ref import LIFStepOut, event_gather_sum
+
+OVERFLOW = ("fallback", "strict", "unchecked")
+KERNELS = ("db", "grid")
+ARMS = ("event", "dense on overflow", "dense by the knee")
+
+# A tally the caller may set to a (3,) integer tensor on the tick's device:
+# every top-k tick of :func:`event_lif_step` on the kernel path then adds one
+# to the arm it took (``ARMS``), read from the flag the kernels read, on the
+# device (no host sync). None, the default, costs nothing.
+arm_ticks: Optional[torch.Tensor] = None
 
 _INFERENCE_ONLY = ("the {} backend is inference-only; the surrogate gradient "
                    "arrives with the classifier slice (ROADMAP A.5)")
+
+
+def row_params(lif: LIFParams, slotted: bool) -> LIFParams:
+    """Per-slot rows ``(S, n)`` broadcast against ``(S, B, n)`` as ``(S, 1, n)``."""
+    if not slotted:
+        return lif
+    return LIFParams(**{f.name: getattr(lif, f.name).unsqueeze(-2)
+                        for f in dataclasses.fields(LIFParams)})
 
 
 def slot_count(params) -> Optional[int]:
@@ -119,3 +150,276 @@ def fused_tick(state, params, ext: Optional[torch.Tensor], *,
     if ring2 is None:
         return out, state.delay_buf
     return out, ring2.reshape(state.delay_buf.shape)
+
+
+# -- the event backend ---------------------------------------------------------
+
+
+class EventOverflowError(RuntimeError):
+    """``overflow="strict"``: a row spiked more times than the spike list holds."""
+
+
+@dataclasses.dataclass(frozen=True)
+class EventFanIn:
+    """Padded fan-in lists on the device (the event backend's gather layout).
+
+    ``idx[m, j]`` is the j-th presynaptic source of postsynaptic neuron
+    ``m`` (ascending, 0-padded); ``mask`` gates the padding to 0. Either may
+    carry a leading slot axis ``(S, n, cap)``. Built once per topology from
+    :func:`repro_torch.core.connectivity.padded_fan_in`; like the connection
+    list it is runtime data.
+    """
+
+    idx: torch.Tensor     # (n, cap) int32
+    mask: torch.Tensor    # (n, cap) float32
+
+    @classmethod
+    def from_padded(cls, nbrs, device=None) -> "EventFanIn":
+        """From a :class:`~repro_torch.core.connectivity.PaddedNeighbors`
+        (``device=None``: the card)."""
+        from repro_torch import device as _device
+
+        if nbrs.axis != "in":
+            raise ValueError(
+                f"EventFanIn needs fan-in lists (axis='in'), got {nbrs.axis!r}")
+        dev = _device.resolve(device)
+        return cls(idx=torch.as_tensor(np.asarray(nbrs.idx), dtype=torch.int32, device=dev),
+                   mask=torch.as_tensor(np.asarray(nbrs.mask), dtype=torch.float32,
+                                        device=dev))
+
+    @classmethod
+    def from_dense(cls, c, cap: Optional[int] = None, device=None) -> "EventFanIn":
+        """From a connection list (numpy or a tensor; ``device=None``: ``c``'s
+        device when it is a tensor, else the card)."""
+        from repro_torch.core import connectivity
+        from repro_torch.core.dispatch_policy import _host
+
+        if device is None:
+            device = getattr(c, "device", None)
+        return cls.from_padded(connectivity.padded_fan_in(_host(c) > 0, cap), device=device)
+
+
+def default_k_active(n: int) -> int:
+    """Default spike-slot budget for the top-k event path: n/8, floored at 8
+    (:func:`repro_torch.core.dispatch_policy.resolve_k_active`)."""
+    from repro_torch.core.dispatch_policy import resolve_k_active
+
+    return resolve_k_active(n, None)
+
+
+def spike_list(s: torch.Tensor, k: int):
+    """The spike list of each row of ``s`` (``(..., K)``), on the device.
+
+    Returns ``(idx, counts, n_spiking)``: ``idx`` ``(..., k)`` int32 holds
+    the first ``k`` spiking ids in ascending order, then the sentinel ``K``;
+    ``counts`` the live slots (``min(n_spiking, k)``); ``n_spiking`` every
+    row's spike count. A stable compaction (cumulative sum, then a scatter
+    into a ``(..., k+1)`` buffer whose last slot takes the rest), so nothing
+    is read back to the host; rows past ``k`` truncate as the reference's
+    ``top_k`` does.
+    """
+    K = s.shape[-1]
+    live = s > 0
+    n_spiking = live.sum(-1, dtype=torch.int32)
+    pos = torch.cumsum(live, -1, dtype=torch.int32) - 1
+    target = torch.where(live & (pos < k), pos, k).long()
+    buf = torch.full(s.shape[:-1] + (k + 1,), K, dtype=torch.int32, device=s.device)
+    ids = torch.arange(K, dtype=torch.int32, device=s.device).expand(s.shape)
+    buf.scatter_(-1, target, ids)      # the spare slot k takes every other id
+    return buf[..., :k].contiguous(), torch.clamp_max(n_spiking, k), n_spiking
+
+
+def fan_in_edges(wc: torch.Tensor, fan_in: EventFanIn) -> torch.Tensor:
+    """The per-edge weights ``wc[idx[m, j], m] * mask[m, j]``, ``(S?, n, cap)``
+    (hoisted out of the tick loop on the frozen path)."""
+    n = wc.shape[-1]
+    cols = torch.arange(n, device=wc.device).unsqueeze(-1)
+    idx = fan_in.idx.long()
+    if wc.dim() == 3:
+        slot = torch.arange(wc.shape[0], device=wc.device).reshape(-1, 1, 1)
+        edges = wc[slot, idx, cols]
+    else:
+        edges = wc[idx, cols]
+    return edges * fan_in.mask
+
+
+def fan_in_product(s: torch.Tensor, w_edges: torch.Tensor, fan_in: EventFanIn) -> torch.Tensor:
+    """The fan-in gather: ``syn[..., m] = sum_j s[..., idx[m, j]] * w_edges[m, j]``.
+
+    ``s`` is ``(..., K)`` with shared lists, or ``(S, B, K)`` with per-slot
+    lists ``(S, n, cap)``."""
+    idx = fan_in.idx.long()
+    s = s.to(torch.float32)
+    if idx.dim() == 2:
+        return torch.einsum("...nc,nc->...n", s[..., idx], w_edges.to(torch.float32))
+    S, B, K = s.shape
+    n, cap = idx.shape[-2:]
+    gathered = torch.gather(s.unsqueeze(-2).expand(S, B, n, K), -1,
+                            idx.unsqueeze(1).expand(S, B, n, cap))
+    return torch.einsum("sbnc,snc->sbn", gathered, w_edges.to(torch.float32))
+
+
+def _overflow_check(over: torch.Tensor, k: int, flag: Optional[torch.Tensor]) -> None:
+    """``overflow="strict"``: fold ``over`` into ``flag`` on the device, or,
+    without a flag, raise at once (a host read)."""
+    if flag is not None:
+        flag.logical_or_(over)
+    elif bool(over):
+        raise EventOverflowError(f"event dispatch overflow: spiking rows > k_active={k}")
+
+
+def event_synaptic_input(s: torch.Tensor, wc: torch.Tensor, *,
+                         k_active: Optional[int] = None,
+                         fan_in: Optional[EventFanIn] = None,
+                         overflow: str = "fallback",
+                         w_edges: Optional[torch.Tensor] = None,
+                         take_dense: Optional[torch.Tensor] = None,
+                         overflow_flag: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Event-driven synaptic input, the plain version of the event tick.
+
+    * top-k spike list (default): the (at most ``k_active``) spiking rows of
+      each batch row, in ascending order, gathered from ``wc`` and added one
+      at a time (:func:`repro_torch.kernels.ref.event_gather_sum`).
+    * fan-in gather (``fan_in`` given): every postsynaptic neuron reads its
+      padded in-edge list; ``w_edges`` is the hoisted
+      :func:`fan_in_edges` (derived here when None).
+
+    ``s`` is ``(..., K)`` against ``wc`` ``(K, N)``, or ``(S, B, K)`` against
+    ``(S, K, N)``. ``overflow`` (top-k only) is what happens when a row
+    spikes more than ``k_active`` times: ``"fallback"`` takes the dense
+    product, ``"strict"`` raises :class:`EventOverflowError` (or, given
+    ``overflow_flag``, a 0-d device bool, sets it and lets the caller raise
+    later), ``"unchecked"`` truncates. ``take_dense`` (0-d device bool)
+    forces the dense product, as the adaptive knee does.
+    """
+    if fan_in is not None:
+        return fan_in_product(s, fan_in_edges(wc, fan_in) if w_edges is None else w_edges,
+                              fan_in)
+    if overflow not in OVERFLOW:
+        raise ValueError(f"unknown overflow mode {overflow!r}; have {OVERFLOW}")
+    from repro_torch.core.dispatch_policy import resolve_k_active
+
+    k = resolve_k_active(s.shape[-1], k_active)
+    idx, counts, n_spiking = spike_list(s, k)
+    syn = event_gather_sum(idx, counts, wc, walk="live")
+    over = (n_spiking > k).any()
+    if overflow == "strict":
+        _overflow_check(over, k, overflow_flag)
+    elif overflow == "fallback":
+        take_dense = over if take_dense is None else take_dense | over
+    if take_dense is None:
+        return syn
+    return torch.where(take_dense, s.to(torch.float32) @ wc.to(torch.float32), syn)
+
+
+def event_spike_matmul(s: torch.Tensor, w: torch.Tensor, c: torch.Tensor, *, k_active: int,
+                       overflow: str = "fallback") -> torch.Tensor:
+    """``s @ (w * c)`` through the spike-list gather, exact at any rate
+    under ``overflow="fallback"`` (see :func:`event_synaptic_input`)."""
+    wc = w * c.to(w.dtype)
+    return event_synaptic_input(s, wc, k_active=k_active, overflow=overflow)
+
+
+def event_drive(ext: Optional[torch.Tensor], w_in: torch.Tensor, S: Optional[int],
+                ext_diag: bool):
+    """The external drive as ``(S, B, n)``: ``ext @ w_in``, or with
+    ``ext_diag`` the elementwise ``ext * diag(w_in)``, bit-identical when
+    ``w_in`` is diagonal (adding exact zeros changes no bit)."""
+    if ext is None or not ext_diag:
+        return drive_of(ext, w_in, S)
+    diag = torch.diagonal(w_in, dim1=-2, dim2=-1)
+    return flatten_state(ext, S) * (diag.unsqueeze(-2) if diag.dim() == 2 else diag)
+
+
+def event_lif_step(lif_state: LIFState, spikes: torch.Tensor, params, ext: Optional[torch.Tensor],
+                   wc: torch.Tensor, *, k_active: Optional[int] = None,
+                   fan_in: Optional[EventFanIn] = None, overflow: str = "fallback",
+                   mode: str = "fixed_leak", surrogate: bool = False, ext_diag: bool = False,
+                   use_kernel: Optional[bool] = None, kernel: Optional[str] = None,
+                   w_edges: Optional[torch.Tensor] = None,
+                   wc_sentinel: Optional[torch.Tensor] = None,
+                   take_dense: Optional[torch.Tensor] = None,
+                   overflow_flag: Optional[torch.Tensor] = None) -> LIFState:
+    """``TickEngine(backend="event")``'s datapath: synaptic input from the
+    spike list (or the fan-in lists), drive, LIF step.
+
+    ``use_kernel`` (default: the top-k path without ``surrogate``) runs the
+    top-k path through kernel B3 (``kernel="db"``, the default) or B4
+    (``"grid"``), whose wrappers run their plain twin on CPU tensors. When
+    the tick may go dense -- ``overflow="fallback"`` with a row past
+    ``k_active``, or ``take_dense`` from the adaptive knee -- kernel B1 runs
+    on the premasked ``wc`` behind the same device flag, and exactly one of
+    the two writes the tick. B4 reads ``wc_sentinel``, ``wc`` with an
+    all-zero row appended (built here when None). The fan-in gather and the
+    ``use_kernel=False`` path are plain PyTorch (:func:`event_synaptic_input`).
+    ``w_edges``, ``overflow_flag``: see :func:`event_synaptic_input`.
+    """
+    if use_kernel is None:
+        use_kernel = fan_in is None and not surrogate
+    S = slot_count(params)
+    shape = lif_state.v.shape
+    drive = event_drive(ext, params.w_in, S, ext_diag)
+    flat = lambda a: flatten_state(a, S)
+    s = flat(spikes)
+    if not use_kernel:
+        syn = event_synaptic_input(s, wc, k_active=k_active, fan_in=fan_in,
+                                   overflow=overflow, w_edges=w_edges,
+                                   take_dense=take_dense, overflow_flag=overflow_flag)
+        if drive is not None:
+            syn = syn + drive
+        st = LIFState(v=flat(lif_state.v), r=flat(lif_state.r), y=flat(lif_state.y))
+        out = lif_step(st, syn, row_params(params.lif, S is not None), mode=mode,
+                       surrogate=surrogate)
+        return LIFState(v=out.v.reshape(shape), r=out.r.reshape(shape), y=out.y.reshape(shape))
+    if surrogate:
+        raise ValueError("event kernel path is inference-only; use the jnp path to train")
+    kernel = "db" if kernel is None else kernel
+    if kernel not in KERNELS:
+        raise ValueError(f"kernel must be 'db' or 'grid', got {kernel!r}")
+    if overflow not in OVERFLOW:
+        raise ValueError(f"unknown overflow mode {overflow!r}; have {OVERFLOW}")
+    from repro_torch.core.dispatch_policy import resolve_k_active
+
+    k = resolve_k_active(s.shape[-1], k_active)
+    idx, counts, n_spiking = spike_list(s, k)
+    over = (n_spiking > k).any()
+    gate = take_dense
+    if overflow == "fallback":
+        gate = over if gate is None else gate | over
+    elif overflow == "strict":
+        _overflow_check(over, k, overflow_flag)
+    if arm_ticks is not None:
+        _tally_arm(gate, over)
+    lif = params.lif
+    rows = (lif.v_th, lif.leak, lif.r_ref, lif.gain, lif.i_bias, lif.v_reset)
+    v, r = flat(lif_state.v), flat(lif_state.r)
+    out = None
+    if gate is not None:
+        out = LIFStepOut(v=torch.empty_like(v), r=torch.empty_like(r), y=torch.empty_like(v))
+        _lif_kernel.fused_lif_step(s, wc, None, v, r, drive, *rows, mode=mode,
+                                   run_if=gate, out=out)
+    if kernel == "db":
+        res = _event_kernel.event_lif_dispatch_db(idx, wc, v, r, drive, *rows, counts=counts,
+                                                  mode=mode, skip=gate, out=out)
+    else:
+        if wc_sentinel is None:
+            wc_sentinel = sentinel_rows(wc)
+        res = _event_kernel.event_lif_dispatch(idx, wc_sentinel, v, r, drive, *rows,
+                                               mode=mode, skip=gate, out=out)
+    return LIFState(v=res.v.reshape(shape), r=res.r.reshape(shape), y=res.y.reshape(shape))
+
+
+def _tally_arm(gate: Optional[torch.Tensor], over: torch.Tensor) -> None:
+    """Add this tick's arm to :data:`arm_ticks`: event when the gate is clear
+    (or absent), else dense on overflow or dense by the knee."""
+    if gate is None:
+        arm_ticks[0].add_(1)
+        return
+    arm = torch.stack((~gate, gate & over, gate & ~over))
+    arm_ticks.add_(arm.to(arm_ticks.dtype))
+
+
+def sentinel_rows(wc: torch.Tensor) -> torch.Tensor:
+    """``wc`` with the all-zero sentinel row appended: ``(..., K+1, N)``, the
+    operand kernel B4 reads (built once per rollout by the engine)."""
+    return torch.nn.functional.pad(wc, (0, 0, 0, 1))

@@ -25,10 +25,48 @@ class LIFStepOut(NamedTuple):
     y: torch.Tensor
 
 
-def spike_matmul_ref(s: torch.Tensor, w: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """Masked synaptic product ``s @ (w * c)`` with f32 accumulation."""
-    wc = (w * c.to(w.dtype)).to(torch.float32)
+WALKS = ("live", "all")
+
+
+def spike_matmul_ref(s: torch.Tensor, w: torch.Tensor, c) -> torch.Tensor:
+    """Masked synaptic product ``s @ (w * c)`` with f32 accumulation
+    (``c=None``: ``w`` is already the premasked ``W*C``)."""
+    wc = (w if c is None else w * c.to(w.dtype)).to(torch.float32)
     return s.to(torch.float32) @ wc
+
+
+def event_spike_matmul_ref(s: torch.Tensor, w: torch.Tensor, c: torch.Tensor,
+                           k_active: int) -> torch.Tensor:
+    """Event-driven oracle: the dense product, which the spike-list gather
+    equals whenever no row spikes more than ``k_active`` times."""
+    return spike_matmul_ref(s, w, c)
+
+
+def event_gather_sum(idx: torch.Tensor, counts: torch.Tensor, wc: torch.Tensor, *,
+                     walk: str) -> torch.Tensor:
+    """The spike-list gather: per row, the sum of rows ``idx[..., j]`` of
+    ``wc``, added one slot at a time in ascending slot order from 0.
+
+    ``idx`` is ``(B, k)`` or ``(S, B, k)``, ``counts`` ``(B,)`` or ``(S, B)``,
+    ``wc`` ``(K', N)`` shared or ``(S, K', N)`` per slot. ``walk="live"``
+    stops at ``counts`` (kernel B3: the sentinel tail is never read);
+    ``walk="all"`` adds every slot (kernel B4), so ``wc`` must hold the
+    all-zero sentinel row the tail points at.
+    """
+    if walk not in WALKS:
+        raise ValueError(f"walk must be one of {WALKS}, got {walk!r}")
+    acc = torch.zeros(idx.shape[:-1] + wc.shape[-1:], dtype=torch.float32,
+                      device=wc.device)
+    slot = (torch.arange(wc.shape[0], device=wc.device).reshape(-1, 1)
+            if wc.dim() == 3 else None)
+    for j in range(idx.shape[-1]):
+        rows = idx[..., j].long()
+        live = j < counts
+        if walk == "live":
+            rows = torch.where(live, rows, 0)
+        got = (wc[rows] if slot is None else wc[slot, rows]).to(torch.float32)
+        acc = torch.where(live.unsqueeze(-1), acc + got, acc) if walk == "live" else acc + got
+    return acc
 
 
 def _row(p: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -61,6 +99,27 @@ def fused_lif_step_ref(s, w, c, v, r, drive, v_th, leak, r_ref, gain, i_bias, v_
                        *, mode: str = "fixed_leak") -> LIFStepOut:
     """Twin of kernel B1: ``s @ (w*c)`` (+ drive) then the LIF epilogue."""
     acc = spike_matmul_ref(s, w, c)
+    return lif_epilogue_ref(acc, v, r, drive, v_th, leak, r_ref, gain, i_bias,
+                            v_reset, mode)
+
+
+def write_gated(got: LIFStepOut, out, gate) -> LIFStepOut:
+    """A twin's result as its gated kernel leaves it: written into ``out``
+    where the 0-d bool ``gate`` is open (everywhere without a gate); a kernel
+    whose gate is closed writes nothing."""
+    if out is None:
+        return got
+    for dst, src in zip(out, got):
+        dst.copy_(src if gate is None else torch.where(gate, src, dst))
+    return out
+
+
+def event_lif_dispatch_ref(idx, counts, wc, v, r, drive, v_th, leak, r_ref, gain,
+                           i_bias, v_reset, *, mode: str = "fixed_leak",
+                           walk: str = "live") -> LIFStepOut:
+    """Twin of kernels B3 (``walk="live"``) and B4 (``walk="all"``): the
+    spike-list gather of :func:`event_gather_sum`, then the LIF epilogue."""
+    acc = event_gather_sum(idx, counts, wc, walk=walk)
     return lif_epilogue_ref(acc, v, r, drive, v_th, leak, r_ref, gain, i_bias,
                             v_reset, mode)
 

@@ -14,9 +14,15 @@ for it (its weights come back bit-identical and its mask is never read),
 and the plastic tenant's learned weights are written back after the wave.
 A wave of frozen tenants only runs the frozen rollout (``W*C`` hoisted),
 which gives the same rasters; the reference runs every wave through the
-learning tick. At most one request per plastic tenant rides a wave. The
-event program, telemetry, metrics, continuous admission and the LM server
-arrive with later slices.
+learning tick. At most one request per plastic tenant rides a wave.
+
+With ``event_density`` set, a tenant whose topology is at most that dense
+and whose fan-in fits ``event_cap`` rides a second resident program, the
+event backend's fan-in gather (the reference's event program): admission
+plans it with :func:`repro_torch.core.dispatch_policy.plan` and keeps its
+padded fan-in lists, and waves are backend-homogeneous, one queue per
+program. Telemetry, metrics, continuous admission and the LM server arrive
+with later slices.
 
 Usage (on a machine with an NVIDIA GPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch snn-fused
@@ -36,10 +42,11 @@ import torch.nn.functional as F
 
 from repro_torch import device as _device
 from repro_torch.configs import get_bundle
-from repro_torch.core.engine import LATER, EngineOptions, TickEngine
+from repro_torch.core.engine import EngineOptions, TickEngine
 from repro_torch.core.lif import LIFParams
 from repro_torch.core.network_types import SNNParams, SNNState
-from repro_torch.kernels import lif_step, stdp_update, tick_fused
+from repro_torch.kernels import event_dispatch, lif_step, stdp_update, tick_fused
+from repro_torch.kernels.ops import EventFanIn
 from repro_torch.plasticity import PlasticityParams, PlasticityState
 
 
@@ -91,7 +98,13 @@ _PAD_VTH = 1e30  # padded neurons can never reach threshold
 class Tenant:
     """One resident network: a register image padded onto the fabric
     (neurons past ``n`` carry an unreachable threshold and a zero mask).
-    A plastic tenant learns on its connection list ``params.c``."""
+    A plastic tenant learns on its connection list ``params.c``.
+
+    ``backend`` is the program the tenant rides: the server's default, or
+    ``"event"`` when its topology clears the server's ``event_density``;
+    ``fan_idx`` / ``fan_mask`` then hold its padded fan-in lists,
+    ``(n_max, event_cap)`` so that every event slot stacks to one shape, and
+    ``plan`` the admission's :class:`~repro_torch.core.dispatch_policy.DispatchPlan`."""
 
     name: str
     n: int
@@ -101,6 +114,9 @@ class Tenant:
     params: SNNParams          # fabric-shaped (n_max, ...) on the server's device
     density: float = 1.0
     backend: str = "jnp"
+    fan_idx: Optional[torch.Tensor] = None    # (n_max, event_cap) int32
+    fan_mask: Optional[torch.Tensor] = None   # (n_max, event_cap) float32
+    plan: Optional[object] = None
 
 
 def pad_tenant_params(params: SNNParams, n_max: int) -> SNNParams:
@@ -143,29 +159,33 @@ class SNNServer:
 
     def __init__(self, *, n_max: int, slots: int = 8, max_ticks: int = 32,
                  mode: str = "fixed_leak", backend: str = "jnp", plasticity=None,
-                 event_density: Optional[float] = None, telemetry: bool = False,
-                 options: Optional[EngineOptions] = None, device=None):
+                 event_density: Optional[float] = None, event_cap: Optional[int] = None,
+                 telemetry: bool = False, options: Optional[EngineOptions] = None,
+                 device=None):
         """``device=None`` serves on the CUDA card (raising without one).
         ``plasticity`` is the learning rule of plastic tenants (default: the
-        reference's STDP, ``a_plus=0.5, a_minus=0.25`` on ``[0, 255]``);
-        ``event_density`` and ``telemetry`` belong to later slices and raise
-        when set."""
+        reference's STDP, ``a_plus=0.5, a_minus=0.25`` on ``[0, 255]``).
+        ``event_density``: tenants at most this dense whose fan-in fits
+        ``event_cap`` (default ``n_max // 4``, the width of every event
+        slot's fan-in lists) ride the event program; None disables it.
+        ``telemetry`` belongs to a later slice and raises when set."""
         if options is not None:
             mode, backend, telemetry = options.mode, options.backend, options.telemetry
             plasticity = options.plasticity if plasticity is None else plasticity
-        if event_density is not None:
-            raise NotImplementedError(LATER["event"])
         self.device = _device.resolve(device)
         self.n_max = int(n_max)
         self.slots = int(slots)
         self.max_ticks = int(max_ticks)
         self.backend = backend
+        self.event_density = event_density
+        self.event_cap = int(event_cap or max(1, self.n_max // 4))
         if plasticity is None:
             plasticity = PlasticityParams.make(
                 "stdp", a_plus=0.5, a_minus=0.25, w_min=0.0, w_max=255.0)
-        self.engine = TickEngine(EngineOptions(mode=mode, backend=backend,
-                                               plasticity=plasticity,
-                                               telemetry=telemetry))
+        self._mk_engine = lambda b: TickEngine(EngineOptions(
+            mode=mode, backend=b, plasticity=plasticity, telemetry=telemetry))
+        self.engine = self._mk_engine(backend)
+        self._engines = {backend: self.engine}
         self.tenants: Dict[str, Tenant] = {}
         self._programs = set()   # backends that have run a wave
         self.requests_rejected = 0
@@ -193,9 +213,24 @@ class SNNServer:
                 f"tenant {name!r}: n_in={n_in}, n_out={n_out} must lie in "
                 f"[1, {n}] (the tenant's live neuron count)")
         density = float(params.c.sum()) / max(1, n * n)
+        padded = pad_tenant_params(params, self.n_max)
+        backend, fan_idx, fan_mask, plan = self.backend, None, None, None
+        if self.event_density is not None and density <= self.event_density:
+            from repro_torch.core import dispatch_policy
+
+            # Admission-time plan, on the host, as the reference plans it:
+            # vmap_safe keeps the spike list out of the multi-slot program, and
+            # prefer_density is the operator's contract -- at or below the
+            # threshold a fabric whose fan-in fits the shared cap rides the
+            # event program whatever the modeled cost.
+            plan = dispatch_policy.plan(padded.c, w_in=padded.w_in, cap=self.event_cap,
+                                        vmap_safe=True, prefer_density=self.event_density)
+            if plan.strategy == "fan_in":
+                backend = "event"
+                fan_idx, fan_mask = plan.neighbors.idx, plan.neighbors.mask
         t = Tenant(name=name, n=n, n_in=n_in, n_out=n_out, plastic=plastic,
-                   params=pad_tenant_params(params, self.n_max), density=density,
-                   backend=self.backend)
+                   params=padded, density=density, backend=backend,
+                   fan_idx=fan_idx, fan_mask=fan_mask, plan=plan)
         self.tenants[name] = t
         return t
 
@@ -227,32 +262,57 @@ class SNNServer:
         return (params, torch.from_numpy(ext).to(dev), torch.from_numpy(budget).to(dev),
                 learn_until, rewards)
 
+    def _fan_in(self, reqs: List[ServeRequest]) -> Optional[EventFanIn]:
+        """The ``(S, n_max, event_cap)`` fan-in lists of an event wave's slots
+        (None for a wave of the default program)."""
+        tenants = [self.tenants[r.tenant] for r in reqs]
+        if tenants[0].backend != "event":
+            return None
+        return EventFanIn(idx=torch.stack([t.fan_idx for t in tenants]),
+                          mask=torch.stack([t.fan_mask for t in tenants]))
+
     def _wave_fn(self, params: SNNParams, ext_seq: torch.Tensor, budget: torch.Tensor,
                  learn_until: Optional[torch.Tensor] = None,
-                 rewards: Optional[torch.Tensor] = None):
+                 rewards: Optional[torch.Tensor] = None, *, backend: Optional[str] = None,
+                 neighbors: Optional[EventFanIn] = None):
         """``((S, N) rate-decoded spike counts, (S, N, N) learned weights or
-        None)`` of one wave; ticks at or past a slot's budget run but do not
-        count, and a slot learns (on its ``params.c``) only before its
-        ``learn_until``; None runs the frozen rollout."""
+        None)`` of one wave on ``backend``'s program (default: the server's);
+        ticks at or past a slot's budget run but do not count, and a slot
+        learns (on its ``params.c``) only before its ``learn_until``; None runs
+        the frozen rollout. An event wave passes its slots' fan-in lists."""
         T, N, S = self.max_ticks, self.n_max, self.slots
+        engine = self._engine_for(backend or self.backend)
         st = SNNState.zeros((S,), N, device=self.device)
         if learn_until is None:
             w2 = None
-            _, raster = self.engine.rollout(params, st, ext_seq, T)      # (T, S, N)
+            _, raster = engine.rollout(params, st, ext_seq, T,
+                                       neighbors=neighbors)               # (T, S, N)
         else:
             pst = PlasticityState.zeros((), N, device=self.device, slots=S)
-            (_, _, w2), raster = self.engine.learning_rollout(
-                params, st, pst, ext_seq, T, rewards=rewards, learn_until=learn_until)
+            (_, _, w2), raster = engine.learning_rollout(
+                params, st, pst, ext_seq, T, rewards=rewards, learn_until=learn_until,
+                neighbors=neighbors)
         ticks = torch.arange(T, device=self.device)
         tmask = (ticks[:, None] < budget[None, :]).to(raster.dtype)  # (T, S)
         return (raster * tmask[:, :, None]).sum(dim=0), w2
 
+    def _engine_for(self, backend: str) -> TickEngine:
+        if backend not in self._engines:
+            self._engines[backend] = self._mk_engine(backend)
+        return self._engines[backend]
+
     def run_wave(self, reqs: List[ServeRequest]) -> None:
         """One wave: S register images in, S rate-decoded outputs out, and
-        for plastic tenants the learned weights written back."""
-        counts, w2 = self._wave_fn(*self._assemble(reqs))
+        for plastic tenants the learned weights written back. A wave is
+        backend-homogeneous: it runs one of the resident programs."""
+        backends = {self.tenants[r.tenant].backend for r in reqs}
+        if len(backends) != 1:
+            raise ValueError(f"wave mixes backends {sorted(backends)}")
+        backend = backends.pop()
+        counts, w2 = self._wave_fn(*self._assemble(reqs), backend=backend,
+                                   neighbors=self._fan_in(reqs))
         counts = counts.cpu().numpy()
-        self._programs.add(self.backend)
+        self._programs.add(backend)
         now = time.time()
         for i, r in enumerate(reqs):
             if r.rid < 0:
@@ -307,12 +367,14 @@ class SNNServer:
         """Wave admission over a request queue; returns the stats dict.
 
         Requests naming an unregistered tenant are rejected and counted
-        (``requests_rejected``), never a KeyError mid-wave. Each wave holds
-        up to ``slots`` requests in queue order, but at most ONE request per
-        plastic tenant: two slots learning from the same registers would race
-        on the write-back. A deferred duplicate rides a later wave, which
-        starts from the weights this one learned. A short wave is padded with
-        budget-0 slots.
+        (``requests_rejected``), never a KeyError mid-wave. The queue splits
+        by the tenants' programs (in sorted order, as the reference's does)
+        and each program's queue runs in waves of up to ``slots`` requests in
+        queue order, but at most ONE request per plastic tenant: two slots
+        learning from the same registers would race on the write-back. A
+        deferred duplicate rides a later wave, which starts from the weights
+        this one learned. A short wave is padded with budget-0 slots of the
+        same program.
         """
         rejected = [r for r in requests if r.tenant not in self.tenants]
         requests = [r for r in requests if r.tenant in self.tenants]
@@ -325,24 +387,26 @@ class SNNServer:
                 r.t_submit = now
         done: List[ServeRequest] = []
         waves = 0
-        queue = requests
-        while queue:
-            wave, deferred, plastic_in_wave = [], [], set()
-            for r in queue:
-                t = self.tenants[r.tenant]
-                if len(wave) < self.slots and not (t.plastic and r.tenant in plastic_in_wave):
-                    wave.append(r)
-                    if t.plastic:
-                        plastic_in_wave.add(r.tenant)
-                else:
-                    deferred.append(r)
-            queue = deferred
-            while len(wave) < self.slots:
-                wave.append(ServeRequest(rid=-1, tenant=wave[0].tenant,
-                                         ext=np.zeros((1, 1), np.float32), n_ticks=0))
-            self.run_wave(wave)
-            done.extend(r for r in wave if r.rid >= 0)
-            waves += 1
+        for backend in sorted({self.tenants[r.tenant].backend for r in requests}):
+            queue = [r for r in requests if self.tenants[r.tenant].backend == backend]
+            while queue:
+                wave, deferred, plastic_in_wave = [], [], set()
+                for r in queue:
+                    t = self.tenants[r.tenant]
+                    if len(wave) < self.slots and not (
+                            t.plastic and r.tenant in plastic_in_wave):
+                        wave.append(r)
+                        if t.plastic:
+                            plastic_in_wave.add(r.tenant)
+                    else:
+                        deferred.append(r)
+                queue = deferred
+                while len(wave) < self.slots:
+                    wave.append(ServeRequest(rid=-1, tenant=wave[0].tenant,
+                                             ext=np.zeros((1, 1), np.float32), n_ticks=0))
+                self.run_wave(wave)
+                done.extend(r for r in wave if r.rid >= 0)
+                waves += 1
         t0 = min(r.t_submit for r in done)
         t1 = max(r.t_done for r in done)
         return self._stats(mode="wave", done=done, n_rejected=len(rejected), waves=waves,
@@ -439,16 +503,24 @@ def profiled_serve(server: SNNServer, reqs: List[ServeRequest], out_dir=None) ->
 
 
 def serve_snn_main(cfg, args) -> Dict:
+    # The dense default program plus the event program for sparse tenants:
+    # tenants at or below 20 % density ride the fan-in gather, as the
+    # reference's CLI serves them.
+    backend = "jnp" if cfg.snn_backend == "event" else cfg.snn_backend
     server = SNNServer(n_max=cfg.n_neurons, slots=args.slots, max_ticks=cfg.n_ticks,
-                       mode=cfg.snn_mode, backend=cfg.snn_backend, device=args.device)
+                       mode=cfg.snn_mode, backend=backend, event_density=0.2,
+                       device=args.device)
     names = make_demo_tenants(server, max(8, args.slots))
+    on_event = [n for n in names if server.tenants[n].backend == "event"]
     print(f"serving SNN fabric n_max={server.n_max} on {server.device}: {len(names)} "
-          f"resident tenants, {args.slots} slots, backend {server.backend}")
+          f"resident tenants, {args.slots} slots, backend {server.backend}; "
+          f"event program (fan-in cap {server.event_cap}) for {on_event}")
     n_req = max(args.requests, len(names))
     if args.profile:
         server.serve(make_demo_requests(server, names, n_req, seed=1))   # warm-up
     reqs = make_demo_requests(server, names, n_req)
     lif_step.launches = tick_fused.launches = stdp_update.launches = 0
+    event_dispatch.launches = event_dispatch.launches_db = 0
     if args.profile:
         stats = profiled_serve(server, reqs, args.profile)
     else:
@@ -457,7 +529,9 @@ def serve_snn_main(cfg, args) -> Dict:
         if k != "results":
             print(f"{k}: {v}")
     print(f"kernel launches: tick_fused={tick_fused.launches} "
-          f"lif_step={lif_step.launches} stdp_update={stdp_update.launches}")
+          f"lif_step={lif_step.launches} stdp_update={stdp_update.launches} "
+          f"event_dispatch_db={event_dispatch.launches_db} "
+          f"event_dispatch={event_dispatch.launches}")
     return stats
 
 

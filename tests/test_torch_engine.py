@@ -19,6 +19,7 @@ from repro.core.registers import RegisterBank, WeightLayout
 from repro_torch import interop
 from repro_torch.core import network as t_net
 from repro_torch.core.engine import EngineOptions, TickCarry, TickEngine
+from repro_torch.plasticity import PlasticityParams
 
 ROWS = ("v_th", "leak", "r_ref", "gain", "i_bias", "v_reset")
 BACKENDS = ("jnp", "pallas", "pallas_fused")
@@ -237,19 +238,36 @@ def test_interop_round_trip_is_exact():
         np.testing.assert_array_equal(back[k], v)
 
 
+_EVENT_BAD = {"backend": "events", "plasticity_backend": "events", "event_k_active": 0}
+
+
 @pytest.mark.parametrize("field,value", [
     ("telemetry", True), ("mesh", object()),
     ("backend", "event"), ("plasticity_backend", "event"), ("event_k_active", 4),
     ("surrogate", True),
 ])
 def test_later_slices_raise(field, value):
-    with pytest.raises(NotImplementedError, match="slice"):
-        EngineOptions(**{field: value})
+    """The options of slices not ported yet raise; the event slice's options
+    (ported) now validate, and a bad value raises the reference's
+    ``ValueError``."""
+    if field not in _EVENT_BAD:
+        with pytest.raises(NotImplementedError, match="slice"):
+            EngineOptions(**{field: value})
+        return
+    opts = EngineOptions(**{field: value})
+    assert getattr(opts, field) == value
+    with pytest.raises(ValueError, match=field):
+        EngineOptions(**{field: _EVENT_BAD[field]})
+    j_opts = j_net.EngineOptions(**{field: value})
+    assert getattr(j_opts, field) == value
+    with pytest.raises(ValueError, match=field):
+        j_net.EngineOptions(**{field: _EVENT_BAD[field]})
 
 
 def test_options_validate_and_learning_raises():
     """Invalid options fail at construction; a learning rollout without a
-    learning rule, or with the event slice's arguments, raises."""
+    learning rule, or a fan-in dispatch without fan-in lists, raises the
+    reference's ``ValueError``."""
     with pytest.raises(ValueError):
         EngineOptions(backend="cuda")
     with pytest.raises(ValueError):
@@ -263,8 +281,12 @@ def test_options_validate_and_learning_raises():
     st = t_net.SNNState.zeros((1,), 5, device="cpu")
     with pytest.raises(ValueError, match="plasticity set"):
         TickEngine().learning_rollout(p, st, None, None, 2)
-    with pytest.raises(NotImplementedError, match="event slice"):
-        t_net.learning_rollout(p, st, None, None, 2, neighbors=object())
+    assert EngineOptions(backend="event").plasticity_pass() == "pallas"
+    with pytest.raises(ValueError, match="neighbor lists"):
+        t_net.learning_rollout(p, st, None, None, 2, dispatch="fan_in",
+                               plasticity=PlasticityParams.make("stdp"))
+    with pytest.raises(ValueError, match="event_dispatch"):
+        EngineOptions(backend="event", event_dispatch="sparse")
 
 
 def test_int_mode_runs_on_jnp_and_kernels_refuse_it():

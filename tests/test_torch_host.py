@@ -101,3 +101,41 @@ def test_connectivity_validate_rejects_like_reference():
             t_conn.validate(bad)
         with pytest.raises(ValueError):
             j_conn.validate(bad)
+
+
+@pytest.mark.parametrize("build", [
+    lambda m: m.all_to_all(11),
+    lambda m: m.layered([5, 7, 2]),
+    lambda m: m.sparse_random(40, 0.1, seed=5),
+    lambda m: m.ring(16, k=3),
+    lambda m: np.zeros((6, 6), bool),
+])
+def test_compressed_layouts_byte_equal(build):
+    """CSR, padded neighbour lists and the topology statistics the event
+    backend plans from: equal arrays and equal fields."""
+    c = build(j_conn)
+    t_ptr, t_ind = t_conn.to_csr(c)
+    j_ptr, j_ind = j_conn.to_csr(c)
+    for got, want in ((t_ptr, j_ptr), (t_ind, j_ind)):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(t_conn.csr_to_dense(t_ptr, t_ind, c.shape[0]), c)
+    for name in ("padded_neighbors", "padded_fan_in"):
+        for cap in (None, c.shape[0]):
+            got, want = getattr(t_conn, name)(c, cap), getattr(j_conn, name)(c, cap)
+            assert isinstance(got, t_conn.PaddedNeighbors)
+            for field in ("idx", "mask"):
+                assert getattr(got, field).dtype == getattr(want, field).dtype
+                np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
+            for field in ("cap", "axis", "n_edges", "max_degree", "mean_degree",
+                          "padding_fraction"):
+                assert getattr(got, field) == getattr(want, field), field
+    assert t_conn.stats(c).__dict__ == j_conn.stats(c).__dict__
+    assert isinstance(t_conn.stats(c), t_conn.ConnectivityStats)
+
+
+def test_padded_lists_refuse_to_truncate_like_reference():
+    c = j_conn.all_to_all(8)
+    for mod in (t_conn, j_conn):
+        with pytest.raises(ValueError, match="below max degree"):
+            mod.padded_fan_in(c, 3)

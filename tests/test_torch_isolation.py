@@ -28,7 +28,9 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
     assert {"repro_torch.launch.serve", "repro_torch.kernels.tick_fused",
             "repro_torch.kernels.lif_step", "repro_torch.kernels._build",
             "repro_torch.kernels.stdp_update", "repro_torch.plasticity.stdp",
-            "repro_torch.plasticity.rules", "repro_torch.plasticity.traces"} <= set(mods)
+            "repro_torch.plasticity.rules", "repro_torch.plasticity.traces",
+            "repro_torch.kernels.event_dispatch", "repro_torch.core.dispatch_policy",
+            "repro_torch.configs.snn_event"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -138,8 +138,8 @@ def test_budget_masks_counts(reference):
 def test_plastic_and_later_options_raise(reference):
     """A plastic tenant is accepted: a wave that holds it learns until the
     plastic slot's budget and not at all in the frozen slots (their
-    ``learn_until`` is 0), a frozen-only wave does not learn; the later
-    slices' options raise."""
+    ``learn_until`` is 0), a frozen-only wave does not learn; the event
+    program's options construct and the later slices' options raise."""
     banks = reference[0]
     server = _port_server(banks[:1], "jnp")
     name, bank, n_in, n_out = banks[0]
@@ -153,8 +153,9 @@ def test_plastic_and_later_options_raise(reference):
     assert rewards.shape == (MAX_TICKS, SLOTS) and not rewards.any()
     _, _, _, until, rewards = server._assemble([frozen_req])
     assert until is None and rewards is None
-    with pytest.raises(NotImplementedError, match="event slice"):
-        t_serve.SNNServer(n_max=8, event_density=0.2, device="cpu")
+    sparse_server = t_serve.SNNServer(n_max=8, event_density=0.2, device="cpu")
+    assert (sparse_server.event_density, sparse_server.event_cap) == (0.2, 2)
+    assert sparse_server.backend == "jnp"
     with pytest.raises(NotImplementedError, match="observability slice"):
         t_serve.SNNServer(n_max=8, telemetry=True, device="cpu")
 
@@ -318,3 +319,161 @@ def test_demo_tenants_mark_the_last_plastic():
             want = tt.params.c.numpy() if tt.plastic else 0.0
             np.testing.assert_array_equal(np.asarray(jt.plastic_c), np.broadcast_to(
                 want, jt.plastic_c.shape))
+
+
+# -- the event program ----------------------------------------------------------
+
+
+def _event_banks(seed=0):
+    """The five frozen tenants plus two sparse ones whose fan-in fits the
+    event program's cap (``N_MAX // 4``): a ring and a 10 % random fabric."""
+    rng = np.random.default_rng(seed + 100)
+    out = _banks(seed)
+    for name, c in (("ring-5", connectivity.ring(24, k=1)),
+                    ("sparse-6", connectivity.sparse_random(30, 0.1, seed=6))):
+        n = c.shape[0]
+        bank = RegisterBank(n, weight_layout=WeightLayout.PER_SYNAPSE)
+        bank.set_connection_list(c)
+        bank.set_weights((rng.integers(40, 200, (n, n)) * c).astype(np.uint8))
+        bank.set_thresholds(rng.integers(60, 200, (n,)).astype(np.uint8))
+        bank.set_leak(int(rng.integers(0, 8)))
+        bank.set_refractory(int(rng.integers(0, 3)))
+        out.append((name, bank, n, n))
+    return out
+
+
+def _logged(server):
+    """Record each wave's request ids and its tenants' programs."""
+    waves = []
+    run_wave = server.run_wave
+
+    def run(wave):
+        waves.append(([r.rid for r in wave if r.rid >= 0],
+                      {server.tenants[r.tenant].backend for r in wave}))
+        return run_wave(wave)
+
+    server.run_wave = run
+    return waves
+
+
+@pytest.fixture(scope="module")
+def event_reference():
+    banks = _event_banks()
+    server = j_serve.SNNServer(n_max=N_MAX, slots=SLOTS, max_ticks=MAX_TICKS,
+                               backend="jnp", event_density=0.2)
+    for name, bank, n_in, n_out in banks:
+        server.add_tenant(name, bank, n_in=n_in, n_out=n_out)
+    waves = _logged(server)
+    reqs = _requests(banks, 17, seed=11)
+    made, stats = _serve(j_serve, server, reqs)
+    return banks, reqs, made, stats, waves, server
+
+
+@pytest.mark.parametrize("backend", ["jnp", "pallas", "pallas_fused"])
+def test_event_program_counts_bitwise(event_reference, backend):
+    """With ``event_density=0.2`` the same tenants ride the event program as
+    in the reference, the waves are grouped by program in the same order, and
+    every count and prediction is bitwise the reference's."""
+    banks, reqs, j_made, j_stats, j_waves, j_server = event_reference
+    server = t_serve.SNNServer(n_max=N_MAX, slots=SLOTS, max_ticks=MAX_TICKS,
+                               backend=backend, event_density=0.2, device="cpu")
+    for name, bank, n_in, n_out in banks:
+        server.add_tenant(name, copy.deepcopy(bank), n_in=n_in, n_out=n_out)
+    waves = _logged(server)
+    t_made, t_stats = _serve(t_serve, server, reqs)
+    on_event = sorted(n for n, t in server.tenants.items() if t.backend == "event")
+    assert on_event == sorted(n for n, t in j_server.tenants.items() if t.backend == "event")
+    assert set(on_event) >= {"ring-1", "ring-5", "sparse-6"}
+    relabel = lambda b: "default" if b != "event" else b
+    assert [(ids, {relabel(b) for b in bs}) for ids, bs in waves] == [
+        (ids, {relabel(b) for b in bs}) for ids, bs in j_waves]
+    assert all(len(bs) == 1 for _, bs in waves)
+    for jr, tr in zip(j_made, t_made):
+        np.testing.assert_array_equal(tr.counts, jr.counts, err_msg=str(tr.rid))
+        assert tr.pred == jr.pred
+    assert t_stats["preds"] == j_stats["preds"]
+    assert t_stats["backends"]["event"] == j_stats["backends"]["event"]
+    assert sum(t_stats["backends"].values()) == sum(j_stats["backends"].values())
+    assert t_stats["compiles"] == j_stats["compiles"] == 2
+    for key in ("n_requests", "waves", "ticks", "useful_slot_ticks", "spikes_out"):
+        assert t_stats[key] == j_stats[key], key
+
+
+def test_event_tenants_carry_the_reference_fan_in_lists(event_reference):
+    """Admission plans each sparse tenant as the reference does: the same
+    plan, and ``(n_max, event_cap)`` fan-in lists equal to the reference's."""
+    banks, _, _, _, _, j_server = event_reference
+    server = t_serve.SNNServer(n_max=N_MAX, slots=SLOTS, max_ticks=MAX_TICKS,
+                               event_density=0.2, device="cpu")
+    for name, bank, n_in, n_out in banks:
+        server.add_tenant(name, copy.deepcopy(bank), n_in=n_in, n_out=n_out)
+    for name, jt in j_server.tenants.items():
+        tt = server.tenants[name]
+        assert (tt.plan is None) == (jt.plan is None)
+        if jt.plan is not None:
+            assert tt.plan.strategy == jt.plan.strategy and tt.plan.cap == jt.plan.cap
+        if jt.backend != "event":
+            assert tt.fan_idx is None and tt.fan_mask is None
+            continue
+        assert tt.fan_idx.shape == (N_MAX, server.event_cap) and tt.fan_idx.dtype == torch.int32
+        np.testing.assert_array_equal(tt.fan_idx.numpy(), np.asarray(jt.fan_idx))
+        np.testing.assert_array_equal(tt.fan_mask.numpy(), np.asarray(jt.fan_mask))
+    fan = server._fan_in([t_serve.ServeRequest(rid=0, tenant="ring-1"),
+                          t_serve.ServeRequest(rid=1, tenant="sparse-6")])
+    assert fan.idx.shape == (2, N_MAX, server.event_cap)
+    assert server._fan_in([t_serve.ServeRequest(rid=0, tenant="dense-2")]) is None
+
+
+def test_a_wave_never_mixes_programs(event_reference):
+    banks = event_reference[0]
+    server = t_serve.SNNServer(n_max=N_MAX, slots=2, max_ticks=MAX_TICKS,
+                               event_density=0.2, device="cpu")
+    for name, bank, n_in, n_out in banks[:2]:
+        server.add_tenant(name, copy.deepcopy(bank), n_in=n_in, n_out=n_out)
+    ext = np.ones((2, 20), np.float32)
+    mixed = [t_serve.ServeRequest(rid=0, tenant="layered-0", ext=ext, n_ticks=2),
+             t_serve.ServeRequest(rid=1, tenant="ring-1", ext=ext, n_ticks=2)]
+    with pytest.raises(ValueError, match="mixes backends"):
+        server.run_wave(mixed)
+
+
+@pytest.mark.parametrize("backend", ["jnp", "pallas_fused"])
+def test_plastic_sparse_tenant_learns_on_the_event_program(backend):
+    """A plastic sparse tenant rides the event program and learns there, as
+    in the reference: counts equal, written-back weights within 1e-5."""
+    banks = _event_banks()
+    ring = next(b for b in banks if b[0] == "ring-5")
+    rng = np.random.default_rng(12)
+    reqs = []
+    for i in range(5):
+        ticks = int(rng.integers(4, MAX_TICKS + 1))
+        ext = ((rng.random((ticks, 24)) < 0.5) * rng.integers(80, 255, (ticks, 24))).astype(
+            np.float32)
+        reqs.append((i, "ring-5" if i % 2 == 0 else "sparse-6", ext, ticks))
+    out = {}
+    for mod, kw in ((j_serve, {}), (t_serve, {"device": "cpu", "backend": backend})):
+        server = mod.SNNServer(n_max=N_MAX, slots=SLOTS, max_ticks=MAX_TICKS,
+                               event_density=0.2, **kw)
+        for name, bank, n_in, n_out in banks:
+            server.add_tenant(name, copy.deepcopy(bank), n_in=n_in, n_out=n_out,
+                              plastic=name == "ring-5")
+        made, stats = _serve(mod, server, reqs)
+        out[mod] = (made, stats, np.asarray(server.tenants["ring-5"].params.w),
+                    server.tenants["ring-5"].backend)
+    (j_made, j_stats, j_w, j_b), (t_made, t_stats, t_w, t_b) = out[j_serve], out[t_serve]
+    assert j_b == t_b == "event" and t_stats["waves"] == j_stats["waves"] == 3
+    for jr, tr in zip(j_made, t_made):
+        np.testing.assert_array_equal(tr.counts, jr.counts)
+    w0 = ring[1].weights.astype(np.float32)
+    assert np.abs(t_w[:24, :24] - w0).max() > 1.0, "the ring tenant should learn"
+    np.testing.assert_allclose(t_w, j_w, rtol=1e-5, atol=1e-5)
+
+
+def test_cli_serves_the_event_program(capsys):
+    """The CLI builds its server as the reference's does: the ``snn-event``
+    arch serves on the ``jnp`` default program with ``event_density=0.2``."""
+    stats = t_serve.main(["--arch", "snn-event", "--smoke", "--device", "cpu",
+                          "--slots", "4", "--requests", "8"])
+    out = capsys.readouterr().out
+    assert "backend jnp" in out and "event_dispatch_db=0" in out
+    assert set(stats["backends"]) == {"event", "jnp"} and stats["compiles"] == 2
