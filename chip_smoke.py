@@ -78,7 +78,27 @@ script on any mismatch:
    demo's ring and sparse tenants ride the event program (fan-in gather);
    every frozen tenant's counts and predictions equal the ``jnp`` server's
    without the event program.
-8. a JSON line of the kernels, the card's name and power limit, and the
+8. spike_matmul: kernel B6 against its twin at ``tests/test_kernels.py``'s
+   five sweep shapes, ``predict_int``'s Iris (45 x 4 -> 3) and MNIST
+   (80 x 64 -> 10) products, each in f32 and bf16: normal weights within
+   the reference's tolerance (1e-5 f32, 2e-2 bf16), 0/1 spikes times u8-grid
+   weights bitwise; and one network of 8 rows at K = N = 4096, on the u8
+   grid bitwise and on normal weights (B6 and its twin each within 4 f32
+   ulps of sum(|s| * |w*c|) of the float64 product, per output). Then B6's
+   median time over 30 launches at 8 x 4096 x 4096 f32 with its bound, its
+   twin and ``torch.matmul(s, w*c)``, and profiler device time at the two
+   classifier shapes.
+9. classifiers: the paper's Iris and MNIST-8x8 networks through
+   ``classifier.train``, ``deploy``, ``predict_float`` and ``predict_int``
+   with ``device=None`` (every launch count zeroed just before, read just
+   after: B6 once per ``predict_int``, no other kernel); ``predict_int`` on
+   the card bitwise equal to the CPU's on the same bank and B6's product
+   equal to ``x @ w_int``; the reference's accuracy floors; the model
+   trained on the card and the one trained on the CPU from the same seed
+   give equal test predictions (float and integer), and a 100-epoch fit from
+   one init agrees within 1e-4 on the two. Accuracies and the wall times of
+   ``train`` and ``predict_int`` are logged.
+10. a JSON line of the kernels, the card's name and power limit, and the
    result line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA device is visible or
@@ -157,7 +177,9 @@ def device_ms(fn, runs: int = RUNS) -> float:
     and copy it ran on the card, from ``torch.profiler``'s CUDA trace over
     ``runs`` calls after two warm-up calls. Unlike :func:`median_ms` it
     leaves out the host's launch overhead, which dominates a call shorter
-    than the Python that launches it."""
+    than the Python that launches it. A trace that comes back with no device
+    activity at all (it happened once on the H100, to one ``torch.matmul``
+    trace of the crossover sweep) is taken again, up to three traces."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -165,15 +187,16 @@ def device_ms(fn, runs: int = RUNS) -> float:
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    if us <= 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return us / runs / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / runs / 1e3
+    raise AssertionError("torch.profiler recorded no device time in 3 traces")
 
 
 def nbytes(*ts) -> int:
@@ -1372,6 +1395,296 @@ def run_event_serve_phase(dev):
     return by_backend
 
 
+# ---------------------------------------------------------------------------
+# phase 8: kernel B6 (spike_matmul) against its plain twin, and its times
+# ---------------------------------------------------------------------------
+
+# tests/test_kernels.py's sweep, then predict_int's products (Iris: 45 test
+# samples x 4 levels -> 3 outputs; MNIST: 80 test images x 64 pixels -> 10):
+# normal weights at the reference's tolerance and the u8 grid bitwise. At the
+# snn-fused width (one network of 8 rows) the u8 grid bitwise, and normal
+# weights held to a tolerance set by K: the reference states 1e-5 for its
+# sweep (K <= 1024), and over K = 4096 the sum orders of B6 and cuBLAS differ
+# by a few ulps of sums near 30. There B6 and its twin must each lie within
+# SM_WIDE_ULPS f32 ulps of sum(|s| * |w*c|) of the float64 product, per output.
+SM_SHAPES = ((1, 8, 8), (4, 74, 74), (17, 300, 139), (32, 512, 128), (8, 1024, 256),
+             (45, 4, 3), (80, 64, 10))
+SM_WIDE = (ROWS, N, N)
+SM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # the reference's (tests/test_kernels.py)
+SM_WIDE_ULPS = 4
+
+
+def sm_inputs(gen, dev, B, K, N_, *, u8):
+    """``u8``: 0/1 spikes (rate 0.5) and integer weights in [0, 256), where
+    every sum is exact; else tests/test_kernels.py's draw: spikes at rate 0.2,
+    normal weights. The mask is 0/1 at 0.5 either way."""
+    import torch
+
+    s = (torch.rand((B, K), generator=gen, device=dev) < (0.5 if u8 else 0.2)).float()
+    if u8:
+        w = torch.randint(0, 256, (K, N_), generator=gen, device=dev).float()
+    else:
+        w = torch.randn((K, N_), generator=gen, device=dev)
+    c = (torch.rand((K, N_), generator=gen, device=dev) < 0.5).float()
+    return s, w, c
+
+
+def wide_close(got, s, w, c):
+    """Whether ``got`` lies within ``SM_WIDE_ULPS`` f32 ulps of
+    ``sum(|s| * |w*c|)`` of the float64 product ``s @ (w*c)``, per output,
+    and the largest |error| against that product."""
+    import torch
+
+    sd, wc = s.double(), w.double() * c.double()
+    exact = sd @ wc
+    tol = SM_WIDE_ULPS * torch.finfo(torch.float32).eps * (sd.abs() @ wc.abs())
+    err = (got.double() - exact).abs()
+    return bool((err <= tol).all()), float(err.max())
+
+
+def run_spike_matmul_phase(dev, gen):
+    """B6 against its twin at every shape of ``SM_SHAPES`` in f32 and bf16:
+    normal weights within the reference's tolerance, u8-grid weights
+    bitwise; at ``SM_WIDE`` normal weights against the float64 product at a
+    tolerance set by K. Returns the largest |difference| from the twin over
+    every case."""
+    import torch
+
+    from repro_torch.kernels import ref, spike_matmul
+
+    errs = {}
+    wide = {}
+    cases = 0
+    for B, K, N_ in SM_SHAPES + (SM_WIDE,):
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[1]
+            for u8 in (False, True):
+                s, w, c = (t.to(dt) for t in sm_inputs(gen, dev, B, K, N_, u8=u8))
+                got = spike_matmul.spike_matmul(s, w, c)
+                want = ref.spike_matmul_ref(s, w, c)
+                torch.cuda.synchronize()
+                err = max_abs_err([got], [want])
+                ok = got.dtype == torch.float32 and got.shape == (B, N_)
+                if u8:
+                    ok = ok and torch.equal(got, want)
+                elif (B, K, N_) == SM_WIDE:
+                    (ok_got, e_got), (ok_want, e_want) = (wide_close(x, s, w, c)
+                                                          for x in (got, want))
+                    ok = ok and ok_got and ok_want
+                    wide[name] = (e_got, e_want)
+                else:
+                    ok = ok and torch.allclose(got, want, rtol=SM_TOL[name], atol=SM_TOL[name])
+                if not ok:
+                    raise AssertionError(f"spike_matmul {B}x{K}x{N_} {name} "
+                                         f"{'u8 grid' if u8 else 'normal'}: max |err| {err}")
+                key = "u8 grid" if u8 else name if (B, K, N_) != SM_WIDE else f"wide {name}"
+                errs[key] = max(errs.get(key, 0.0), err)
+                cases += 1
+    log(f"spike_matmul: {cases} cases against the twin: u8 grid bitwise (f32 and bf16), "
+        f"normal weights max |err| f32 {errs['float32']:.3g} (tolerance 1e-5), bf16 "
+        f"{errs['bfloat16']:.3g} (2e-2); shapes "
+        f"{', '.join('x'.join(map(str, s)) for s in SM_SHAPES + (SM_WIDE,))}")
+    log(f"spike_matmul at {'x'.join(map(str, SM_WIDE))} on normal weights: within "
+        f"{SM_WIDE_ULPS} f32 ulps of sum(|s||w*c|) of the float64 product, max |err| "
+        + ", ".join(f"{k} B6 {g:.3g} twin {t:.3g} (B6 - twin {errs['wide ' + k]:.3g})"
+                    for k, (g, t) in wide.items()))
+    return max(errs.values())
+
+
+def time_spike_matmul(dev, gen, card):
+    """B6 at one network of 8 rows, K = N = 4096 in f32 (median of CUDA-event
+    launches), with its bound, its twin and ``torch.matmul(s, w*c)``; then
+    profiler device time at predict_int's shapes, where one launch is shorter
+    than the host's launch overhead."""
+    import torch
+
+    from repro_torch.kernels import ref, spike_matmul
+
+    bw, flops = card
+    s, w, c = sm_inputs(gen, dev, ROWS, N, N, u8=True)
+    wc = w * c
+    t_ms = median_ms(lambda: spike_matmul.spike_matmul(s, w, c))
+    p_ms = median_ms(lambda: ref.spike_matmul_ref(s, w, c))
+    l_ms = median_ms(lambda: torch.matmul(s, wc))
+    moved = nbytes(s, w, c) + ROWS * N * 4          # every input once, the f32 output once
+    ops = 2 * ROWS * N * N + N * N                   # multiply-adds and the mask multiply
+    bound = max(moved / bw, ops / flops) * 1e3
+    row = {"ms": t_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": bound,
+           "bound_by": "bytes" if moved / bw >= ops / flops else "operations"}
+    log(f"time spike_matmul: {t_ms:.4f} ms (bound {bound:.4f} ms for {moved / 1e6:.1f} MB, "
+        f"plain {p_ms:.4f} ms, torch.matmul(s, w*c) {l_ms:.4f} ms) at B={ROWS} K=N={N} f32")
+    del s, w, c, wc
+    for B, K, N_ in SM_SHAPES[5:]:
+        s, w, c = sm_inputs(gen, dev, B, K, N_, u8=True)
+        wc = w * c
+        tiny = [device_ms(fn) for fn in (lambda: spike_matmul.spike_matmul(s, w, c),
+                                         lambda: ref.spike_matmul_ref(s, w, c),
+                                         lambda: torch.matmul(s, wc))]
+        log(f"time spike_matmul at B={B} K={K} N={N_}: {tiny[0]:.4f} ms device time "
+            f"(bound {max(nbytes(s, w, c) + B * N_ * 4, 1) / bw * 1e3:.6f} ms; plain "
+            f"{tiny[1]:.4f} ms, torch.matmul {tiny[2]:.4f} ms)")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the paper's classifiers on the card (Iris §III.A, MNIST §III.B)
+# ---------------------------------------------------------------------------
+
+CLASSIFIERS = ("iris", "mnist")
+FIT_EPOCHS = 100   # the card's fit and the CPU's from one init, held to FIT_TOL
+FIT_TOL = 1e-4
+# The reference's accuracy floors (tests/test_e2e_iris.py, test_e2e_mnist.py).
+FLOORS = {"iris": {"float train": 0.90, "int test": 0.85, "float/int agreement": 0.9},
+          "mnist": {"float train": 0.9, "int test": 0.8, "min per class": 0.5}}
+
+
+def kernel_launches() -> dict:
+    """Every kernel wrapper's launch count."""
+    from repro_torch.kernels import event_dispatch, lif_step, spike_matmul, stdp_update, tick_fused
+
+    return {"tick_fused": tick_fused.launches, "lif_step": lif_step.launches,
+            "stdp_update": stdp_update.launches, "event_dispatch_db": event_dispatch.launches_db,
+            "event_dispatch": event_dispatch.launches, "spike_matmul": spike_matmul.launches}
+
+
+def zero_launches() -> None:
+    from repro_torch.kernels import event_dispatch, lif_step, spike_matmul, stdp_update, tick_fused
+
+    tick_fused.launches = lif_step.launches = stdp_update.launches = 0
+    event_dispatch.launches = event_dispatch.launches_db = spike_matmul.launches = 0
+
+
+def classifier_data(name):
+    """The e2e tests' pipelines: Iris level-encoded (4 levels), a 0.3 test
+    split; MNIST-8x8 binarized to 64 spikes, 40 images per digit, a fifth
+    held out."""
+    import torch
+
+    from repro_torch.core import encoding
+    from repro_torch.data import iris, mnist
+
+    if name == "iris":
+        x, y = iris.load(seed=0)
+        levels = encoding.level_encode(torch.from_numpy(iris.normalize(x)), levels=4).numpy()
+        return iris.train_test_split(levels, y, test_frac=0.3)
+    x, y = mnist.load(n_per_class=40, seed=0)
+    s = mnist.to_spikes(x)
+    n_test = len(y) // 5
+    return (s[n_test:], y[n_test:]), (s[:n_test], y[:n_test])
+
+
+def run_classifier_phase(dev):
+    """``train``, ``deploy``, ``predict_float`` and ``predict_int`` with
+    ``device=None`` for Iris and MNIST (the main path: every launch count is
+    zeroed just before and read just after; B6 must launch once per
+    ``predict_int`` and nothing else at all). Then, off the path: the card's
+    ``predict_int`` bitwise equal to the CPU's on the same deployed bank; the
+    card-trained model against the CPU-trained one of the same seed (equal
+    test predictions, float and integer); a ``FIT_EPOCHS`` fit from one init
+    on both within ``FIT_TOL``; the reference's floors; wall times. Returns
+    B6's launches on the path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_bundle
+    from repro_torch.core import classifier as clf
+    from repro_torch.kernels import spike_matmul
+
+    try:
+        one = torch.ones((2, 2), dtype=torch.int32, device=dev)
+        torch.matmul(one, one)
+        log("int32 torch.matmul on the card: accepted by this torch build")
+    except RuntimeError as exc:
+        log(f"int32 torch.matmul on the card: refused ({str(exc).splitlines()[0]})")
+
+    data = {name: classifier_data(name) for name in CLASSIFIERS}
+    runs = {}
+    torch.cuda.synchronize()
+    zero_launches()
+    for name in CLASSIFIERS:
+        cfg = get_bundle(f"{name}-snn").model
+        (xtr, ytr), (xte, yte) = data[name]
+        t0 = time.perf_counter()
+        model = clf.train(xtr, ytr, cfg)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        dep = clf.deploy(model, n_neurons=cfg.n_neurons)
+        pf_train, pf_test = clf.predict_float(model, xtr), clf.predict_float(model, xte)
+        before = spike_matmul.launches
+        pi = clf.predict_int(dep, xte)
+        if spike_matmul.launches != before + 1:
+            raise AssertionError(f"classifier {name}: predict_int launched B6 "
+                                 f"{spike_matmul.launches - before} times, not once")
+        runs[name] = (cfg, model, dep, pf_train, pf_test, pi, t_train)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    expected = dict.fromkeys(launches, 0)
+    expected["spike_matmul"] = len(CLASSIFIERS)
+    if launches != expected:
+        raise AssertionError(f"classifier path: launches {launches}, expected {expected}")
+
+    for name, (cfg, model, dep, pf_train, pf_test, pi, t_train) in runs.items():
+        (xtr, ytr), (xte, yte) = data[name]
+        pi_cpu = clf.predict_int(dep, xte, device="cpu")
+        if pi.dtype != pi_cpu.dtype or not np.array_equal(pi, pi_cpu):
+            raise AssertionError(f"classifier {name}: predict_int on the card != on the CPU")
+        syn = clf.synaptic_input(dep, xte).cpu()
+        if not torch.equal(syn, torch.from_numpy(np.asarray(xte, np.int32) @ dep.w_int)):
+            raise AssertionError(f"classifier {name}: B6's product != x @ w_int")
+        acc = {"float train": clf.accuracy(pf_train, ytr), "int test": clf.accuracy(pi, yte)}
+        if name == "iris":
+            acc["float/int agreement"] = float((pf_test == pi).mean())
+        else:
+            acc["min per class"] = min(float((pi[yte == d] == d).mean()) for d in range(10))
+        short = {k: v for k, v in acc.items() if v < FLOORS[name][k]}
+        if short:
+            raise AssertionError(f"classifier {name}: below the reference's floors {short} "
+                                 f"(floors {FLOORS[name]})")
+        # The CPU-trained model of the same seed.
+        t0 = time.perf_counter()
+        model_cpu = clf.train(xtr, ytr, cfg, device="cpu")
+        t_cpu = time.perf_counter() - t0
+        dep_cpu = clf.deploy(model_cpu, n_neurons=cfg.n_neurons, device="cpu")
+        same_f = np.array_equal(pf_test, clf.predict_float(model_cpu, xte, device="cpu"))
+        same_i = np.array_equal(pi, clf.predict_int(dep_cpu, xte, device="cpu"))
+        if not (same_f and same_i):
+            raise AssertionError(f"classifier {name}: the card-trained model's test "
+                                 f"predictions differ from the CPU-trained one's (float "
+                                 f"{same_f}, int {same_i})")
+        dw = float(np.abs(model.w - model_cpu.w).max())
+        db = float(np.abs(model.bias - model_cpu.bias).max())
+        same_bytes = dep.bank.serialize() == dep_cpu.bank.serialize()
+        # One short fit from one init on both devices.
+        n_in, n_out = cfg.layer_sizes
+        fits = []
+        for d in (dev, torch.device("cpu")):
+            xd = torch.as_tensor(np.asarray(xtr, np.float32), device=d)
+            yd = torch.as_tensor(np.asarray(ytr), dtype=torch.int64, device=d)
+            fits.append(clf._fit(clf.init_raw(n_in, n_out, 0, d), xd, yd, FIT_EPOCHS, 0.1))
+        fit_err = max(max_abs_err([fits[0][k].cpu()], [fits[1][k]]) for k in ("w", "b"))
+        if not all(torch.allclose(fits[0][k].cpu(), fits[1][k], rtol=FIT_TOL, atol=FIT_TOL)
+                   for k in ("w", "b")):
+            raise AssertionError(f"classifier {name}: a {FIT_EPOCHS}-epoch fit on the card "
+                                 f"differs from the CPU's by {fit_err} (tolerance {FIT_TOL})")
+        walls = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            clf.predict_int(dep, xte)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        log(f"classifier {name} ({cfg.layer_sizes[0]}->{cfg.layer_sizes[1]}, "
+            f"{dep.bank.n} neurons, {len(yte)} test samples): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in acc.items())
+            + f"; predict_int card == CPU bitwise, 1 B6 launch; train {t_train:.2f} s on the "
+            f"card ({t_cpu:.2f} s on the CPU), predict_int {statistics.median(walls) * 1e3:.3f} "
+            f"ms wall (median of 10); CPU-trained model of seed 0: test predictions equal, "
+            f"max |dw| {dw:.3g}, |dbias| {db:.3g}, v_th {model.v_th:.6f} vs "
+            f"{model_cpu.v_th:.6f}, register bytes {'equal' if same_bytes else 'differ'}; "
+            f"{FIT_EPOCHS}-epoch fit card vs CPU max |err| {fit_err:.3g} (tolerance {FIT_TOL})")
+    return launches["spike_matmul"]
+
+
 def np_equal(a, b) -> bool:
     import numpy as np
 
@@ -1417,6 +1730,9 @@ def main() -> int:
     launches["event_dispatch_db"], launches["event_dispatch"] = run_event_rollout_phase(dev, gen)
     event_learn = run_event_learning(dev, gen)
     event_waves = run_event_serve_phase(dev)
+    errs["spike_matmul"] = run_spike_matmul_phase(dev, gen)
+    timed["spike_matmul"] = time_spike_matmul(dev, gen, card)
+    launches["spike_matmul"] = run_classifier_phase(dev)
     if min(launches.values()) < 1 or min(learn_launches.values()) < 1 \
             or frozen_launches["tick_fused"] < 1 or min(event_learn.values()) < 1:
         raise AssertionError(f"a kernel of a path never launched: serve and rollouts "
@@ -1432,6 +1748,8 @@ def main() -> int:
                               "src/repro/kernels/event_dispatch.py:300"),
         "event_dispatch": ("src/repro_torch/csrc/event_dispatch.cu",
                            "src/repro/kernels/event_dispatch.py:187"),
+        "spike_matmul": ("src/repro_torch/csrc/spike_matmul.cu",
+                         "src/repro/kernels/spike_matmul.py:26"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
@@ -1442,7 +1760,8 @@ def main() -> int:
         f"{launches['stdp_update']} (serve), lif_step {launches['lif_step']} (pallas "
         f"rollouts), event_dispatch_db {launches['event_dispatch_db']} (snn-event topk "
         f"rollout), event_dispatch {launches['event_dispatch']} (snn-event topk rollout on "
-        f"B4); frozen-only serve {frozen_launches}; learning rollouts {learn_launches}; "
+        f"B4), spike_matmul {launches['spike_matmul']} (one per predict_int, Iris and "
+        f"MNIST); frozen-only serve {frozen_launches}; learning rollouts {learn_launches}; "
         f"event learning {event_learn}; event serve waves {event_waves}; B2 streaming w "
         f"and c {b2_streamed_ms:.4f} ms")
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """Architecture registry: each ``--arch`` id maps to an ArchBundle.
 
 Counterpart of ``repro.configs``, registering only the SNN configs the
-port can run so far: ``snn-fused``, ``snn`` and ``snn-event``.
+port can run so far: ``snn-fused``, ``snn`` and ``snn-event`` (served),
+``iris-snn`` and ``mnist-snn`` (the paper's classifiers).
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ def register(name):
 
 def get_bundle(name: str) -> ArchBundle:
     if name not in _REGISTRY:
-        from repro_torch.configs import snn_event, snn_fused, snn_serve  # noqa: F401 (registers)
+        from repro_torch.configs import (  # noqa: F401 (registers)
+            iris_snn, mnist_snn, snn_event, snn_fused, snn_serve)
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]()

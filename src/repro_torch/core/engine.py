@@ -37,8 +37,11 @@ exactly one of them, so the tick loop still never reads back to the host.
 The hysteresis bit rides the carry as a device bool. ``overflow="strict"``
 accumulates a device flag and raises once, after the loop.
 
-Telemetry and the sharded mesh arrive with later slices; asking for them
-raises ``NotImplementedError``.
+``surrogate=True`` (surrogate-gradient BPTT) runs on ``"jnp"`` and on the
+event backend's plain path; the kernel backends raise the reference's
+``ValueError`` ("inference-only") at the tick. Telemetry and the sharded
+mesh arrive with later slices; asking for them raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -61,8 +64,6 @@ _DISPATCH = ("auto", "fan_in", "topk", "dense")
 LATER = {
     "telemetry": "telemetry arrives with the observability slice (ROADMAP A.9)",
     "mesh": "the sharded fabric arrives with the sharding slice (ROADMAP A.11)",
-    "surrogate": "surrogate-gradient training arrives with the classifier slice "
-                 "(ROADMAP A.5)",
 }
 
 
@@ -158,7 +159,7 @@ class EngineOptions:
         if not (0.0 < float(self.event_hysteresis) <= 1.0):
             raise ValueError("event_hysteresis is a release *fraction* of the knee and "
                              f"must lie in (0, 1], got {self.event_hysteresis}")
-        for name in ("telemetry", "mesh", "surrogate"):
+        for name in ("telemetry", "mesh"):
             if getattr(self, name) not in (None, False):
                 raise NotImplementedError(LATER[name])
 
@@ -273,7 +274,7 @@ class TickEngine:
         if backend == "pallas_fused":
             lif_state, delay_buf = ops.fused_tick(
                 st, p, ext, wc=wc, delays=delays, mode=opts.mode,
-                ring_out=ring_out)
+                surrogate=opts.surrogate, ring_out=ring_out)
             state2 = SNNState(lif=lif_state, delay_buf=delay_buf, tick=st.tick + 1)
             return self._tick_tail(carry, st, state2, reward, params, plastic_c,
                                    learn_until, in_place)
@@ -288,7 +289,7 @@ class TickEngine:
                         if D > 1 else st.lif.y)
             if backend == "pallas":
                 lif_state = ops.fused_lif_step(st.lif, arriving, p, ext,
-                                               mode=opts.mode)
+                                               mode=opts.mode, surrogate=opts.surrogate)
             elif backend == "event":
                 if event is None:
                     event = self.prepare_event(params, wc, neighbors, learning=learning)
@@ -356,7 +357,8 @@ class TickEngine:
             syn = ops.flatten_state(arriving, S).to(wc.dtype) @ wc
             drive = ops.event_drive(ext, params.w_in, S, opts.event_ext_diag)
             return self._lif(st, syn if drive is None else syn + drive, params, None, S), None
-        kw = dict(mode=opts.mode, ext_diag=opts.event_ext_diag, kernel=opts.event_kernel)
+        kw = dict(mode=opts.mode, surrogate=opts.surrogate, ext_diag=opts.event_ext_diag,
+                  kernel=opts.event_kernel)
         if ev.strategy == "fan_in":
             return ops.event_lif_step(st.lif, arriving, params, ext, wc, fan_in=ev.fan_in,
                                       w_edges=ev.w_edges, **kw), None
@@ -411,7 +413,7 @@ class TickEngine:
         flat = dataclasses.replace(
             st.lif, **{f: ops.flatten_state(getattr(st.lif, f), S) for f in "vry"})
         out = lif_step(flat, syn, ops.row_params(params.lif, S is not None),
-                       mode=self.options.mode)
+                       mode=self.options.mode, surrogate=self.options.surrogate)
         return dataclasses.replace(
             out, **{f: getattr(out, f).reshape(shape) for f in "vry"})
 

@@ -3,9 +3,8 @@
 Counterpart of ``repro.core.lif``: the paper's Euler model (Eq. 1-4), the
 fixed-leak hardware model (Eq. 5) and the integer datapath, as plain
 functions on tensors with arbitrary leading (batch) dimensions.
-
-Only the hard spike is ported: ``surrogate=True`` is training, which
-arrives with the classifier slice, and raises here.
+``surrogate=True`` spikes through :func:`~repro_torch.core.surrogate.spike_surrogate`
+(Heaviside forward, fast-sigmoid backward), for BPTT.
 """
 from __future__ import annotations
 
@@ -14,10 +13,7 @@ import dataclasses
 import torch
 
 from repro_torch import device as _device
-
-_SURROGATE_LATER = (
-    "surrogate=True is training; the port's classifier slice (ROADMAP A.5) "
-    "brings the surrogate spike")
+from repro_torch.core.surrogate import spike_surrogate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,10 +87,13 @@ class LIFState:
 
 
 def _threshold_reset_refractory(v_tilde, state: LIFState, params: LIFParams,
-                                *, reset: str = "zero") -> LIFState:
+                                *, surrogate: bool = False, reset: str = "zero") -> LIFState:
     """Paper Eq. 2-4: spike, reset, refractory-counter update."""
     not_refractory = state.r == 0
-    y = ((v_tilde >= params.v_th) & not_refractory).to(v_tilde.dtype)
+    if surrogate:
+        y = spike_surrogate(v_tilde - params.v_th) * not_refractory.to(v_tilde.dtype)
+    else:
+        y = ((v_tilde >= params.v_th) & not_refractory).to(v_tilde.dtype)
     spiked = y > 0
     v_reset = params.v_reset.to(v_tilde.dtype)
     if reset == "subtract":
@@ -111,11 +110,10 @@ def _threshold_reset_refractory(v_tilde, state: LIFState, params: LIFParams,
 def lif_step_euler(state: LIFState, syn_input: torch.Tensor, params: LIFParams,
                    *, surrogate: bool = False, reset: str = "zero") -> LIFState:
     """One tick of the Euler LIF model (paper Eq. 1-4)."""
-    if surrogate:
-        raise NotImplementedError(_SURROGATE_LATER)
     decay = (1.0 - params.leak).to(state.v.dtype)
     v_tilde = decay * state.v + params.gain * (syn_input + params.i_bias)
-    return _threshold_reset_refractory(v_tilde, state, params, reset=reset)
+    return _threshold_reset_refractory(v_tilde, state, params, surrogate=surrogate,
+                                       reset=reset)
 
 
 def lif_step_fixed_leak(state: LIFState, syn_input: torch.Tensor, params: LIFParams,
@@ -125,12 +123,11 @@ def lif_step_fixed_leak(state: LIFState, syn_input: torch.Tensor, params: LIFPar
     ``v' = v + sum_j w_j s_j - lambda * 1{v != 0}``, with the leak
     contribution clamped so that the leak alone never crosses rest.
     """
-    if surrogate:
-        raise NotImplementedError(_SURROGATE_LATER)
     active = (state.v != 0).to(state.v.dtype)
     leak_step = torch.minimum(params.leak * active, torch.abs(state.v))
     v_tilde = state.v + syn_input + params.i_bias - torch.sign(state.v) * leak_step
-    return _threshold_reset_refractory(v_tilde, state, params, reset=reset)
+    return _threshold_reset_refractory(v_tilde, state, params, surrogate=surrogate,
+                                       reset=reset)
 
 
 def lif_step_int(state: LIFState, syn_input: torch.Tensor, params: LIFParams,

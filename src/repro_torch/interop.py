@@ -16,6 +16,9 @@ exact.
 The event backend's inputs travel the same way: fan-in lists as the pair
 ``(idx, mask)`` of numpy arrays, and a ``DispatchPlan`` as a dict of its
 fields with the lists under ``"neighbors.idx"`` / ``"neighbors.mask"``.
+The classifier's models too: a ``TrainedSNN`` as its arrays and scalars, a
+``DeployedSNN`` with its register bank as the ``serialize()`` byte stream
+plus the device-local bias register.
 """
 from __future__ import annotations
 
@@ -150,3 +153,50 @@ def plan_to_numpy(plan) -> Dict:
         out["neighbors.idx"] = host(plan.neighbors.idx)
         out["neighbors.mask"] = host(plan.neighbors.mask)
     return out
+
+
+_TRAINED_SCALARS = {"v_th": float, "n_ticks": int, "leak": float, "r_ref": int}
+_DEPLOYED_ARRAYS = ("w_int", "th_int", "b_int")
+
+
+def trained_to_numpy(model) -> Dict:
+    """A ``TrainedSNN`` (of either package) as ``{"w", "bias"}`` float32
+    arrays and its four scalars."""
+    out = {"w": np.array(model.w, np.float32), "bias": np.array(model.bias, np.float32)}
+    out.update({k: cast(getattr(model, k)) for k, cast in _TRAINED_SCALARS.items()})
+    return out
+
+
+def trained_from_numpy(tree: Dict):
+    """The port's :class:`~repro_torch.core.classifier.TrainedSNN` (host
+    arrays, as the reference keeps them)."""
+    from repro_torch.core.classifier import TrainedSNN
+
+    return TrainedSNN(w=np.array(tree["w"], np.float32), bias=np.array(tree["bias"], np.float32),
+                      **{k: cast(tree[k]) for k, cast in _TRAINED_SCALARS.items()})
+
+
+def deployed_to_numpy(dep) -> Dict:
+    """A ``DeployedSNN`` (of either package): its bank as the UART stream
+    (``"bank"``, the ``serialize()`` bytes) plus the device-local ``"bias"``
+    register, the bank's size and layout, the reconstructed integer network
+    and ``scale`` / ``n_ticks``."""
+    out = {"bank": dep.bank.serialize(), "bias": np.array(dep.bank.bias, np.uint8),
+           "n": int(dep.bank.n), "weight_layout": str(dep.bank.weight_layout.value),
+           "scale": float(dep.scale), "n_ticks": int(dep.n_ticks)}
+    out.update({k: np.array(getattr(dep, k), np.int32) for k in _DEPLOYED_ARRAYS})
+    return out
+
+
+def deployed_from_numpy(tree: Dict):
+    """The port's :class:`~repro_torch.core.classifier.DeployedSNN`: the bank
+    reloaded from its stream (``load_bytes``) with the bias register set
+    after the reload, as ``deploy`` does."""
+    from repro_torch.core.classifier import DeployedSNN
+    from repro_torch.core.registers import RegisterBank, WeightLayout
+
+    bank = RegisterBank(tree["n"], weight_layout=WeightLayout(tree["weight_layout"]))
+    bank.load_bytes(tree["bank"])
+    bank.set_bias(tree["bias"])
+    return DeployedSNN(bank=bank, scale=float(tree["scale"]), n_ticks=int(tree["n_ticks"]),
+                       **{k: np.array(tree[k], np.int32) for k in _DEPLOYED_ARRAYS})

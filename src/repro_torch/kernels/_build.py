@@ -24,7 +24,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("lif_step.cu", "tick_fused.cu", "stdp_update.cu", "event_dispatch.cu")
+SOURCES = ("lif_step.cu", "tick_fused.cu", "stdp_update.cu", "event_dispatch.cu",
+           "spike_matmul.cu")
 HEADERS = ("lif_epilogue.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -63,6 +64,9 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _L,      # six rows + row slot stride
         _P, _P, _P, _P,                  # v_out, r_out, y_out, skip
         _I, _I, _I, _I, _P),             # S, B, N, mode, stream
+    "repro_spike_matmul": (
+        _P, _P, _P, _P,                  # s, w, c, out
+        _I, _I, _I, _I, _I, _P),         # B, K, N, s_bf16, w_bf16, stream
 }
 
 

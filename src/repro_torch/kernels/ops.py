@@ -1,7 +1,7 @@
 """State bridges between the engine's records and the kernel wrappers.
 
-Counterpart of ``repro.kernels.ops`` (``fused_lif_step``, ``fused_tick``,
-``fused_lif_step_slots``, and the event backend's ``EventFanIn``,
+Counterpart of ``repro.kernels.ops`` (``spike_matmul``, ``fused_lif_step``,
+``fused_tick``, ``fused_lif_step_slots``, and the event backend's ``EventFanIn``,
 ``event_synaptic_input``, ``event_spike_matmul`` and ``event_lif_step``).
 The reference pads every operand to block multiples here; the port's
 kernels bounds-check their ragged edges, so the bridges only reshape
@@ -29,6 +29,7 @@ import torch
 from repro_torch.core.lif import LIFParams, LIFState, lif_step
 from repro_torch.kernels import event_dispatch as _event_kernel
 from repro_torch.kernels import lif_step as _lif_kernel
+from repro_torch.kernels import spike_matmul as _sm_kernel
 from repro_torch.kernels import tick_fused as _tick_kernel
 from repro_torch.kernels.ref import LIFStepOut, event_gather_sum
 
@@ -42,8 +43,14 @@ ARMS = ("event", "dense on overflow", "dense by the knee")
 # device (no host sync). None, the default, costs nothing.
 arm_ticks: Optional[torch.Tensor] = None
 
-_INFERENCE_ONLY = ("the {} backend is inference-only; the surrogate gradient "
-                   "arrives with the classifier slice (ROADMAP A.5)")
+_INFERENCE_ONLY = "{} backend is inference-only; use backend='jnp' to train"
+
+
+def spike_matmul(s: torch.Tensor, w: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``s @ (w*c)`` as (B, N) f32 through kernel B6 (its twin on CPU
+    tensors). The reference pads every operand to its blocks here; B6
+    bounds-checks its ragged edges, so nothing is copied."""
+    return _sm_kernel.spike_matmul(s, w, c)
 
 
 def row_params(lif: LIFParams, slotted: bool) -> LIFParams:
@@ -79,7 +86,7 @@ def fused_lif_step(lif_state: LIFState, spikes: torch.Tensor, params,
     """``network.step(backend="pallas")``'s datapath: kernel B1 on the
     arriving spikes, with the drive computed outside."""
     if surrogate:
-        raise NotImplementedError(_INFERENCE_ONLY.format("pallas"))
+        raise ValueError(_INFERENCE_ONLY.format("pallas"))
     S = slot_count(params)
     shape = lif_state.v.shape
     lif = params.lif
@@ -120,7 +127,7 @@ def fused_tick(state, params, ext: Optional[torch.Tensor], *,
     ``D == 1``, as in the reference.
     """
     if surrogate:
-        raise NotImplementedError(_INFERENCE_ONLY.format("pallas_fused"))
+        raise ValueError(_INFERENCE_ONLY.format("pallas_fused"))
     S = slot_count(params)
     shape = state.lif.v.shape
     D = state.delay_buf.shape[-2]

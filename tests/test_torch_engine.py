@@ -249,7 +249,23 @@ _EVENT_BAD = {"backend": "events", "plasticity_backend": "events", "event_k_acti
 def test_later_slices_raise(field, value):
     """The options of slices not ported yet raise; the event slice's options
     (ported) now validate, and a bad value raises the reference's
-    ``ValueError``."""
+    ``ValueError``. The surrogate (ported with the classifier slice) is
+    accepted and trains on ``jnp``; the kernel backends raise the
+    reference's ``ValueError`` ("inference-only") when the tick runs."""
+    if field == "surrogate":
+        assert EngineOptions(surrogate=value).surrogate and j_net.EngineOptions(
+            surrogate=value).surrogate
+        p = interop.params_from_numpy(_tree(6, 3), "cpu")
+        st = t_net.SNNState.zeros((2,), 6, device="cpu")
+        ext = torch.from_numpy(_drive(1, (2,), 6, 4)[0])
+        soft = TickEngine(EngineOptions(surrogate=value)).tick(st, p, ext)
+        hard = TickEngine(EngineOptions()).tick(st, p, ext)
+        assert torch.equal(soft.lif.y, hard.lif.y) and torch.equal(soft.lif.v, hard.lif.v)
+        for backend in ("pallas", "pallas_fused"):
+            eng = TickEngine(EngineOptions(backend=backend, surrogate=value))
+            with pytest.raises(ValueError, match="inference-only"):
+                eng.tick(st, p, ext)
+        return
     if field not in _EVENT_BAD:
         with pytest.raises(NotImplementedError, match="slice"):
             EngineOptions(**{field: value})

@@ -30,7 +30,11 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
             "repro_torch.kernels.stdp_update", "repro_torch.plasticity.stdp",
             "repro_torch.plasticity.rules", "repro_torch.plasticity.traces",
             "repro_torch.kernels.event_dispatch", "repro_torch.core.dispatch_policy",
-            "repro_torch.configs.snn_event"} <= set(mods)
+            "repro_torch.configs.snn_event", "repro_torch.kernels.spike_matmul",
+            "repro_torch.core.classifier", "repro_torch.core.quant",
+            "repro_torch.core.surrogate", "repro_torch.data.iris", "repro_torch.data.mnist",
+            "repro_torch.configs.iris_snn", "repro_torch.configs.mnist_snn",
+            "repro_torch.examples.quickstart", "repro_torch.examples.mnist_snn"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

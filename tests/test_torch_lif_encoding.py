@@ -84,8 +84,17 @@ def test_lif_make_zeros_and_surrogate():
     assert p.r_ref.dtype == torch.int32
     z = t_lif.LIFState.zeros((2, 3), 5, device="cpu")
     assert z.v.shape == (2, 3, 5) and z.r.dtype == torch.int32
-    with pytest.raises(NotImplementedError, match="classifier slice"):
-        t_lif.lif_step(z, torch.zeros(2, 3, 5), p, surrogate=True)
+    # The surrogate spike (the classifier slice): the same forward step as the
+    # hard spike and as the reference's surrogate step, bitwise.
+    syn = np.random.default_rng(2).uniform(0, 4, (2, 3, 5)).astype(np.float32)
+    for mode in ("fixed_leak", "euler"):
+        soft = t_lif.lif_step(z, torch.from_numpy(syn), p, mode=mode, surrogate=True)
+        hard = t_lif.lif_step(z, torch.from_numpy(syn), p, mode=mode)
+        ref = j_lif.lif_step(j_lif.LIFState.zeros((2, 3), 5), jnp.asarray(syn), q, mode=mode,
+                             surrogate=True)
+        for f in ("v", "r", "y"):
+            assert torch.equal(getattr(soft, f), getattr(hard, f))
+            np.testing.assert_array_equal(getattr(soft, f).numpy(), np.asarray(getattr(ref, f)))
     with pytest.raises(ValueError):
         t_lif.lif_step(z, torch.zeros(2, 3, 5), p, mode="bogus")
 
