@@ -13,19 +13,33 @@ script on any mismatch:
    ``w`` + ``c``, the previous ``y`` as a depth-1 ring, a uniform ring of
    depth 4 written in place, per-synapse delays over a ring of depth 4
    written through, drive or none, fixed leak or Euler) and kernel B1
-   (``lif_step``), each against its plain PyTorch twin on the card, at
-   4096 neurons with 8 slots of one row and with one network of 8 rows.
-   Inputs sit on the u8 weight grid, so equality is exact (tolerance 0).
-   Then kernel B5 (``stdp_update``) against its twin: ``stdp`` and ``rstdp``
+   (``lif_step``), each against its plain PyTorch twin on the card, at 4096
+   neurons with 8 slots of one row, with one network of 8 rows and of 16
+   rows (K split across a cluster in every ring mode), and at a ragged width
+   (37, the element fill), printing the plans (fill, K split) each shape
+   took. Then the split's own cases: one network of 16 rows with K = 4100
+   (not a multiple of the stage rows times the split) and K = 4097 (the
+   element fill), B1 and B2 in every operand form; B1's ``run_if`` gate
+   closed and open under a cluster launch. Inputs sit on the u8 weight grid,
+   so equality is exact (tolerance 0). Then two launches of B1 and B2 on
+   normal-float weights at one network of 8 rows must be bitwise equal (no
+   atomics), each within 4 f32 ulps of sum(|s| * |w*c|) of the float64
+   product. Then kernel B5 (``stdp_update``) against its twin: ``stdp`` and ``rstdp``
    with per-slot rewards, the ``learn_until`` gate open and closed per slot,
    all-zero, full and partial plastic masks, ``w``/``elig`` in place, at
    the serving shape (8 slots of one row, 4096 x 4096) and at a ragged
    width (37), bitwise; one shared network of 8 rows to ``rtol=atol=1e-6``
    (the batch sum's order differs from cuBLAS's).
-   Then each kernel's median time over 30 runs (CUDA events), its bound,
-   its twin's time and one library call of the same product
-   (``torch.matmul`` for B1/B2, ``torch.baddbmm`` for B5's outer product),
-   and B2's time when it streams ``w`` and ``c`` as a learning tick does.
+   Then B1 and B2 timed at the main path's shapes (B2 premasked in a served
+   frozen wave and streaming ``w`` and ``c`` in a learning wave, B1 masked,
+   at 8 slots of one row; B2 premasked and B1 masked at one network of 8
+   rows; B1 premasked at 16 rows, the event arm's dense launch), each beside
+   its bound, its twin and ``torch.matmul(s, W*C)`` on the premasked
+   operand, taken in turns over 30 rounds, a device sleep ahead of each
+   launch, the L2 flushed before each launch at one network; the plan of
+   each timed launch is printed. Then B5's
+   median time over 30 runs (CUDA events), its bound, its twin's time and
+   ``torch.baddbmm`` of its outer product.
 2. rollout: ``network.rollout`` at the ``snn-fused`` width (4096 neurons,
    32 ticks, batch 8) on ``pallas`` and ``pallas_fused`` against ``jnp``,
    for ``max_delay`` 1 and 4 and per-synapse delays; rasters and final
@@ -129,6 +143,8 @@ EVENT_ROWS = 16   # batch rows of the snn-event rollout
 EVENT_K = 409     # the snn-event plan's spike budget: 2 * rate * n at rate 0.05
 EVENT_KNEE = 300  # the knee armed in the event rollout: inside the fabric's spike counts
 EVENT_SMALL_K = 250   # a spike budget the fabric's busier ticks overflow
+FLUSH_BYTES = 128 * 2**20   # read between timed launches to empty the 50 MB L2
+SLEEP_CYCLES = 400_000      # a device sleep (~0.2 ms) ahead of each timed launch
 CROSSOVER_M = (8, 32, 128, 512, 2048, 4096)   # spikes per row in the crossover sweep
 
 # Per-card peaks: memory bytes/s and f32 (non-tensor-core) FLOP/s.
@@ -217,11 +233,12 @@ def max_abs_err(got, want) -> float:
 # phase 1: kernels against their plain twins
 # ---------------------------------------------------------------------------
 
-def kernel_inputs(gen, dev, S, B, slotted_w, *, ring=1, delays=False, euler=False):
-    """u8-grid inputs for one kernel call: integer weights, 0/1 spikes,
-    integer state and drive, so every sum is exact in f32."""
+def kernel_inputs(gen, dev, S, B, slotted_w, *, ring=1, delays=False, euler=False, n=N):
+    """u8-grid inputs for one kernel call at width ``n``: integer weights, 0/1
+    spikes, integer state and drive, so every sum is exact in f32."""
     import torch
 
+    N = n  # noqa: N806 (the width of this call)
     i32, f32 = torch.int32, torch.float32
     wshape = (S, N, N) if slotted_w else (N, N)
     rnd = lambda lo, hi, shape, dt=f32: torch.randint(
@@ -265,6 +282,14 @@ def tick_case(inp, *, premasked, ring, delays, drive, in_place):
     return args, {"dly_out": dly_full if in_place else None}
 
 
+# B1/B2's shapes in phase 1: (slots, rows, per-slot weights, width). The
+# serving shape; one network of 8 rows (the rollouts) and of 16 (the event
+# arm's dense launch), where K is split across a cluster; a ragged width on
+# the element path.
+KERNEL_SHAPES = ((SLOTS, 1, True, N), (1, ROWS, False, N), (1, EVENT_ROWS, False, N),
+                 (3, 4, True, 37))
+
+
 def run_kernel_phase(dev, gen):
     import torch
 
@@ -272,13 +297,14 @@ def run_kernel_phase(dev, gen):
 
     errs = {"tick_fused": 0.0, "lif_step": 0.0}
     cases = 0
-    for S, B, slotted in ((SLOTS, 1, True), (1, ROWS, False)):
+    for S, B, slotted, n in KERNEL_SHAPES:
+        plans = set()
         for euler in (False, True):
             mode = "euler" if euler else "fixed_leak"
             for variant in ("plain", "ring", "delays"):
                 D = 1 if variant == "plain" else RING
                 inp = kernel_inputs(gen, dev, S, B, slotted, ring=D,
-                                    delays=variant == "delays", euler=euler)
+                                    delays=variant == "delays", euler=euler, n=n)
                 combos = [(True, True), (False, True), (True, False)]
                 for premasked, drive in combos:
                     args, kw = tick_case(
@@ -298,8 +324,9 @@ def run_kernel_phase(dev, gen):
                     if err != 0.0 or not all(
                             torch.equal(g, w) for g, w in zip(got, want) if w is not None):
                         raise AssertionError(
-                            f"tick_fused S={S} B={B} {mode} {variant} premasked={premasked} "
-                            f"drive={drive}: max |err| {err}")
+                            f"tick_fused S={S} B={B} n={n} {mode} {variant} premasked="
+                            f"{premasked} drive={drive}: max |err| {err}")
+                    plans.add((tick_fused.last_plan.path, tick_fused.last_plan.ks))
                     cases += 1
                 if variant == "plain":
                     for drive in (True, False):
@@ -313,68 +340,222 @@ def run_kernel_phase(dev, gen):
                         errs["lif_step"] = max(errs["lif_step"], err)
                         if err != 0.0 or not all(torch.equal(g, w) for g, w in zip(got, want)):
                             raise AssertionError(
-                                f"lif_step S={S} B={B} {mode} drive={drive}: max |err| {err}")
+                                f"lif_step S={S} B={B} n={n} {mode} drive={drive}: max |err| "
+                                f"{err}")
+                        plans.add((lif_step.last_plan.path, lif_step.last_plan.ks))
                         cases += 1
                 del inp
+        log(f"kernels at S={S} B={B} N=K={n}: plans (fill, K split) {sorted(plans)}")
+        want_fill = "cp.async" if n % 4 == 0 else "element"
+        if {p for p, _ in plans} != {want_fill} or (S == 1 and min(k for _, k in plans) < 2):
+            raise AssertionError(f"kernels at S={S} B={B} n={n}: plans {plans}, expected the "
+                                 f"{want_fill} fill{' and a K split' if S == 1 else ''}")
+    cases += run_split_cases(dev, gen, errs)
     log(f"kernels: {cases} cases equal to their plain twins bitwise (tolerance 0)")
     return errs
 
 
+def split_inputs(gen, dev, B, K, n, D):
+    """u8-grid inputs of one network with K != N: (K, n) weights, a (1, B, D,
+    K) spike history and (1, B, n) state."""
+    import torch
+
+    i32, f32 = torch.int32, torch.float32
+    rnd = lambda lo, hi, shape, dt=f32: torch.randint(
+        lo, hi, shape, generator=gen, device=dev, dtype=i32).to(dt)
+    w, c = rnd(0, 256, (K, n)), rnd(0, 2, (K, n))
+    return {"w": w, "c": c, "wc": w * c, "delays": rnd(1, D + 1, (K, n), i32),
+            "hist": (torch.rand((1, B, D, K), generator=gen, device=dev) < 0.1).to(f32),
+            "v": rnd(-20, 30000, (1, B, n)), "r": rnd(0, 3, (1, B, n), i32),
+            "drive": rnd(0, 256, (1, B, n)),
+            "rows": (rnd(1, 40000, (n,)), rnd(0, 9, (n,)), rnd(0, 4, (n,), i32),
+                     torch.ones(n, device=dev), rnd(0, 4, (n,)), torch.zeros(n, device=dev))}
+
+
+def run_split_cases(dev, gen, errs):
+    """The K split's own cases, bitwise: one network of 16 rows with a K that
+    is not a multiple of the stage rows times the split (4100 on the
+    asynchronous fill, 4097 on the element fill), B1 and B2 in every operand
+    form; B1's ``run_if`` gate closed and open under a cluster launch. Then two
+    launches on normal-float weights at one network of 8 rows must be bitwise
+    equal (no atomics), B1's product within 4 f32 ulps of sum(|s| * |w*c|)
+    of the float64 product. Returns the count of bitwise cases."""
+    import torch
+
+    from repro_torch.kernels import lif_step, ref, tick_fused
+
+    cases = 0
+    for K in (N + 4, N + 1):
+        x = split_inputs(gen, dev, EVENT_ROWS, K, N, RING)
+        slots = torch.tensor([6 % RING, 7 % RING], dtype=torch.int32, device=dev)
+        s = x["hist"][:, :, 0].contiguous()
+        for w, c in ((x["wc"], None), (x["w"], x["c"])):
+            a = (s, w, c, x["v"], x["r"], x["drive"], *x["rows"])
+            calls = [("lif_step", lif_step, lambda: lif_step.fused_lif_step(*a),
+                      lambda: ref.fused_lif_step_ref(*a))]
+            for dl in (None, x["delays"]):
+                t = (slots, x["hist"], w, c, dl, x["v"], x["r"], x["drive"], None, *x["rows"])
+                calls.append(("tick_fused", tick_fused, lambda t=t: tick_fused.fused_tick(*t),
+                              lambda t=t: ref.fused_tick_ref(*t)))
+            for name, mod, kernel, twin in calls:
+                got, want = kernel(), twin()
+                torch.cuda.synchronize()
+                err = max_abs_err(got, want)
+                errs[name] = max(errs[name], err)
+                fill = "cp.async" if K % 4 == 0 else "element"
+                if err != 0.0 or mod.last_plan.ks < 2 or mod.last_plan.path != fill:
+                    raise AssertionError(f"{name} at B={EVENT_ROWS} K={K}: max |err| {err}, "
+                                         f"plan {mod.last_plan}")
+                cases += 1
+        log(f"kernels at S=1 B={EVENT_ROWS} K={K} N={N}: B1 and B2 bitwise; "
+            f"{tick_fused.last_plan}")
+        del x
+    # B1's gate under a cluster launch: closed writes nothing, open writes the twin.
+    x = split_inputs(gen, dev, EVENT_ROWS, N, N, 1)
+    s = x["hist"][:, :, 0].contiguous()
+    base = (s, x["wc"], None, x["v"], x["r"], x["drive"], *x["rows"])
+    for gate in (False, True):
+        out = ref.LIFStepOut(torch.full_like(x["v"], -7.0), torch.full_like(x["r"], 9),
+                             torch.full_like(x["v"], 3.0))
+        want = ref.fused_lif_step_ref(*base) if gate else [t.clone() for t in out]
+        got = lif_step.fused_lif_step(*base, run_if=torch.tensor(gate, device=dev), out=out)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        errs["lif_step"] = max(errs["lif_step"], err)
+        if err != 0.0 or lif_step.last_plan.ks < 2:
+            raise AssertionError(f"lif_step run_if={gate} under a K split: max |err| {err}, "
+                                 f"plan {lif_step.last_plan}")
+        cases += 1
+    del x
+    # Determinism off the u8 grid: no spike, so v' is the product itself.
+    sp, w, c = sm_inputs(gen, dev, ROWS, N, N, u8=False)
+    zeros = torch.zeros((1, ROWS, N), device=dev)
+    rows = (torch.full((N,), 1e30, device=dev), torch.zeros(N, device=dev),
+            torch.zeros(N, dtype=torch.int32, device=dev), torch.ones(N, device=dev),
+            torch.zeros(N, device=dev), torch.zeros(N, device=dev))
+    a = (sp.unsqueeze(0), w, c, zeros, torch.zeros_like(zeros, dtype=torch.int32), None, *rows)
+    slots = torch.zeros(2, dtype=torch.int32, device=dev)
+    t = (slots, sp.reshape(1, ROWS, 1, N), w * c, None, None, zeros,
+         torch.zeros_like(zeros, dtype=torch.int32), None, None, *rows)
+    first = [lif_step.fused_lif_step(*a), tick_fused.fused_tick(*t)]
+    second = [lif_step.fused_lif_step(*a), tick_fused.fused_tick(*t)]
+    torch.cuda.synchronize()
+    for name, g1, g2 in zip(("lif_step", "tick_fused"), first, second):
+        if not all(torch.equal(p, q) for p, q in zip(g1, g2) if p is not None):
+            raise AssertionError(f"{name}: two launches on normal weights differ")
+        close, err = wide_close(g1[0][0], sp, w, c)
+        if not close:
+            raise AssertionError(f"{name} on normal weights: max |err| {err} from the float64 "
+                                 f"product, beyond {SM_WIDE_ULPS} f32 ulps of sum(|s||w*c|)")
+        log(f"{name} at S=1 B={ROWS} N=K={N} on normal weights: two launches bitwise equal; "
+            f"max |err| {err:.3g} from the float64 product (within {SM_WIDE_ULPS} f32 ulps of "
+            f"sum(|s||w*c|)); K split {lif_step.last_plan.ks} ways")
+    return cases
+
+
+def paired_ms(fns: dict, runs: int = RUNS, flush=None) -> dict:
+    """Median device time of each of ``fns`` over ``runs`` rounds, the
+    functions taken in turns within a round (so a kernel and its library
+    call see the same card state). Each launch is preceded by a sleep kernel,
+    so the CUDA events bracket the device's work and not the host's Python;
+    with ``flush`` (a buffer larger than the 50 MB L2) read before each
+    launch, every launch starts from a cold L2."""
+    import torch
+
+    for fn in fns.values():
+        fn()
+        fn()
+    times = {name: [] for name in fns}
+    for _ in range(runs):
+        for name, fn in fns.items():
+            if flush is not None:
+                flush.sum()
+            torch.cuda._sleep(SLEEP_CYCLES)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            times[name].append((start, end))
+    torch.cuda.synchronize()
+    return {name: statistics.median(a.elapsed_time(b) for a, b in pairs)
+            for name, pairs in times.items()}
+
+
+# B1/B2 timed at the main path's shapes: (label, kernel, slots, rows,
+# per-slot weights, operand form).
+TIMED = (("served frozen wave", "tick_fused", SLOTS, 1, True, "premasked"),
+         ("learning wave, w and c streamed", "tick_fused", SLOTS, 1, True, "masked"),
+         ("masked", "lif_step", SLOTS, 1, True, "masked"),
+         ("rollout, shared weights", "tick_fused", 1, ROWS, False, "premasked"),
+         ("pallas rollout, shared weights", "lif_step", 1, ROWS, False, "masked"),
+         ("event dense arm, shared weights", "lif_step", 1, EVENT_ROWS, False, "premasked"))
+
+
 def time_kernels(dev, gen, card):
-    """Each kernel at the serving path's shapes: 8 slots of one row, 4096
-    neurons, per-slot weights, drive on, depth-1 ring (B2 premasked)."""
+    """B1 and B2 at the main path's shapes (``TIMED``): the kernel, its twin
+    and ``torch.matmul(s, wc)`` on the premasked ``W*C`` (half of a masked
+    launch's bytes), in turns; at one network (S = 1, where ``W*C`` barely exceeds the L2) each launch
+    starts from a flushed L2. Returns the JSON rows (B2 in the served frozen
+    wave, B1 masked at the serving shape) and B2's time in a learning wave."""
     import torch
 
     from repro_torch.kernels import lif_step, ref, tick_fused
 
     bw, flops = card
-    inp = kernel_inputs(gen, dev, SLOTS, 1, True)
-    rows = tuple(inp["rows"].values())
-    out = {}
+    flush = torch.empty(FLUSH_BYTES // 4, device=dev)
+    rows_json, streamed = {}, None
+    for label, name, S, B, slotted, form in TIMED:
+        inp = kernel_inputs(gen, dev, S, B, slotted)
+        rows = tuple(inp["rows"].values())
+        w, c = (inp["wc"], None) if form == "premasked" else (inp["w"], inp["c"])
+        if name == "tick_fused":
+            args, _ = tick_case(inp, premasked=form == "premasked", ring=False, delays=False,
+                                drive=True, in_place=False)
+            kernel, twin = tick_fused.fused_tick, ref.fused_tick_ref
+            mod = tick_fused
+            s = inp["y"]
+            moved = nbytes(args[0], s, w, c, inp["v"], inp["r"], inp["drive"], *rows)
+        else:
+            s = inp["y"]
+            args = (s, w, c, inp["v"], inp["r"], inp["drive"], *rows)
+            kernel, twin = lif_step.fused_lif_step, ref.fused_lif_step_ref
+            mod = lif_step
+            moved = nbytes(s, w, c, inp["v"], inp["r"], inp["drive"], *rows)
+        moved += 3 * nbytes(inp["v"])   # v', r', y'
 
-    args, _ = tick_case(inp, premasked=True, ring=False, delays=False, drive=True,
-                        in_place=False)
-    s = inp["y"]
-    wc = inp["wc"]
-    t_ms = median_ms(lambda: tick_fused.fused_tick(*args))
-    p_ms = median_ms(lambda: ref.fused_tick_ref(*args))
-    l_ms = median_ms(lambda: torch.matmul(s, wc))
-    moved = nbytes(args[0], s, wc, inp["v"], inp["r"], inp["drive"], *rows) + 3 * nbytes(s)
-    ops = 2 * SLOTS * N * N
-    out["tick_fused"] = (t_ms, p_ms, l_ms, moved, ops)
+        n_w = w.shape[0] if w.dim() == 3 else 1
+        ops = 2 * S * B * N * N + (n_w * N * N if c is not None else 0)
+        wc = inp["wc"]
 
-    a = (s, inp["w"], inp["c"], inp["v"], inp["r"], inp["drive"], *rows)
-    t_ms = median_ms(lambda: lif_step.fused_lif_step(*a))
-    p_ms = median_ms(lambda: ref.fused_lif_step_ref(*a))
-    l_ms = median_ms(lambda: torch.matmul(s, wc))
-    moved = nbytes(s, inp["w"], inp["c"], inp["v"], inp["r"], inp["drive"], *rows) + 3 * nbytes(s)
-    ops = 3 * SLOTS * N * N   # mask multiply + multiply-add per synapse
-    out["lif_step"] = (t_ms, p_ms, l_ms, moved, ops)
-
-    # The rollout phase's shape: one network, 8 rows, shared weights.
-    inp8 = kernel_inputs(gen, dev, 1, ROWS, False)
-    args8, _ = tick_case(inp8, premasked=True, ring=False, delays=False, drive=True,
-                         in_place=False)
-    log(f"time tick_fused at S=1 B={ROWS} (shared weights): "
-        f"{median_ms(lambda: tick_fused.fused_tick(*args8)):.4f} ms, plain "
-        f"{median_ms(lambda: ref.fused_tick_ref(*args8)):.4f} ms, torch.matmul "
-        f"{median_ms(lambda: torch.matmul(inp8['y'], inp8['wc'])):.4f} ms")
-    del inp8, args8
+        t = paired_ms({"kernel": lambda: kernel(*args), "plain": lambda: twin(*args),
+                       "library": lambda: torch.matmul(s, wc)},
+                      flush=flush if S == 1 else None)
+        kernel(*args)
+        plan = mod.last_plan
+        bound = max(moved / bw, ops / flops) * 1e3
+        log(f"time {name} ({label}, {form}): {t['kernel']:.4f} ms at S={S} B={B} N=K={N}, "
+            f"{100 * bound / t['kernel']:.0f}% of its bound {bound:.4f} ms "
+            f"({moved / 2**20:.1f} MiB); plain {t['plain']:.4f} ms, torch.matmul(s, W*C) "
+            f"{t['library']:.4f} ms"
+            + ("; L2 flushed before each launch" if S == 1 else ""))
+        log(f"plan {name} ({label}): {plan}")
+        row = {"ms": t["kernel"], "plain_ms": t["plain"], "library_ms": t["library"],
+               "bound_ms": bound,
+               "bound_by": "bytes" if moved / bw >= ops / flops else "operations"}
+        if label == "served frozen wave" or (name == "lif_step" and S == SLOTS):
+            rows_json[name] = row
+        if label.startswith("learning wave"):
+            streamed = t["kernel"]
+        del inp, args, w, c, wc
+    del flush
 
     # The drive ext @ w_in the serving path runs beside B2 every tick.
+    drive = torch.zeros((SLOTS, 1, N), device=dev)
     w_in = torch.eye(N, device=dev).expand(SLOTS, N, N).contiguous()
-    d_ms = median_ms(lambda: torch.matmul(inp["drive"], w_in))
-    timed = {}
-    for name, (t_ms, p_ms, l_ms, moved, ops) in out.items():
-        bound = max(moved / bw, ops / flops) * 1e3
-        timed[name] = {"ms": t_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                       "bound_ms": bound, "bound_by": "bytes" if moved / bw >= ops / flops
-                       else "operations"}
-        log(f"time {name}: {t_ms:.4f} ms (bound {bound:.4f} ms, plain {p_ms:.4f} ms, "
-            f"torch.matmul {l_ms:.4f} ms) at S={SLOTS} B=1 N=K={N}")
+    d_ms = median_ms(lambda: torch.matmul(drive, w_in))
     log(f"time drive ext @ w_in (S={SLOTS}, eye({N}) per slot): {d_ms:.4f} ms "
         f"(bound {nbytes(w_in) / bw * 1e3:.4f} ms)")
-    return timed
+    return rows_json, streamed
 
 
 def stdp_hyper(rule: str) -> dict:
@@ -489,11 +670,11 @@ def time_stdp(dev, gen, card):
     """B5 at the serving shape (8 slots of one row, 4096 x 4096), every synapse
     plastic (the JSON row), then R-STDP and a served learning wave (the gate
     open in slot 7 only, as ``learn_until`` leaves it for one plastic tenant);
-    the twin and ``torch.baddbmm`` beside each. Returns the JSON row's numbers
-    and B2's time when it streams w and c."""
+    the twin and ``torch.baddbmm`` beside each. Returns the JSON row's
+    numbers."""
     import torch
 
-    from repro_torch.kernels import ref, stdp_update, tick_fused
+    from repro_torch.kernels import ref, stdp_update
 
     bw, flops = card
     inp = stdp_inputs(gen, dev, SLOTS, 1, N, N, masks="ones")
@@ -526,15 +707,7 @@ def time_stdp(dev, gen, card):
         rows[label] = {"ms": t_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": bound,
                        "bound_by": "bytes" if moved / bw >= ops / flops else "operations"}
     del inp, args
-    # B2 as a learning tick runs it: w and c streamed, not the hoisted W*C.
-    kin = kernel_inputs(gen, dev, SLOTS, 1, True)
-    targs, _ = tick_case(kin, premasked=False, ring=False, delays=False, drive=True,
-                         in_place=False)
-    b2_ms = median_ms(lambda: tick_fused.fused_tick(*targs))
-    b2_bound = nbytes(kin["w"], kin["c"]) / bw * 1e3
-    log(f"time tick_fused streaming w and c (the learning tick): {b2_ms:.4f} ms "
-        f"(bound {b2_bound:.4f} ms) at S={SLOTS} B=1 N=K={N}")
-    return rows["stdp, every synapse plastic"], b2_ms
+    return rows["stdp, every synapse plastic"]
 
 
 # ---------------------------------------------------------------------------
@@ -1685,6 +1858,24 @@ def run_classifier_phase(dev):
     return launches["spike_matmul"]
 
 
+def ptxas_kernels(text: str) -> list:
+    """``(kernel, registers, spill store bytes)`` for each entry function in
+    the compiler's ``-Xptxas=-v`` report."""
+    out, name, spill = [], None, 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), spill))
+            name = None
+    return out
+
+
 def np_equal(a, b) -> bool:
     import numpy as np
 
@@ -1700,39 +1891,56 @@ def main() -> int:
     from repro_torch import device as port_device
     from repro_torch.kernels import _build
 
+    start = time.perf_counter()
+    seconds = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
     dev = port_device.resolve(None)
     smi = nvidia_smi()
     card = peaks(smi)
     log(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
-    t0 = time.perf_counter()
-    build = _build.build()
-    log(f"build: {build.path.parent.name} in {time.perf_counter() - t0:.2f} s")
+    phase("cuda init", lambda: torch.zeros(1, device=dev).sum().item())   # the context
+    build = phase("build", _build.build)
+    log(f"build: {build.path.parent.name} in {seconds['build']:.2f} s")
     regs = [int(m) for m in re.findall(r"Used (\d+) registers", build.log)]
     spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill stores", build.log))
     if regs:
         log(f"ptxas: {len(regs)} kernels for sm_90a, {min(regs)}-{max(regs)} registers, "
             f"{spills} bytes spilled")
+        product = [k for k in ptxas_kernels(build.log)
+                   if "lif_step_kernel" in k[0] or "tick_fused_kernel" in k[0]]
+        spilled = [k for k in product if k[2]]
+        log(f"ptxas B1/B2: {len(product)} instantiations, "
+            f"{min(k[1] for k in product)}-{max(k[1] for k in product)} registers, "
+            f"{sum(k[2] for k in product)} bytes spilled"
+            + "".join(f"; {name}: {r} registers, {sp} bytes spilled"
+                      for name, r, sp in spilled))
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-
-    errs = run_kernel_phase(dev, gen)
-    errs["stdp_update"] = run_stdp_kernel_phase(dev, gen)
-    timed = time_kernels(dev, gen, card)
-    timed["stdp_update"], b2_streamed_ms = time_stdp(dev, gen, card)
-    b1_launches = run_rollout_phase(dev, gen)
-    learn_launches = run_learning_phase(dev, gen)
-    launches, frozen_launches = run_serve_phase(dev)
+    errs = phase("kernels", run_kernel_phase, dev, gen)
+    errs["stdp_update"] = phase("stdp", run_stdp_kernel_phase, dev, gen)
+    timed, b2_streamed_ms = phase("timing", time_kernels, dev, gen, card)
+    timed["stdp_update"] = phase("timing", time_stdp, dev, gen, card)
+    b1_launches = phase("rollout", run_rollout_phase, dev, gen)
+    learn_launches = phase("learning", run_learning_phase, dev, gen)
+    launches, frozen_launches = phase("serve", run_serve_phase, dev)
     launches["lif_step"] = b1_launches
-    event_errs = run_event_kernel_phase(dev, gen)
+    event_errs = phase("event", run_event_kernel_phase, dev, gen)
     errs["lif_step"] = max(errs["lif_step"], event_errs.pop("lif_step"))
     errs.update(event_errs)
-    timed.update(time_event(dev, gen, card))
-    launches["event_dispatch_db"], launches["event_dispatch"] = run_event_rollout_phase(dev, gen)
-    event_learn = run_event_learning(dev, gen)
-    event_waves = run_event_serve_phase(dev)
-    errs["spike_matmul"] = run_spike_matmul_phase(dev, gen)
-    timed["spike_matmul"] = time_spike_matmul(dev, gen, card)
-    launches["spike_matmul"] = run_classifier_phase(dev)
+    timed.update(phase("event", time_event, dev, gen, card))
+    launches["event_dispatch_db"], launches["event_dispatch"] = phase(
+        "event", run_event_rollout_phase, dev, gen)
+    event_learn = phase("event", run_event_learning, dev, gen)
+    event_waves = phase("event", run_event_serve_phase, dev)
+    errs["spike_matmul"] = phase("spike_matmul", run_spike_matmul_phase, dev, gen)
+    timed["spike_matmul"] = phase("spike_matmul", time_spike_matmul, dev, gen, card)
+    launches["spike_matmul"] = phase("classifiers", run_classifier_phase, dev)
     if min(launches.values()) < 1 or min(learn_launches.values()) < 1 \
             or frozen_launches["tick_fused"] < 1 or min(event_learn.values()) < 1:
         raise AssertionError(f"a kernel of a path never launched: serve and rollouts "
@@ -1764,6 +1972,8 @@ def main() -> int:
         f"MNIST); frozen-only serve {frozen_launches}; learning rollouts {learn_launches}; "
         f"event learning {event_learn}; event serve waves {event_waves}; B2 streaming w "
         f"and c {b2_streamed_ms:.4f} ms")
+    log(f"seconds: {time.perf_counter() - start:.1f} in all; "
+        + ", ".join(f"{name} {s:.1f}" for name, s in seconds.items()))
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -16,30 +16,26 @@
 // 3.35 TB/s), against B * K * N multiply-adds, a few per byte at serving batch.
 // The spikes, state and rows are a few hundred KiB.
 //
-// Design (a simple first version; wgmma, TMA and a split over K come later):
-// - A block owns one slot, up to BB <= 8 batch rows and 128 output columns,
-//   one column per thread. Grid (ceil(N/128), ceil(B/BB), S). The slot axis
-//   replaces the reference's vmap; shared weights pass a slot stride of 0.
-// - A loop over K inside the block replaces the TPU's sequential K grid axis:
-//   the block stages a chunk of its spike rows in shared memory, then each
-//   thread streams w[k, n] and c[k, n], coalesced across the warp because
-//   (K, N) is row-major. Sixteen rows of loads are issued before they are
-//   used, to keep enough bytes in flight to approach the memory rate.
-// - The sum stays in f32 registers and the epilogue runs in registers. The
-//   ragged edges (N % 128, B % BB, K % 256) are bounds-checked: no padding.
-// - On the u8 weight grid with 0/1 spikes every partial sum is an integer
-//   below 2^24, so the result is exact in any summation order.
+// Design: the product is masked_product.cuh's (asynchronous copies into
+// a shared-memory ring, K split across a cluster where the grid is thin),
+// then the epilogue in the cluster's rank-0 block, one thread per (row,
+// column) of the tile. Grid (ceil(N / 128) * ks, ceil(B / BB), S), clusters of
+// ks blocks along x; the slot axis replaces the reference's vmap, and shared
+// weights pass a slot stride of 0. The plan comes from kernels/_plan.py.
+//
+// The gate is read before anything else: the flag is written by an earlier
+// launch on the stream and never changes during this one, so every block of
+// a cluster takes the same branch before any cluster barrier, and a closed
+// gate writes nothing.
 #include <cuda_runtime.h>
 
 #include "lif_epilogue.cuh"
+#include "masked_product.cuh"
 
 namespace {
 
 using repro_torch::LifRows;
-
-constexpr int kBlockN = 128;  // output columns per block, one per thread
-constexpr int kChunkK = 256;  // spike columns staged in shared memory per pass
-constexpr int kUnroll = 16;   // weight rows loaded before they are used
+namespace mp = repro_torch::mp;
 
 struct LifStepArgs {
   const float* s;  // (S, B, K) arriving spikes
@@ -58,69 +54,46 @@ struct LifStepArgs {
   float* y_out;
   const unsigned char* run_if;  // 0-d device flag, or null: always run
   int B, K, N, mode;
+  mp::Plan plan;
 };
 
 template <int BB, bool kMasked>
-__global__ void __launch_bounds__(kBlockN) lif_step_kernel(LifStepArgs a) {
+__global__ void __launch_bounds__(mp::kThreads, 1) lif_step_kernel(LifStepArgs a) {
   if (a.run_if != nullptr && !*a.run_if) return;  // the other arm writes this tick
-  __shared__ float sh_s[BB][kChunkK];
-  const int n = blockIdx.x * kBlockN + threadIdx.x;
+  extern __shared__ __align__(128) unsigned char smem[];
+  int tile, k_begin, k_end;
+  mp::block_range(a.plan, a.K, &tile, &k_begin, &k_end);
+  const int n0 = tile * mp::kBlockN;
   const int b0 = blockIdx.y * BB;
   const long long slot = blockIdx.z;
-  const int nb = min(BB, a.B - b0);
-  const bool live = n < a.N;
-  const float* s = a.s + slot * a.s_slot + static_cast<long long>(b0) * a.K;
-  const float* w = a.w + slot * a.w_slot + n;
-  const float* c = kMasked ? a.c + slot * a.c_slot + n : nullptr;
 
-  float acc[BB];
-#pragma unroll
-  for (int b = 0; b < BB; ++b) acc[b] = 0.0f;
+  mp::Operand op;
+  op.s = a.s + slot * a.s_slot + static_cast<long long>(b0) * a.K;
+  op.s_row = a.K;
+  op.s_plane = 0;
+  op.n_planes = 1;
+  op.nb = min(BB, a.B - b0);
+  op.w = a.w + slot * a.w_slot + n0;
+  op.c = kMasked ? a.c + slot * a.c_slot + n0 : nullptr;
+  op.d = nullptr;
+  op.N = a.N;
+  op.ncols = min(mp::kBlockN, a.N - n0);
+  op.k_begin = k_begin;
+  op.k_end = k_end;
+  op.rs = 0;
+  if (!mp::masked_product<BB, kMasked, false>(op, a.plan, smem)) return;
 
-  for (int k0 = 0; k0 < a.K; k0 += kChunkK) {
-    const int kc = min(kChunkK, a.K - k0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BB * kChunkK; i += kBlockN) {
-      const int b = i / kChunkK;
-      const int k = i - b * kChunkK;
-      sh_s[b][k] = (b < nb && k < kc) ? s[static_cast<long long>(b) * a.K + k0 + k] : 0.0f;
-    }
-    __syncthreads();
-    if (!live) continue;
-    int k = 0;
-    for (; k + kUnroll <= kc; k += kUnroll) {
-      float wv[kUnroll], cv[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const long long off = static_cast<long long>(k0 + k + u) * a.N;
-        wv[u] = __ldg(w + off);
-        cv[u] = kMasked ? __ldg(c + off) : 1.0f;
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const float wc = kMasked ? __fmul_rn(wv[u], cv[u]) : wv[u];
-#pragma unroll
-        for (int b = 0; b < BB; ++b)
-          acc[b] = __fadd_rn(acc[b], __fmul_rn(sh_s[b][k + u], wc));
-      }
-    }
-    for (; k < kc; ++k) {
-      const long long off = static_cast<long long>(k0 + k) * a.N;
-      const float wc = kMasked ? __fmul_rn(__ldg(w + off), __ldg(c + off)) : __ldg(w + off);
-#pragma unroll
-      for (int b = 0; b < BB; ++b) acc[b] = __fadd_rn(acc[b], __fmul_rn(sh_s[b][k], wc));
-    }
-  }
-  if (!live) return;
-
+  const float* acc = mp::sums(smem);
   const long long ro = slot * a.row_slot;
   const LifRows p{a.rows.v_th + ro, a.rows.leak + ro, a.rows.r_ref + ro,
                   a.rows.gain + ro, a.rows.i_bias + ro, a.rows.v_reset + ro};
-#pragma unroll
-  for (int b = 0; b < BB; ++b) {
-    if (b >= nb) break;
+  for (int i = threadIdx.x; i < op.nb * mp::kBlockN; i += mp::kThreads) {
+    const int b = i / mp::kBlockN;
+    const int col = i - b * mp::kBlockN;
+    if (col >= op.ncols) continue;
+    const int n = n0 + col;
     const long long idx = (slot * a.B + b0 + b) * static_cast<long long>(a.N) + n;
-    const float syn = a.drive ? __fadd_rn(acc[b], a.drive[idx]) : acc[b];
+    const float syn = a.drive ? __fadd_rn(acc[i], a.drive[idx]) : acc[i];
     float v_new, y;
     int r_new;
     repro_torch::lif_epilogue(a.mode, syn, a.v[idx], a.r[idx], p, n, &v_new, &r_new, &y);
@@ -132,26 +105,33 @@ __global__ void __launch_bounds__(kBlockN) lif_step_kernel(LifStepArgs a) {
 
 template <int BB>
 cudaError_t launch(const LifStepArgs& a, int S, cudaStream_t stream) {
-  const dim3 grid((a.N + kBlockN - 1) / kBlockN, (a.B + BB - 1) / BB, S);
-  if (a.c != nullptr)
-    lif_step_kernel<BB, true><<<grid, kBlockN, 0, stream>>>(a);
-  else
-    lif_step_kernel<BB, false><<<grid, kBlockN, 0, stream>>>(a);
-  return cudaGetLastError();
+  const dim3 grid((a.N + mp::kBlockN - 1) / mp::kBlockN * a.plan.ks, (a.B + BB - 1) / BB, S);
+  if (a.c != nullptr) return mp::launch<lif_step_kernel<BB, true>>(grid, a.plan, stream, a);
+  return mp::launch<lif_step_kernel<BB, false>>(grid, a.plan, stream, a);
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success). Never synchronises and
-// allocates nothing: the caller owns every buffer.
+// Returns the cudaError_t of the launch (0 on success); cudaErrorInvalidValue
+// for a shape or plan it cannot take. Never synchronises and allocates
+// nothing: the caller owns every buffer. The last six ints are the plan
+// (kernels/_plan.py Plan.args); the fill follows from the operands' alignment.
 extern "C" int repro_lif_step(
     const void* s, long long s_slot, const void* w, long long w_slot, const void* c,
     long long c_slot, const void* v, const void* r, const void* drive, const void* v_th,
     const void* leak, const void* r_ref, const void* gain, const void* i_bias,
     const void* v_reset, long long row_slot, void* v_out, void* r_out, void* y_out,
-    const void* run_if, int S, int B, int K, int N, int mode, void* stream) {
+    const void* run_if, int S, int B, int K, int N, int mode, int bb, int kt, int stages,
+    int ks, int k_chunk, int smem, void* stream) {
   if (S < 1 || B < 1 || N < 1 || K < 0 || S > 65535 || (mode != 0 && mode != 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  mp::Plan plan{bb, kt, stages, ks, k_chunk, smem, false};
+  const bool rows_aligned = mp::aligned16(s) && mp::aligned16(w) &&
+                            (c == nullptr || mp::aligned16(c)) && s_slot % 4 == 0 &&
+                            w_slot % 4 == 0 && c_slot % 4 == 0;
+  if (!mp::plan_ok(plan, B, K, c != nullptr ? 2 : 1, 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  plan.async = mp::async_fill(plan, K, N, rows_aligned);
   LifStepArgs a;
   a.s = static_cast<const float*>(s);
   a.s_slot = s_slot;
@@ -174,16 +154,16 @@ extern "C" int repro_lif_step(
   a.K = K;
   a.N = N;
   a.mode = mode;
+  a.plan = plan;
   const auto st = static_cast<cudaStream_t>(stream);
-  const int rows = B < 8 ? B : 8;
   cudaError_t err;
-  if (rows <= 1)
-    err = launch<1>(a, S, st);
-  else if (rows <= 2)
-    err = launch<2>(a, S, st);
-  else if (rows <= 4)
-    err = launch<4>(a, S, st);
-  else
-    err = launch<8>(a, S, st);
+  switch (bb) {
+    case 1: err = launch<1>(a, S, st); break;
+    case 2: err = launch<2>(a, S, st); break;
+    case 4: err = launch<4>(a, S, st); break;
+    case 8: err = launch<8>(a, S, st); break;
+    case 16: err = launch<16>(a, S, st); break;
+    default: err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }

@@ -14,22 +14,23 @@
 // a few hundred KiB. Streaming w and c separately doubles it, and per-synapse
 // delays add the (K, N) int32 delay matrix.
 //
-// Design (a simple first version; wgmma, TMA and a split over K come later):
-// - A block owns one slot, up to BB <= 8 batch rows and 128 output columns,
-//   one column per thread. Grid (ceil(N/128), ceil(B/BB), S); shared weights
-//   pass a slot stride of 0, so one network is S = 1 with no copies.
-// - The ring pointers [tick % D, (tick + 1) % D] are read from a device int32
-//   pair (the TPU kernel's scalar prefetch): the tick loop never syncs with
-//   the host and changing the tick never rebuilds anything.
-// - A loop over K inside the block replaces the TPU's sequential K grid axis:
-//   the block stages its spike history for a chunk of K in shared memory (one
-//   ring slot, or all D slots with per-synapse delays; rows padded by one float
-//   to spread banks), then each thread streams wc[k, n], coalesced across the
-//   warp, sixteen rows of loads in flight before use.
-// - f32 sums in registers, epilogue in registers, ragged edges bounds-checked
-//   (the reference pads instead, with r = 1 and v_th = FLT_MAX / 2).
+// Design: the ring pointers [tick % D, (tick + 1) % D] are read from a
+// device int32 pair (the TPU kernel's scalar prefetch), so the tick loop never
+// syncs with the host and changing the tick rebuilds nothing. The product is
+// masked_product.cuh's: the block's spike history for each K tile (one ring
+// plane, or all D planes with per-synapse delays) rides in the same
+// asynchronous stage as the weight tile, and K is split across a cluster
+// where the grid is thin. The cluster's rank-0 block then runs the epilogue
+// (lif_epilogue.cuh) and writes v', r', y' and the ring, one thread per (row,
+// column) of the tile. Grid (ceil(N / 128) * ks, ceil(B / BB), S); shared
+// weights pass a slot stride of 0, so one network is S = 1 with no copies.
+// Ragged edges are bounds-checked (the reference pads instead, with r = 1 and
+// v_th = FLT_MAX / 2). The plan comes from kernels/_plan.py.
 //
-// Ring write, and why it is race-free (blocks run in no order):
+// Ring write, and why it is race-free (blocks run in no order; within a
+// cluster only rank 0 writes anything, after every block of the cluster has
+// read all it reads; the other blocks only read, and read the same operands
+// as the unsplit kernel did, so the rules below are unchanged by the split):
 // - No per-synapse delays, D > 1 (ring_in == null): blocks read only slot
 //   tick % D and write only slot (tick + 1) % D, which differ, so y' is written
 //   into the ring in place.
@@ -38,20 +39,17 @@
 //   other D - 1 slots copied through, y' into the write slot). The engine
 //   ping-pongs two ring buffers.
 // - D = 1: the read operand is the previous y itself; y' goes to a fresh
-//   buffer (never aliasing it, since other blocks read it through their whole
-//   K loop) and the ring is not written, as in the reference.
+//   buffer (never aliasing it, since other clusters read it through their
+//   whole K range) and the ring is not written, as in the reference.
 #include <cuda_runtime.h>
 
 #include "lif_epilogue.cuh"
+#include "masked_product.cuh"
 
 namespace {
 
 using repro_torch::LifRows;
-
-constexpr int kBlockN = 128;       // output columns per block, one per thread
-constexpr int kMaxChunkK = 256;    // history columns staged per pass
-constexpr int kSmemFloats = 12288; // 48 KiB: the default dynamic shared memory
-constexpr int kUnroll = 16;        // weight rows loaded before they are used
+namespace mp = repro_torch::mp;
 
 struct TickArgs {
   const int* slots;      // (2,) device: [tick % D, (tick + 1) % D]
@@ -77,102 +75,49 @@ struct TickArgs {
   float* ring_out;       // (S, B, n_ring, N) write target, or null
   long long ring_slot;
   int n_ring;
-  int B, K, N, mode, kc;
+  int B, K, N, mode;
+  mp::Plan plan;
 };
 
 template <int BB, bool HAS_C, bool DELAYS>
-__device__ __forceinline__ void accumulate(float (&acc)[BB], const float* sh, int kcs,
-                                           int n_stage, int k, float wv, float cv, int dv,
-                                           int rs, int n_read) {
-  float wc = wv;
-  if constexpr (HAS_C) wc = __fmul_rn(wv, cv);
-  int j = 0;
-  if constexpr (DELAYS) {
-    // Delay d in [1, n_read] reads ring slot (rs - (d - 1)) mod n_read; a delay
-    // outside that range routes nothing, as the reference's one-hot planes do.
-    const bool ok = dv >= 1 && dv <= n_read;
-    wc = ok ? wc : __fmul_rn(wc, 0.0f);
-    j = ok ? (rs - dv + 1 + n_read) % n_read : 0;
-  }
-#pragma unroll
-  for (int b = 0; b < BB; ++b)
-    acc[b] = __fadd_rn(acc[b], __fmul_rn(sh[(b * n_stage + j) * kcs + k], wc));
-}
-
-template <int BB, bool HAS_C, bool DELAYS>
-__global__ void __launch_bounds__(kBlockN) tick_fused_kernel(TickArgs a) {
-  extern __shared__ float sh[];  // [BB][n_stage][kc + 1]
-  const int n = blockIdx.x * kBlockN + threadIdx.x;
+__global__ void __launch_bounds__(mp::kThreads, 1) tick_fused_kernel(TickArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  int tile, k_begin, k_end;
+  mp::block_range(a.plan, a.K, &tile, &k_begin, &k_end);
+  const int n0 = tile * mp::kBlockN;
   const int b0 = blockIdx.y * BB;
   const long long slot = blockIdx.z;
-  const int nb = min(BB, a.B - b0);
-  const bool live = n < a.N;
   const int rs = a.slots[0];
-  const int n_stage = DELAYS ? a.n_read : 1;
-  const int kcs = a.kc + 1;
-  const float* hist = a.read + slot * a.read_slot + static_cast<long long>(b0) * a.read_row;
-  const float* w = a.w + slot * a.w_slot + n;
-  const float* c = HAS_C ? a.c + slot * a.c_slot + n : nullptr;
-  const int* dl = DELAYS ? a.delays + slot * a.delays_slot + n : nullptr;
 
-  float acc[BB];
-#pragma unroll
-  for (int b = 0; b < BB; ++b) acc[b] = 0.0f;
+  mp::Operand op;
+  op.s = a.read + slot * a.read_slot + static_cast<long long>(b0) * a.read_row +
+         (DELAYS ? 0 : static_cast<long long>(rs) * a.K);
+  op.s_row = a.read_row;
+  op.s_plane = a.K;
+  op.n_planes = DELAYS ? a.n_read : 1;
+  op.nb = min(BB, a.B - b0);
+  op.w = a.w + slot * a.w_slot + n0;
+  op.c = HAS_C ? a.c + slot * a.c_slot + n0 : nullptr;
+  op.d = DELAYS ? a.delays + slot * a.delays_slot + n0 : nullptr;
+  op.N = a.N;
+  op.ncols = min(mp::kBlockN, a.N - n0);
+  op.k_begin = k_begin;
+  op.k_end = k_end;
+  op.rs = rs;
+  if (!mp::masked_product<BB, HAS_C, DELAYS>(op, a.plan, smem)) return;
 
-  for (int k0 = 0; k0 < a.K; k0 += a.kc) {
-    const int kc = min(a.kc, a.K - k0);
-    const int per_row = n_stage * kc;
-    __syncthreads();
-    for (int i = threadIdx.x; i < BB * per_row; i += kBlockN) {
-      const int b = i / per_row;
-      const int rem = i - b * per_row;
-      const int j = rem / kc;
-      const int k = rem - j * kc;
-      const int ring_slot = DELAYS ? j : rs;
-      sh[(b * n_stage + j) * kcs + k] =
-          b < nb ? hist[static_cast<long long>(b) * a.read_row +
-                        static_cast<long long>(ring_slot) * a.K + k0 + k]
-                 : 0.0f;
-    }
-    __syncthreads();
-    if (!live) continue;
-    int k = 0;
-    for (; k + kUnroll <= kc; k += kUnroll) {
-      float wv[kUnroll], cv[kUnroll];
-      int dv[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const long long off = static_cast<long long>(k0 + k + u) * a.N;
-        wv[u] = __ldg(w + off);
-        cv[u] = 1.0f;
-        dv[u] = 1;
-        if constexpr (HAS_C) cv[u] = __ldg(c + off);
-        if constexpr (DELAYS) dv[u] = __ldg(dl + off);
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        accumulate<BB, HAS_C, DELAYS>(acc, sh, kcs, n_stage, k + u, wv[u], cv[u], dv[u], rs,
-                                      a.n_read);
-    }
-    for (; k < kc; ++k) {
-      const long long off = static_cast<long long>(k0 + k) * a.N;
-      const float cv = HAS_C ? __ldg(c + off) : 1.0f;
-      const int dv = DELAYS ? __ldg(dl + off) : 1;
-      accumulate<BB, HAS_C, DELAYS>(acc, sh, kcs, n_stage, k, __ldg(w + off), cv, dv, rs,
-                                    a.n_read);
-    }
-  }
-  if (!live) return;
-
+  const float* acc = mp::sums(smem);
   const int ws = a.slots[1];
   const long long ro = slot * a.row_slot;
   const LifRows p{a.rows.v_th + ro, a.rows.leak + ro, a.rows.r_ref + ro,
                   a.rows.gain + ro, a.rows.i_bias + ro, a.rows.v_reset + ro};
-#pragma unroll
-  for (int b = 0; b < BB; ++b) {
-    if (b >= nb) break;
+  for (int i = threadIdx.x; i < op.nb * mp::kBlockN; i += mp::kThreads) {
+    const int b = i / mp::kBlockN;
+    const int col = i - b * mp::kBlockN;
+    if (col >= op.ncols) continue;
+    const int n = n0 + col;
     const long long idx = (slot * a.B + b0 + b) * static_cast<long long>(a.N) + n;
-    const float syn = a.drive ? __fadd_rn(acc[b], a.drive[idx]) : acc[b];
+    const float syn = a.drive ? __fadd_rn(acc[i], a.drive[idx]) : acc[i];
     float v_new, y;
     int r_new;
     repro_torch::lif_epilogue(a.mode, syn, a.v[idx], a.r[idx], p, n, &v_new, &r_new, &y);
@@ -194,25 +139,25 @@ __global__ void __launch_bounds__(kBlockN) tick_fused_kernel(TickArgs a) {
 }
 
 template <int BB>
-cudaError_t launch(const TickArgs& a, int S, size_t smem, cudaStream_t stream) {
-  const dim3 grid((a.N + kBlockN - 1) / kBlockN, (a.B + BB - 1) / BB, S);
+cudaError_t launch(const TickArgs& a, int S, cudaStream_t stream) {
+  const dim3 grid((a.N + mp::kBlockN - 1) / mp::kBlockN * a.plan.ks, (a.B + BB - 1) / BB, S);
   const bool has_c = a.c != nullptr;
   const bool delays = a.delays != nullptr;
   if (has_c && delays)
-    tick_fused_kernel<BB, true, true><<<grid, kBlockN, smem, stream>>>(a);
-  else if (has_c)
-    tick_fused_kernel<BB, true, false><<<grid, kBlockN, smem, stream>>>(a);
-  else if (delays)
-    tick_fused_kernel<BB, false, true><<<grid, kBlockN, smem, stream>>>(a);
-  else
-    tick_fused_kernel<BB, false, false><<<grid, kBlockN, smem, stream>>>(a);
-  return cudaGetLastError();
+    return mp::launch<tick_fused_kernel<BB, true, true>>(grid, a.plan, stream, a);
+  if (has_c) return mp::launch<tick_fused_kernel<BB, true, false>>(grid, a.plan, stream, a);
+  if (delays) return mp::launch<tick_fused_kernel<BB, false, true>>(grid, a.plan, stream, a);
+  return mp::launch<tick_fused_kernel<BB, false, false>>(grid, a.plan, stream, a);
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success). Never synchronises and
-// allocates nothing: the caller owns every buffer.
+// Returns the cudaError_t of the launch (0 on success); cudaErrorInvalidValue
+// for a shape or plan it cannot take (kernels/_plan.py shrinks the stages to
+// fit a deep ring and raises where even one cannot be staged). Never
+// synchronises and allocates nothing: the caller owns every buffer. The last
+// six ints are the plan (Plan.args); the fill follows from the operands'
+// alignment.
 extern "C" int repro_tick_fused(
     const void* slots, const void* read, long long read_slot, long long read_row, int n_read,
     const void* w, long long w_slot, const void* c, long long c_slot, const void* delays,
@@ -220,15 +165,21 @@ extern "C" int repro_tick_fused(
     const void* leak, const void* r_ref, const void* gain, const void* i_bias,
     const void* v_reset, long long row_slot, void* v_out, void* r_out, void* y_out,
     const void* ring_in, void* ring_out, long long ring_slot, int n_ring, int S, int B, int K,
-    int N, int mode, void* stream) {
+    int N, int mode, int bb, int kt, int stages, int ks, int k_chunk, int smem,
+    void* stream) {
   if (S < 1 || B < 1 || N < 1 || K < 0 || n_read < 1 || S > 65535 ||
       (mode != 0 && mode != 1) || (ring_out != nullptr && n_ring < 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int bb = B >= 8 ? 8 : (B > 4 ? 8 : (B > 2 ? 4 : (B > 1 ? 2 : 1)));
-  const int n_stage = delays != nullptr ? n_read : 1;
-  int kc = kSmemFloats / (bb * n_stage) - 1;
-  if (kc > kMaxChunkK) kc = kMaxChunkK;
-  if (kc < 1) return static_cast<int>(cudaErrorInvalidValue);  // ring too deep to stage
+  mp::Plan plan{bb, kt, stages, ks, k_chunk, smem, false};
+  const bool rows_aligned =
+      mp::aligned16(read) && mp::aligned16(w) && (c == nullptr || mp::aligned16(c)) &&
+      (delays == nullptr || mp::aligned16(delays)) && read_slot % 4 == 0 &&
+      read_row % 4 == 0 && w_slot % 4 == 0 && c_slot % 4 == 0 && delays_slot % 4 == 0;
+  const int planes = 1 + (c != nullptr ? 1 : 0) + (delays != nullptr ? 1 : 0);
+  const int n_planes = delays != nullptr ? n_read : 1;
+  if (!mp::plan_ok(plan, B, K, planes, n_planes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  plan.async = mp::async_fill(plan, K, N, rows_aligned);
 
   TickArgs a;
   a.slots = static_cast<const int*>(slots);
@@ -260,17 +211,16 @@ extern "C" int repro_tick_fused(
   a.K = K;
   a.N = N;
   a.mode = mode;
-  a.kc = kc;
-  const size_t smem = static_cast<size_t>(bb) * n_stage * (kc + 1) * sizeof(float);
+  a.plan = plan;
   const auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (bb == 1)
-    err = launch<1>(a, S, smem, st);
-  else if (bb == 2)
-    err = launch<2>(a, S, smem, st);
-  else if (bb == 4)
-    err = launch<4>(a, S, smem, st);
-  else
-    err = launch<8>(a, S, smem, st);
+  switch (bb) {
+    case 1: err = launch<1>(a, S, st); break;
+    case 2: err = launch<2>(a, S, st); break;
+    case 4: err = launch<4>(a, S, st); break;
+    case 8: err = launch<8>(a, S, st); break;
+    case 16: err = launch<16>(a, S, st); break;
+    default: err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }

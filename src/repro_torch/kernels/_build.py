@@ -26,12 +26,15 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("lif_step.cu", "tick_fused.cu", "stdp_update.cu", "event_dispatch.cu",
            "spike_matmul.cu")
-HEADERS = ("lif_epilogue.cuh",)
+HEADERS = ("lif_epilogue.cuh", "masked_product.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 LIB_NAME = "librepro_torch_kernels.so"
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# B1's and B2's launch plan (kernels/_plan.py Plan.args): bb, kt, stages, ks,
+# k_chunk, smem.
+_PLAN = (_I,) * 6
 # argtypes of each C entry, in the order of its signature in csrc/.
 SIGNATURES = {
     "repro_lif_step": (
@@ -39,7 +42,8 @@ SIGNATURES = {
         _P, _P, _P,                      # v, r, drive
         _P, _P, _P, _P, _P, _P, _L,      # six rows + row slot stride
         _P, _P, _P, _P,                  # v_out, r_out, y_out, run_if
-        _I, _I, _I, _I, _I, _P),         # S, B, K, N, mode, stream
+        _I, _I, _I, _I, _I,              # S, B, K, N, mode
+        *_PLAN, _P),                     # the launch plan, stream
     "repro_tick_fused": (
         _P,                              # slots
         _P, _L, _L, _I,                  # read, read_slot, read_row, n_read
@@ -48,7 +52,8 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _L,      # six rows + row slot stride
         _P, _P, _P,                      # v_out, r_out, y_out
         _P, _P, _L, _I,                  # ring_in, ring_out, ring_slot, n_ring
-        _I, _I, _I, _I, _I, _P),         # S, B, K, N, mode, stream
+        _I, _I, _I, _I, _I,              # S, B, K, N, mode
+        *_PLAN, _P),                     # the launch plan, stream
     "repro_stdp_update": (
         _P, _P, _P, _P,                  # s_pre, x_pre, s_post, x_post
         _P, _L, _P, _L, _P, _L,          # w, c, elig (+ slot strides)
@@ -154,6 +159,14 @@ def library() -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The card's streaming multiprocessors (the launch planner's wave)."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(name: str, err: int) -> None:

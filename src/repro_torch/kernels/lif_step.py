@@ -4,16 +4,19 @@ Counterpart of ``repro.kernels.lif_step`` (``_fused_kernel`` /
 ``fused_lif_step``). The CUDA source is ``csrc/lif_step.cu``; its plain
 twin is :func:`repro_torch.kernels.ref.fused_lif_step_ref`. The wrapper
 runs the twin for tensors on the CPU and launches the kernel for tensors on
-the card; anything else raises. ``launches`` counts kernel launches.
+the card; anything else raises. ``launches`` counts kernel launches;
+``last_plan`` is the :class:`repro_torch.kernels._plan.Plan` of the last
+launch (which path filled the stages, the split, the tile).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _plan
 from repro_torch.kernels.ref import MODES, LIFStepOut, fused_lif_step_ref, write_gated
 
 launches = 0
+last_plan = None
 
 
 def fused_lif_step(s, w, c, v, r, drive, v_th, leak, r_ref, gain, i_bias, v_reset,
@@ -26,6 +29,10 @@ def fused_lif_step(s, w, c, v, r, drive, v_th, leak, r_ref, gain, i_bias, v_rese
     and so may ``c`` when ``w`` is the premasked ``W*C``. f32 everywhere
     except int32 ``r`` and ``r_ref``. No padding: the kernel bounds-checks
     its ragged edges.
+
+    ``s`` holds spikes, 0 or 1: the kernel adds each term as one fused
+    multiply-add, which rounds as ``acc + s * (w*c)`` only for such ``s``
+    (for any other value it rounds once where the twin rounds twice).
 
     ``out`` (a :class:`LIFStepOut` of buffers shaped like ``v``, ``r``,
     ``v``) receives the result instead of fresh tensors. ``run_if``, a 0-d
@@ -49,7 +56,7 @@ def fused_lif_step(s, w, c, v, r, drive, v_th, leak, r_ref, gain, i_bias, v_rese
 
 
 def _launch(s, w, c, v, r, drive, rows, mode, run_if, out) -> LIFStepOut:
-    global launches
+    global launches, last_plan
     slotted = v.dim() == 3
     if not slotted:
         s, v, r = s.unsqueeze(0), v.unsqueeze(0), r.unsqueeze(0)
@@ -69,12 +76,17 @@ def _launch(s, w, c, v, r, drive, rows, mode, run_if, out) -> LIFStepOut:
         _build.expect(run_if, "run_if", torch.bool, (), dev)
     v_out, r_out, y_out = _build.outputs(out, v, r, slotted)
     P = _build.ptr
+    plan = _plan.plan(S, B, K, N, has_c=c is not None, sms=_build.sm_count(dev),
+                      is_aligned=_plan.aligned((P(s), P(w), P(c) or 0),
+                                               (s.stride(0), K, w_slot, c_slot)))
     err = _build.library().repro_lif_step(
         P(s), s.stride(0), P(w), w_slot, P(c), c_slot, P(v), P(r), P(drive),
         *(P(p) for p in rows), row_slot, P(v_out), P(r_out), P(y_out), P(run_if),
-        S, B, K, N, MODES.index(mode), torch.cuda.current_stream(dev).cuda_stream)
+        S, B, K, N, MODES.index(mode), *plan.args(),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check("lif_step", err)
     launches += 1
+    last_plan = plan
     if out is not None:
         return out
     if not slotted:

@@ -84,7 +84,8 @@ def fused_lif_step(lif_state: LIFState, spikes: torch.Tensor, params,
                    ext: Optional[torch.Tensor], *, mode: str = "fixed_leak",
                    surrogate: bool = False) -> LIFState:
     """``network.step(backend="pallas")``'s datapath: kernel B1 on the
-    arriving spikes, with the drive computed outside."""
+    arriving spikes (0 or 1, which the kernel's fused multiply-add needs to
+    round as the twin does), with the drive computed outside."""
     if surrogate:
         raise ValueError(_INFERENCE_ONLY.format("pallas"))
     S = slot_count(params)

@@ -5,16 +5,18 @@ Counterpart of ``repro.kernels.tick_fused`` (``_tick_kernel`` /
 is :func:`repro_torch.kernels.ref.fused_tick_ref`, with the same signature.
 The wrapper runs the twin for tensors on the CPU and launches the kernel for
 tensors on the card; anything else raises. ``launches`` counts kernel
-launches.
+launches; ``last_plan`` is the :class:`repro_torch.kernels._plan.Plan` of the
+last launch (which path filled the stages, the split, the tile).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _plan
 from repro_torch.kernels.ref import MODES, check_ring, fused_tick_ref
 
 launches = 0
+last_plan = None
 
 
 def fused_tick(slots, dly_read, w, c, delays, v, r, drive, dly_full,
@@ -37,6 +39,9 @@ def fused_tick(slots, dly_read, w, c, delays, v, r, drive, dly_full,
       per-synapse delays, otherwise a separate buffer (fresh when None).
     * six per-neuron rows (N,), ``r_ref`` int32.
 
+    The history holds spikes, 0 or 1: the kernel adds each term as one fused
+    multiply-add, which rounds as ``acc + s * (w*c)`` only for such values.
+
     Returns ``(v', r', y', dly')``; ``y'`` is always a fresh buffer.
     """
     if mode not in MODES:
@@ -53,7 +58,7 @@ def fused_tick(slots, dly_read, w, c, delays, v, r, drive, dly_full,
 
 
 def _launch(slots, dly_read, w, c, delays, v, r, drive, dly_full, rows, mode, dly_out):
-    global launches
+    global launches, last_plan
     slotted = v.dim() == 3
     if not slotted:
         dly_read, v, r = dly_read.unsqueeze(0), v.unsqueeze(0), r.unsqueeze(0)
@@ -91,14 +96,22 @@ def _launch(slots, dly_read, w, c, delays, v, r, drive, dly_full, rows, mode, dl
                 raise ValueError("dly_out must not alias the ring it is read from")
     v_out, r_out, y_out = torch.empty_like(v), torch.empty_like(r), torch.empty_like(v)
     P = _build.ptr
+    plan = _plan.plan(
+        S, B, K, N, has_c=c is not None, delays=delays is not None, n_read=n_read,
+        sms=_build.sm_count(dev),
+        is_aligned=_plan.aligned((P(dly_read), P(w), P(c) or 0, P(delays) or 0),
+                                 (dly_read.stride(0), dly_read.stride(1), K, w_slot, c_slot,
+                                  d_slot)))
     err = _build.library().repro_tick_fused(
         P(slots), P(dly_read), dly_read.stride(0), dly_read.stride(1), n_read,
         P(w), w_slot, P(c), c_slot, P(delays), d_slot, P(v), P(r), P(drive),
         *(P(p) for p in rows), row_slot, P(v_out), P(r_out), P(y_out),
         P(ring_in), P(ring_out), 0 if ring_out is None else ring_out.stride(0), n_ring,
-        S, B, K, N, MODES.index(mode), torch.cuda.current_stream(dev).cuda_stream)
+        S, B, K, N, MODES.index(mode), *plan.args(),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check("tick_fused", err)
     launches += 1
+    last_plan = plan
     if not slotted:
         v_out, r_out, y_out = v_out[0], r_out[0], y_out[0]
         ring_out = None if ring_out is None else ring_out[0]

@@ -205,12 +205,59 @@ def _cuda_or_skip():
     return torch.device("cuda")
 
 
+def _rect_inputs(rng, S, b, n, k, D, dev):
+    """u8-grid inputs with K != N: (S?, K, N) weights, a (S, b, D, K) history."""
+    t = lambda a: torch.as_tensor(a).to(dev)
+    return {
+        "w": t(rng.integers(0, 256, (k, n)).astype(np.float32)),
+        "c": t((rng.random((k, n)) < 0.5).astype(np.float32)),
+        "delays": t(rng.integers(1, D + 1, (k, n)).astype(np.int32)),
+        "rows": [t(rng.integers(100, 2500, n).astype(np.float32)),
+                 t(rng.integers(0, 9, n).astype(np.float32)),
+                 t(rng.integers(0, 4, n).astype(np.int32)), t(np.ones(n, np.float32)),
+                 t(rng.integers(0, 4, n).astype(np.float32)), t(np.zeros(n, np.float32))],
+        "hist": t((rng.random((S, b, D, k)) < 0.3).astype(np.float32)),
+        "v": t(rng.integers(-5, 1500, (S, b, n)).astype(np.float32)),
+        "r": t(rng.integers(0, 3, (S, b, n)).astype(np.int32)),
+        "drive": t(rng.integers(0, 256, (S, b, n)).astype(np.float32)),
+    }
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,slotted", [(1, False), (3, True)])
-def test_cuda_kernels_match_twins(S, slotted):
+@pytest.mark.parametrize("S,slotted,b,n,k", [
+    (1, False, 4, N, N), (3, True, 4, N, N),
+    # one network of 8 and 16 rows (a K split across a cluster), with a K that
+    # is not a multiple of the stage rows times the split: async and element
+    (1, False, 8, 256, 1060), (1, False, 16, 256, 1060), (1, False, 16, 256, 1061)])
+def test_cuda_kernels_match_twins(S, slotted, b, n, k):
     """On the card: B1 and B2 in every variant against their plain twins,
-    bitwise (u8 grid), at a ragged width with a slot axis."""
+    bitwise (u8 grid), at a ragged width with a slot axis, and at one network
+    of 8 and 16 rows with K split across a cluster."""
     dev = _cuda_or_skip()
+    if n != k:
+        rng = np.random.default_rng(63)
+        D = 3
+        x = _rect_inputs(rng, S, b, n, k, D, dev)
+        wc = x["w"] * x["c"]
+        s = x["hist"][:, :, 0].contiguous()
+        slots = torch.tensor([5 % D, 6 % D], dtype=torch.int32, device=dev)
+        for w, c in ((wc, None), (x["w"], x["c"])):
+            a = (s, w, c, x["v"], x["r"], x["drive"], *x["rows"])
+            got = lif_step.fused_lif_step(*a)
+            want = ref.fused_lif_step_ref(*a)
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, e) for g, e in zip(got, want))
+            for dl in (None, x["delays"]):
+                args = (slots, x["hist"], w, c, dl, x["v"], x["r"], x["drive"], None,
+                        *x["rows"])
+                got = tick_fused.fused_tick(*args)
+                want = ref.fused_tick_ref(*args)
+                torch.cuda.synchronize()
+                assert all(torch.equal(g, e) for g, e in zip(got[:3], want[:3]))
+                assert got[3] is None and want[3] is None
+        assert lif_step.last_plan.ks > 1 and tick_fused.last_plan.ks > 1
+        assert (tick_fused.last_plan.path != "element") == (k % 4 == 0)
+        return
     trees, stacked = _slot_tree(60, S)
     tree = stacked if slotted else trees[0]
     p = interop.params_from_numpy(tree, dev)
@@ -218,11 +265,11 @@ def test_cuda_kernels_match_twins(S, slotted):
     rng = np.random.default_rng(61)
     t = lambda a: torch.as_tensor(a).to(dev)
     for D in (1, 3):
-        st = _state(62 + D, D, b=4)
+        st = _state(62 + D, D, b=b)
         v, r = t(np.stack([st["lif.v"]] * S)), t(np.stack([st["lif.r"]] * S))
         ring = t(np.stack([st["delay_buf"]] * S))
         y = t(np.stack([st["lif.y"]] * S))
-        drive = t(rng.integers(0, 256, (S, 4, N)).astype(np.float32))
+        drive = t(rng.integers(0, 256, (S, b, N)).astype(np.float32))
         slots = t(np.array([5 % D, 6 % D], np.int32))
         delays = t(rng.integers(1, D + 1, (N, N)).astype(np.int32))
         for premasked in (True, False):
