@@ -28,8 +28,9 @@ script on any mismatch:
    with per-slot rewards, the ``learn_until`` gate open and closed per slot,
    all-zero, full and partial plastic masks, ``w``/``elig`` in place, at
    the serving shape (8 slots of one row, 4096 x 4096) and at a ragged
-   width (37), bitwise; one shared network of 8 rows to ``rtol=atol=1e-6``
-   (the batch sum's order differs from cuBLAS's).
+   width (37), bitwise; one shared network of 8 and of 16 rows (half and
+   5 % masks) to ``rtol=atol=1e-6`` (the batch sum's order differs from
+   cuBLAS's).
    Then B1 and B2 timed at the main path's shapes (B2 premasked in a served
    frozen wave and streaming ``w`` and ``c`` in a learning wave, B1 masked,
    at 8 slots of one row; B2 premasked and B1 masked at one network of 8
@@ -37,9 +38,12 @@ script on any mismatch:
    its bound, its twin and ``torch.matmul(s, W*C)`` on the premasked
    operand, taken in turns over 30 rounds, a device sleep ahead of each
    launch, the L2 flushed before each launch at one network; the plan of
-   each timed launch is printed. Then B5's
-   median time over 30 runs (CUDA events), its bound, its twin's time and
-   ``torch.baddbmm`` of its outer product.
+   each timed launch is printed. Then B5 timed the same way at the main
+   path's four shapes (a served learning wave with one slot open, every
+   synapse plastic under ``stdp`` and ``rstdp`` at 8 slots of one row, a
+   learning rollout's 8 rows on one 5 % mask), each beside its bound, its
+   twin, ``torch.baddbmm`` of its LTP term and ``w.add_(c)`` over the same
+   matrices, the L2 flushed before each launch.
 2. rollout: ``network.rollout`` at the ``snn-fused`` width (4096 neurons,
    32 ticks, batch 8) on ``pallas`` and ``pallas_fused`` against ``jnp``,
    for ``max_delay`` 1 and 4 and per-synapse delays; rasters and final
@@ -86,8 +90,12 @@ script on any mismatch:
    the knee armed, ``topk`` with a budget small enough to overflow, and
    ``topk`` on kernel B4; rasters and final state bitwise equal to the
    ``jnp`` backend. Each run prints its arms (event, dense on overflow, dense
-   by the knee) and launches. Then one event-backend ``learning_rollout``
-   (``stdp``) with the tick-by-tick check of phase 3.
+   by the knee) and launches. Then the fabric on a slot axis of two
+   networks, one driven at a tenth of the other's rate, with the knee: each
+   slot decides its own arm, the rasters equal ``jnp``'s and the per-slot
+   arms read on the device equal the arms replayed on the host from the
+   ``jnp`` raster. Then one event-backend ``learning_rollout`` (``stdp``)
+   with the tick-by-tick check of phase 3.
 7. event serve: the serve phase's server with ``event_density=0.2``: the
    demo's ring and sparse tenants ride the event program (fan-in gather);
    every frozen tenant's counts and predictions equal the ``jnp`` server's
@@ -96,11 +104,15 @@ script on any mismatch:
    five sweep shapes, ``predict_int``'s Iris (45 x 4 -> 3) and MNIST
    (80 x 64 -> 10) products, each in f32 and bf16: normal weights within
    the reference's tolerance (1e-5 f32, 2e-2 bf16), 0/1 spikes times u8-grid
-   weights bitwise; and one network of 8 rows at K = N = 4096, on the u8
-   grid bitwise and on normal weights (B6 and its twin each within 4 f32
-   ulps of sum(|s| * |w*c|) of the float64 product, per output). Then B6's
-   median time over 30 launches at 8 x 4096 x 4096 f32 with its bound, its
-   twin and ``torch.matmul(s, w*c)``, and profiler device time at the two
+   weights bitwise; and one network of 8 rows at K = N = 4096 and four
+   ragged shapes on the stream-K split, on the u8 grid bitwise and on
+   normal weights (B6 and its twin each within 4 f32 ulps of
+   sum(|s| * |w*c|) of the float64 product, per output); in every case two
+   launches bitwise equal. Then B6 at 8 x 4096 x 4096 in f32 and bf16 (the
+   twin,
+   ``torch.matmul(s, w * c)`` with the mask inside, on the premasked
+   operand, and ``torch.dot(w, c)`` over the same bytes, in turns, the L2
+   flushed before each launch), and profiler device time at the two
    classifier shapes.
 9. classifiers: the paper's Iris and MNIST-8x8 networks through
    ``classifier.train``, ``deploy``, ``predict_float`` and ``predict_int``
@@ -120,6 +132,7 @@ the package is missing. Nothing here imports JAX or the ``repro`` package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -572,12 +585,15 @@ def stdp_inputs(gen, dev, S, B, K, N, *, slotted=True, masks="mixed"):
     """Inputs of one B5 call: 0/1 spikes, traces in [0, 1), weights in
     [0, 255), normal eligibility. ``masks="mixed"``: slot 0 frozen (all-zero
     mask), slot 1 fully plastic, the others half; ``"ones"``: every synapse
-    learns."""
+    learns; ``"sparse"``: a 5 % mask (the learning rollout's)."""
     import torch
 
     lead = (S,) if slotted else ()
     u = lambda shape: torch.rand(lead + shape, generator=gen, device=dev)
-    c = (u((K, N)) < 0.5).float() if masks == "mixed" else torch.ones(lead + (K, N), device=dev)
+    if masks == "ones":
+        c = torch.ones(lead + (K, N), device=dev)
+    else:
+        c = (u((K, N)) < (0.5 if masks == "mixed" else 0.05)).float()
     if masks == "mixed" and slotted and S > 1:
         c[0] = 0.0
         c[1] = 1.0
@@ -592,7 +608,8 @@ STDP_ARGS = ("s_pre", "x_pre", "s_post", "x_post", "w", "c", "elig")
 
 def run_stdp_kernel_phase(dev, gen):
     """B5 against its twin: bitwise at B = 1 (the serving shape and a ragged
-    width), ``rtol=atol=1e-6`` for one shared network of 8 rows."""
+    width), ``rtol=atol=1e-6`` for one shared network of 8 and 16 rows (half
+    and 5 % masks)."""
     import torch
 
     from repro_torch.kernels import ref, stdp_update
@@ -627,21 +644,24 @@ def run_stdp_kernel_phase(dev, gen):
         if not torch.equal(inp["w"], w0):
             raise AssertionError("stdp_update wrote w without in_place")
         del inp
-    inp = stdp_inputs(gen, dev, 1, ROWS, N, N, slotted=False)
-    for rule in ("stdp", "rstdp"):
-        args = [inp[k] for k in STDP_ARGS]
-        r = torch.tensor(0.75, device=dev)
-        want = ref.fused_stdp_step_ref(*args, r, **stdp_hyper(rule))
-        got = stdp_update.fused_stdp_step(*args, r, **stdp_hyper(rule))
-        torch.cuda.synchronize()
-        for g, x in zip(got, want):
-            torch.testing.assert_close(g, x, rtol=1e-6, atol=1e-6)
-        err = max(err, max_abs_err(got, want))
-        cases += 1
-    del inp
-    log(f"stdp_update: {cases - 2} cases bitwise equal to the twin at B=1 (slot axis, "
+    batched = 0
+    for B, masks in ((ROWS, "mixed"), (ROWS, "sparse"), (EVENT_ROWS, "sparse")):
+        inp = stdp_inputs(gen, dev, 1, B, N, N, slotted=False, masks=masks)
+        for rule in ("stdp", "rstdp"):
+            args = [inp[k] for k in STDP_ARGS]
+            r = torch.tensor(0.75, device=dev)
+            want = ref.fused_stdp_step_ref(*args, r, **stdp_hyper(rule))
+            got = stdp_update.fused_stdp_step(*args, r, **stdp_hyper(rule))
+            torch.cuda.synchronize()
+            for g, x in zip(got, want):
+                torch.testing.assert_close(g, x, rtol=1e-6, atol=1e-6)
+            err = max(err, max_abs_err(got, want))
+            batched += 1
+        del inp
+    log(f"stdp_update: {cases} cases bitwise equal to the twin at B=1 (slot axis, "
         f"masks all-zero/full/partial, gate open/closed, in place, n={N} and 37); "
-        f"2 cases at B={ROWS} within rtol=atol=1e-6; max |err| {err}")
+        f"{batched} cases at B={ROWS} and {EVENT_ROWS} (half and 5 % masks) within "
+        f"rtol=atol=1e-6; max |err| {err}; plan {stdp_update.last_plan}")
     return err
 
 
@@ -649,7 +669,8 @@ def stdp_bytes(inp, reward, rule, open_slots):
     """Bytes B5 must move on these inputs: in every slot whose gate is open
     the mask, ``w`` read and written where c > 0 and, for R-STDP, ``elig``
     read and written (a closed slot reads no matrix); spikes and traces in,
-    traces out."""
+    traces out. It counts 8 bytes per learning synapse; on a sparse mask the
+    card moves whole 32-byte sectors, so the true floor there is higher."""
     c = inp["c"]
     K, N = c.shape[-2:]
     opened = [s for s, o in enumerate(open_slots) if o]
@@ -666,47 +687,73 @@ def stdp_bytes(inp, reward, rule, open_slots):
     return moved + traces + nbytes(inp["x_pre"], inp["x_post"])
 
 
+# B5 timed at the main path's shapes: (label, rule, slots, rows, masks, the
+# open slots' gate). The JSON row is the fully plastic STDP case.
+STDP_TIMED = (
+    ("served learning wave, gate open in slot 7 only", "stdp", SLOTS, 1, "ones", "served"),
+    ("stdp, every synapse plastic", "stdp", SLOTS, 1, "ones", None),
+    ("rstdp, every synapse plastic", "rstdp", SLOTS, 1, "ones", None),
+    ("learning rollout, one shared 5 % mask", "stdp", 1, ROWS, "sparse", None),
+)
+
+
 def time_stdp(dev, gen, card):
-    """B5 at the serving shape (8 slots of one row, 4096 x 4096), every synapse
-    plastic (the JSON row), then R-STDP and a served learning wave (the gate
-    open in slot 7 only, as ``learn_until`` leaves it for one plastic tenant);
-    the twin and ``torch.baddbmm`` beside each. Returns the JSON row's
-    numbers."""
+    """B5 at the main path's shapes (``STDP_TIMED``): the kernel, its twin,
+    ``torch.baddbmm`` of the LTP outer product alone (one of the update's
+    terms, not the same function) and ``w.add_(c)`` over the same matrices,
+    in turns, a device sleep ahead of each launch and the L2 flushed before
+    it (so no launch starts by writing back the dirty lines of the one
+    before). Returns the JSON row (every synapse plastic, STDP)."""
     import torch
 
     from repro_torch.kernels import ref, stdp_update
 
     bw, flops = card
-    inp = stdp_inputs(gen, dev, SLOTS, 1, N, N, masks="ones")
-    reward = torch.full((SLOTS,), 0.5, device=dev)
-    tick = torch.zeros((), dtype=torch.int32, device=dev)
-    served = torch.tensor([0] * (SLOTS - 1) + [TICKS], dtype=torch.int32, device=dev)
+    flush = torch.empty(FLUSH_BYTES // 4, device=dev)
     rows = {}
-    for rule, label in (("stdp", "stdp, every synapse plastic"),
-                        ("rstdp", "rstdp, every synapse plastic"),
-                        ("stdp", "stdp, served learning wave (gate open in slot 7 only)")):
-        gate = {}
-        open_slots = [True] * SLOTS
-        if label.startswith("stdp, served"):
-            gate = {"tick": tick, "learn_until": served}
-            open_slots = [False] * (SLOTS - 1) + [True]
+    for label, rule, S, B, masks, gated in STDP_TIMED:
+        slotted = S > 1
+        inp = stdp_inputs(gen, dev, S, B, N, N, slotted=slotted, masks=masks)
+        reward = torch.full((S,) if slotted else (), 0.5, device=dev)
+        gate, open_slots = {}, [True] * S
+        if gated:
+            gate = {"tick": torch.zeros((), dtype=torch.int32, device=dev),
+                    "learn_until": torch.tensor([0] * (S - 1) + [TICKS], dtype=torch.int32,
+                                                device=dev)}
+            open_slots = [False] * (S - 1) + [True]
         args = [inp[k] for k in STDP_ARGS]
         hyper = stdp_hyper(rule)
-        t_ms = median_ms(lambda: stdp_update.fused_stdp_step(*args, reward, in_place=True,
-                                                             **gate, **hyper))
-        p_ms = median_ms(lambda: ref.fused_stdp_step_ref(*args, reward, **gate, **hyper))
-        x_pre_new = inp["x_pre"].transpose(-1, -2)
-        l_ms = median_ms(lambda: torch.baddbmm(inp["w"], x_pre_new, inp["s_post"]))
+        x_pre_t = inp["x_pre"].transpose(-1, -2)
+        # The same matrix bytes through one streaming PyTorch call: w += c over
+        # the open slots (c read, w read and written; elig too for R-STDP).
+        opened = [i for i, o in enumerate(open_slots) if o]
+        ws, cs = (inp["w"][opened[0]], inp["c"][opened[0]]) if slotted and len(opened) == 1 \
+            else (inp["w"], inp["c"])
+        stream = (lambda: (ws.add_(cs), inp["elig"].add_(inp["c"]))) if rule == "rstdp" \
+            else (lambda: ws.add_(cs))
+        t = paired_ms({
+            "kernel": lambda: stdp_update.fused_stdp_step(*args, reward, in_place=True, **gate,
+                                                          **hyper),
+            "plain": lambda: ref.fused_stdp_step_ref(*args, reward, **gate, **hyper),
+            "library": lambda: (torch.baddbmm if slotted else torch.addmm)(
+                inp["w"], x_pre_t, inp["s_post"]),
+            "stream": stream}, flush=flush)
         moved = stdp_bytes(inp, reward, rule, open_slots)
         # LTP, LTD, dw, update and clip per synapse of an open slot
         ops = 10 * sum(open_slots) * N * N
         bound = max(moved / bw, ops / flops) * 1e3
-        log(f"time stdp_update ({label}): {t_ms:.4f} ms (bound {bound:.4f} ms, "
-            f"{moved / 2**20:.1f} MiB; plain {p_ms:.4f} ms, torch.baddbmm {l_ms:.4f} ms) "
-            f"at S={SLOTS} B=1 N=K={N}")
-        rows[label] = {"ms": t_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": bound,
+        log(f"time stdp_update ({label}): {t['kernel']:.4f} ms at S={S} B={B} N=K={N}, "
+            f"{100 * bound / t['kernel']:.0f}% of its bound {bound:.4f} ms "
+            f"({moved / 2**20:.1f} MiB; 8 bytes per learning synapse); plain "
+            f"{t['plain']:.4f} ms, torch.baddbmm (LTP term alone) {t['library']:.4f} ms, "
+            f"w.add_(c) over the same matrices {t['stream']:.4f} ms; L2 flushed before each "
+            f"launch")
+        log(f"plan stdp_update ({label}): {stdp_update.last_plan}")
+        rows[label] = {"ms": t["kernel"], "plain_ms": t["plain"], "library_ms": t["library"],
+                       "bound_ms": bound,
                        "bound_by": "bytes" if moved / bw >= ops / flops else "operations"}
-    del inp, args
+        del inp, args, x_pre_t
+    del flush
     return rows["stdp, every synapse plastic"]
 
 
@@ -1483,6 +1530,88 @@ def run_event_rollout_phase(dev, gen):
     return launches["topk"]["event_dispatch_db"], launches["topk on B4"]["event_dispatch"]
 
 
+EVENT_SLOTS = 2   # slots of the slot-axis knee run
+
+
+def knee_arms(raster, k, knee, hysteresis):
+    """Each slot's arms, replayed on the host from a raster ``(T, S, B, n)``
+    by the reference's rule: the spikes arriving at tick t are those emitted
+    at t - 1 (none at t = 0); a slot overflows when one of its rows passes
+    ``k``, goes dense by the knee past ``min(knee, k)`` or, once dense, until
+    it falls to ``hysteresis`` of that; returns ``(S, 3)`` counts (event,
+    dense on overflow, dense by the knee)."""
+    import torch
+
+    T, S = raster.shape[:2]
+    m = torch.zeros((T, S), dtype=torch.int64)
+    m[1:] = (raster[:-1] > 0).sum(-1).amax(-1).cpu()
+    hi = min(knee, k)
+    lo = int(hi * hysteresis)
+    arms = torch.zeros((S, 3), dtype=torch.int64)
+    prev = torch.zeros(S, dtype=torch.bool)
+    for t in range(T):
+        dense = (m[t] > hi) | (prev & (m[t] > lo))
+        over = m[t] > k
+        arm = torch.where(over, 1, torch.where(dense, 2, 0))
+        arms[torch.arange(S), arm] += 1
+        prev = dense
+    return arms
+
+
+def run_event_slots_phase(dev, gen):
+    """The snn-event FULL fabric on a slot axis of ``EVENT_SLOTS`` networks
+    with the knee armed: slot 0 under the fabric's drive, slot 1 under a
+    drive cut to a tenth. Every slot decides its own arm, as the reference
+    does per network under vmap: the rasters and final state equal the jnp
+    backend's bitwise, and each slot's arms, read on the device into an
+    ``(S, 3)`` ``ops.arm_ticks``, equal the arms replayed on the host from
+    the jnp raster."""
+    import torch
+
+    from repro_torch.core import network
+    from repro_torch.core.engine import EngineOptions
+    from repro_torch.kernels import event_dispatch, lif_step, ops
+
+    cfg, params, ext = event_net(dev, gen)
+    T, n, S = cfg.n_ticks, cfg.n_neurons, EVENT_SLOTS
+    stack = lambda t: t.unsqueeze(0).expand((S,) + t.shape).contiguous()
+    lif = params.lif
+    slotted = network.SNNParams(
+        w=stack(params.w), c=stack(params.c), w_in=stack(params.w_in),
+        lif=type(lif)(**{f.name: stack(getattr(lif, f.name)) for f in dataclasses.fields(lif)}))
+    quiet = ext * (torch.rand(ext.shape, generator=gen, device=dev) < 0.1)
+    ext_s = torch.stack([ext, quiet], dim=1)                   # (T, S, B, n)
+    st0 = network.SNNState.zeros((S, EVENT_ROWS), n, max_delay=RING, device=dev)
+    fj, rj = network.rollout(slotted, st0, ext_s, T)
+    tally = torch.zeros((S, 3), dtype=torch.int64, device=dev)
+    opts = EngineOptions(backend="event", event_dispatch="topk", event_k_active=EVENT_K,
+                         event_knee=EVENT_KNEE)
+    torch.cuda.synchronize()
+    lif_step.launches = event_dispatch.launches_db = 0
+    ops.arm_ticks = tally
+    try:
+        f, r = network.rollout(slotted, st0, ext_s, T, options=opts)
+    finally:
+        ops.arm_ticks = None
+    torch.cuda.synchronize()
+    same = (torch.equal(r, rj) and torch.equal(f.lif.v, fj.lif.v)
+            and torch.equal(f.lif.r, fj.lif.r) and torch.equal(f.delay_buf, fj.delay_buf))
+    if not same:
+        raise AssertionError("event rollout on a slot axis with the knee: differs from jnp")
+    want = knee_arms(rj, EVENT_K, EVENT_KNEE, opts.event_hysteresis)
+    got = tally.cpu()
+    if not torch.equal(got, want):
+        raise AssertionError(f"event slots: per-slot arms read on the device {got.tolist()}, "
+                             f"replayed from the jnp raster {want.tolist()}")
+    if lif_step.launches != T or event_dispatch.launches_db != T:
+        raise AssertionError(f"event slots: launches lif_step {lif_step.launches}, "
+                             f"event_dispatch_db {event_dispatch.launches_db}, not {T} each")
+    log(f"event rollout on {S} slots, knee {EVENT_KNEE}: == jnp bitwise (raster and final "
+        f"state); per-slot arms (event, dense on overflow, dense by the knee) "
+        f"{got.tolist()} == replayed from the jnp raster; spike rate per slot "
+        f"{[round(x, 4) for x in r.mean(dim=(0, 2, 3)).tolist()]}")
+
+
 def run_event_learning(dev, gen):
     """One ``learning_rollout`` (stdp) on the event backend at snn-event FULL,
     checked tick by tick against the plain path."""
@@ -1583,6 +1712,9 @@ def run_event_serve_phase(dev):
 SM_SHAPES = ((1, 8, 8), (4, 74, 74), (17, 300, 139), (32, 512, 128), (8, 1024, 256),
              (45, 4, 3), (80, 64, 10))
 SM_WIDE = (ROWS, N, N)
+# Shapes on B6's stream-K split with ragged edges: K off the 32-row tile, odd K
+# (the element fill), N off the 128-column tile, both with few rows.
+SM_SPLIT = ((ROWS, N + 4, N), (3, N + 1, 1000), (ROWS, N // 2, N + 4), (20, 1000, 777))
 SM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # the reference's (tests/test_kernels.py)
 SM_WIDE_ULPS = 4
 
@@ -1628,35 +1760,46 @@ def run_spike_matmul_phase(dev, gen):
     errs = {}
     wide = {}
     cases = 0
-    for B, K, N_ in SM_SHAPES + (SM_WIDE,):
+    paths = {}
+    for B, K, N_ in SM_SHAPES + (SM_WIDE,) + SM_SPLIT:
         for dt in (torch.float32, torch.bfloat16):
             name = str(dt).split(".")[1]
             for u8 in (False, True):
                 s, w, c = (t.to(dt) for t in sm_inputs(gen, dev, B, K, N_, u8=u8))
                 got = spike_matmul.spike_matmul(s, w, c)
+                plan = spike_matmul.last_plan
+                again = spike_matmul.spike_matmul(s, w, c)
                 want = ref.spike_matmul_ref(s, w, c)
                 torch.cuda.synchronize()
+                paths[f"{B}x{K}x{N_} {name}"] = f"{plan.path}/{plan.fill}"
                 err = max_abs_err([got], [want])
                 ok = got.dtype == torch.float32 and got.shape == (B, N_)
+                if not torch.equal(got, again):
+                    raise AssertionError(f"spike_matmul {B}x{K}x{N_} {name}: two launches differ")
                 if u8:
                     ok = ok and torch.equal(got, want)
-                elif (B, K, N_) == SM_WIDE:
+                elif (B, K, N_) == SM_WIDE or (B, K, N_) in SM_SPLIT:
                     (ok_got, e_got), (ok_want, e_want) = (wide_close(x, s, w, c)
                                                           for x in (got, want))
                     ok = ok and ok_got and ok_want
-                    wide[name] = (e_got, e_want)
+                    if (B, K, N_) == SM_WIDE:
+                        wide[name] = (e_got, e_want)
                 else:
                     ok = ok and torch.allclose(got, want, rtol=SM_TOL[name], atol=SM_TOL[name])
                 if not ok:
                     raise AssertionError(f"spike_matmul {B}x{K}x{N_} {name} "
                                          f"{'u8 grid' if u8 else 'normal'}: max |err| {err}")
-                key = "u8 grid" if u8 else name if (B, K, N_) != SM_WIDE else f"wide {name}"
+                key = ("u8 grid" if u8 else f"wide {name}" if (B, K, N_) == SM_WIDE
+                       else f"split {name}" if (B, K, N_) in SM_SPLIT else name)
                 errs[key] = max(errs.get(key, 0.0), err)
                 cases += 1
     log(f"spike_matmul: {cases} cases against the twin: u8 grid bitwise (f32 and bf16), "
         f"normal weights max |err| f32 {errs['float32']:.3g} (tolerance 1e-5), bf16 "
-        f"{errs['bfloat16']:.3g} (2e-2); shapes "
-        f"{', '.join('x'.join(map(str, s)) for s in SM_SHAPES + (SM_WIDE,))}")
+        f"{errs['bfloat16']:.3g} (2e-2), and within {SM_WIDE_ULPS} f32 ulps at "
+        f"{'x'.join(map(str, SM_WIDE))} and the ragged split shapes (max |err| f32 "
+        f"{errs['split float32']:.3g}, bf16 {errs['split bfloat16']:.3g}); every case two "
+        f"launches bitwise equal; plan (path/fill) per shape: "
+        + ", ".join(f"{k} {v}" for k, v in paths.items()))
     log(f"spike_matmul at {'x'.join(map(str, SM_WIDE))} on normal weights: within "
         f"{SM_WIDE_ULPS} f32 ulps of sum(|s||w*c|) of the float64 product, max |err| "
         + ", ".join(f"{k} B6 {g:.3g} twin {t:.3g} (B6 - twin {errs['wide ' + k]:.3g})"
@@ -1665,28 +1808,45 @@ def run_spike_matmul_phase(dev, gen):
 
 
 def time_spike_matmul(dev, gen, card):
-    """B6 at one network of 8 rows, K = N = 4096 in f32 (median of CUDA-event
-    launches), with its bound, its twin and ``torch.matmul(s, w*c)``; then
-    profiler device time at predict_int's shapes, where one launch is shorter
-    than the host's launch overhead."""
+    """B6 at one network of 8 rows, K = N = 4096, in f32 and bf16: the
+    kernel, its twin, ``torch.matmul(s, W*C)`` on the premasked operand (half
+    the bytes) and ``torch.matmul(s, w * c)`` with the mask product inside
+    the timed call, in turns, a device sleep ahead of each launch and the L2
+    flushed before it. Then profiler device time at predict_int's shapes,
+    where one launch is shorter than the host's launch overhead. Returns the
+    f32 JSON row (library: the mask product inside)."""
     import torch
 
     from repro_torch.kernels import ref, spike_matmul
 
     bw, flops = card
-    s, w, c = sm_inputs(gen, dev, ROWS, N, N, u8=True)
-    wc = w * c
-    t_ms = median_ms(lambda: spike_matmul.spike_matmul(s, w, c))
-    p_ms = median_ms(lambda: ref.spike_matmul_ref(s, w, c))
-    l_ms = median_ms(lambda: torch.matmul(s, wc))
-    moved = nbytes(s, w, c) + ROWS * N * 4          # every input once, the f32 output once
-    ops = 2 * ROWS * N * N + N * N                   # multiply-adds and the mask multiply
-    bound = max(moved / bw, ops / flops) * 1e3
-    row = {"ms": t_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": bound,
-           "bound_by": "bytes" if moved / bw >= ops / flops else "operations"}
-    log(f"time spike_matmul: {t_ms:.4f} ms (bound {bound:.4f} ms for {moved / 1e6:.1f} MB, "
-        f"plain {p_ms:.4f} ms, torch.matmul(s, w*c) {l_ms:.4f} ms) at B={ROWS} K=N={N} f32")
-    del s, w, c, wc
+    flush = torch.empty(FLUSH_BYTES // 4, device=dev)
+    row = None
+    for dt in (torch.float32, torch.bfloat16):
+        s, w, c = (t.to(dt) for t in sm_inputs(gen, dev, ROWS, N, N, u8=True))
+        wc = w * c
+        t = paired_ms({"kernel": lambda: spike_matmul.spike_matmul(s, w, c),
+                       "plain": lambda: ref.spike_matmul_ref(s, w, c),
+                       "premasked": lambda: torch.matmul(s, wc),
+                       "masked": lambda: torch.matmul(s, w * c),
+                       "stream": lambda: torch.dot(w.view(-1), c.view(-1))}, flush=flush)
+        moved = nbytes(s, w, c) + ROWS * N * 4      # every input once, the f32 output once
+        ops = 2 * ROWS * N * N + N * N                # multiply-adds and the mask multiply
+        bound = max(moved / bw, ops / flops) * 1e3
+        name = str(dt).split(".")[1]
+        log(f"time spike_matmul ({name}): {t['kernel']:.4f} ms at B={ROWS} K=N={N}, "
+            f"{100 * bound / t['kernel']:.0f}% of its bound {bound:.4f} ms for "
+            f"{moved / 1e6:.1f} MB; plain {t['plain']:.4f} ms, torch.matmul(s, w * c) "
+            f"{t['masked']:.4f} ms, torch.matmul(s, W*C)* {t['premasked']:.4f} ms "
+            f"(* premasked: half the bytes), torch.dot(w, c) over the same bytes "
+            f"{t['stream']:.4f} ms; L2 flushed before each launch")
+        log(f"plan spike_matmul ({name}): {spike_matmul.last_plan}")
+        if dt == torch.float32:
+            row = {"ms": t["kernel"], "plain_ms": t["plain"], "library_ms": t["masked"],
+                   "bound_ms": bound,
+                   "bound_by": "bytes" if moved / bw >= ops / flops else "operations"}
+        del s, w, c, wc
+    del flush
     for B, K, N_ in SM_SHAPES[5:]:
         s, w, c = sm_inputs(gen, dev, B, K, N_, u8=True)
         wc = w * c
@@ -1695,7 +1855,8 @@ def time_spike_matmul(dev, gen, card):
                                          lambda: torch.matmul(s, wc))]
         log(f"time spike_matmul at B={B} K={K} N={N_}: {tiny[0]:.4f} ms device time "
             f"(bound {max(nbytes(s, w, c) + B * N_ * 4, 1) / bw * 1e3:.6f} ms; plain "
-            f"{tiny[1]:.4f} ms, torch.matmul {tiny[2]:.4f} ms)")
+            f"{tiny[1]:.4f} ms, torch.matmul {tiny[2]:.4f} ms); plan "
+            f"{spike_matmul.last_plan}")
     return row
 
 
@@ -1920,6 +2081,10 @@ def main() -> int:
             f"{sum(k[2] for k in product)} bytes spilled"
             + "".join(f"; {name}: {r} registers, {sp} bytes spilled"
                       for name, r, sp in spilled))
+        for label, key in (("B5", "stdp_update"), ("B6", "spike_matmul")):
+            found = [k for k in ptxas_kernels(build.log) if key in k[0]]
+            log(f"ptxas {label}: " + "; ".join(f"{name}: {r} registers, {sp} bytes spilled"
+                                                 for name, r, sp in found))
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     errs = phase("kernels", run_kernel_phase, dev, gen)
@@ -1936,6 +2101,7 @@ def main() -> int:
     timed.update(phase("event", time_event, dev, gen, card))
     launches["event_dispatch_db"], launches["event_dispatch"] = phase(
         "event", run_event_rollout_phase, dev, gen)
+    phase("event", run_event_slots_phase, dev, gen)
     event_learn = phase("event", run_event_learning, dev, gen)
     event_waves = phase("event", run_event_serve_phase, dev)
     errs["spike_matmul"] = phase("spike_matmul", run_spike_matmul_phase, dev, gen)

@@ -77,9 +77,11 @@ class TickCarry:
       w: the mutable weight matrix, or None on the frozen path (frozen
         weights stay in the parameters, so the hoisted ``W*C`` is valid for
         the whole rollout).
-      policy: the adaptive knee's hysteresis bit (a 0-d bool on the
-        device), or None when no knee is armed. True means the previous
-        tick took the dense arm for speed.
+      policy: the adaptive knee's hysteresis bit on the device, one per
+        network as the reference's ``vmap`` keeps it: a 0-d bool, or an
+        ``(S,)`` bool with a slot axis. None when no knee is armed. True
+        means the previous tick of that network took the dense arm for
+        speed.
 
     The reference's telemetry slot arrives with its slice.
     """
@@ -369,11 +371,15 @@ class TickEngine:
         # The adaptive knee: past min(knee, k) spikes in a row the dense arm is
         # the faster exact one; once dense, stay dense until the count falls
         # to hysteresis * knee. Overflow (m > k) must go dense for the bits.
-        m = (ops.flatten_state(arriving, S) > 0).sum(-1).max()
+        # Each network decides for itself, as under the reference's vmap: m,
+        # the bit and the gate are (S,) with a slot axis, 0-d without.
+        m = (ops.flatten_state(arriving, S) > 0).sum(-1).amax(-1)
+        if S is None:
+            m = m.squeeze(0)
         hi = min(int(opts.event_knee), ev.k)
         lo = int(hi * opts.event_hysteresis)
         prev = (carry.policy if carry.policy is not None
-                else torch.zeros((), dtype=torch.bool, device=m.device))
+                else torch.zeros_like(m, dtype=torch.bool))
         dense_mode = (m > hi) | (prev & (m > lo))
         take_dense = (m > ev.k) | dense_mode
         lif_state = ops.event_lif_step(st.lif, arriving, params, ext, wc, k_active=ev.k,
@@ -470,8 +476,9 @@ class TickEngine:
             event = self.prepare_event(params, wc, neighbors, learning=learning)
             if (opts.event_knee is not None and event.strategy == "topk"
                     and carry.policy is None):
+                S = ops.slot_count(params)
                 carry = dataclasses.replace(carry, policy=torch.zeros(
-                    (), dtype=torch.bool, device=state.tick.device))
+                    () if S is None else (S,), dtype=torch.bool, device=state.tick.device))
         in_place = (learning and opts.plasticity is not None
                     and opts.plasticity_pass() == "pallas")
         if in_place:

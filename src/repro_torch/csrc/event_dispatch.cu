@@ -28,11 +28,12 @@
 //   W*C. Sixteen rows are loaded before they are added, to keep bytes in
 //   flight; they are added in slot order, one __fadd_rn each, which is the
 //   plain twin's order, so the result is bitwise the twin's on any input.
-// - A device gate (skip) lets the caller launch this kernel and the dense
-//   kernel B1 every tick and decide on the device which one writes: when
-//   *skip is set every block returns before reading anything. This replaces
-//   the reference's lax.cond on the overflow / adaptive-knee predicate with
-//   no host round trip.
+// - A device gate (skip, one flag per slot or one for all) lets the caller
+//   launch this kernel and the dense kernel B1 every tick and decide on the
+//   device, per network, which one writes: when a slot's flag is set every
+//   block of that slot returns before reading anything. This replaces the
+//   reference's lax.cond on the overflow / adaptive-knee predicate (taken per
+//   network under its vmap) with no host round trip.
 // - The ragged edge N % 128 is bounds-checked, and a row id outside w is
 //   read as nothing: no padding, no sentinel reads past the matrix.
 #include <cuda_runtime.h>
@@ -62,13 +63,15 @@ struct EventArgs {
   float* v_out;
   int* r_out;
   float* y_out;
-  const unsigned char* skip;  // 0-d device flag, or null
+  const unsigned char* skip;  // (S | 1,) device flags, or null
+  long long skip_slot;        // 1 per slot, 0 one flag for every slot
   int B, N, mode;
 };
 
 template <bool kLive>
 __global__ void __launch_bounds__(kBlockN) event_dispatch_kernel(EventArgs a) {
-  if (a.skip != nullptr && *a.skip) return;  // the dense arm writes this tick
+  // The dense arm writes this slot's tick.
+  if (a.skip != nullptr && a.skip[blockIdx.z * a.skip_slot]) return;
   __shared__ int sh_idx[kChunk];
   const int n = blockIdx.x * kBlockN + threadIdx.x;
   const int b = blockIdx.y;
@@ -133,8 +136,8 @@ extern "C" int repro_event_dispatch(
     const void* idx, const void* counts, int k, const void* w, long long w_slot, int Kw,
     const void* v, const void* r, const void* drive, const void* v_th, const void* leak,
     const void* r_ref, const void* gain, const void* i_bias, const void* v_reset,
-    long long row_slot, void* v_out, void* r_out, void* y_out, const void* skip, int S,
-    int B, int N, int mode, void* stream) {
+    long long row_slot, void* v_out, void* r_out, void* y_out, const void* skip,
+    long long skip_slot, int S, int B, int N, int mode, void* stream) {
   if (S < 1 || B < 1 || N < 1 || k < 0 || Kw < 1 || S > 65535 || B > 65535 ||
       (mode != 0 && mode != 1))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -156,6 +159,7 @@ extern "C" int repro_event_dispatch(
   a.r_out = static_cast<int*>(r_out);
   a.y_out = static_cast<float*>(y_out);
   a.skip = static_cast<const unsigned char*>(skip);
+  a.skip_slot = skip_slot;
   a.B = B;
   a.N = N;
   a.mode = mode;

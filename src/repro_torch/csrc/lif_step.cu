@@ -7,9 +7,10 @@
 //   then the shared LIF epilogue (lif_epilogue.cuh) -> v', r', y'.
 //
 // Two options serve the event backend's dense arm (event_dispatch.cu): c may
-// be null, when w is the premasked W*C, and a device gate (run_if) makes every
-// block return at once unless *run_if is set, so the caller can launch B1 and
-// the event kernel each tick and let the device pick the one that writes.
+// be null, when w is the premasked W*C, and a device gate (run_if, one flag
+// per slot, or one for all) makes every block of a slot return at once unless
+// the slot's flag is set, so the caller can launch B1 and the event kernel
+// each tick and let the device pick, per network, the one that writes.
 //
 // What bounds it on this card: the weight bytes. Every tick streams w and c
 // once, 2 * K * N * 4 bytes per slot (128 MiB at K = N = 4096, about 40 us at
@@ -24,9 +25,11 @@
 // weights pass a slot stride of 0. The plan comes from kernels/_plan.py.
 //
 // The gate is read before anything else: the flag is written by an earlier
-// launch on the stream and never changes during this one, so every block of
-// a cluster takes the same branch before any cluster barrier, and a closed
-// gate writes nothing.
+// launch on the stream and never changes during this one. Clusters run along
+// x, so every block of a K-split cluster belongs to one slot (blockIdx.z) and
+// reads the same flag, run_if[slot * run_if_slot]: all of them take the same
+// branch and return together before any cluster barrier, and a closed gate
+// writes nothing of its slot.
 #include <cuda_runtime.h>
 
 #include "lif_epilogue.cuh"
@@ -52,14 +55,16 @@ struct LifStepArgs {
   float* v_out;
   int* r_out;
   float* y_out;
-  const unsigned char* run_if;  // 0-d device flag, or null: always run
+  const unsigned char* run_if;  // (S | 1,) device flags, or null: always run
+  long long run_if_slot;        // 1 per slot, 0 one flag for every slot
   int B, K, N, mode;
   mp::Plan plan;
 };
 
 template <int BB, bool kMasked>
 __global__ void __launch_bounds__(mp::kThreads, 1) lif_step_kernel(LifStepArgs a) {
-  if (a.run_if != nullptr && !*a.run_if) return;  // the other arm writes this tick
+  // The other arm writes this slot's tick.
+  if (a.run_if != nullptr && !a.run_if[blockIdx.z * a.run_if_slot]) return;
   extern __shared__ __align__(128) unsigned char smem[];
   int tile, k_begin, k_end;
   mp::block_range(a.plan, a.K, &tile, &k_begin, &k_end);
@@ -121,7 +126,8 @@ extern "C" int repro_lif_step(
     long long c_slot, const void* v, const void* r, const void* drive, const void* v_th,
     const void* leak, const void* r_ref, const void* gain, const void* i_bias,
     const void* v_reset, long long row_slot, void* v_out, void* r_out, void* y_out,
-    const void* run_if, int S, int B, int K, int N, int mode, int bb, int kt, int stages,
+    const void* run_if, long long run_if_slot, int S, int B, int K, int N, int mode, int bb,
+    int kt, int stages,
     int ks, int k_chunk, int smem, void* stream) {
   if (S < 1 || B < 1 || N < 1 || K < 0 || S > 65535 || (mode != 0 && mode != 1))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -150,6 +156,7 @@ extern "C" int repro_lif_step(
   a.r_out = static_cast<int*>(r_out);
   a.y_out = static_cast<float*>(y_out);
   a.run_if = static_cast<const unsigned char*>(run_if);
+  a.run_if_slot = run_if_slot;
   a.B = B;
   a.K = K;
   a.N = N;

@@ -21,38 +21,58 @@
 // traces and spikes are a few KiB. The outer products are 2 * B multiply-adds
 // per synapse: far below the f32 rate.
 //
-// Design (a simple first version):
-// - A block owns one slot, 16 rows (k) and 128 columns (n), one column per
-//   thread. Grid (ceil(N/128), ceil(K/16), S); a shared mask passes a slot
-//   stride of 0, so one network is S = 1 with no copies.
-// - No cross-block reduction: the block loops over all B batch rows itself
-//   (the TPU kernel's sequential B grid axis and its VMEM accumulator), staging
-//   8 rows of the decayed traces and spikes in shared memory at a time, and
-//   sums LTP and LTD for its 16 x 128 synapses in registers, in batch order.
-//   At B = 1 each sum is a single exact product, so the result equals the
-//   plain twin's bitwise.
-// - The trace outputs go to buffers other than the inputs: every block
-//   recomputes x_pre' for its rows and x_post' for its columns from the input
-//   traces, so an in-place write would race. Blocks of column tile 0 write
-//   x_pre', blocks of row tile 0 write x_post': each element once.
+// Design (kernels/_stream.py stdp_plan):
+// - A persistent grid of two blocks per SM walks (slot, tile) units: a tile
+//   is 32 rows x 128 columns, each of 8 warps owning 4 rows and each lane 4
+//   columns. Every block walks the slots in order and takes tiles p,
+//   p + blocks, ... of each open slot, so one open slot is spread over the
+//   whole card; a closed slot costs one branch per block, and the blocks copy
+//   its traces through between them. This replaces a grid of one block per
+//   tile, in which the blocks of closed slots (7 of 8 on a served learning
+//   wave) still launched, read the gate and returned.
+// - The c -> w dependency is off the critical path: each thread streams its
+//   own 16-byte chunks of c (and elig) into a shared-memory ring kStages - 1
+//   tiles ahead, and, once a tile's c chunk has landed, loads the chunk of w
+//   behind it into registers one tile ahead, only where some c > 0 in it.
+//   Sparse masks do not read w where nothing learns, and dense masks keep
+//   both streams in flight; w waits in registers, so the ring holds c alone
+//   (and elig) and two blocks fit an SM. A thread only ever reads the chunks
+//   it copied itself, so the ring needs no barrier: cp.async.wait_group
+//   orders it.
+// - Traces: a tile's x_pre' rows and x_post' columns are computed once per
+//   tile, up to 8 batch rows at a time, into shared memory; LTP and LTD sum
+//   in batch order in registers (4 x 4 synapses per thread). Tiles of column
+//   tile 0 write x_pre', tiles of row tile 0 write x_post': each once. At
+//   B = 1 each sum is a single exact product, so the result equals the plain
+//   twin's bitwise.
 // - w and elig are updated in place: each element is read and written by the
-//   same thread, and the tick kernel that read w earlier ran before this one in
-//   stream order.
+//   same thread (a chunk of w is written back only where some c > 0 in it,
+//   its c == 0 elements with the bits it read), and the tick kernel that read
+//   w earlier ran before this one in stream order. The trace outputs go to
+//   other buffers than the inputs.
 // - The reward (the TPU kernel's SMEM scalar), the tick counter and the
 //   learn_until bound are read from device memory, so the tick loop never syncs
-//   with the host. A block whose gate is closed copies the traces through and
-//   returns without reading c.
-// - The mask is loaded first; w is loaded only where c > 0.
+//   with the host.
+// - Rows that do not start on 16-byte boundaries (N % 4 != 0, unaligned
+//   views) take the element fill: bounds-checked loads straight from device
+//   memory, w only where c > 0, no ring.
 // - Every operation is an explicit round-to-nearest intrinsic in the reference's
 //   association order (and the file is compiled with --fmad=false), so nothing
 //   is contracted into an FMA the twin does not do.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kBlockN = 128;  // columns per block, one per thread
-constexpr int kTileK = 16;    // rows per block, summed in registers
-constexpr int kChunkB = 8;    // batch rows staged in shared memory per pass
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTileN = 128;          // columns per tile, 4 per lane
+constexpr int kRowsPerWarp = 4;
+constexpr int kTileK = kWarps * kRowsPerWarp;  // 32 rows per tile
+constexpr int kChunkB = 8;           // batch rows of traces staged per pass
+constexpr int kStages = 3;           // ring stages: c (and elig) two tiles ahead
+constexpr int kPlaneFloats = kTileK * kTileN;
+constexpr int kMaxSmem = 232448;
 
 struct StdpArgs {
   const float* s_pre;          // (S, B, K)
@@ -72,7 +92,8 @@ struct StdpArgs {
   long long until_slot;
   float* x_pre_out;            // (S, B, K)
   float* x_post_out;           // (S, B, N)
-  int B, K, N, rstdp;
+  int S, B, K, N, rstdp;
+  int tiles_n, tiles;          // column tiles, tiles per slot
   float a_plus, a_minus, decay_pre, decay_post, decay_elig, lr_reward, w_min, w_max;
 };
 
@@ -80,135 +101,439 @@ __device__ __forceinline__ float clip(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
 }
 
-__global__ void __launch_bounds__(kBlockN) stdp_update_kernel(StdpArgs a) {
-  __shared__ float sh_xpre[kChunkB][kTileK];
-  __shared__ float sh_spre[kChunkB][kTileK];
-  __shared__ float sh_xpost[kChunkB][kBlockN];
-  __shared__ float sh_spost[kChunkB][kBlockN];
+__device__ __forceinline__ bool gate_open(const StdpArgs& a, int slot) {
+  return a.learn_until == nullptr || *a.tick < a.learn_until[slot * a.until_slot];
+}
 
-  const int tid = threadIdx.x;
-  const int n = blockIdx.x * kBlockN + tid;
-  const int k0 = blockIdx.y * kTileK;
-  const long long slot = blockIdx.z;
-  const bool live = n < a.N;
-  const bool write_pre = blockIdx.x == 0;   // x_pre' rows [k0, k0 + kTileK)
-  const bool write_post = blockIdx.y == 0;  // x_post' column n
-  const long long pre0 = slot * a.B * static_cast<long long>(a.K);
-  const long long post0 = slot * a.B * static_cast<long long>(a.N);
-  const bool open =
-      a.learn_until == nullptr || *a.tick < a.learn_until[slot * a.until_slot];
+// A block's place in its walk: (slot, tile), slot == S when it is done.
+struct Cursor {
+  int slot, t;
+};
 
-  if (!open) {
-    // Gate closed: the traces keep their values, w and elig are not touched.
-    if (write_pre) {
-      for (int i = tid; i < a.B * kTileK; i += kBlockN) {
-        const int b = i / kTileK;
-        const int k = k0 + i % kTileK;
-        if (k < a.K) {
-          const long long idx = pre0 + static_cast<long long>(b) * a.K + k;
-          a.x_pre_out[idx] = a.x_pre[idx];
-        }
-      }
-    }
-    if (write_post && live) {
-      for (int b = 0; b < a.B; ++b) {
-        const long long idx = post0 + static_cast<long long>(b) * a.N + n;
-        a.x_post_out[idx] = a.x_post[idx];
-      }
-    }
-    return;
+// Move c to the first unit at or after it that the block takes: tile
+// blockIdx.x + i * gridDim.x of an open slot.
+__device__ __forceinline__ void settle(Cursor& c, const StdpArgs& a) {
+  while (c.slot < a.S) {
+    if (c.t < a.tiles && gate_open(a, c.slot)) return;
+    ++c.slot;
+    c.t = blockIdx.x;
   }
+}
+__device__ __forceinline__ void advance(Cursor& c, const StdpArgs& a) {
+  c.t += gridDim.x;
+  if (c.t < a.tiles) return;  // the same slot, whose gate is open
+  ++c.slot;
+  c.t = blockIdx.x;
+  settle(c, a);
+}
 
-  float ltp[kTileK], ltd[kTileK];
-#pragma unroll
-  for (int kk = 0; kk < kTileK; ++kk) ltp[kk] = ltd[kk] = 0.0f;
+// 16 bytes from global to shared (L2 only); src_bytes 0 reads nothing and
+// zero-fills the destination.
+__device__ __forceinline__ void copy16(void* dst, const void* src, int src_bytes = 16) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+// All but this thread's Newest copy groups have landed.
+template <int Newest>
+__device__ __forceinline__ void wait_all_but() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(Newest) : "memory");
+}
+// 16 bytes from global memory into registers, cached in L2 only, issued where
+// it stands (volatile: not sunk next to its use, one tile later).
+__device__ __forceinline__ float4 load16(const float* p) {
+  float4 v;
+  asm volatile("ld.global.cg.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+  return v;
+}
 
-  for (int b0 = 0; b0 < a.B; b0 += kChunkB) {
-    const int nb = min(kChunkB, a.B - b0);
-    __syncthreads();
-    for (int i = tid; i < nb * kTileK; i += kBlockN) {
-      const int bb = i / kTileK;
-      const int kk = i % kTileK;
-      const int k = k0 + kk;
-      float xs = 0.0f, ss = 0.0f;
-      if (k < a.K) {
-        const long long idx = pre0 + static_cast<long long>(b0 + bb) * a.K + k;
-        ss = a.s_pre[idx];
-        xs = __fadd_rn(__fmul_rn(a.decay_pre, a.x_pre[idx]), ss);
-        if (write_pre) a.x_pre_out[idx] = xs;
-      }
-      sh_xpre[bb][kk] = xs;
-      sh_spre[bb][kk] = ss;
-    }
-    for (int bb = 0; bb < nb; ++bb) {
-      float xs = 0.0f, ss = 0.0f;
-      if (live) {
-        const long long idx = post0 + static_cast<long long>(b0 + bb) * a.N + n;
-        ss = a.s_post[idx];
-        xs = __fadd_rn(__fmul_rn(a.decay_post, a.x_post[idx]), ss);
-        if (write_post) a.x_post_out[idx] = xs;
-      }
-      sh_xpost[bb][tid] = xs;
-      sh_spost[bb][tid] = ss;
-    }
-    __syncthreads();
-    for (int bb = 0; bb < nb; ++bb) {
-      const float xpo = sh_xpost[bb][tid];
-      const float spo = sh_spost[bb][tid];
-#pragma unroll
-      for (int kk = 0; kk < kTileK; ++kk) {
-        ltp[kk] = __fadd_rn(ltp[kk], __fmul_rn(sh_xpre[bb][kk], spo));
-        ltd[kk] = __fadd_rn(ltd[kk], __fmul_rn(sh_spre[bb][kk], xpo));
-      }
-    }
+struct Tile {
+  int slot, k0, n0, kt, nt;
+  __device__ Tile(const Cursor& c, const StdpArgs& a) {
+    slot = c.slot;
+    kt = c.t / a.tiles_n;
+    nt = c.t - kt * a.tiles_n;
+    k0 = kt * kTileK;
+    n0 = nt * kTileN;
   }
-  if (!live) return;
+};
 
-  const long long col = static_cast<long long>(k0) * a.N + n;
-  const float* c = a.c + slot * a.c_slot + col;
-  float* w = a.w + slot * a.w_slot + col;
-  float* elig = a.elig + slot * a.elig_slot + col;
-  const int rows = min(kTileK, a.K - k0);
+// Plane p (0: c, 1: elig) of stage i of the ring: [kTileK][kTileN] floats.
+template <bool kRstdp>
+__device__ __forceinline__ float* plane(float* ring, int i, int p) {
+  return ring + (i * (kRstdp ? 2 : 1) + p) * kPlaneFloats;
+}
 
-  // Loads first (all independent, so they are in flight together), then the
-  // update; w only where the mask lets the synapse learn.
-  float cv[kTileK], wv[kTileK], ev[kTileK];
+// This thread's chunks of tile u's c (and elig) into stage i.
+template <bool kRstdp>
+__device__ __forceinline__ void issue_c(const StdpArgs& a, const Cursor& u, float* ring, int i,
+                                        int warp, int lane) {
+  const Tile t(u, a);
+  const int n = t.n0 + lane * 4;
+  if (n >= a.N) return;
 #pragma unroll
-  for (int kk = 0; kk < kTileK; ++kk) {
-    const long long off = static_cast<long long>(kk) * a.N;
-    cv[kk] = kk < rows ? __ldg(c + off) : 0.0f;
-    wv[kk] = cv[kk] > 0.0f ? w[off] : 0.0f;
-    ev[kk] = (a.rstdp && kk < rows) ? elig[off] : 0.0f;
-  }
-  const float gain = a.rstdp ? __fmul_rn(a.lr_reward, a.reward[slot * a.reward_slot]) : 0.0f;
-#pragma unroll
-  for (int kk = 0; kk < kTileK; ++kk) {
-    if (kk >= rows) break;
-    const long long off = static_cast<long long>(kk) * a.N;
-    const float dw =
-        __fmul_rn(__fsub_rn(__fmul_rn(a.a_plus, ltp[kk]), __fmul_rn(a.a_minus, ltd[kk])), cv[kk]);
-    float upd = dw;
-    if (a.rstdp) {
-      const float e_new = __fadd_rn(__fmul_rn(a.decay_elig, ev[kk]), dw);
-      elig[off] = e_new;
-      upd = __fmul_rn(gain, e_new);
-    }
-    if (cv[kk] > 0.0f) w[off] = clip(__fadd_rn(wv[kk], upd), a.w_min, a.w_max);
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    const int row = warp * kRowsPerWarp + r;
+    const int k = t.k0 + row;
+    if (k >= a.K) break;
+    const long long g = static_cast<long long>(k) * a.N + n;
+    copy16(plane<kRstdp>(ring, i, 0) + row * kTileN + lane * 4, a.c + t.slot * a.c_slot + g);
+    if (kRstdp)
+      copy16(plane<kRstdp>(ring, i, 1) + row * kTileN + lane * 4,
+             a.elig + t.slot * a.elig_slot + g);
   }
 }
 
+// This thread's chunks of tile u's w into registers, each only where its c
+// chunk (landed in stage i) lets some synapse learn, or every chunk (kAll:
+// the block's first tile, loaded at once rather than a round trip later).
+template <bool kRstdp, bool kAll = false>
+__device__ __forceinline__ void load_w(const StdpArgs& a, const Cursor& u, float* ring, int i,
+                                       int warp, int lane, float4 (&w)[kRowsPerWarp]) {
+  const Tile t(u, a);
+  const int n = t.n0 + lane * 4;
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    w[r] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const int row = warp * kRowsPerWarp + r;
+    const int k = t.k0 + row;
+    if (n >= a.N || k >= a.K) continue;
+    const float4 cv = kAll ? make_float4(1.0f, 1.0f, 1.0f, 1.0f)
+                           : *reinterpret_cast<const float4*>(plane<kRstdp>(ring, i, 0) +
+                                                              row * kTileN + lane * 4);
+    if (cv.x > 0.0f || cv.y > 0.0f || cv.z > 0.0f || cv.w > 0.0f)
+      w[r] = load16(a.w + t.slot * a.w_slot + static_cast<long long>(k) * a.N + n);
+  }
+}
+
+// The staged traces of one tile: up to kChunkB batch rows of x_pre' and
+// s_pre for its rows and of x_post' and s_post for its columns.
+struct Traces {
+  float xpre[kChunkB][kTileK], spre[kChunkB][kTileK];
+  __align__(16) float xpost[kChunkB][kTileN];
+  __align__(16) float spost[kChunkB][kTileN];
+};
+
+// Trace item i of batch row b0 + bb (i < kTileK: a row of the tile, else a
+// column): its address in the input and output traces, or -1 past the
+// matrix.
+__device__ __forceinline__ long long trace_index(const StdpArgs& a, const Tile& t, int b, int i,
+                                                 bool* pre) {
+  *pre = i < kTileK;
+  if (*pre) {
+    const int k = t.k0 + i;
+    return k < a.K ? (static_cast<long long>(t.slot) * a.B + b) * a.K + k : -1;
+  }
+  const int n = t.n0 + i - kTileK;
+  return n < a.N ? (static_cast<long long>(t.slot) * a.B + b) * a.N + n : -1;
+}
+
+// One trace item, decayed into shared memory (and written out by the tiles
+// of column tile 0 for x_pre', of row tile 0 for x_post'). x, s: its inputs.
+__device__ __forceinline__ void stage_item(const StdpArgs& a, const Tile& t, Traces& sh, int bb,
+                                           int i, long long idx, bool pre, float x, float s) {
+  float xs = 0.0f, ss = 0.0f;
+  if (idx >= 0) {
+    ss = s;
+    xs = __fadd_rn(__fmul_rn(pre ? a.decay_pre : a.decay_post, x), ss);
+    if (pre && t.nt == 0) a.x_pre_out[idx] = xs;
+    if (!pre && t.kt == 0) a.x_post_out[idx] = xs;
+  }
+  if (pre) {
+    sh.xpre[bb][i] = xs;
+    sh.spre[bb][i] = ss;
+  } else {
+    sh.xpost[bb][i - kTileK] = xs;
+    sh.spost[bb][i - kTileK] = ss;
+  }
+}
+
+// Add staged batch rows [first, end) to this thread's 4 x 4 LTP and LTD
+// sums, in batch order.
+__device__ __forceinline__ void add_rows(const Traces& sh, int first, int end,
+                                         float (&ltp)[kRowsPerWarp][4],
+                                         float (&ltd)[kRowsPerWarp][4], int warp, int lane) {
+  for (int bb = first; bb < end; ++bb) {
+    const float4 xpo = *reinterpret_cast<const float4*>(&sh.xpost[bb][lane * 4]);
+    const float4 spo = *reinterpret_cast<const float4*>(&sh.spost[bb][lane * 4]);
+    const float xpo4[4] = {xpo.x, xpo.y, xpo.z, xpo.w};
+    const float spo4[4] = {spo.x, spo.y, spo.z, spo.w};
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const float xpr = sh.xpre[bb][warp * kRowsPerWarp + r];
+      const float spr = sh.spre[bb][warp * kRowsPerWarp + r];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        ltp[r][j] = __fadd_rn(ltp[r][j], __fmul_rn(xpr, spo4[j]));
+        ltd[r][j] = __fadd_rn(ltd[r][j], __fmul_rn(spr, xpo4[j]));
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void zero_sums(float (&ltp)[kRowsPerWarp][4],
+                                          float (&ltd)[kRowsPerWarp][4]) {
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) ltp[r][j] = ltd[r][j] = 0.0f;
+}
+
+// The tile's LTP and LTD sums for this thread's 4 x 4 synapses, in batch
+// order, from traces staged kChunkB batch rows at a time, read when staged.
+__device__ __forceinline__ void tile_sums(const StdpArgs& a, const Tile& t, Traces& sh,
+                                          float (&ltp)[kRowsPerWarp][4],
+                                          float (&ltd)[kRowsPerWarp][4], int warp, int lane) {
+  zero_sums(ltp, ltd);
+  for (int b0 = 0; b0 < a.B; b0 += kChunkB) {
+    const int nb = min(kChunkB, a.B - b0);
+    __syncthreads();  // the previous pass is done with the staged traces
+    for (int i = threadIdx.x; i < nb * (kTileK + kTileN); i += kThreads) {
+      const int bb = i / (kTileK + kTileN);
+      const int item = i - bb * (kTileK + kTileN);
+      bool pre;
+      const long long idx = trace_index(a, t, b0 + bb, item, &pre);
+      float x = 0.0f, sv = 0.0f;
+      if (idx >= 0) {
+        x = pre ? a.x_pre[idx] : a.x_post[idx];
+        sv = pre ? a.s_pre[idx] : a.s_post[idx];
+      }
+      stage_item(a, t, sh, bb, item, idx, pre, x, sv);
+    }
+    __syncthreads();
+    add_rows(sh, 0, nb, ltp, ltd, warp, lane);
+  }
+}
+
+// One batch row (B == 1): each of the first kTileK + kTileN threads holds one
+// trace item of a tile, fetched a tile ahead (fetch_item), staged here into
+// staging row `row`, which alternates between tiles: the barrier of the tile
+// between two uses of a row orders the reads of the first before the writes
+// of the second, so one barrier per tile does.
+__device__ __forceinline__ void fetch_item(const StdpArgs& a, const Cursor& u, float* x,
+                                           float* sv) {
+  *x = *sv = 0.0f;
+  if (u.slot >= a.S || threadIdx.x >= kTileK + kTileN) return;
+  bool pre;
+  const long long idx = trace_index(a, Tile(u, a), 0, threadIdx.x, &pre);
+  if (idx < 0) return;
+  *x = pre ? a.x_pre[idx] : a.x_post[idx];
+  *sv = pre ? a.s_pre[idx] : a.s_post[idx];
+}
+__device__ __forceinline__ void tile_sums_one_row(const StdpArgs& a, const Tile& t, Traces& sh,
+                                                  int row, float x, float sv,
+                                                  float (&ltp)[kRowsPerWarp][4],
+                                                  float (&ltd)[kRowsPerWarp][4], int warp,
+                                                  int lane) {
+  zero_sums(ltp, ltd);
+  if (threadIdx.x < kTileK + kTileN) {
+    bool pre;
+    const long long idx = trace_index(a, t, 0, threadIdx.x, &pre);
+    stage_item(a, t, sh, row, threadIdx.x, idx, pre, x, sv);
+  }
+  __syncthreads();
+  add_rows(sh, row, row + 1, ltp, ltd, warp, lane);
+}
+
+// One synapse's update: dw, the eligibility (rstdp) and the new weight.
+struct Synapse {
+  float w, e;
+};
+__device__ __forceinline__ Synapse update(const StdpArgs& a, float gain, float ltp, float ltd,
+                                          float c, float w, float e) {
+  const float dw = __fmul_rn(__fsub_rn(__fmul_rn(a.a_plus, ltp), __fmul_rn(a.a_minus, ltd)), c);
+  float upd = dw;
+  float e_new = e;
+  if (a.rstdp) {
+    e_new = __fadd_rn(__fmul_rn(a.decay_elig, e), dw);
+    upd = __fmul_rn(gain, e_new);
+  }
+  return {c > 0.0f ? clip(__fadd_rn(w, upd), a.w_min, a.w_max) : w, e_new};
+}
+
+__device__ __forceinline__ float slot_gain(const StdpArgs& a, int slot) {
+  return a.rstdp ? __fmul_rn(a.lr_reward, a.reward[slot * a.reward_slot]) : 0.0f;
+}
+
+// Closed slots: their traces keep their values, copied through by every
+// block's share of threads; w and elig are not touched.
+__device__ void copy_closed(const StdpArgs& a) {
+  const long long step = static_cast<long long>(gridDim.x) * kThreads;
+  const long long first = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  for (int slot = 0; slot < a.S; ++slot) {
+    if (gate_open(a, slot)) continue;
+    const long long pre0 = static_cast<long long>(slot) * a.B * a.K;
+    const long long post0 = static_cast<long long>(slot) * a.B * a.N;
+    for (long long i = first; i < static_cast<long long>(a.B) * a.K; i += step)
+      a.x_pre_out[pre0 + i] = a.x_pre[pre0 + i];
+    for (long long i = first; i < static_cast<long long>(a.B) * a.N; i += step)
+      a.x_post_out[post0 + i] = a.x_post[post0 + i];
+  }
+}
+
+// The cp.async fill: c (and elig) kStages - 1 tiles ahead in the ring, w one
+// tile ahead in registers.
+template <bool kRstdp>
+__global__ void __launch_bounds__(kThreads, 2) stdp_update_kernel(StdpArgs a) {
+  extern __shared__ __align__(16) float ring[];
+  __shared__ Traces sh;
+  constexpr int kAhead = kStages - 1;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  copy_closed(a);
+
+  Cursor cur{0, static_cast<int>(blockIdx.x)};
+  settle(cur, a);
+  Cursor cc = cur, cw = cur;
+  // Prologue: c of the first kAhead tiles, and w of the first whole.
+  for (int i = 0; i < kAhead; ++i) {
+    if (cc.slot < a.S) {
+      issue_c<kRstdp>(a, cc, ring, i, warp, lane);
+      advance(cc, a);
+    }
+    commit();
+  }
+  float4 w_cur[kRowsPerWarp], w_next[kRowsPerWarp];
+  if (cw.slot < a.S) {
+    load_w<kRstdp, true>(a, cw, ring, 0, warp, lane, w_cur);
+    advance(cw, a);
+  }
+  // B == 1: this thread's trace item of the current tile, fetched a tile
+  // ahead so that its load is not in the way.
+  float tx, ts;
+  fetch_item(a, cur, &tx, &ts);
+
+  float ltp[kRowsPerWarp][4], ltd[kRowsPerWarp][4];
+  for (int i = 0; cur.slot < a.S; ++i) {
+    // Pending, oldest first: c of tiles i + 1 .. i + kAhead - 1; now i + kAhead.
+    if (cc.slot < a.S) {
+      issue_c<kRstdp>(a, cc, ring, (i + kAhead) % kStages, warp, lane);
+      advance(cc, a);
+    }
+    commit();
+    wait_all_but<kAhead - 1>();  // c of tile i + 1 has landed
+    const Cursor next = cw;      // tile i + 1
+    if (cw.slot < a.S) {
+      load_w<kRstdp>(a, cw, ring, (i + 1) % kStages, warp, lane, w_next);
+      advance(cw, a);
+    }
+
+    const Tile t(cur, a);
+    if (a.B == 1) {
+      tile_sums_one_row(a, t, sh, i & 1, tx, ts, ltp, ltd, warp, lane);
+      fetch_item(a, next, &tx, &ts);
+    } else {
+      tile_sums(a, t, sh, ltp, ltd, warp, lane);
+    }
+    const int n = t.n0 + lane * 4;
+    if (n < a.N) {
+      const float gain = slot_gain(a, t.slot);
+      const int st = i % kStages;
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        const int row = warp * kRowsPerWarp + r;
+        const int k = t.k0 + row;
+        if (k >= a.K) break;
+        const int off = row * kTileN + lane * 4;
+        const float4 c4 = *reinterpret_cast<const float4*>(plane<kRstdp>(ring, st, 0) + off);
+        float4 e4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (kRstdp) e4 = *reinterpret_cast<const float4*>(plane<kRstdp>(ring, st, 1) + off);
+        const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
+        const float wv[4] = {w_cur[r].x, w_cur[r].y, w_cur[r].z, w_cur[r].w};
+        const float ev[4] = {e4.x, e4.y, e4.z, e4.w};
+        float wn[4], en[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const Synapse syn = update(a, gain, ltp[r][j], ltd[r][j], cv[j], wv[j], ev[j]);
+          wn[j] = syn.w;
+          en[j] = syn.e;
+        }
+        const long long g = static_cast<long long>(k) * a.N + n;
+        if (kRstdp)
+          *reinterpret_cast<float4*>(a.elig + t.slot * a.elig_slot + g) =
+              make_float4(en[0], en[1], en[2], en[3]);
+        if (cv[0] > 0.0f || cv[1] > 0.0f || cv[2] > 0.0f || cv[3] > 0.0f)
+          *reinterpret_cast<float4*>(a.w + t.slot * a.w_slot + g) =
+              make_float4(wn[0], wn[1], wn[2], wn[3]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) w_cur[r] = w_next[r];
+    advance(cur, a);
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+template <bool kRstdp>
+cudaError_t launch_ring(const StdpArgs& a, int blocks, int smem, cudaStream_t stream) {
+  static int opted = 0;  // per instantiation
+  auto kernel = stdp_update_kernel<kRstdp>;
+  if (smem < kStages * (kRstdp ? 2 : 1) * kPlaneFloats * 4) return cudaErrorInvalidValue;
+  if (smem > opted) {  // the static traces count against the default 48 KiB too
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    opted = smem;
+  }
+  kernel<<<blocks, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The element fill: any N and alignment, loads straight from device memory.
+__global__ void __launch_bounds__(kThreads, 2) stdp_update_element_kernel(StdpArgs a) {
+  __shared__ Traces sh;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  copy_closed(a);
+  float ltp[kRowsPerWarp][4], ltd[kRowsPerWarp][4];
+  Cursor cur{0, static_cast<int>(blockIdx.x)};
+  for (settle(cur, a); cur.slot < a.S; advance(cur, a)) {
+    const Tile t(cur, a);
+    tile_sums(a, t, sh, ltp, ltd, warp, lane);
+    const float gain = slot_gain(a, t.slot);
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const int k = t.k0 + warp * kRowsPerWarp + r;
+      if (k >= a.K) break;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = t.n0 + lane * 4 + j;
+        if (n >= a.N) break;
+        const long long g = static_cast<long long>(k) * a.N + n;
+        const float cv = __ldg(a.c + t.slot * a.c_slot + g);
+        float* w = a.w + t.slot * a.w_slot + g;
+        float* e = a.elig + t.slot * a.elig_slot + g;
+        const Synapse syn = update(a, gain, ltp[r][j], ltd[r][j], cv, cv > 0.0f ? *w : 0.0f,
+                                   a.rstdp ? *e : 0.0f);
+        if (a.rstdp) *e = syn.e;
+        if (cv > 0.0f) *w = syn.w;
+      }
+    }
+  }
+}
+
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success). Never synchronises and
-// allocates nothing: the caller owns every buffer.
+// The last two ints are the plan (kernels/_stream.py StdpPlan.args): blocks
+// and the ring's dynamic shared memory; the fill follows from the operands'
+// alignment. Returns the cudaError_t of the launch (0 on success),
+// cudaErrorInvalidValue for a shape or plan it cannot take. Never
+// synchronises and allocates nothing: the caller owns every buffer.
 extern "C" int repro_stdp_update(
     const void* s_pre, const void* x_pre, const void* s_post, const void* x_post, void* w,
     long long w_slot, const void* c, long long c_slot, void* elig, long long elig_slot,
     const void* reward, long long reward_slot, const void* tick, const void* learn_until,
     long long until_slot, void* x_pre_out, void* x_post_out, int S, int B, int K, int N,
     int rstdp, float a_plus, float a_minus, float decay_pre, float decay_post,
-    float decay_elig, float lr_reward, float w_min, float w_max, void* stream) {
-  if (S < 1 || B < 1 || K < 1 || N < 1 || S > 65535 || (K + kTileK - 1) / kTileK > 65535 ||
+    float decay_elig, float lr_reward, float w_min, float w_max, int blocks, int stages,
+    int smem, void* stream) {
+  if (S < 1 || B < 1 || K < 1 || N < 1 || blocks < 1 || smem < 0 || smem > kMaxSmem ||
       (rstdp != 0 && (reward == nullptr || elig == nullptr)) ||
       ((tick == nullptr) != (learn_until == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -230,10 +555,15 @@ extern "C" int repro_stdp_update(
   a.until_slot = until_slot;
   a.x_pre_out = static_cast<float*>(x_pre_out);
   a.x_post_out = static_cast<float*>(x_post_out);
+  a.S = S;
   a.B = B;
   a.K = K;
   a.N = N;
   a.rstdp = rstdp;
+  a.tiles_n = (N + kTileN - 1) / kTileN;
+  const long long tiles = static_cast<long long>((K + kTileK - 1) / kTileK) * a.tiles_n;
+  if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  a.tiles = static_cast<int>(tiles);
   a.a_plus = a_plus;
   a.a_minus = a_minus;
   a.decay_pre = decay_pre;
@@ -242,7 +572,17 @@ extern "C" int repro_stdp_update(
   a.lr_reward = lr_reward;
   a.w_min = w_min;
   a.w_max = w_max;
-  const dim3 grid((N + kBlockN - 1) / kBlockN, (K + kTileK - 1) / kTileK, S);
-  stdp_update_kernel<<<grid, kBlockN, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  // The fill (kernels/_stream.py b5_fill): cp.async when every 4-column chunk
+  // starts on a 16-byte boundary.
+  const bool async = N % 4 == 0 && aligned16(w) && aligned16(c) && w_slot % 4 == 0 &&
+                     c_slot % 4 == 0 &&
+                     (rstdp == 0 || (aligned16(elig) && elig_slot % 4 == 0));
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (!async) {
+    stdp_update_element_kernel<<<blocks, kThreads, 0, st>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (stages != kStages) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(rstdp ? launch_ring<true>(a, blocks, smem, st)
+                                : launch_ring<false>(a, blocks, smem, st));
 }

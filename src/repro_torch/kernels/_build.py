@@ -41,7 +41,7 @@ SIGNATURES = {
         _P, _L, _P, _L, _P, _L,          # s, w, c (+ slot strides)
         _P, _P, _P,                      # v, r, drive
         _P, _P, _P, _P, _P, _P, _L,      # six rows + row slot stride
-        _P, _P, _P, _P,                  # v_out, r_out, y_out, run_if
+        _P, _P, _P, _P, _L,              # v_out, r_out, y_out, run_if (+ slot stride)
         _I, _I, _I, _I, _I,              # S, B, K, N, mode
         *_PLAN, _P),                     # the launch plan, stream
     "repro_tick_fused": (
@@ -61,17 +61,18 @@ SIGNATURES = {
         _P, _P,                          # x_pre_out, x_post_out
         _I, _I, _I, _I, _I,              # S, B, K, N, rstdp
         _F, _F, _F, _F, _F, _F, _F, _F,  # a_plus .. w_max
-        _P),                             # stream
+        _I, _I, _I, _P),                 # the plan (blocks, stages, smem), stream
     "repro_event_dispatch": (
         _P, _P, _I,                      # idx, counts (null: walk all), k
         _P, _L, _I,                      # w, its slot stride, its rows
         _P, _P, _P,                      # v, r, drive
         _P, _P, _P, _P, _P, _P, _L,      # six rows + row slot stride
-        _P, _P, _P, _P,                  # v_out, r_out, y_out, skip
+        _P, _P, _P, _P, _L,              # v_out, r_out, y_out, skip (+ slot stride)
         _I, _I, _I, _I, _P),             # S, B, N, mode, stream
     "repro_spike_matmul": (
-        _P, _P, _P, _P,                  # s, w, c, out
-        _I, _I, _I, _I, _I, _P),         # B, K, N, s_bf16, w_bf16, stream
+        _P, _P, _P, _P, _P, _P,          # s, w, c, out, workspace, counters
+        _I, _I, _I, _I, _I,              # B, K, N, s_bf16, w_bf16
+        _I, _I, _I, _I, _P),             # the plan (kt, stages, blocks, smem), stream
 }
 
 

@@ -33,10 +33,11 @@ def event_lif_dispatch_db(idx, w, v, r, drive, v_th, leak, r_ref, gain, i_bias, 
     (S, K, N), which may also carry the sentinel row (never read here); the
     six per-neuron rows (N,) or (S, N). ``drive`` may be None.
 
-    ``skip``, a 0-d bool tensor on the device, gates the launch: where it is
-    True the kernel writes nothing and ``out`` (which must then be given)
-    keeps what it held -- the event tick's half of the device-side choice
-    between this kernel and the dense kernel B1 (``run_if`` on the same flag).
+    ``skip``, a bool tensor on the device, 0-d or one per slot ``(S,)``,
+    gates the launch: where a slot's flag is True the kernel writes nothing
+    of that slot and ``out`` (which must then be given) keeps what it held --
+    the event tick's half of the device-side choice between this kernel and
+    the dense kernel B1 (``run_if`` on the same flags).
     """
     return _dispatch(idx, counts, w, v, r, drive, (v_th, leak, r_ref, gain, i_bias, v_reset),
                      mode, skip, out, "live")
@@ -87,13 +88,14 @@ def _launch(idx, counts, w, v, r, drive, rows, mode, skip, out) -> LIFStepOut:
         _build.expect(drive, "drive", f32, (S, B, N), dev)
     w_slot = _build.expect_slotted(w, "w", f32, (Kw, N), S, dev)
     row_slot = _build.expect_rows(rows, N, S, dev)
+    gate_slot = 0
     if skip is not None:
-        _build.expect(skip, "skip", torch.bool, (), dev)
+        gate_slot = _build.expect_slotted(skip, "skip", torch.bool, (), S, dev)
     v_out, r_out, y_out = _build.outputs(out, v, r, slotted)
     P = _build.ptr
     err = _build.library().repro_event_dispatch(
         P(idx), P(counts), k, P(w), w_slot, Kw, P(v), P(r), P(drive),
-        *(P(p) for p in rows), row_slot, P(v_out), P(r_out), P(y_out), P(skip),
+        *(P(p) for p in rows), row_slot, P(v_out), P(r_out), P(y_out), P(skip), gate_slot,
         S, B, N, MODES.index(mode), torch.cuda.current_stream(dev).cuda_stream)
     name = "event_dispatch" if counts is None else "event_dispatch_db"
     _build.check(name, err)

@@ -35,11 +35,12 @@ def fused_lif_step(s, w, c, v, r, drive, v_th, leak, r_ref, gain, i_bias, v_rese
     (for any other value it rounds once where the twin rounds twice).
 
     ``out`` (a :class:`LIFStepOut` of buffers shaped like ``v``, ``r``,
-    ``v``) receives the result instead of fresh tensors. ``run_if``, a 0-d
-    bool tensor on the device, gates the launch: where it is False the
-    kernel writes nothing and ``out`` (which must then be given) keeps what
-    it held -- the event backend's dense arm, paired with the event kernel's
-    ``skip`` gate on the same flag.
+    ``v``) receives the result instead of fresh tensors. ``run_if``, a bool
+    tensor on the device, 0-d or one per slot ``(S,)``, gates the launch:
+    where a slot's flag is False the kernel writes nothing of that slot and
+    ``out`` (which must then be given) keeps what it held -- the event
+    backend's dense arm, paired with the event kernel's ``skip`` gate on the
+    same flags.
     """
     if mode not in MODES:
         raise ValueError(f"the lif_step kernel supports {MODES}, got {mode!r}")
@@ -72,8 +73,9 @@ def _launch(s, w, c, v, r, drive, rows, mode, run_if, out) -> LIFStepOut:
     w_slot = _build.expect_slotted(w, "w", f32, (K, N), S, dev)
     c_slot = 0 if c is None else _build.expect_slotted(c, "c", f32, (K, N), S, dev)
     row_slot = _build.expect_rows(rows, N, S, dev)
+    gate_slot = 0
     if run_if is not None:
-        _build.expect(run_if, "run_if", torch.bool, (), dev)
+        gate_slot = _build.expect_slotted(run_if, "run_if", torch.bool, (), S, dev)
     v_out, r_out, y_out = _build.outputs(out, v, r, slotted)
     P = _build.ptr
     plan = _plan.plan(S, B, K, N, has_c=c is not None, sms=_build.sm_count(dev),
@@ -81,7 +83,7 @@ def _launch(s, w, c, v, r, drive, rows, mode, run_if, out) -> LIFStepOut:
                                                (s.stride(0), K, w_slot, c_slot)))
     err = _build.library().repro_lif_step(
         P(s), s.stride(0), P(w), w_slot, P(c), c_slot, P(v), P(r), P(drive),
-        *(P(p) for p in rows), row_slot, P(v_out), P(r_out), P(y_out), P(run_if),
+        *(P(p) for p in rows), row_slot, P(v_out), P(r_out), P(y_out), P(run_if), gate_slot,
         S, B, K, N, MODES.index(mode), *plan.args(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check("lif_step", err)

@@ -37,10 +37,11 @@ OVERFLOW = ("fallback", "strict", "unchecked")
 KERNELS = ("db", "grid")
 ARMS = ("event", "dense on overflow", "dense by the knee")
 
-# A tally the caller may set to a (3,) integer tensor on the tick's device:
-# every top-k tick of :func:`event_lif_step` on the kernel path then adds one
-# to the arm it took (``ARMS``), read from the flag the kernels read, on the
-# device (no host sync). None, the default, costs nothing.
+# A tally the caller may set to an integer tensor on the tick's device: every
+# top-k tick of :func:`event_lif_step` on the kernel path then adds, for each
+# network, one to the arm it took (``ARMS``), read from the flags the kernels
+# read, on the device (no host sync). A (3,) tally sums the slots' arms; an
+# (S, 3) tally keeps them per slot. None, the default, costs nothing.
 arm_ticks: Optional[torch.Tensor] = None
 
 _INFERENCE_ONLY = "{} backend is inference-only; use backend='jnp' to train"
@@ -267,9 +268,16 @@ def fan_in_product(s: torch.Tensor, w_edges: torch.Tensor, fan_in: EventFanIn) -
     return torch.einsum("sbnc,snc->sbn", gathered, w_edges.to(torch.float32))
 
 
+def _per_slot(flag: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A 0-d or per-slot ``(S,)`` flag shaped to broadcast against ``like``
+    (``(S, B, N)`` with a slot axis)."""
+    return flag.reshape(flag.shape + (1,) * (like.dim() - flag.dim()))
+
+
 def _overflow_check(over: torch.Tensor, k: int, flag: Optional[torch.Tensor]) -> None:
-    """``overflow="strict"``: fold ``over`` into ``flag`` on the device, or,
-    without a flag, raise at once (a host read)."""
+    """``overflow="strict"``: fold ``over`` (any slot's) into ``flag`` on the
+    device, or, without a flag, raise at once (a host read)."""
+    over = over.any()
     if flag is not None:
         flag.logical_or_(over)
     elif bool(over):
@@ -297,8 +305,11 @@ def event_synaptic_input(s: torch.Tensor, wc: torch.Tensor, *,
     spikes more than ``k_active`` times: ``"fallback"`` takes the dense
     product, ``"strict"`` raises :class:`EventOverflowError` (or, given
     ``overflow_flag``, a 0-d device bool, sets it and lets the caller raise
-    later), ``"unchecked"`` truncates. ``take_dense`` (0-d device bool)
-    forces the dense product, as the adaptive knee does.
+    later), ``"unchecked"`` truncates. ``take_dense`` (a device bool: 0-d,
+    or ``(S,)`` against per-slot ``wc``) forces the dense product, as the
+    adaptive knee does. Each network decides for itself, as under the
+    reference's ``vmap``: with a slot axis a slot goes dense only when one
+    of its own rows overflows.
     """
     if fan_in is not None:
         return fan_in_product(s, fan_in_edges(wc, fan_in) if w_edges is None else w_edges,
@@ -310,14 +321,16 @@ def event_synaptic_input(s: torch.Tensor, wc: torch.Tensor, *,
     k = resolve_k_active(s.shape[-1], k_active)
     idx, counts, n_spiking = spike_list(s, k)
     syn = event_gather_sum(idx, counts, wc, walk="live")
-    over = (n_spiking > k).any()
+    over = ((n_spiking > k).flatten(1).any(-1) if wc.dim() == 3
+            else (n_spiking > k).any())
     if overflow == "strict":
         _overflow_check(over, k, overflow_flag)
     elif overflow == "fallback":
         take_dense = over if take_dense is None else take_dense | over
     if take_dense is None:
         return syn
-    return torch.where(take_dense, s.to(torch.float32) @ wc.to(torch.float32), syn)
+    return torch.where(_per_slot(take_dense, syn), s.to(torch.float32) @ wc.to(torch.float32),
+                       syn)
 
 
 def event_spike_matmul(s: torch.Tensor, w: torch.Tensor, c: torch.Tensor, *, k_active: int,
@@ -357,7 +370,9 @@ def event_lif_step(lif_state: LIFState, spikes: torch.Tensor, params, ext: Optio
     the tick may go dense -- ``overflow="fallback"`` with a row past
     ``k_active``, or ``take_dense`` from the adaptive knee -- kernel B1 runs
     on the premasked ``wc`` behind the same device flag, and exactly one of
-    the two writes the tick. B4 reads ``wc_sentinel``, ``wc`` with an
+    the two writes the tick. The flag is per network: 0-d, or ``(S,)`` with
+    a slot axis, where each slot's blocks read their own. B4 reads
+    ``wc_sentinel``, ``wc`` with an
     all-zero row appended (built here when None). The fan-in gather and the
     ``use_kernel=False`` path are plain PyTorch (:func:`event_synaptic_input`).
     ``w_edges``, ``overflow_flag``: see :func:`event_synaptic_input`.
@@ -390,7 +405,9 @@ def event_lif_step(lif_state: LIFState, spikes: torch.Tensor, params, ext: Optio
 
     k = resolve_k_active(s.shape[-1], k_active)
     idx, counts, n_spiking = spike_list(s, k)
-    over = (n_spiking > k).any()
+    over = (n_spiking > k).any(-1)           # (S,), or (1,) without a slot axis
+    if S is None:
+        over = over.squeeze(0)
     gate = take_dense
     if overflow == "fallback":
         gate = over if gate is None else gate | over
@@ -418,13 +435,12 @@ def event_lif_step(lif_state: LIFState, spikes: torch.Tensor, params, ext: Optio
 
 
 def _tally_arm(gate: Optional[torch.Tensor], over: torch.Tensor) -> None:
-    """Add this tick's arm to :data:`arm_ticks`: event when the gate is clear
-    (or absent), else dense on overflow or dense by the knee."""
+    """Add each network's arm this tick to :data:`arm_ticks`: event when its
+    gate is clear (or absent), else dense on overflow or dense by the knee."""
     if gate is None:
-        arm_ticks[0].add_(1)
-        return
-    arm = torch.stack((~gate, gate & over, gate & ~over))
-    arm_ticks.add_(arm.to(arm_ticks.dtype))
+        gate = torch.zeros_like(over)
+    arm = torch.stack((~gate, gate & over, gate & ~over), dim=-1).to(arm_ticks.dtype)
+    arm_ticks.add_(arm.reshape(-1, 3).sum(0) if arm_ticks.dim() == 1 else arm)
 
 
 def sentinel_rows(wc: torch.Tensor) -> torch.Tensor:

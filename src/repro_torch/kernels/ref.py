@@ -105,12 +105,17 @@ def fused_lif_step_ref(s, w, c, v, r, drive, v_th, leak, r_ref, gain, i_bias, v_
 
 def write_gated(got: LIFStepOut, out, gate) -> LIFStepOut:
     """A twin's result as its gated kernel leaves it: written into ``out``
-    where the 0-d bool ``gate`` is open (everywhere without a gate); a kernel
-    whose gate is closed writes nothing."""
+    where ``gate`` is open (everywhere without a gate); a kernel whose gate
+    is closed writes nothing. ``gate`` is a 0-d bool, or ``(S,)``, one per
+    slot of ``(S, B, N)`` outputs."""
     if out is None:
         return got
     for dst, src in zip(out, got):
-        dst.copy_(src if gate is None else torch.where(gate, src, dst))
+        if gate is None:
+            dst.copy_(src)
+        else:
+            dst.copy_(torch.where(gate.reshape(gate.shape + (1,) * (dst.dim() - gate.dim())),
+                                  src, dst))
     return out
 
 

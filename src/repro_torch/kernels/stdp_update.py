@@ -5,17 +5,19 @@ Counterpart of ``repro.kernels.stdp_update`` (``_stdp_kernel`` /
 twin is :func:`repro_torch.kernels.ref.fused_stdp_step_ref`, with the same
 arguments. The wrapper runs the twin for tensors on the CPU and launches the
 kernel for tensors on the card; anything else raises. ``launches`` counts
-kernel launches.
+kernel launches; ``last_plan`` is the
+:class:`repro_torch.kernels._stream.StdpPlan` of the last launch.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _stream
 from repro_torch.kernels.ref import STDPStepOut, fused_stdp_step_ref
 
 RULES = ("stdp", "rstdp")
 launches = 0
+last_plan = None
 
 
 def fused_stdp_step(s_pre, x_pre, s_post, x_post, w, c, elig, reward, *, rule: str,
@@ -62,7 +64,7 @@ def fused_stdp_step(s_pre, x_pre, s_post, x_post, w, c, elig, reward, *, rule: s
 
 def _launch(s_pre, x_pre, s_post, x_post, w, c, elig, reward, tick, learn_until,
             in_place, hyper) -> STDPStepOut:
-    global launches
+    global launches, last_plan
     slotted = s_pre.dim() == 3
     if not slotted:
         s_pre, x_pre = s_pre.unsqueeze(0), x_pre.unsqueeze(0)
@@ -90,15 +92,21 @@ def _launch(s_pre, x_pre, s_post, x_post, w, c, elig, reward, tick, learn_until,
         elig = elig.clone() if rstdp else elig
     x_pre_out, x_post_out = torch.empty_like(x_pre), torch.empty_like(x_post)
     P = _build.ptr
+    streamed = (w, c, elig) if rstdp else (w, c)
+    plan = _stream.stdp_plan(S, B, K, N, rstdp=rstdp,
+                             strides=(w_slot, c_slot, e_slot if rstdp else 0),
+                             is_aligned=_stream.aligned16(P(t) for t in streamed),
+                             sms=_build.sm_count(dev))
     err = _build.library().repro_stdp_update(
         P(s_pre), P(x_pre), P(s_post), P(x_post), P(w), w_slot, P(c), c_slot,
         P(elig), e_slot, P(reward), r_slot, P(tick), P(learn_until), u_slot,
         P(x_pre_out), P(x_post_out), S, B, K, N, int(rstdp),
         *(float(hyper[k]) for k in ("a_plus", "a_minus", "decay_pre", "decay_post",
                                     "decay_elig", "lr_reward", "w_min", "w_max")),
-        torch.cuda.current_stream(dev).cuda_stream)
+        *plan.args(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check("stdp_update", err)
     launches += 1
+    last_plan = plan
     if not slotted:
         x_pre_out, x_post_out = x_pre_out[0], x_post_out[0]
     return STDPStepOut(w=w, elig=elig, x_pre=x_pre_out, x_post=x_post_out)
