@@ -77,10 +77,17 @@ script on any mismatch:
    lists of a 0.05-rate raster, k = 409) and on zero-spike rows, ragged
    counts, ``counts == k``, a ragged width (37) and a slot axis, with and
    without drive, fixed leak and Euler, the device gate set and clear (and
-   kernel B1's matching ``run_if`` gate on the premasked ``W*C``). Then B3,
-   B4, the twin and ``torch.matmul(s, wc)`` timed, and a crossover sweep of
-   B3 against B1 and ``torch.matmul`` at 8 to 4096 spikes per row, which
-   prints where the dense product wins and the gather penalty that implies.
+   kernel B1's matching ``run_if`` gate on the premasked ``W*C``). Then B4
+   alone on what its redesign must still take, bitwise and each launched
+   twice with the two results bitwise equal: lists out of order and with
+   repeated ids, normal-float weights, 40 rows (three groups of rows),
+   k = 1400 (passes over the lists), a ragged width and a slot axis; the plan
+   of each is printed. Then B3, B4, the twin and ``torch.matmul(s, wc)``
+   timed at the snn-event FULL shape and at ``counts == k`` (no sentinel
+   tail), each beside its bound (B4's counts the sentinel row once), with
+   B4's plan and, at FULL, B4's time on smaller stages, and a crossover sweep of B3 against B1 and ``torch.matmul`` at
+   8 to 4096 spikes per row, which prints where the dense product wins and
+   the gather penalty that implies.
 6. event rollout: ``network.rollout`` on the ``snn-event`` FULL fabric (4096
    neurons, ``sparse_random(4096, 0.05)``, u8 weights through a
    ``RegisterBank``, thresholds that keep it subcritical, input rate 0.05,
@@ -1312,15 +1319,107 @@ def run_event_kernel_phase(dev, gen):
         "lif_step's gate equal to their plain twins bitwise (tolerance 0): "
         + ", ".join(spike_cases) + "; fixed_leak and euler; drive on and off; gate "
         "none / clear / set")
+    errs["event_dispatch"] = max(errs["event_dispatch"], run_b4_list_cases(dev, gen))
     return errs
 
 
-def event_bytes(inp):
+def b4_lists(gen, idx, K, *, unsorted=False, dup=False):
+    """Spike lists B4 takes though ``ops.spike_list`` never makes them, per
+    slot: with ``dup``, the rows ``b % 3 != 1`` with a third of their live
+    ids repeated (ascending, then the sentinel K); with ``unsorted``, the
+    rows ``b % 3 != 2`` shuffled after that. With both, rows ``b % 3 == 0``
+    are repeated and out of order, ``1`` out of order, ``2`` repeated in
+    order."""
+    import torch
+
+    idx = idx.clone(memory_format=torch.contiguous_format)
+    k = idx.shape[-1]
+    for lists in idx.reshape(-1, *idx.shape[-2:]):
+        for b, row in enumerate(lists):
+            if dup and b % 3 != 1:
+                live = row[row < K]
+                rep = torch.sort(torch.cat([live, live[: max(1, live.numel() // 3)]])).values
+                row[:] = K
+                row[: min(k, rep.numel())] = rep[:k]
+            if unsorted and b % 3 != 2:
+                row[:] = row[torch.randperm(k, generator=gen, device=row.device)]
+    return idx
+
+
+def b4_list_kinds(idx, K):
+    """Rows (over every slot) whose ids do not ascend, and rows that list a
+    live id more than once."""
+    flat = idx.reshape(-1, idx.shape[-1])
+    down = int((flat.diff(dim=-1) < 0).any(-1).sum())
+    ids = flat.sort(-1).values
+    repeated = int(((ids.diff(dim=-1) == 0) & (ids[:, 1:] < K)).any(-1).sum())
+    return down, repeated
+
+
+def run_b4_list_cases(dev, gen):
+    """Kernel B4 against its twin, bitwise, on what its redesign must still
+    take: lists out of order and with repeated ids, float weights (normal,
+    on the 5 % mask), more than one group of 16 rows, more slots than one
+    pass, a ragged width on the element fill (its lists out of order and
+    repeated), a slot axis; every case launched twice, the two results
+    bitwise equal. Returns the largest |error| (0.0)."""
+    import torch
+
+    from repro_torch.kernels import event_dispatch, ref
+
+    def floats(inp):
+        wc = torch.randn(inp["wc"].shape, generator=gen, device=dev) * (inp["wc"] != 0)
+        return torch.nn.functional.pad(wc, (0, 0, 0, 1))
+
+    cases = [("float weights", {}, dict(floats=True)),
+             ("unsorted lists", {}, dict(unsorted=True)),
+             ("repeated ids, float weights", {}, dict(dup=True, floats=True)),
+             ("B = 40 (3 groups)", {"B": 40}, dict(floats=True)),
+             ("k = 1400 (passes of the lists)", {"k": 1400, "rate": 0.3}, dict(floats=True)),
+             ("N = 37, unsorted, repeated", {"n": 37, "B": 4}, dict(unsorted=True, dup=True)),
+             ("slot axis, float weights", {"S": 3, "B": 4, "slotted": True},
+              dict(floats=True)),
+             ("5 slots, unsorted", {"S": 5, "slotted": True}, dict(unsorted=True))]
+    plans = []
+    for label, kw, how in cases:
+        inp = event_inputs(gen, dev, **kw)
+        idx = b4_lists(gen, inp["idx"], N, unsorted=how.get("unsorted", False),
+                       dup=how.get("dup", False))
+        down, repeated = b4_list_kinds(idx, N)
+        if (how.get("unsorted") and not down) or (how.get("dup") and not repeated):
+            raise AssertionError(f"event_dispatch ({label}): the lists are not what the case "
+                                 f"names ({down} rows out of order, {repeated} repeated)")
+        wcs = floats(inp) if how.get("floats") else inp["wcs"]
+        base = (inp["v"], inp["r"], inp["drive"], *inp["rows"])
+        counts = torch.full(idx.shape[:-1], idx.shape[-1], dtype=torch.int32, device=dev)
+        want = ref.event_lif_dispatch_ref(idx, counts, wcs, *base, walk="all")
+        got = event_dispatch.event_lif_dispatch(idx, wcs, *base)
+        again = event_dispatch.event_lif_dispatch(idx, wcs, *base)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if err != 0.0 or not all(torch.equal(g, x) for g, x in zip(got, want)):
+            raise AssertionError(f"event_dispatch ({label}): max |err| {err}")
+        if not all(torch.equal(g, x) for g, x in zip(got, again)):
+            raise AssertionError(f"event_dispatch ({label}): two launches differ")
+        plans.append(f"{label}: {down} rows out of order, {repeated} with repeated ids; "
+                     f"{event_dispatch.last_plan}")
+        del inp, idx, wcs, base
+    log(f"event_dispatch (B4): {len(cases)} more cases equal to the twin bitwise "
+        "(tolerance 0), each launched twice, the two bitwise equal: "
+        + ", ".join(label for label, _, _ in cases))
+    for line in plans:
+        log(f"  plan event_dispatch ({line})")
+    return 0.0
+
+
+def event_bytes(inp, walk):
     """Bytes the event tick must move on these inputs, and its adds: each
     distinct live row of ``W*C`` read once (a row that several batch rows
     spiked is added into each of them from one read, in the same per-row
-    order), the spike lists, the state, drive and rows read once, and v', r',
-    y' written once; the adds are sum of counts x N."""
+    order) and, for B4 (``walk="all"``), the all-zero sentinel row once where
+    some row has a tail; the spike lists (and B3's counts), the state, drive
+    and rows read once, and v', r', y' written once; the adds are sum of
+    counts x N (a sentinel slot adds nothing)."""
     import torch
 
     idx, counts, wc = inp["idx"], inp["counts"], inp["wc"]
@@ -1330,43 +1429,85 @@ def event_bytes(inp):
     live = torch.arange(idx.shape[-1], device=idx.device) < counts.reshape(
         ids.shape[:2]).unsqueeze(-1)
     distinct = int(torch.unique(ids[live]).numel())
-    moved = distinct * N_ * 4 + nbytes(idx, counts, inp["v"], inp["r"], inp["drive"],
-                                       *inp["rows"]) + 3 * nbytes(inp["v"])
+    if walk == "all":
+        distinct += int((~live).any(-1).any(-1).sum().item())   # per slot with a tail
+    moved = distinct * N_ * 4 + nbytes(idx, counts if walk == "live" else None, inp["v"],
+                                       inp["r"], inp["drive"], *inp["rows"]) \
+        + 3 * nbytes(inp["v"])
     return moved, int(counts.sum().item()) * N_, distinct
+
+
+B4_STAGE_ROWS = (64, 128, 256, 384, 448)   # rows a stage, the planner's last
+
+
+def time_b4_stages(inp, base):
+    """B4 at one shape on double buffers of ``B4_STAGE_ROWS`` rows a stage
+    (``_event_plan.STAGE_BYTES``, the planner's choice, is the last), each
+    launch bitwise equal to the planned one: the times behind the planner's
+    stage size."""
+    import torch
+
+    from repro_torch.kernels import _event_plan, event_dispatch
+
+    run = lambda: event_dispatch.event_lif_dispatch(inp["idx"], inp["wcs"], *base)
+    want = run()
+    keep, times = _event_plan.STAGE_BYTES, []
+    try:
+        for rows in B4_STAGE_ROWS:
+            _event_plan.STAGE_BYTES = rows * _event_plan.TILE_N * 4
+            _event_plan.event_plan.cache_clear()
+            if not all(torch.equal(g, x) for g, x in zip(run(), want)):
+                raise AssertionError(f"event_dispatch at {rows} rows a stage differs from the "
+                                     "planned launch")
+            times.append((rows, device_ms(run), event_dispatch.last_plan.smem))
+    finally:
+        _event_plan.STAGE_BYTES = keep
+        _event_plan.event_plan.cache_clear()
+    return ", ".join(f"{r} rows {t:.4f} ms ({s / 1024:.1f} KiB shared)" for r, t, s in times)
 
 
 def time_event(dev, gen, card):
     """B3, B4, the twin and ``torch.matmul(s, wc)`` at the snn-event FULL
-    shape; then the crossover sweep of B3 against B1 and ``torch.matmul``.
-    Every time is device time (:func:`device_ms`); the CUDA-event time of a
-    launch, host overhead included, is logged beside the kernels'."""
+    shape, and at ``counts == k`` (every slot live, no sentinel tail); B4's
+    plan under its time, and at FULL B4 on smaller stages; then the crossover sweep of B3 against B1 and
+    ``torch.matmul``. Every time is device time (:func:`device_ms`); the
+    CUDA-event time of a launch, host overhead included, is logged beside the
+    kernels'."""
     import torch
 
     from repro_torch.kernels import event_dispatch, lif_step, ref
 
     bw, flops = card
-    inp = event_inputs(gen, dev)
-    base = (inp["v"], inp["r"], inp["drive"], *inp["rows"])
-    moved, adds, distinct = event_bytes(inp)
-    bound = max(moved / bw, adds / flops) * 1e3
-    bound_by = "bytes" if moved / bw >= adds / flops else "operations"
-    lib = device_ms(lambda: torch.matmul(inp["s"], inp["wc"]))
     rows = {}
-    for name, fn, w, walk, extra in (
-            ("event_dispatch_db", event_dispatch.event_lif_dispatch_db, inp["wc"], "live",
-             {"counts": inp["counts"]}),
-            ("event_dispatch", event_dispatch.event_lif_dispatch, inp["wcs"], "all", {})):
-        t_ms = device_ms(lambda: fn(inp["idx"], w, *base, **extra))
-        e_ms = median_ms(lambda: fn(inp["idx"], w, *base, **extra))
-        p_ms = device_ms(lambda: ref.event_lif_dispatch_ref(inp["idx"], inp["counts"], w,
-                                                            *base, walk=walk), runs=5)
-        rows[name] = {"ms": t_ms, "plain_ms": p_ms, "library_ms": lib, "bound_ms": bound,
-                      "bound_by": bound_by}
-        log(f"time {name}: {t_ms:.4f} ms device time (bound {bound:.4f} ms, "
-            f"{moved / 2**20:.1f} MiB for {distinct} distinct of {int(inp['counts'].sum())} live "
-            f"rows; plain "
-            f"{p_ms:.4f} ms, torch.matmul {lib:.4f} ms; {e_ms:.4f} ms a launch by CUDA "
-            f"events, host overhead included) at B={EVENT_ROWS} K=N={N} k={EVENT_K}")
+    for shape, kw in (("snn-event FULL", {}),
+                      ("counts == k", {"spikes_per_row": [EVENT_K] * EVENT_ROWS})):
+        inp = event_inputs(gen, dev, **kw)
+        base = (inp["v"], inp["r"], inp["drive"], *inp["rows"])
+        lib = device_ms(lambda: torch.matmul(inp["s"], inp["wc"]))
+        for name, fn, w, walk, extra in (
+                ("event_dispatch_db", event_dispatch.event_lif_dispatch_db, inp["wc"], "live",
+                 {"counts": inp["counts"]}),
+                ("event_dispatch", event_dispatch.event_lif_dispatch, inp["wcs"], "all", {})):
+            moved, adds, distinct = event_bytes(inp, walk)
+            bound = max(moved / bw, adds / flops) * 1e3
+            bound_by = "bytes" if moved / bw >= adds / flops else "operations"
+            t_ms = device_ms(lambda: fn(inp["idx"], w, *base, **extra))
+            e_ms = median_ms(lambda: fn(inp["idx"], w, *base, **extra))
+            p_ms = device_ms(lambda: ref.event_lif_dispatch_ref(
+                inp["idx"], inp["counts"], w, *base, walk=walk), runs=5)
+            if shape == "snn-event FULL":
+                rows[name] = {"ms": t_ms, "plain_ms": p_ms, "library_ms": lib,
+                              "bound_ms": bound, "bound_by": bound_by}
+            log(f"time {name} ({shape}): {t_ms:.4f} ms device time (bound {bound:.4f} ms, "
+                f"{100 * bound / t_ms:.0f}% of it, {moved / 2**20:.1f} MiB for {distinct} "
+                f"distinct of {int(inp['counts'].sum())} live rows; plain {p_ms:.4f} ms, "
+                f"torch.matmul {lib:.4f} ms; {e_ms:.4f} ms a launch by CUDA events, host "
+                f"overhead included) at B={EVENT_ROWS} K=N={N} k={EVENT_K}")
+            if name == "event_dispatch":
+                log(f"plan event_dispatch ({shape}): {event_dispatch.last_plan}")
+                if shape == "snn-event FULL":
+                    log(f"time event_dispatch ({shape}) by stage size, two stages, each "
+                        f"bitwise the planned launch: {time_b4_stages(inp, base)}")
     del inp, base
     # Crossover: B3 against the dense arms, m spikes in every row (k = m).
     sweep = []
@@ -1854,8 +1995,8 @@ def time_spike_matmul(dev, gen, card):
                                          lambda: ref.spike_matmul_ref(s, w, c),
                                          lambda: torch.matmul(s, wc))]
         log(f"time spike_matmul at B={B} K={K} N={N_}: {tiny[0]:.4f} ms device time "
-            f"(bound {max(nbytes(s, w, c) + B * N_ * 4, 1) / bw * 1e3:.6f} ms; plain "
-            f"{tiny[1]:.4f} ms, torch.matmul {tiny[2]:.4f} ms); plan "
+            f"(bound {(nbytes(s, w, c) + B * N_ * 4) / bw * 1e3:.3g} ms, bytes, launch-bound; "
+            f"plain {tiny[1]:.4f} ms, torch.matmul {tiny[2]:.4f} ms); plan "
             f"{spike_matmul.last_plan}")
     return row
 
@@ -2081,7 +2222,8 @@ def main() -> int:
             f"{sum(k[2] for k in product)} bytes spilled"
             + "".join(f"; {name}: {r} registers, {sp} bytes spilled"
                       for name, r, sp in spilled))
-        for label, key in (("B5", "stdp_update"), ("B6", "spike_matmul")):
+        for label, key in (("B5", "stdp_update"), ("B6", "spike_matmul"),
+                           ("B3/B4", "event_dispatch")):
             found = [k for k in ptxas_kernels(build.log) if key in k[0]]
             log(f"ptxas {label}: " + "; ".join(f"{name}: {r} registers, {sp} bytes spilled"
                                                  for name, r, sp in found))

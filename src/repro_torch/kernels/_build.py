@@ -35,6 +35,9 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # B1's and B2's launch plan (kernels/_plan.py Plan.args): bb, kt, stages, ks,
 # k_chunk, smem.
 _PLAN = (_I,) * 6
+# B4's launch plan (kernels/_event_plan.py EventPlan.args): rows, chunk,
+# window, stage_rows, vec (the fill), smem.
+_GATHER = (_I,) * 6
 # argtypes of each C entry, in the order of its signature in csrc/.
 SIGNATURES = {
     "repro_lif_step": (
@@ -68,7 +71,8 @@ SIGNATURES = {
         _P, _P, _P,                      # v, r, drive
         _P, _P, _P, _P, _P, _P, _L,      # six rows + row slot stride
         _P, _P, _P, _P, _L,              # v_out, r_out, y_out, skip (+ slot stride)
-        _I, _I, _I, _I, _P),             # S, B, N, mode, stream
+        _I, _I, _I, _I,                  # S, B, N, mode
+        *_GATHER, _P),                   # B4's launch plan, stream
     "repro_spike_matmul": (
         _P, _P, _P, _P, _P, _P,          # s, w, c, out, workspace, counters
         _I, _I, _I, _I, _I,              # B, K, N, s_bf16, w_bf16

@@ -2,23 +2,28 @@
 
 Counterpart of ``repro.kernels.event_dispatch``: :func:`event_lif_dispatch_db`
 is kernel B3 (``_event_db_kernel``, the default), which walks only the live
-prefix of each row's spike list; :func:`event_lif_dispatch` is kernel B4
-(``_event_kernel``), which walks every slot and reads the all-zero sentinel
-row for the empty ones. Both are ``csrc/event_dispatch.cu``; their plain twin
-is :func:`repro_torch.kernels.ref.event_lif_dispatch_ref`. A wrapper runs the
-twin for tensors on the CPU and launches the kernel for tensors on the card;
-anything else raises. ``launches_db`` (B3) and ``launches`` (B4) count kernel
-launches.
+prefix of each row's spike list, one block per batch row; :func:`event_lif_dispatch`
+is kernel B4 (``_event_kernel``), which walks every slot, the empty ones on
+the all-zero sentinel row, and reads each distinct listed row once for a
+group of up to 16 batch rows (its plan: :mod:`repro_torch.kernels._event_plan`).
+Both are ``csrc/event_dispatch.cu``; their plain twin is
+:func:`repro_torch.kernels.ref.event_lif_dispatch_ref`, which both equal
+bitwise on any weights. A wrapper runs the twin for tensors on the CPU and
+launches the kernel for tensors on the card; anything else raises.
+``launches_db`` (B3) and ``launches`` (B4) count kernel launches;
+``last_plan`` is the :class:`~repro_torch.kernels._event_plan.EventPlan` of
+B4's last launch.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _event_plan, _stream
 from repro_torch.kernels.ref import MODES, LIFStepOut, event_lif_dispatch_ref, write_gated
 
 launches = 0      # kernel B4 (walk every slot)
 launches_db = 0   # kernel B3 (walk the live slots)
+last_plan = None  # B4's
 
 
 def event_lif_dispatch_db(idx, w, v, r, drive, v_th, leak, r_ref, gain, i_bias, v_reset,
@@ -47,7 +52,11 @@ def event_lif_dispatch(idx, w, v, r, drive, v_th, leak, r_ref, gain, i_bias, v_r
                        mode: str = "fixed_leak", skip=None, out=None) -> LIFStepOut:
     """Kernel B4: as :func:`event_lif_dispatch_db`, but every one of the ``k``
     slots is added, so ``w`` must be ``(K+1, N)`` (or per slot) with the
-    all-zero sentinel row at ``K``, where the empty slots point."""
+    all-zero sentinel row at ``K``, where the empty slots point.
+
+    The lists need not ascend nor be distinct: a row whose ids ascend is
+    served from the rows its group shares, one that does not adds its slots
+    one by one, both in slot order."""
     return _dispatch(idx, None, w, v, r, drive, (v_th, leak, r_ref, gain, i_bias, v_reset),
                      mode, skip, out, "all")
 
@@ -69,7 +78,7 @@ def _dispatch(idx, counts, w, v, r, drive, rows, mode, skip, out, walk) -> LIFSt
 
 
 def _launch(idx, counts, w, v, r, drive, rows, mode, skip, out) -> LIFStepOut:
-    global launches, launches_db
+    global launches, launches_db, last_plan
     slotted = v.dim() == 3
     if not slotted:
         idx, v, r = idx.unsqueeze(0), v.unsqueeze(0), r.unsqueeze(0)
@@ -93,14 +102,20 @@ def _launch(idx, counts, w, v, r, drive, rows, mode, skip, out) -> LIFStepOut:
         gate_slot = _build.expect_slotted(skip, "skip", torch.bool, (), S, dev)
     v_out, r_out, y_out = _build.outputs(out, v, r, slotted)
     P = _build.ptr
+    plan = None
+    if counts is None:
+        plan = _event_plan.event_plan(S, B, k, N, Kw, w_slot=w_slot,
+                                      is_aligned=_stream.aligned16([P(w)]))
     err = _build.library().repro_event_dispatch(
         P(idx), P(counts), k, P(w), w_slot, Kw, P(v), P(r), P(drive),
         *(P(p) for p in rows), row_slot, P(v_out), P(r_out), P(y_out), P(skip), gate_slot,
-        S, B, N, MODES.index(mode), torch.cuda.current_stream(dev).cuda_stream)
+        S, B, N, MODES.index(mode), *(plan.args() if plan else (0,) * 6),
+        torch.cuda.current_stream(dev).cuda_stream)
     name = "event_dispatch" if counts is None else "event_dispatch_db"
     _build.check(name, err)
     if counts is None:
         launches += 1
+        last_plan = plan
     else:
         launches_db += 1
     if out is not None:

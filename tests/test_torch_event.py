@@ -620,7 +620,8 @@ def _cuda_or_skip():
 @pytest.mark.parametrize("slotted", [False, True])
 def test_cuda_event_kernels_match_twin(slotted):
     """B3 and B4 against the twin on the card, bitwise on the u8 grid, with
-    the gate open and closed."""
+    the gate open and closed; B4 also on float weights, on lists out of
+    order and with repeated ids, and on more rows than one group holds."""
     dev = _cuda_or_skip()
     S, b, n, k = (3 if slotted else 1), 4, 300, 40
     trees = [_tree(n, seed=45 + i) for i in range(S)]
@@ -643,6 +644,33 @@ def test_cuda_event_kernels_match_twin(slotted):
            out=out, **kw)
         torch.cuda.synchronize()
         assert not out.v.any() and not out.y.any()
+    # B4 on what its redesign must still take: lists out of order and with
+    # repeated ids, float weights with signed zeros, more rows than a group,
+    # a width that is no multiple of 4, two launches bitwise equal.
+    rng = np.random.default_rng(57)
+    b4, n4, k4 = 20, 301, 60   # a ragged width: the 4-byte fill
+    wf = rng.standard_normal((S, n4, n4)).astype(np.float32)
+    wf = wf * (rng.random((S, n4, n4)) < 0.15)
+    wcf = t_ops.sentinel_rows(_t(lead(wf))).to(dev)
+    rows4 = [_t(lead(np.stack([_tree(n4, seed=45)[f"lif.{k_}"]] * S))).to(dev) for k_ in ROWS]
+    s4 = _t(lead(np.stack([_spikes(b4, n4, 0.15, seed=58 + i) for i in range(S)]))).to(dev)
+    v4, r4 = (_t(lead(np.stack([a] * S))).to(dev) for a in _state(b4, n4, seed=59, grid=False))
+    idx4, _, _ = t_ops.spike_list(s4, k4)
+    idx4 = idx4.clone()
+    idx4[..., 1, :] = idx4[..., 1, torch.from_numpy(rng.permutation(k4)).to(dev)]
+    live = idx4[..., 2, :][idx4[..., 2, :] < n4].reshape(-1)[: k4 // 2]
+    rep = torch.sort(torch.cat([live, live[: live.numel() // 2]])).values[:k4]
+    idx4[..., 2, :] = n4
+    idx4[..., 2, : rep.numel()] = rep
+    idx4 = idx4.contiguous()
+    counts4 = torch.full(idx4.shape[:-1], k4, dtype=torch.int32, device=dev)
+    want = t_ref.event_lif_dispatch_ref(idx4, counts4, wcf, v4, r4, None, *rows4, walk="all")
+    got = t_ev.event_lif_dispatch(idx4, wcf, v4, r4, None, *rows4)
+    again = t_ev.event_lif_dispatch(idx4, wcf, v4, r4, None, *rows4)
+    torch.cuda.synchronize()
+    assert t_ev.last_plan.groups == 2
+    for g, x, y in zip(got, want, again):
+        assert torch.equal(g, x) and torch.equal(g, y)
 
 
 @pytest.mark.cuda
