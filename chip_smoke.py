@@ -47,11 +47,16 @@ script on any mismatch:
 2. rollout: ``network.rollout`` at the ``snn-fused`` width (4096 neurons,
    32 ticks, batch 8) on ``pallas`` and ``pallas_fused`` against ``jnp``,
    for ``max_delay`` 1 and 4 and per-synapse delays; rasters and final
-   state must be bitwise equal. Kernel B1's launches are counted here (the
-   ``pallas`` backend's path).
+   state must be bitwise equal. Each backend runs again with telemetry on:
+   every bit as off, the telemetry kernel launched once per tick, ``spikes``
+   equal to the raster's sums, and the three backends' telemetry bitwise
+   equal. Kernel B1's launches are counted here (the ``pallas`` backend's
+   path).
 3. learning rollout: ``network.learning_rollout`` at the same width with one
    shared weight matrix, ``stdp`` and ``rstdp`` (a nonzero reward sequence),
    on ``pallas_fused`` and ``pallas``; B5 must launch rollouts x 32 times.
+   Each runs again with telemetry on (every learned bit as off, B5's dw
+   statistics against the ``jnp`` rollout's ``w' - w`` to rtol=1e-5).
    Each rollout is then checked tick by tick from a shared carry: one tick
    through the kernels and one through the plain ``jnp`` path must agree
    (``v``, ``w``, ``elig``, traces to ``rtol=1e-5, atol=1e-3``), and every
@@ -69,8 +74,11 @@ script on any mismatch:
    frozen tenants' counts and predictions must be equal, the learning waves
    pass the tick-by-tick check above, the plastic tenant's weights move,
    stay in ``[w_min, w_max]`` and round-trip through ``weights_to_bank``
-   byte-exactly, no wave holds two of its requests, and B2 launches waves x
-   32 times and B5 learning waves x 32 times.
+   byte-exactly, no wave holds two of its requests, and B2 and the
+   telemetry kernel launch waves x 32 times and B5 learning waves x 32
+   times. The servers run with telemetry on, their default; the 16 requests
+   served again with it off give every count, prediction and learned weight
+   bitwise, and the tenant report and the registry's counters are printed.
 5. event kernels: kernels B3 (``event_dispatch_db``) and B4
    (``event_dispatch``) against their plain twin, bitwise, on u8-grid
    ``W*C`` at the ``snn-event`` FULL shape (16 rows, K = N = 4096, spike
@@ -95,19 +103,34 @@ script on any mismatch:
    under ``torch.cuda.set_sync_debug_mode("error")``, so a host sync in the
    tick loop fails it), ``"fan_in"``, ``"dense"``, ``"auto"``, ``topk`` with
    the knee armed, ``topk`` with a budget small enough to overflow, and
-   ``topk`` on kernel B4; rasters and final state bitwise equal to the
-   ``jnp`` backend. Each run prints its arms (event, dense on overflow, dense
-   by the knee) and launches. Then the fabric on a slot axis of two
-   networks, one driven at a tenth of the other's rate, with the knee: each
-   slot decides its own arm, the rasters equal ``jnp``'s and the per-slot
-   arms read on the device equal the arms replayed on the host from the
-   ``jnp`` raster. Then one event-backend ``learning_rollout`` (``stdp``)
-   with the tick-by-tick check of phase 3.
+   ``topk`` on kernel B4, each with telemetry on and off; rasters and final
+   state bitwise equal to the ``jnp`` backend. Each run prints its arms
+   (event, dense on overflow, dense by the knee), read from its telemetry,
+   and launches. Then the fabric on a slot axis of two networks, one driven
+   at a tenth of the other's rate, with the knee: each slot decides its own
+   arm, the rasters equal ``jnp``'s and the per-slot arms read from the
+   per-slot telemetry equal the arms replayed on the host from the ``jnp``
+   raster. Then one event-backend ``learning_rollout`` (``stdp``) with the
+   tick-by-tick check of phase 3.
 7. event serve: the serve phase's server with ``event_density=0.2``: the
    demo's ring and sparse tenants ride the event program (fan-in gather);
    every frozen tenant's counts and predictions equal the ``jnp`` server's
-   without the event program.
-8. spike_matmul: kernel B6 against its twin at ``tests/test_kernels.py``'s
+   without the event program; the event tenants' report shows no overflow
+   and no knee tick (the fan-in gather).
+8. telemetry: the telemetry kernel against its twin at 8 slots x 4096, one
+   network of 16 rows and a ragged width (37), frozen, learning (B5's
+   partials), event (overflow flags) and knee forms, u8 grid, normal floats
+   and int32 state, three ticks from a random start: bitwise but ``v_sum``
+   on normal floats and ``dw_l1``/``dw_sq`` (rtol=1e-6); two runs bitwise
+   equal. Kernel B5 with its dw statistics at four shapes: the learned
+   tensors bitwise those without them, the statistics against the twin's
+   to rtol=1e-5, two launches bitwise equal. Then the telemetry kernel's
+   device time per launch at the served shape beside its twin and bound,
+   B5 at the served learning wave without and with its statistics, in
+   turns, and telemetry's overhead by the reference's gate method
+   (interleaved off/on pairs, the median ratio) at its gate point (n 1024,
+   ``jnp``) and on the served snn-fused FULL waves.
+9. spike_matmul: kernel B6 against its twin at ``tests/test_kernels.py``'s
    five sweep shapes, ``predict_int``'s Iris (45 x 4 -> 3) and MNIST
    (80 x 64 -> 10) products, each in f32 and bf16: normal weights within
    the reference's tolerance (1e-5 f32, 2e-2 bf16), 0/1 spikes times u8-grid
@@ -121,7 +144,7 @@ script on any mismatch:
    operand, and ``torch.dot(w, c)`` over the same bytes, in turns, the L2
    flushed before each launch), and profiler device time at the two
    classifier shapes.
-9. classifiers: the paper's Iris and MNIST-8x8 networks through
+10. classifiers: the paper's Iris and MNIST-8x8 networks through
    ``classifier.train``, ``deploy``, ``predict_float`` and ``predict_int``
    with ``device=None`` (every launch count zeroed just before, read just
    after: B6 once per ``predict_int``, no other kernel); ``predict_int`` on
@@ -131,8 +154,9 @@ script on any mismatch:
    give equal test predictions (float and integer), and a 100-epoch fit from
    one init agrees within 1e-4 on the two. Accuracies and the wall times of
    ``train`` and ``predict_int`` are logged.
-10. a JSON line of the kernels, the card's name and power limit, and the
-   result line ``{"ok": true, "device": {...}}``.
+11. a JSON line of the kernels (the six ported ones and the telemetry
+   kernel), the card's name and power limit, and the result line
+   ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA device is visible or
 the package is missing. Nothing here imports JAX or the ``repro`` package.
@@ -768,12 +792,30 @@ def time_stdp(dev, gen, card):
 # phase 2: rollout at the snn-fused width
 # ---------------------------------------------------------------------------
 
+TELEMETRY_LEAVES = ("ticks", "spikes", "v_sum", "v_max", "ref_sum", "overflow", "policy_dense",
+                    "dw_l1", "dw_sq")
+
+
+def same_state(a, b) -> bool:
+    """Two network states bitwise equal (LIF state, ring, tick counter)."""
+    import torch
+
+    return (torch.equal(a.lif.v, b.lif.v) and torch.equal(a.lif.r, b.lif.r)
+            and torch.equal(a.lif.y, b.lif.y) and torch.equal(a.delay_buf, b.delay_buf)
+            and torch.equal(a.tick, b.tick))
+
+
 def run_rollout_phase(dev, gen):
+    """``network.rollout`` on ``jnp``, ``pallas`` and ``pallas_fused``, each with
+    telemetry off and on: every raster and final state bitwise equal, the
+    telemetry kernel launched once per tick of an on-rollout, ``spikes`` equal
+    to the raster's sums, and the three backends' telemetry bitwise equal
+    (the same states folded in by the same kernel)."""
     import torch
 
     from repro_torch.core import network
     from repro_torch.core.lif import LIFParams
-    from repro_torch.kernels import lif_step
+    from repro_torch.kernels import lif_step, telemetry
 
     i32 = torch.int32
     rnd = lambda lo, hi, shape: torch.randint(lo, hi, shape, generator=gen, device=dev,
@@ -790,7 +832,7 @@ def run_rollout_phase(dev, gen):
     for D, with_delays in ((1, False), (RING, False), (RING, True)):
         delays = rnd(1, D + 1, (N, N)) if with_delays else None
         st0 = network.SNNState.zeros((ROWS,), N, max_delay=D, device=dev)
-        runs = {}
+        runs, telem = {}, {}
         for backend in ("jnp", "pallas", "pallas_fused"):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -798,20 +840,30 @@ def run_rollout_phase(dev, gen):
                                             backend=backend)
             torch.cuda.synchronize()
             runs[backend] = (final, raster, time.perf_counter() - t0)
+            telemetry.launches = 0
+            f_on, r_on, telem[backend] = network.rollout(params, st0, ext, TICKS, delays=delays,
+                                                         backend=backend, telemetry=True)
+            torch.cuda.synchronize()
+            if not (torch.equal(r_on, raster) and same_state(f_on, final)):
+                raise AssertionError(f"rollout {backend} D={D}: telemetry on changed a bit")
+            if telemetry.launches != TICKS or not torch.equal(telem[backend].spikes,
+                                                              raster.sum((0, 2))):
+                raise AssertionError(f"rollout {backend} D={D}: telemetry launched "
+                                     f"{telemetry.launches} times, or spikes != raster sums")
         fj, rj, _ = runs["jnp"]
         if rj.shape != (TICKS, ROWS, N) or not torch.isfinite(fj.lif.v).all():
             raise AssertionError("rollout: bad raster shape or non-finite state")
         for backend in ("pallas", "pallas_fused"):
             f, r, _ = runs[backend]
-            same = (torch.equal(r, rj) and torch.equal(f.lif.v, fj.lif.v)
-                    and torch.equal(f.lif.r, fj.lif.r) and torch.equal(f.lif.y, fj.lif.y)
-                    and torch.equal(f.delay_buf, fj.delay_buf)
-                    and torch.equal(f.tick, fj.tick))
-            if not same:
+            if not (torch.equal(r, rj) and same_state(f, fj)):
                 raise AssertionError(f"rollout {backend} D={D} delays={with_delays} "
                                      "differs from jnp")
-        log(f"rollout D={D} delays={with_delays}: pallas and pallas_fused == jnp bitwise; "
-            f"spike rate {rj.mean().item():.4f}; wall "
+            if not all(torch.equal(getattr(telem[backend], k), getattr(telem["jnp"], k))
+                       for k in TELEMETRY_LEAVES):
+                raise AssertionError(f"rollout {backend} D={D}: telemetry differs from jnp's")
+        log(f"rollout D={D} delays={with_delays}: pallas and pallas_fused == jnp bitwise, "
+            f"telemetry off and on (every leaf equal across backends, {TICKS} telemetry "
+            f"launches a rollout); spike rate {rj.mean().item():.4f}; wall "
             + ", ".join(f"{b} {t:.3f} s" for b, (_, _, t) in runs.items()))
     return lif_step.launches
 
@@ -919,12 +971,14 @@ def learning_net(dev, gen):
 def run_learning_phase(dev, gen):
     """``network.learning_rollout`` (4096 neurons x 32 ticks x batch 8, one
     shared w) for ``stdp`` and ``rstdp`` on ``pallas_fused`` and ``pallas``;
-    B5 launches must equal rollouts x 32; then each rollout tick by tick."""
+    B5 launches must equal rollouts x 32; then each rollout again with
+    telemetry on (every learned bit as off; B5's dw statistics against the
+    ``jnp`` learning rollout's ``w' - w`` to rtol=1e-5) and tick by tick."""
     import torch
 
     from repro_torch.core import network
     from repro_torch.core.engine import EngineOptions, TickCarry, TickEngine
-    from repro_torch.kernels import lif_step, stdp_update, tick_fused
+    from repro_torch.kernels import lif_step, stdp_update, telemetry, tick_fused
     from repro_torch.plasticity import PlasticityParams, PlasticityState
 
     params, ext = learning_net(dev, gen)
@@ -959,6 +1013,20 @@ def run_learning_phase(dev, gen):
         f"launches {launches}; wall {wall:.3f} s")
     for rule, backend in runs:
         (fs, fp, fw), raster = out[rule, backend]
+        telemetry.launches = stdp_update.launches = 0
+        (ts, tp, tw), traster, tel = network.learning_rollout(
+            params, st0, pst0, ext, TICKS, plasticity=rules[rule], backend=backend,
+            rewards=rewards if rule == "rstdp" else None, telemetry=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(tw, fw) and torch.equal(traster, raster) and same_state(ts, fs)
+                and torch.equal(tp.elig, fp.elig) and torch.equal(tp.x_post, fp.x_post)):
+            raise AssertionError(f"learning {rule}/{backend}: telemetry on changed a bit")
+        t_launches = telemetry.launches
+        if t_launches != TICKS or stdp_update.launches != TICKS \
+                or not float(tel.dw_l1.min()) > 0:
+            raise AssertionError(f"learning {rule}/{backend} with telemetry: launches "
+                                 f"{telemetry.launches} telemetry, {stdp_update.launches} "
+                                 f"stdp_update, dw_l1 {tel.dw_l1.tolist()}")
         if raster.shape != (TICKS, ROWS, N) or not torch.isfinite(fw).all():
             raise AssertionError(f"learning {rule}/{backend}: bad raster or non-finite w")
         moved = (fw - w0).abs().max().item()
@@ -977,14 +1045,21 @@ def run_learning_phase(dev, gen):
                 and torch.equal(ck.plast.elig, fp.elig)):
             raise AssertionError(f"learning {rule}/{backend}: the tick-by-tick kernel chain "
                                  "differs from the rollout (in place vs out of place)")
-        (_, _, pw), praster = network.learning_rollout(
+        (_, _, pw), praster, ptel = network.learning_rollout(
             params, st0, pst0, ext, TICKS, plasticity=rules[rule], backend="jnp",
-            rewards=rewards if rule == "rstdp" else None)
+            rewards=rewards if rule == "rstdp" else None, telemetry=True)
+        dw_rel = ((tel.dw_l1 - ptel.dw_l1).abs() / ptel.dw_l1).max().item()
+        if torch.equal(praster, raster) and torch.equal(pw, fw) and dw_rel > 1e-5:
+            raise AssertionError(f"learning {rule}/{backend}: B5's dw_l1 {tel.dw_l1[0]} against "
+                                 f"jnp's {ptel.dw_l1[0]} (rel {dw_rel:.3g} > 1e-5)")
         log(f"learning {rule}/{backend}: tick by tick == plain path (rtol=1e-5, atol=1e-3), "
             f"{ties} rounding ties, max |dv| {dv:.3g}, max |dw| {dw:.3g}; |w - w0| up to "
             f"{moved:.3f}, spike rate {raster.mean().item():.4f}; free-running against jnp: "
             f"{int((praster != raster).sum())} raster entries differ, max |dw| "
-            f"{(pw - fw).abs().max().item():.3g}")
+            f"{(pw - fw).abs().max().item():.3g}; telemetry on: every bit as off, "
+            f"{t_launches} launches, dw_l1 {tel.dw_l1[0].item():.6g} (B5 statistics) "
+            f"against jnp's {ptel.dw_l1[0].item():.6g} (rel {dw_rel:.2g}), dw_l2 "
+            f"{tel.dw_sq[0].sqrt().item():.6g}")
     return launches
 
 
@@ -999,20 +1074,22 @@ def serve_config():
     return get_bundle("snn-fused").model
 
 
-def serve_once(dev, cfg, backend, *, frozen_only=False, event_density=None):
+def serve_once(dev, cfg, backend, *, frozen_only=False, event_density=None, telemetry=True):
     """Serve the demo tenants' 16 requests (``frozen_only``: those of the
     frozen tenants) on a fresh server (``event_density``: with the event
-    program); returns the server, the requests, the stats, the kernel
-    launches, the wall time, the waves' request ids and the plastic tenants'
-    weights before and after each wave (copies taken around ``run_wave``)."""
+    program; ``telemetry``: the server's default, on); returns the server,
+    the requests, the stats, the kernel launches, the wall time, the waves'
+    request ids and the plastic tenants' weights before and after each wave
+    (copies taken around ``run_wave``)."""
     import torch
 
-    from repro_torch.kernels import event_dispatch, lif_step, stdp_update, tick_fused
+    from repro_torch.kernels import event_dispatch, lif_step, stdp_update, telemetry as tk
+    from repro_torch.kernels import tick_fused
     from repro_torch.launch.serve import SNNServer, make_demo_requests, make_demo_tenants
 
     server = SNNServer(n_max=cfg.n_neurons, slots=SLOTS, max_ticks=cfg.n_ticks,
                        mode=cfg.snn_mode, backend=backend, device=dev,
-                       event_density=event_density)
+                       event_density=event_density, telemetry=telemetry)
     names = make_demo_tenants(server, SLOTS, seed=0)
     reqs = make_demo_requests(server, names, 2 * SLOTS, seed=1)
     plastic = [n for n in names if server.tenants[n].plastic]
@@ -1030,18 +1107,19 @@ def serve_once(dev, cfg, backend, *, frozen_only=False, event_density=None):
     server.run_wave = logged
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    lif_step.launches = tick_fused.launches = stdp_update.launches = 0
+    lif_step.launches = tick_fused.launches = stdp_update.launches = tk.launches = 0
     event_dispatch.launches = event_dispatch.launches_db = 0
     t0 = time.perf_counter()
     stats = server.serve(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"tick_fused": tick_fused.launches, "lif_step": lif_step.launches,
-                "stdp_update": stdp_update.launches}
+                "stdp_update": stdp_update.launches, "telemetry": tk.launches}
     if event_density is not None:
         launches.update(event_dispatch_db=event_dispatch.launches_db,
                         event_dispatch=event_dispatch.launches)
-    log(f"serve {backend}{' (frozen tenants only)' if frozen_only else ''}: peak device memory "
+    log(f"serve {backend}{' (frozen tenants only)' if frozen_only else ''}"
+        f"{'' if telemetry else ' (telemetry off)'}: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     del server.run_wave   # no cycle through the closure: the server frees on last use
     return server, reqs, stats, launches, wall, waves, snaps
@@ -1121,7 +1199,8 @@ def run_frozen_serve(dev, cfg):
     n_waves = stats_f["waves"]
     if waves != waves_j or stats_f["n_requests"] != len(reqs_f) or n_waves < 2:
         raise AssertionError("serve (frozen): expected >= 2 waves, the same on both servers")
-    expected = {"tick_fused": n_waves * cfg.n_ticks, "lif_step": 0, "stdp_update": 0}
+    expected = {"tick_fused": n_waves * cfg.n_ticks, "lif_step": 0, "stdp_update": 0,
+                "telemetry": n_waves * cfg.n_ticks}
     if launches != expected:
         raise AssertionError(f"serve (frozen): launches {launches}, expected {expected}")
     if not all(torch.equal(w, ws[0]) for ws in snaps.values() for w in ws):
@@ -1130,6 +1209,42 @@ def run_frozen_serve(dev, cfg):
         f"every count and prediction == jnp bitwise; wall per wave {wall_f / n_waves:.4f} s "
         f"({cfg.snn_backend}), {wall_j / stats_j['waves']:.4f} s (jnp); launches {launches}")
     return launches
+
+
+def check_telemetry_serve(dev, cfg, server, reqs, snaps, learner):
+    """The served waves with telemetry on (the server's default) against the
+    same requests served with it off: every count, prediction and learned
+    weight bitwise equal, no telemetry launch when off; then the per-tenant
+    report and the registry's counters, checked against the served requests."""
+    import torch
+
+    off = serve_once(dev, cfg, cfg.snn_backend, telemetry=False)
+    _, reqs_o, stats_o, launches_o, _, _, snaps_o = off
+    for rf, ro in zip(reqs, reqs_o):
+        if not np_equal(rf.counts, ro.counts) or rf.pred != ro.pred:
+            raise AssertionError(f"serve: request {rf.rid} differs with telemetry off")
+    if not all(torch.equal(a, b) for a, b in zip(snaps[learner], snaps_o[learner])):
+        raise AssertionError(f"serve: {learner} learned other weights with telemetry off")
+    if launches_o["telemetry"] != 0 or server.tenant_report() == {}:
+        raise AssertionError(f"serve: telemetry off launched {launches_o}, or no report on")
+    reg = server.registry.to_dict()
+    value = lambda name, labels="": reg[name]["values"].get(labels, 0.0)
+    report = server.tenant_report()
+    spikes = sum(float(r.counts.sum()) for r in reqs)
+    if value("snn_requests_total") != len(reqs) or value("snn_spikes_out_total") != spikes \
+            or sum(row["requests"] for row in report.values()) != len(reqs):
+        raise AssertionError(f"serve: registry or report off the served requests: {reg}")
+    for name, row in report.items():
+        log(f"serve tenant_report {name}: " + ", ".join(f"{k}={v}" for k, v in row.items()))
+    log("serve registry: " + ", ".join(
+        f"{name}{labels} {v}" for name in ("snn_requests_total", "snn_waves_total",
+                                           "snn_spikes_out_total",
+                                           "snn_event_overflow_ticks_total",
+                                           "snn_event_policy_dense_ticks_total",
+                                           "snn_weight_delta_l1_total")
+        for labels, v in reg[name]["values"].items()))
+    log(f"serve: telemetry on (the default) == off bitwise: every count, prediction and "
+        f"learned weight of {len(reqs)} requests; launches off {launches_o}")
 
 
 def run_serve_phase(dev):
@@ -1165,7 +1280,8 @@ def run_serve_phase(dev):
     if learning_waves < 2:
         raise AssertionError(f"serve: {learner} learned in {learning_waves} waves, expected 2")
     expected = {"tick_fused": n_waves * cfg.n_ticks, "lif_step": 0,
-                "stdp_update": learning_waves * cfg.n_ticks}
+                "stdp_update": learning_waves * cfg.n_ticks,
+                "telemetry": n_waves * cfg.n_ticks}
     if launches != expected:
         raise AssertionError(f"serve: launches {launches}, expected {expected} "
                              "(waves x ticks, learning waves x ticks)")
@@ -1193,6 +1309,7 @@ def run_serve_phase(dev):
     for k, v in stats_f.items():
         if k != "results":
             log(f"serve {k}: {v}")
+    check_telemetry_serve(dev, cfg, server, reqs_f, snaps, learner)
     log(f"serve: {stats_f['n_requests']} requests in {n_waves} waves ({learning_waves} "
         f"learning); frozen tenants == jnp on the card (counts and preds); plastic "
         f"{learner}: {n_diff} counts differ from jnp, max |dw| against the jnp server "
@@ -1584,15 +1701,29 @@ def event_net(dev, gen):
     return cfg, params, ext
 
 
+def telemetry_arms(tel):
+    """Each network's arms (event, dense on overflow, dense by the knee) from
+    its telemetry, read from its first row: ``(ticks - overflow -
+    policy_dense, overflow, policy_dense)``, ``(S, 3)`` with a slot axis of
+    ``(S, B)`` accumulators, else ``(3,)``."""
+    import torch
+
+    first = lambda t: t.reshape(t.shape[0], -1)[:, 0] if t.dim() > 1 else t.reshape(-1)[0]
+    ticks, over, policy = (first(t).cpu().long() for t in (tel.ticks, tel.overflow,
+                                                            tel.policy_dense))
+    return torch.stack([ticks - over - policy, over, policy], dim=-1)
+
+
 def run_event_rollout_phase(dev, gen):
     """``network.rollout`` on the snn-event FULL fabric through every
-    strategy, each bitwise equal to the jnp backend; returns B3's launches in
-    the ``topk`` run and B4's in the ``grid`` run."""
+    strategy, with telemetry on and off, each bitwise equal to the jnp
+    backend; the arms each run took are read from its telemetry. Returns B3's
+    launches in the ``topk`` run and B4's in the ``grid`` run."""
     import torch
 
     from repro_torch.core import dispatch_policy, network
     from repro_torch.core.engine import EngineOptions
-    from repro_torch.kernels import event_dispatch, lif_step, ops
+    from repro_torch.kernels import event_dispatch, lif_step, telemetry
     from repro_torch.kernels.ops import EventFanIn
 
     cfg, params, ext = event_net(dev, gen)
@@ -1607,7 +1738,7 @@ def run_event_rollout_phase(dev, gen):
     plan = dispatch_policy.plan(params.c, w_in=params.w_in, batch=EVENT_ROWS)
     opts = lambda **kw: EngineOptions(backend="event", event_dispatch="topk", **kw)
     # (label, rollout keywords, whether the tick runs the kernels behind the
-    # device flag: then ops.arm_ticks reads the arm each tick took)
+    # device flag, each tick's arm then counted by the telemetry)
     runs = [
         ("topk", dict(dispatch="topk"), True),
         ("fan_in", dict(dispatch="fan_in", neighbors=EventFanIn.from_dense(params.c)), False),
@@ -1624,33 +1755,39 @@ def run_event_rollout_phase(dev, gen):
     launches = {}
     for label, kw, gated in runs:
         sync_free = label == "topk"
-        tally = torch.zeros(3, dtype=torch.int64, device=dev)
+        if "options" in kw:
+            on = dict(kw, options=dataclasses.replace(kw["options"], telemetry=True))
+        else:
+            on = dict(kw, telemetry=True)
         torch.cuda.synchronize()
         lif_step.launches = event_dispatch.launches = event_dispatch.launches_db = 0
-        ops.arm_ticks = tally
+        telemetry.launches = 0
         t0 = time.perf_counter()
         if sync_free:
             torch.cuda.set_sync_debug_mode("error")
         try:
-            f, r = network.rollout(params, st0, ext, T, **kw)
+            f, r, tel = network.rollout(params, st0, ext, T, **on)
         finally:
             torch.cuda.set_sync_debug_mode(0)
-            ops.arm_ticks = None
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = {"event_dispatch_db": event_dispatch.launches_db,
                "event_dispatch": event_dispatch.launches, "lif_step": lif_step.launches}
         launches[label] = got
-        same = (torch.equal(r, rj) and torch.equal(f.lif.v, fj.lif.v)
-                and torch.equal(f.lif.r, fj.lif.r) and torch.equal(f.lif.y, fj.lif.y)
-                and torch.equal(f.delay_buf, fj.delay_buf) and torch.equal(f.tick, fj.tick))
-        if not same:
+        t_launches = telemetry.launches
+        f_off, r_off = network.rollout(params, st0, ext, T, **kw)
+        if not (torch.equal(r, rj) and same_state(f, fj)):
             raise AssertionError(f"event rollout {label}: differs from jnp")
+        if not (torch.equal(r_off, r) and same_state(f_off, f)):
+            raise AssertionError(f"event rollout {label}: telemetry on changed a bit")
+        if t_launches != T or not torch.equal(tel.spikes, r.sum((0, 2))):
+            raise AssertionError(f"event rollout {label}: {t_launches} telemetry launches, "
+                                 "or its spikes differ from the raster's")
         arms = "all ticks on its one arm"
-        ev, over, by_knee = tally.tolist()
+        ev, over, by_knee = telemetry_arms(tel).tolist()
         if gated:
-            arms = (f"arms read on the device: event {ev}, dense on overflow {over}, dense "
-                    f"by the knee {by_knee}")
+            arms = (f"arms read from the telemetry: event {ev}, dense on overflow {over}, "
+                    f"dense by the knee {by_knee}")
             if ev + over + by_knee != T:
                 raise AssertionError(f"event rollout {label}: {arms}, not {T} ticks")
             kernel = "event_dispatch" if "B4" in label else "event_dispatch_db"
@@ -1662,10 +1799,11 @@ def run_event_rollout_phase(dev, gen):
                                      f"({arms})")
             if label.startswith("topk, k_active") and not (ev and over):
                 raise AssertionError(f"event rollout {label}: no overflow tick ({arms})")
-        elif any(got.values()) or ev + over + by_knee:
+        elif any(got.values()) or over + by_knee:
             raise AssertionError(f"event rollout {label}: launched kernels {got}, arms "
-                                 f"{tally.tolist()}")
-        log(f"event rollout {label}: == jnp bitwise (raster and final state); spike rate "
+                                 f"{[ev, over, by_knee]}")
+        log(f"event rollout {label}: == jnp bitwise (raster and final state), telemetry on "
+            f"and off; spike rate "
             f"{r.mean().item():.4f}; {arms}; launches {got}; wall {wall:.4f} s (jnp "
             f"{wall_j:.4f} s)" + ("; no host sync in the tick loop" if sync_free else ""))
     return launches["topk"]["event_dispatch_db"], launches["topk on B4"]["event_dispatch"]
@@ -1704,14 +1842,13 @@ def run_event_slots_phase(dev, gen):
     with the knee armed: slot 0 under the fabric's drive, slot 1 under a
     drive cut to a tenth. Every slot decides its own arm, as the reference
     does per network under vmap: the rasters and final state equal the jnp
-    backend's bitwise, and each slot's arms, read on the device into an
-    ``(S, 3)`` ``ops.arm_ticks``, equal the arms replayed on the host from
-    the jnp raster."""
+    backend's bitwise, and each slot's arms, read from its per-slot
+    telemetry, equal the arms replayed on the host from the jnp raster."""
     import torch
 
     from repro_torch.core import network
     from repro_torch.core.engine import EngineOptions
-    from repro_torch.kernels import event_dispatch, lif_step, ops
+    from repro_torch.kernels import event_dispatch, lif_step
 
     cfg, params, ext = event_net(dev, gen)
     T, n, S = cfg.n_ticks, cfg.n_neurons, EVENT_SLOTS
@@ -1724,32 +1861,27 @@ def run_event_slots_phase(dev, gen):
     ext_s = torch.stack([ext, quiet], dim=1)                   # (T, S, B, n)
     st0 = network.SNNState.zeros((S, EVENT_ROWS), n, max_delay=RING, device=dev)
     fj, rj = network.rollout(slotted, st0, ext_s, T)
-    tally = torch.zeros((S, 3), dtype=torch.int64, device=dev)
     opts = EngineOptions(backend="event", event_dispatch="topk", event_k_active=EVENT_K,
-                         event_knee=EVENT_KNEE)
+                         event_knee=EVENT_KNEE, telemetry=True)
     torch.cuda.synchronize()
     lif_step.launches = event_dispatch.launches_db = 0
-    ops.arm_ticks = tally
-    try:
-        f, r = network.rollout(slotted, st0, ext_s, T, options=opts)
-    finally:
-        ops.arm_ticks = None
+    f, r, tel = network.rollout(slotted, st0, ext_s, T, options=opts)
     torch.cuda.synchronize()
     same = (torch.equal(r, rj) and torch.equal(f.lif.v, fj.lif.v)
             and torch.equal(f.lif.r, fj.lif.r) and torch.equal(f.delay_buf, fj.delay_buf))
     if not same:
         raise AssertionError("event rollout on a slot axis with the knee: differs from jnp")
     want = knee_arms(rj, EVENT_K, EVENT_KNEE, opts.event_hysteresis)
-    got = tally.cpu()
-    if not torch.equal(got, want):
-        raise AssertionError(f"event slots: per-slot arms read on the device {got.tolist()}, "
+    got = telemetry_arms(tel)
+    if not torch.equal(got, want) or tuple(tel.overflow.shape) != (S, EVENT_ROWS):
+        raise AssertionError(f"event slots: per-slot arms from the telemetry {got.tolist()}, "
                              f"replayed from the jnp raster {want.tolist()}")
     if lif_step.launches != T or event_dispatch.launches_db != T:
         raise AssertionError(f"event slots: launches lif_step {lif_step.launches}, "
                              f"event_dispatch_db {event_dispatch.launches_db}, not {T} each")
     log(f"event rollout on {S} slots, knee {EVENT_KNEE}: == jnp bitwise (raster and final "
-        f"state); per-slot arms (event, dense on overflow, dense by the knee) "
-        f"{got.tolist()} == replayed from the jnp raster; spike rate per slot "
+        f"state); per-slot arms (event, dense on overflow, dense by the knee) from the "
+        f"telemetry {got.tolist()} == replayed from the jnp raster; spike rate per slot "
         f"{[round(x, 4) for x in r.mean(dim=(0, 2, 3)).tolist()]}")
 
 
@@ -1826,20 +1958,367 @@ def run_event_serve_phase(dev):
     learning = sum(any(server.tenants[t].plastic for _, t in w) for w in waves)
     expected = {"tick_fused": by_backend.get(cfg.snn_backend, 0) * cfg.n_ticks,
                 "lif_step": 0, "stdp_update": learning * cfg.n_ticks,
-                "event_dispatch_db": 0, "event_dispatch": 0}
+                "telemetry": len(waves) * cfg.n_ticks, "event_dispatch_db": 0,
+                "event_dispatch": 0}
     if launches != expected or by_backend.get("event", 0) < 1:
         raise AssertionError(f"event serve: launches {launches}, expected {expected}; "
                              f"waves {by_backend}")
+    report = server.tenant_report()
+    if sorted(n for n, row in report.items() if row["backend"] == "event") != on_event \
+            or any(report[n]["overflow_ticks"] or report[n]["policy_dense_ticks"]
+                   for n in on_event):
+        raise AssertionError(f"event serve: tenant report {report}")
     log(f"event serve: {stats_f['n_requests']} requests in {stats_f['waves']} waves "
         f"{by_backend} ({learning} learning), event program (fan-in cap {server.event_cap}) "
         f"for {on_event}; every frozen count and prediction == jnp without the event "
         f"program; wall {wall_f:.4f} s against {wall_j:.4f} s (jnp, {stats_j['waves']} "
-        f"waves); launches {launches}")
+        f"waves); launches {launches}; tenant report of the event tenants (fan-in: no "
+        f"overflow, no knee) " + "; ".join(
+            f"{n} spike_rate {report[n]['spike_rate']} dispatch {report[n]['dispatch']}"
+            for n in on_event))
     return by_backend
 
 
 # ---------------------------------------------------------------------------
-# phase 8: kernel B6 (spike_matmul) against its plain twin, and its times
+# phase 8: the telemetry kernel, B5's dw statistics and telemetry's overhead
+# ---------------------------------------------------------------------------
+
+# The telemetry kernel's shapes: (slots, rows, width). The served wave (8
+# slots of one row at 4096), the event rollout's one network of 16 rows
+# (0-d flags), a ragged width on a slot axis.
+TELEMETRY_SHAPES = ((SLOTS, 1, N), (1, EVENT_ROWS, N), (3, 2, 37))
+# Which per-tick operands ride along: none (a frozen dense wave), the dw
+# partials (a learning wave), the overflow flag (the event arm), and the
+# flag, the knee's gate and the partials together.
+TELEMETRY_FORMS = ("frozen", "learning", "event", "knee")
+# Kernel B5's registers per instantiation before it gained the dw statistics
+# (ptxas for sm_90a): the instantiations without the statistics must keep them.
+B5_REGISTERS = {"stdp_update_kernelILb0ELb0EE": 120, "stdp_update_kernelILb1ELb0EE": 117,
+                     "stdp_update_element_kernelILb0EE": 93}
+OVERHEAD_PAIRS = 9   # interleaved off/on pairs, as the reference's gate takes them
+OVERHEAD_FLOOR = 0.9  # the reference's floor on telemetry-on / -off ticks/s
+
+
+def telemetry_inputs(gen, dev, S, B, n, form, *, grid=True, int_state=False, parts=5):
+    """One tick's operands of the telemetry kernel and a random start: 0/1
+    spikes, potentials on the integer grid (sums exact below 2^24) or normal
+    floats (or int32 state, the int datapath), refractory counters, per-slot
+    flags (0-d at S = 1), and dw partials ``(S, parts, 2)``."""
+    import torch
+
+    from repro_torch.obs import TickTelemetry
+
+    lead = (S, B) if S > 1 else (B,)
+    u = lambda *shape: torch.rand(shape, generator=gen, device=dev)
+    ri = lambda lo, hi, shape: torch.randint(lo, hi, shape, generator=gen, device=dev,
+                                             dtype=torch.int32)
+    y = (u(*lead, n) < 0.2).float()
+    if int_state:
+        y, v = y.int(), ri(-300, 3000, lead + (n,))
+    elif grid:
+        v = ri(-300, 3000, lead + (n,)).float()
+    else:
+        v = torch.randn(lead + (n,), generator=gen, device=dev) * 50.0
+    flag = lambda: (u(S) < 0.5) if S > 1 else (u(1) < 0.5).reshape(())
+    over = flag() if form in ("event", "knee") else None
+    take = flag() if form == "knee" else None
+    dw = u(S, parts, 2) * 10.0 if form in ("learning", "knee") else None
+    start = TickTelemetry.zeros(lead, dev).copy_(TickTelemetry(
+        ticks=ri(0, 9, lead), spikes=ri(0, 500, lead).float(), v_sum=torch.randn(
+            lead, generator=gen, device=dev), v_max=u(*lead) * 100.0, ref_sum=u(*lead),
+        overflow=ri(0, 5, lead), policy_dense=ri(0, 5, lead), dw_l1=u(*lead) * 100.0,
+        dw_sq=u(*lead) * 1000.0))
+    return {"y": y, "v": v, "r": ri(0, 3, lead + (n,)), "over": over, "take_dense": take,
+            "dw": dw, "start": start}
+
+
+def telemetry_twin(tel, inp):
+    """The plain twin's fold of ``inp`` into ``tel`` (a new record)."""
+    from repro_torch.core.lif import LIFState
+
+    over, take = inp["over"], inp["take_dense"]
+    policy = None
+    if take is not None:
+        policy = (take if over is None else take & ~over).int()
+    return tel.accumulate(LIFState(v=inp["v"], r=inp["r"], y=inp["y"]),
+                          overflow_inc=None if over is None else over.int(),
+                          policy_inc=policy, dw_stats=inp["dw"])
+
+
+def run_telemetry_kernel_phase(dev, gen):
+    """The telemetry kernel against its twin on the card, three ticks from a
+    random start, at ``TELEMETRY_SHAPES`` in every ``TELEMETRY_FORMS``:
+    ``ticks``, ``spikes``, ``v_max``, ``ref_sum``, ``overflow`` and
+    ``policy_dense`` bitwise, ``v_sum`` bitwise on the integer grid and on
+    normal floats to 1e-6 of the magnitudes it sums (``|v_sum| + ticks *
+    mean |v|``: the neuron sums go in another order, and a mean near zero
+    cancels), ``dw_l1``/``dw_sq`` (the partials summed in another order) to
+    rtol=1e-6; int32 state (the int datapath) bitwise; two runs bitwise
+    equal. Returns the largest |error| over every leaf."""
+    import torch
+
+    from repro_torch.kernels import telemetry
+
+    exact = ("ticks", "spikes", "v_max", "ref_sum", "overflow", "policy_dense")
+    err, cases = 0.0, 0
+    variants = [(True, False), (False, False)]
+    for S, B, n in TELEMETRY_SHAPES:
+        for form in TELEMETRY_FORMS:
+            for grid, int_state in variants + ([(True, True)] if form == "frozen" else []):
+                inp = telemetry_inputs(gen, dev, S, B, n, form, grid=grid,
+                                       int_state=int_state)
+                runs = []
+                for _ in range(2):
+                    got = inp["start"].clone()
+                    for _ in range(3):
+                        telemetry.tick_telemetry(got, inp["y"], inp["v"], inp["r"],
+                                                 over=inp["over"], take_dense=inp["take_dense"],
+                                                 dw_stats=inp["dw"])
+                    runs.append(got)
+                want = inp["start"]
+                for _ in range(3):
+                    want = telemetry_twin(want, inp)
+                torch.cuda.synchronize()
+                what = f"telemetry S={S} B={B} n={n} {form} grid={grid} int={int_state}"
+                for f in TELEMETRY_LEAVES:
+                    a, b = getattr(runs[0], f), getattr(want, f)
+                    if not torch.equal(a, getattr(runs[1], f)):
+                        raise AssertionError(f"{what}: two runs differ in {f}")
+                    e = (a.double() - b.double()).abs().max().item()
+                    err = max(err, e)
+                    if f in exact or (f == "v_sum" and grid):
+                        if not torch.equal(a, b):
+                            raise AssertionError(f"{what}: {f} differs from the twin by {e}")
+                    elif f == "v_sum":
+                        scale = b.abs() + 3 * inp["v"].abs().float().mean(-1)
+                        if not bool(((a - b).abs() <= 1e-6 * scale).all()):
+                            raise AssertionError(f"{what}: v_sum differs from the twin by {e}, "
+                                                 "past 1e-6 of the magnitudes summed")
+                    else:
+                        torch.testing.assert_close(a, b, rtol=1e-6, atol=0, msg=f"{what}: {f}")
+                cases += 1
+    log(f"telemetry kernel: {cases} cases against the twin (3 ticks each, shapes "
+        f"{TELEMETRY_SHAPES}, forms {TELEMETRY_FORMS}, u8 grid, normal floats, int32 state): "
+        f"ticks, spikes, v_max, ref_sum, overflow, policy_dense bitwise; v_sum bitwise on the "
+        f"grid, 1e-6 of the magnitudes summed on floats; dw_l1/dw_sq rtol=1e-6; two runs "
+        f"bitwise equal; max "
+        f"|err| {err:.3g}")
+    return err
+
+
+# B5's statistics: (label, rule, slots, rows, width, masks, the gate).
+B5_STATS_CASES = (
+    ("served learning wave, gate open in slot 7 only", "stdp", SLOTS, 1, N, "ones", "served"),
+    ("8 slots, mixed masks, per-slot rewards", "rstdp", SLOTS, 1, N, "mixed", None),
+    ("one shared network of 8 rows, 5 % mask", "rstdp", 1, ROWS, N, "sparse", None),
+    ("ragged width 37, element fill, gate per slot", "stdp", 3, 1, 37, "mixed", "mixed"),
+)
+
+
+def run_b5_stats_phase(dev, gen):
+    """Kernel B5 with its dw statistics: the learned ``w``, ``elig`` and
+    traces bitwise those of the launch without them; each slot's statistics
+    against the twin's ``sum |w' - w|`` and ``sum (w' - w)^2`` to rtol=1e-5
+    (exact zeros in a closed slot); two launches bitwise equal."""
+    import torch
+
+    from repro_torch.kernels import ref, stdp_update
+
+    worst = 0.0
+    for label, rule, S, B, n, masks, gated in B5_STATS_CASES:
+        slotted = S > 1
+        inp = stdp_inputs(gen, dev, S, B, n, n, slotted=slotted, masks=masks)
+        reward = (torch.linspace(-1.5, 2.0, S, device=dev) if slotted
+                  else torch.tensor(0.75, device=dev))
+        gate = {}
+        if gated:
+            until = [0] * (S - 1) + [TICKS] if gated == "served" else [8, 0, 100][:S]
+            gate = {"tick": torch.tensor(3, dtype=torch.int32, device=dev),
+                    "learn_until": torch.tensor(until, dtype=torch.int32, device=dev)}
+        hyper = stdp_hyper(rule)
+        args = [inp[k] for k in STDP_ARGS]
+
+        def launch(stats):
+            w, e = inp["w"].clone(), inp["elig"].clone()
+            return stdp_update.fused_stdp_step(*args[:4], w, args[5], e, reward, in_place=True,
+                                               dw_stats=stats, **gate, **hyper)
+
+        plain = launch(False)
+        out, stats = launch(True)
+        _, again = launch(True)
+        _, twin = ref.fused_stdp_step_ref(*args, reward, dw_stats=True, **gate, **hyper)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(plain, out)):
+            raise AssertionError(f"stdp_update ({label}): the statistics changed a learned bit")
+        if not torch.equal(stats, again):
+            raise AssertionError(f"stdp_update ({label}): two launches' statistics differ")
+        got, want = stats.sum(1), twin.sum(1)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0,
+                                   msg=f"stdp_update ({label}) statistics")
+        closed = [i for i in range(S) if gate and int(gate["learn_until"][i]) <= 3]
+        if any(stats[i].abs().sum().item() != 0.0 for i in closed):
+            raise AssertionError(f"stdp_update ({label}): a closed slot has statistics")
+        rel = ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
+        worst = max(worst, rel)
+        log(f"stdp_update dw statistics ({label}): {tuple(stats.shape)} partials per (slot, "
+            f"block), sum |dw| per slot {[round(x, 3) for x in got[:, 0].tolist()]} against "
+            f"the twin's within rel {rel:.2g} (rtol 1e-5); learned tensors bitwise those of "
+            f"the launch without statistics; two launches bitwise equal; plan "
+            f"{stdp_update.last_plan.fill}, {stdp_update.last_plan.blocks} blocks")
+        del inp, args, plain, out
+    return worst
+
+
+def time_telemetry(dev, gen, card):
+    """The telemetry kernel at the served wave's shape (8 slots x 4096), in
+    the frozen form and the learning form (B5's partials), by profiler
+    device time per launch, beside its twin and its byte bound; and B5 at
+    the served learning wave without and with its statistics, in turns, the
+    L2 flushed before each launch. Returns the telemetry kernel's JSON row
+    (the learning form)."""
+    import torch
+
+    from repro_torch.kernels import stdp_update, telemetry
+
+    bw, flops = card
+    # B5 without and with its statistics, in turns.
+    inp = stdp_inputs(gen, dev, SLOTS, 1, N, N, masks="ones")
+    reward = torch.full((SLOTS,), 0.5, device=dev)
+    gate = {"tick": torch.zeros((), dtype=torch.int32, device=dev),
+            "learn_until": torch.tensor([0] * (SLOTS - 1) + [TICKS], dtype=torch.int32,
+                                        device=dev)}
+    args = [inp[k] for k in STDP_ARGS]
+    hyper = stdp_hyper("stdp")
+    flush = torch.empty(FLUSH_BYTES // 4, device=dev)
+    t = paired_ms({
+        "without": lambda: stdp_update.fused_stdp_step(*args, reward, in_place=True, **gate,
+                                                       **hyper),
+        "with": lambda: stdp_update.fused_stdp_step(*args, reward, in_place=True,
+                                                    dw_stats=True, **gate, **hyper)},
+        flush=flush)
+    _, partials = stdp_update.fused_stdp_step(*args, reward, in_place=True, dw_stats=True,
+                                              **gate, **hyper)
+    log(f"time stdp_update (served learning wave) without its statistics {t['without']:.4f} "
+        f"ms, with them {t['with']:.4f} ms ({100 * (t['with'] / t['without'] - 1):+.1f} %), "
+        f"in turns, L2 flushed before each launch")
+    del flush, inp, args
+    rows = {}
+    for form in ("frozen", "learning"):
+        tin = telemetry_inputs(gen, dev, SLOTS, 1, N, "frozen")
+        dw = partials if form == "learning" else None
+        tel = tin["start"]
+        kernel = device_ms(lambda: telemetry.tick_telemetry(tel, tin["y"], tin["v"], tin["r"],
+                                                            dw_stats=dw))
+        tin["dw"] = dw
+        plain = device_ms(lambda: telemetry_twin(tel, tin))
+        moved = nbytes(tin["y"], tin["v"], tin["r"], dw) + 2 * nbytes(
+            *(getattr(tel, f) for f in TELEMETRY_LEAVES))
+        ops = 5 * tin["v"].numel()
+        bound = max(moved / bw, ops / flops) * 1e3
+        extra = "" if dw is None else f", B5 partials {tuple(dw.shape)}"
+        log(f"time telemetry ({form} form{extra}): "
+            f"{kernel:.4f} ms device time per launch at S={SLOTS} B=1 n={N} (bound {bound:.6f} ms "
+            f"for {moved / 2**10:.1f} KiB, bytes; launch-bound), plain twin {plain:.4f} ms; no "
+            f"single PyTorch call computes this function (four reductions and nine updates)")
+        rows[form] = {"ms": kernel, "plain_ms": plain, "library_ms": None, "bound_ms": bound,
+                      "bound_by": "bytes" if moved / bw >= ops / flops else "operations"}
+    return rows["learning"]
+
+
+def overhead_pairs(run_off, run_on, pairs=OVERHEAD_PAIRS):
+    """The reference's gate method: interleaved off/on runs (each ended by a
+    synchronize), the median of the per-pair wall ratios off / on (the
+    on/off ticks/s ratio), and each side's best wall."""
+    import torch
+
+    run_off(), run_on()
+    torch.cuda.synchronize()
+    ratios, best = [], {"off": float("inf"), "on": float("inf")}
+    for _ in range(pairs):
+        walls = {}
+        for name, fn in (("off", run_off), ("on", run_on)):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            best[name] = min(best[name], walls[name])
+        ratios.append(walls["off"] / walls["on"])
+    return statistics.median(ratios), best, ratios
+
+
+def gate_verdict(ratio) -> str:
+    return ("meets" if ratio >= OVERHEAD_FLOOR else "MISSES") + f" the {OVERHEAD_FLOOR} floor"
+
+
+def run_telemetry_overhead(dev):
+    """Telemetry-on against telemetry-off ticks/s by the reference's gate
+    method, at its gate point (n = 1024, batch 4, 8 ticks, max_delay 4,
+    ``jnp``; its ``_sweep_case``: a 50 % sparse_random fabric, dyadic u8-grid
+    weights near 2/sqrt(n), v_th 1, leak 0.1, refractory 1, a 0.1-rate
+    drive) and on the served snn-fused FULL waves (``pallas_fused``, the 16
+    demo requests: the 14 of frozen tenants, then all 16 with the learning
+    waves). A miss is printed with its numbers, not raised."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import connectivity, network
+    from repro_torch.core.lif import LIFParams
+    from repro_torch.launch.serve import SNNServer, make_demo_requests, make_demo_tenants
+
+    n, batch, n_ticks, depth = 1024, 4, 8, 4
+    rng = np.random.default_rng(7)
+    c = connectivity.sparse_random(n, 0.5, seed=7)
+    scale = 2.0 ** round(np.log2(2.0 / np.sqrt(n)))
+    w = (rng.integers(0, 256, (n, n)) * (2.0 ** -7) * scale).astype(np.float32)
+    params = network.SNNParams(
+        w=torch.as_tensor(w, device=dev), c=torch.as_tensor(c, dtype=torch.float32, device=dev),
+        w_in=torch.eye(n, device=dev),
+        lif=LIFParams.make(n, v_th=1.0, leak=0.1, r_ref=1, device=dev))
+    st0 = network.SNNState.zeros((batch,), n, max_delay=depth, device=dev)
+    ext = torch.as_tensor((rng.random((n_ticks, batch, n)) < 0.1).astype(np.float32),
+                          device=dev)
+    off = lambda: network.rollout(params, st0, ext, n_ticks)
+    on = lambda: network.rollout(params, st0, ext, n_ticks, telemetry=True)
+    ratio, best, ratios = overhead_pairs(off, on)
+    (_, r_off), (_, r_on, tel) = off(), on()
+    if not torch.equal(r_off, r_on) or not torch.equal(tel.spikes, r_on.sum((0, 2))):
+        raise AssertionError("telemetry gate point: telemetry changed the raster or its spikes")
+    log(f"telemetry overhead at the reference's gate point (n={n}, batch {batch}, {n_ticks} "
+        f"ticks, max_delay {depth}, jnp): on/off ticks/s ratio {ratio:.4f} (median of "
+        f"{len(ratios)} interleaved pairs, {min(ratios):.4f}-{max(ratios):.4f}), "
+        f"{gate_verdict(ratio)}; off {n_ticks / best['off']:.1f} ticks/s, on "
+        f"{n_ticks / best['on']:.1f} ticks/s (best walls); raster equal, spikes == raster sums")
+    cfg = serve_config()
+    servers = {}
+    for flag in (False, True):
+        server = SNNServer(n_max=cfg.n_neurons, slots=SLOTS, max_ticks=cfg.n_ticks,
+                           mode=cfg.snn_mode, backend=cfg.snn_backend, device=dev,
+                           telemetry=flag)
+        servers[flag] = (server, make_demo_tenants(server, SLOTS, seed=0))
+    results = {}
+    for label, frozen_only in (("frozen tenants only", True), ("with the learning waves", False)):
+        def serve(flag):
+            server, names = servers[flag]
+            reqs = make_demo_requests(server, names, 2 * SLOTS, seed=1)
+            if frozen_only:
+                reqs = [r for r in reqs if not server.tenants[r.tenant].plastic]
+            results[flag] = server.serve(reqs)
+
+        ratio, best, ratios = overhead_pairs(lambda: serve(False), lambda: serve(True))
+        ticks = results[True]["ticks"]
+        if results[True]["preds"] != results[False]["preds"]:
+            raise AssertionError(f"telemetry overhead ({label}): predictions differ on/off")
+        log(f"telemetry overhead on the served snn-fused FULL waves ({label}, "
+            f"{results[True]['n_requests']} requests, {results[True]['waves']} waves, "
+            f"{cfg.snn_backend}): on/off ticks/s ratio {ratio:.4f} (median of {len(ratios)} "
+            f"interleaved pairs, {min(ratios):.4f}-{max(ratios):.4f}), {gate_verdict(ratio)}; "
+            f"off {ticks / best['off']:.1f} ticks/s ({best['off'] * 1e3:.2f} ms), on "
+            f"{ticks / best['on']:.1f} ticks/s ({best['on'] * 1e3:.2f} ms) (best walls)")
+    servers.clear()
+
+
+# ---------------------------------------------------------------------------
+# phase 9: kernel B6 (spike_matmul) against its plain twin, and its times
 # ---------------------------------------------------------------------------
 
 # tests/test_kernels.py's sweep, then predict_int's products (Iris: 45 test
@@ -2002,7 +2481,7 @@ def time_spike_matmul(dev, gen, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the paper's classifiers on the card (Iris §III.A, MNIST §III.B)
+# phase 10: the paper's classifiers on the card (Iris §III.A, MNIST §III.B)
 # ---------------------------------------------------------------------------
 
 CLASSIFIERS = ("iris", "mnist")
@@ -2015,18 +2494,24 @@ FLOORS = {"iris": {"float train": 0.90, "int test": 0.85, "float/int agreement":
 
 def kernel_launches() -> dict:
     """Every kernel wrapper's launch count."""
-    from repro_torch.kernels import event_dispatch, lif_step, spike_matmul, stdp_update, tick_fused
+    from repro_torch.kernels import (
+        event_dispatch, lif_step, spike_matmul, stdp_update, telemetry, tick_fused,
+    )
 
     return {"tick_fused": tick_fused.launches, "lif_step": lif_step.launches,
             "stdp_update": stdp_update.launches, "event_dispatch_db": event_dispatch.launches_db,
-            "event_dispatch": event_dispatch.launches, "spike_matmul": spike_matmul.launches}
+            "event_dispatch": event_dispatch.launches, "spike_matmul": spike_matmul.launches,
+            "telemetry": telemetry.launches}
 
 
 def zero_launches() -> None:
-    from repro_torch.kernels import event_dispatch, lif_step, spike_matmul, stdp_update, tick_fused
+    from repro_torch.kernels import (
+        event_dispatch, lif_step, spike_matmul, stdp_update, telemetry, tick_fused,
+    )
 
     tick_fused.launches = lif_step.launches = stdp_update.launches = 0
     event_dispatch.launches = event_dispatch.launches_db = spike_matmul.launches = 0
+    telemetry.launches = 0
 
 
 def classifier_data(name):
@@ -2223,10 +2708,15 @@ def main() -> int:
             + "".join(f"; {name}: {r} registers, {sp} bytes spilled"
                       for name, r, sp in spilled))
         for label, key in (("B5", "stdp_update"), ("B6", "spike_matmul"),
-                           ("B3/B4", "event_dispatch")):
+                           ("B3/B4", "event_dispatch"), ("telemetry", "telemetry_kernel")):
             found = [k for k in ptxas_kernels(build.log) if key in k[0]]
             log(f"ptxas {label}: " + "; ".join(f"{name}: {r} registers, {sp} bytes spilled"
                                                  for name, r, sp in found))
+        b5 = {key: r for key, want in B5_REGISTERS.items()
+              for name, r, _ in ptxas_kernels(build.log) if key in name}
+        log(f"ptxas B5 without statistics: {b5} registers, before the statistics "
+            f"{B5_REGISTERS}: "
+            + ("the same" if b5 == B5_REGISTERS else "DIFFERENT"))
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     errs = phase("kernels", run_kernel_phase, dev, gen)
@@ -2246,6 +2736,12 @@ def main() -> int:
     phase("event", run_event_slots_phase, dev, gen)
     event_learn = phase("event", run_event_learning, dev, gen)
     event_waves = phase("event", run_event_serve_phase, dev)
+    tgen = torch.Generator(device=dev)   # its own stream: the later phases' data as before
+    tgen.manual_seed(18)
+    errs["telemetry"] = phase("telemetry", run_telemetry_kernel_phase, dev, tgen)
+    phase("telemetry", run_b5_stats_phase, dev, tgen)
+    timed["telemetry"] = phase("telemetry", time_telemetry, dev, tgen, card)
+    phase("telemetry", run_telemetry_overhead, dev)
     errs["spike_matmul"] = phase("spike_matmul", run_spike_matmul_phase, dev, gen)
     timed["spike_matmul"] = phase("spike_matmul", time_spike_matmul, dev, gen, card)
     launches["spike_matmul"] = phase("classifiers", run_classifier_phase, dev)
@@ -2266,6 +2762,8 @@ def main() -> int:
                            "src/repro/kernels/event_dispatch.py:187"),
         "spike_matmul": ("src/repro_torch/csrc/spike_matmul.cu",
                          "src/repro/kernels/spike_matmul.py:26"),
+        # the port's own kernel: the reference's step is an XLA reduce, no Pallas kernel
+        "telemetry": ("src/repro_torch/csrc/telemetry.cu", "src/repro/obs/telemetry.py:112"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
@@ -2273,7 +2771,8 @@ def main() -> int:
                         "launches": launches[name], "max_abs_err": errs[name],
                         **timed[name]})
     log(f"kernels launched: tick_fused {launches['tick_fused']} (serve), stdp_update "
-        f"{launches['stdp_update']} (serve), lif_step {launches['lif_step']} (pallas "
+        f"{launches['stdp_update']} (serve), telemetry {launches['telemetry']} (serve), "
+        f"lif_step {launches['lif_step']} (pallas "
         f"rollouts), event_dispatch_db {launches['event_dispatch_db']} (snn-event topk "
         f"rollout), event_dispatch {launches['event_dispatch']} (snn-event topk rollout on "
         f"B4), spike_matmul {launches['spike_matmul']} (one per predict_int, Iris and "

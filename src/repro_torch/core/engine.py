@@ -37,11 +37,18 @@ exactly one of them, so the tick loop still never reads back to the host.
 The hysteresis bit rides the carry as a device bool. ``overflow="strict"``
 accumulates a device flag and raises once, after the loop.
 
+``telemetry=True`` carries a :class:`~repro_torch.obs.telemetry.TickTelemetry`
+through the loop: every tick, on every backend, one launch of the telemetry
+kernel folds the post-tick state, the event arm's overflow and knee flags and
+the plasticity pass's dw statistics into it on the device (kernel B5 writes
+those statistics only when asked, so with telemetry off every kernel runs as
+before and the telemetry kernel never launches). ``rollout`` and
+``learning_rollout`` then return it last, as the reference's do.
+
 ``surrogate=True`` (surrogate-gradient BPTT) runs on ``"jnp"`` and on the
 event backend's plain path; the kernel backends raise the reference's
-``ValueError`` ("inference-only") at the tick. Telemetry and the sharded
-mesh arrive with later slices; asking for them raises
-``NotImplementedError``.
+``ValueError`` ("inference-only") at the tick. The sharded mesh arrives with
+a later slice; asking for it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -54,6 +61,9 @@ from repro_torch.core import dispatch_policy
 from repro_torch.core.lif import LIFParams, lif_step
 from repro_torch.core.network_types import SNNParams, SNNState, masked_weights
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import telemetry as telemetry_kernel
+from repro_torch.obs import tracing
+from repro_torch.obs.telemetry import TickTelemetry
 from repro_torch.plasticity import rules as plasticity_rules
 from repro_torch.plasticity.stdp import PlasticityState
 
@@ -62,8 +72,7 @@ _MODES = ("fixed_leak", "euler", "int")
 _OVERFLOW = ops.OVERFLOW
 _DISPATCH = ("auto", "fan_in", "topk", "dense")
 LATER = {
-    "telemetry": "telemetry arrives with the observability slice (ROADMAP A.9)",
-    "mesh": "the sharded fabric arrives with the sharding slice (ROADMAP A.11)",
+    "mesh": "the sharded fabric arrives with the sharding slice (ROADMAP A.5)",
 }
 
 
@@ -77,18 +86,20 @@ class TickCarry:
       w: the mutable weight matrix, or None on the frozen path (frozen
         weights stay in the parameters, so the hoisted ``W*C`` is valid for
         the whole rollout).
+      telem: the :class:`~repro_torch.obs.telemetry.TickTelemetry`
+        accumulators (the state's batch shape), or None when the engine's
+        ``telemetry`` option is off.
       policy: the adaptive knee's hysteresis bit on the device, one per
         network as the reference's ``vmap`` keeps it: a 0-d bool, or an
         ``(S,)`` bool with a slot axis. None when no knee is armed. True
         means the previous tick of that network took the dense arm for
         speed.
-
-    The reference's telemetry slot arrives with its slice.
     """
 
     state: SNNState
     plast: Optional[PlasticityState] = None
     w: Optional[torch.Tensor] = None
+    telem: Optional[TickTelemetry] = None
     policy: Optional[torch.Tensor] = None
 
 
@@ -96,8 +107,8 @@ class TickCarry:
 class EngineOptions:
     """The engine's configuration, validated at construction.
 
-    Same field names, defaults and checks as the reference; the fields of
-    slices not ported yet raise ``NotImplementedError`` when set.
+    Same field names, defaults and checks as the reference; ``mesh`` (the
+    sharding slice, not ported yet) raises ``NotImplementedError`` when set.
 
     ``plasticity`` (a :class:`~repro_torch.plasticity.stdp.PlasticityParams`)
     arms the plasticity hook for carries that hold weights;
@@ -161,9 +172,8 @@ class EngineOptions:
         if not (0.0 < float(self.event_hysteresis) <= 1.0):
             raise ValueError("event_hysteresis is a release *fraction* of the knee and "
                              f"must lie in (0, 1], got {self.event_hysteresis}")
-        for name in ("telemetry", "mesh"):
-            if getattr(self, name) not in (None, False):
-                raise NotImplementedError(LATER[name])
+        if self.mesh is not None:
+            raise NotImplementedError(LATER["mesh"])
 
     def plasticity_pass(self) -> str:
         """The plasticity hook's backend: ``"pallas"`` (kernel B5) or ``"jnp"``
@@ -236,6 +246,7 @@ class TickEngine:
         in_place: bool = False,
         neighbors: Optional[ops.EventFanIn] = None,
         event: Optional[EventPrep] = None,
+        traced: bool = False,
     ) -> Tuple[TickCarry, torch.Tensor]:
         """One synchronous tick: delay-line read -> synaptic input -> LIF
         step -> delay-line write [-> plasticity hook].
@@ -252,13 +263,18 @@ class TickEngine:
           plastic_c: the learnable-synapse mask (default ``params.c``).
           learn_until: optional device int32 tick bound, 0-d or ``(S,)``: the
             plasticity hook commits nothing from that tick on.
-          in_place: the caller owns the carry's ``w`` and ``plast.elig`` and
-            lets kernel B5 update them in their buffers (:meth:`scan` does).
+          in_place: the caller owns the carry's ``w``, ``plast.elig`` and
+            ``telem`` and lets kernel B5 and the telemetry kernel update them
+            in their buffers (:meth:`scan` does); otherwise the carry given
+            is never written.
           neighbors: the ``"event"`` backend's fan-in lists
             (:class:`~repro_torch.kernels.ops.EventFanIn`); ignored by the
             dense backends.
           event: the event arm's operands as :meth:`scan` prepares them once
             per rollout; None prepares them for this tick alone.
+          traced: label the tick's regions for a running profiler
+            (:func:`repro_torch.obs.tracing.trace_scope`; :meth:`scan` asks
+            once per rollout whether one runs).
         """
         ext, reward = xs
         opts = self.options
@@ -274,33 +290,37 @@ class TickEngine:
         D = st.delay_buf.shape[-2]
 
         if backend == "pallas_fused":
-            lif_state, delay_buf = ops.fused_tick(
-                st, p, ext, wc=wc, delays=delays, mode=opts.mode,
-                surrogate=opts.surrogate, ring_out=ring_out)
+            with tracing.trace_scope("tick/pallas_fused", traced):
+                lif_state, delay_buf = ops.fused_tick(
+                    st, p, ext, wc=wc, delays=delays, mode=opts.mode,
+                    surrogate=opts.surrogate, ring_out=ring_out)
             state2 = SNNState(lif=lif_state, delay_buf=delay_buf, tick=st.tick + 1)
             return self._tick_tail(carry, st, state2, reward, params, plastic_c,
-                                   learn_until, in_place)
+                                   learn_until, in_place, traced=traced)
 
         S = ops.slot_count(params)
         slot = torch.remainder(st.tick, D)
         if wc is None and (delays is not None or backend != "pallas"):
             wc = masked_weights(p)
-        policy = None
+        policy = flags = None
         if delays is None:
             arriving = (st.delay_buf.index_select(-2, slot.reshape(1).long()).squeeze(-2)
                         if D > 1 else st.lif.y)
             if backend == "pallas":
-                lif_state = ops.fused_lif_step(st.lif, arriving, p, ext,
-                                               mode=opts.mode, surrogate=opts.surrogate)
+                with tracing.trace_scope("tick/pallas", traced):
+                    lif_state = ops.fused_lif_step(st.lif, arriving, p, ext,
+                                                   mode=opts.mode, surrogate=opts.surrogate)
             elif backend == "event":
                 if event is None:
                     event = self.prepare_event(params, wc, neighbors, learning=learning)
-                lif_state, policy = self._event_tick(carry, st, arriving, ext, params, wc,
-                                                     event)
+                with tracing.trace_scope(f"tick/event/{event.strategy}", traced):
+                    lif_state, policy, flags = self._event_tick(carry, st, arriving, ext,
+                                                                params, wc, event)
             else:
-                # (the int datapath emits int32 spikes; the product is f32)
-                syn = ops.flatten_state(arriving, S).to(wc.dtype) @ wc
-                lif_state = self._lif(st, syn, params, ext, S)
+                with tracing.trace_scope("tick/jnp", traced):
+                    # (the int datapath emits int32 spikes; the product is f32)
+                    syn = ops.flatten_state(arriving, S).to(wc.dtype) @ wc
+                    lif_state = self._lif(st, syn, params, ext, S)
         else:
             # Per-synapse delays: the reference einsum, on every backend but
             # pallas_fused (per-delay history planes defeat one spike list).
@@ -319,7 +339,7 @@ class TickEngine:
         if policy is not None:
             carry = dataclasses.replace(carry, policy=policy)
         return self._tick_tail(carry, st, state2, reward, params, plastic_c,
-                               learn_until, in_place)
+                               learn_until, in_place, flags=flags, traced=traced)
 
     # -- the event arm -------------------------------------------------------
 
@@ -350,7 +370,13 @@ class TickEngine:
                     ext: Optional[torch.Tensor], params: SNNParams, wc: torch.Tensor,
                     ev: EventPrep):
         """The event backend's synaptic input + LIF step; returns
-        ``(lif_state, hysteresis bit or None)``."""
+        ``(lif_state, hysteresis bit or None, telemetry flags or None)``.
+
+        The flags, taken only when the carry holds telemetry, are each
+        network's ``(over, take_dense)`` device bools as the reference counts
+        them: on the top-k path a row past ``k_active`` in every overflow
+        mode, and with the knee its gate; nothing on ``fan_in`` and
+        ``dense``."""
         opts = self.options
         S = ops.slot_count(params)
         if ev.strategy == "dense":
@@ -358,16 +384,19 @@ class TickEngine:
             # the jnp tick.
             syn = ops.flatten_state(arriving, S).to(wc.dtype) @ wc
             drive = ops.event_drive(ext, params.w_in, S, opts.event_ext_diag)
-            return self._lif(st, syn if drive is None else syn + drive, params, None, S), None
+            return (self._lif(st, syn if drive is None else syn + drive, params, None, S),
+                    None, None)
         kw = dict(mode=opts.mode, surrogate=opts.surrogate, ext_diag=opts.event_ext_diag,
                   kernel=opts.event_kernel)
         if ev.strategy == "fan_in":
             return ops.event_lif_step(st.lif, arriving, params, ext, wc, fan_in=ev.fan_in,
-                                      w_edges=ev.w_edges, **kw), None
+                                      w_edges=ev.w_edges, **kw), None, None
+        counted = opts.telemetry and carry.telem is not None
         if opts.event_knee is None:
-            return ops.event_lif_step(st.lif, arriving, params, ext, wc, k_active=ev.k,
-                                      overflow=opts.event_overflow, wc_sentinel=ev.sentinel,
-                                      overflow_flag=ev.overflow_flag, **kw), None
+            out = ops.event_lif_step(st.lif, arriving, params, ext, wc, k_active=ev.k,
+                                     overflow=opts.event_overflow, wc_sentinel=ev.sentinel,
+                                     overflow_flag=ev.overflow_flag, with_over=counted, **kw)
+            return (out[0], None, (out[1], None)) if counted else (out, None, None)
         # The adaptive knee: past min(knee, k) spikes in a row the dense arm is
         # the faster exact one; once dense, stay dense until the count falls
         # to hysteresis * knee. Overflow (m > k) must go dense for the bits.
@@ -382,32 +411,51 @@ class TickEngine:
                 else torch.zeros_like(m, dtype=torch.bool))
         dense_mode = (m > hi) | (prev & (m > lo))
         take_dense = (m > ev.k) | dense_mode
-        lif_state = ops.event_lif_step(st.lif, arriving, params, ext, wc, k_active=ev.k,
-                                       overflow="unchecked", wc_sentinel=ev.sentinel,
-                                       take_dense=take_dense, **kw)
-        return lif_state, (dense_mode if carry.policy is not None else None)
+        out = ops.event_lif_step(st.lif, arriving, params, ext, wc, k_active=ev.k,
+                                 overflow="unchecked", wc_sentinel=ev.sentinel,
+                                 take_dense=take_dense, with_over=counted, **kw)
+        policy = dense_mode if carry.policy is not None else None
+        if counted:
+            return out[0], policy, (out[1], take_dense)
+        return out, policy, None
 
     def _tick_tail(self, carry: TickCarry, st: SNNState, state2: SNNState, reward,
-                   params: SNNParams, plastic_c, learn_until,
-                   in_place: bool) -> Tuple[TickCarry, torch.Tensor]:
-        """The plasticity hook (when the carry holds weights) and the new carry.
+                   params: SNNParams, plastic_c, learn_until, in_place: bool,
+                   flags=None, traced: bool = False) -> Tuple[TickCarry, torch.Tensor]:
+        """The plasticity hook (when the carry holds weights), the telemetry
+        fold (when it holds telemetry) and the new carry.
 
         ``s_pre`` is ``st.lif.y``, the previous tick's emissions (what arrives
         with ``max_delay == 1``, which learning requires); ``s_post`` is this
         tick's. The hook runs after the tick kernel, as its own pass over
         ``(w, elig, traces)``; the ``learn_until`` gate is folded into it.
+        With telemetry it also hands back the committed delta's ``|dw|`` and
+        ``dw^2`` sums, and one launch of the telemetry kernel folds them, the
+        post-tick state and the event arm's ``flags`` (``(over,
+        take_dense)``) into the accumulators.
         """
         y = state2.lif.y
-        plasticity = self.options.plasticity
-        if carry.w is None or plasticity is None:
-            return dataclasses.replace(carry, state=state2), y
-        pst2, w2 = plasticity_rules.plasticity_step(
-            carry.plast, st.lif.y, y, carry.w,
-            params.c if plastic_c is None else plastic_c, plasticity, reward,
-            backend=self.options.plasticity_pass(),
-            tick=None if learn_until is None else st.tick, learn_until=learn_until,
-            in_place=in_place)
-        return TickCarry(state=state2, plast=pst2, w=w2, policy=carry.policy), y
+        opts = self.options
+        telem = carry.telem if opts.telemetry else None
+        new = {"state": state2}
+        dw = None
+        if carry.w is not None and opts.plasticity is not None:
+            with tracing.trace_scope("tick/plasticity", traced):
+                out = plasticity_rules.plasticity_step(
+                    carry.plast, st.lif.y, y, carry.w,
+                    params.c if plastic_c is None else plastic_c, opts.plasticity, reward,
+                    backend=opts.plasticity_pass(),
+                    tick=None if learn_until is None else st.tick, learn_until=learn_until,
+                    in_place=in_place, dw_stats=telem is not None)
+            new.update(plast=out[0], w=out[1])
+            dw = out[2] if telem is not None else None
+        if telem is not None:
+            over, take_dense = flags or (None, None)
+            if not in_place:
+                new["telem"] = telem = telem.clone()
+            telemetry_kernel.tick_telemetry(telem, y, state2.lif.v, state2.lif.r, over=over,
+                                            take_dense=take_dense, dw_stats=dw)
+        return dataclasses.replace(carry, **new), y
 
     def _lif(self, st: SNNState, syn: torch.Tensor, params: SNNParams,
              ext: Optional[torch.Tensor], S: Optional[int]):
@@ -455,6 +503,11 @@ class TickEngine:
         the carry, and ``event_overflow="strict"`` raises
         :class:`~repro_torch.kernels.ops.EventOverflowError` after the loop
         if any tick overflowed.
+
+        With ``telemetry`` the carry's accumulators are cloned (a chunk goes
+        on from them) or seeded at zero with the state's batch shape, one per
+        slot on a slot axis, and the loop folds every tick into them in
+        place. Whether a profiler runs is asked once, here.
         """
         opts = self.options
         T = int(n_ticks) if ext_seq is None else int(ext_seq.shape[0])
@@ -479,9 +532,12 @@ class TickEngine:
                 S = ops.slot_count(params)
                 carry = dataclasses.replace(carry, policy=torch.zeros(
                     () if S is None else (S,), dtype=torch.bool, device=state.tick.device))
-        in_place = (learning and opts.plasticity is not None
-                    and opts.plasticity_pass() == "pallas")
-        if in_place:
+        if opts.telemetry:
+            v0 = state.lif.v
+            carry = dataclasses.replace(carry, telem=(
+                carry.telem.clone() if carry.telem is not None
+                else TickTelemetry.zeros(v0.shape[:-1], device=v0.device)))
+        if learning and opts.plasticity is not None and opts.plasticity_pass() == "pallas":
             # B5 leaves elig untouched under rule="stdp": only R-STDP writes it.
             elig = carry.plast.elig
             if opts.plasticity.rule == "rstdp":
@@ -493,6 +549,7 @@ class TickEngine:
                                           device=state.tick.device)
         y0 = state.lif.y
         raster = torch.empty((T,) + tuple(y0.shape), dtype=y0.dtype, device=y0.device)
+        traced = tracing.profiling()
         for t in range(T):
             ext = None if ext_seq is None else ext_seq[t]
             reward = None if rewards is None else rewards[t]
@@ -503,7 +560,8 @@ class TickEngine:
             carry, y = self.tick_body(carry, (ext, reward), params=params, wc=wc,
                                       delays=delays, ring_out=ring_out,
                                       plastic_c=plastic_c, learn_until=learn_until,
-                                      in_place=in_place, neighbors=neighbors, event=event)
+                                      in_place=True, neighbors=neighbors, event=event,
+                                      traced=traced)
             if fused_ring and delays is not None:
                 spare = ring_in
             raster[t] = y
@@ -531,9 +589,13 @@ class TickEngine:
                 ext_seq: Optional[torch.Tensor], n_ticks: int, *,
                 delays: Optional[torch.Tensor] = None,
                 neighbors: Optional[ops.EventFanIn] = None):
-        """Frozen-weight rollout; returns ``(final_state, raster)``."""
+        """Frozen-weight rollout; returns ``(final_state, raster)``, and the
+        :class:`~repro_torch.obs.telemetry.TickTelemetry` third with the
+        ``telemetry`` option."""
         final, raster = self.scan(params, TickCarry(state=state), ext_seq, n_ticks,
                                   delays=delays, neighbors=neighbors)
+        if self.options.telemetry:
+            return final.state, raster, final.telem
         return final.state, raster
 
     def _learning_defaults(self, params: SNNParams, rewards, plastic_c, n_ticks: int,
@@ -555,7 +617,8 @@ class TickEngine:
                          plastic_c: Optional[torch.Tensor] = None, learn_until=None,
                          neighbors: Optional[ops.EventFanIn] = None):
         """Learning rollout: the carry holds mutable weights; returns
-        ``((final_state, final_plast_state, final_w), raster)``.
+        ``((final_state, final_plast_state, final_w), raster)``, and the
+        telemetry third with the ``telemetry`` option.
 
         ``learn_until`` (0-d or per slot ``(S,)``) freezes the plasticity hook
         from that tick on -- see :meth:`tick_body`. The caller's ``params.w``
@@ -572,6 +635,8 @@ class TickEngine:
         final, raster = self.scan(params, carry0, ext_seq, n_ticks, rewards=rewards,
                                   plastic_c=plastic_c, learn_until=learn_until,
                                   neighbors=neighbors)
+        if self.options.telemetry:
+            return (final.state, final.plast, final.w), raster, final.telem
         return (final.state, final.plast, final.w), raster
 
     def init_learning_carry(self, params: SNNParams, state: SNNState,
@@ -588,9 +653,9 @@ class TickEngine:
               learn_until=None,
               neighbors: Optional[ops.EventFanIn] = None) -> Tuple[TickCarry, torch.Tensor]:
         """``n_ticks`` more ticks from an existing carry: K chunks of T ticks
-        equal one rollout of K*T ticks (the tick counter, traces and weights
-        ride the carry). On learning carries ``rewards`` default to zeros
-        and ``plastic_c`` to ``params.c``."""
+        equal one rollout of K*T ticks (the tick counter, traces, weights and
+        telemetry ride the carry). On learning carries ``rewards`` default to
+        zeros and ``plastic_c`` to ``params.c``."""
         if carry.w is not None:
             rewards, plastic_c = self._learning_defaults(
                 params, rewards, plastic_c, n_ticks, carry.state.tick.device,

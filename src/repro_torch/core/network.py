@@ -8,8 +8,9 @@ here builds an engine and threads a carry through it.
 ``dispatch=`` picks the event backend's strategy: a
 :class:`~repro_torch.core.dispatch_policy.DispatchPlan`, ``"auto"`` (plan
 here from ``params.c`` and ``params.w_in``, read on the host once), or a
-strategy string (``"fan_in"``, ``"topk"``, ``"dense"``). Not ported yet:
-``telemetry=True`` (observability slice), which raises.
+strategy string (``"fan_in"``, ``"topk"``, ``"dense"``). ``telemetry=True``
+appends a :class:`~repro_torch.obs.telemetry.TickTelemetry` to what
+:func:`rollout` and :func:`learning_rollout` return, as the reference's do.
 """
 from __future__ import annotations
 
@@ -88,7 +89,11 @@ def rollout(params: SNNParams, state: SNNState, ext_seq: Optional[torch.Tensor],
 
     ``ext_seq`` is ``(n_ticks, ..., n_in)`` or None; the raster is
     ``(n_ticks, ..., n)``. ``W*C`` is hoisted out of the tick loop.
-    ``neighbors`` / ``dispatch``: see :func:`step`.
+    ``neighbors`` / ``dispatch``: see :func:`step`. ``telemetry=True``
+    returns ``(final_state, raster, telemetry)``, the accumulators of
+    :class:`~repro_torch.obs.telemetry.TickTelemetry` with the state's batch
+    shape; off by default, and when off every kernel runs as without it.
+    ``options`` supersedes the per-call keywords.
     """
     eng, neighbors = _build_engine(options, dict(mode=mode, surrogate=surrogate,
                                                  backend=backend, telemetry=telemetry),
@@ -123,10 +128,13 @@ def learning_rollout(params: SNNParams, state: SNNState, plast_state,
         ``"pallas"`` and ``"event"`` run kernel B5, ``"jnp"`` its plain twin).
       neighbors, dispatch: the event backend's fan-in lists and strategy
         (see :func:`step`).
-      telemetry (observability slice) raises ``NotImplementedError``.
+      telemetry: True appends a
+        :class:`~repro_torch.obs.telemetry.TickTelemetry` to the result (its
+        ``dw_l1`` / ``dw_sq`` sum the committed weight updates).
 
-    Returns ``((final_state, final_plast_state, final_w), raster)``. The
-    caller's ``params.w`` and ``plast_state`` are never written.
+    Returns ``((final_state, final_plast_state, final_w), raster)``, plus a
+    trailing telemetry element with ``telemetry=True``. The caller's
+    ``params.w`` and ``plast_state`` are never written.
     """
     if (isinstance(options, EngineOptions) and options.plasticity is None
             and plasticity is not None):

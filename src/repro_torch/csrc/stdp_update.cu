@@ -59,6 +59,16 @@
 // - Every operation is an explicit round-to-nearest intrinsic in the reference's
 //   association order (and the file is compiled with --fmad=false), so nothing
 //   is contracted into an FMA the twin does not do.
+// - Optional dw statistics for the tick telemetry (kStats, a template flag:
+//   without a statistics buffer the instantiations the served path ran before
+//   are compiled and launched unchanged). With the buffer each thread sums
+//   |w' - w| and (w' - w)^2 over the synapses it committed, in registers, where
+//   old and new weight already sit: the committed delta, after the learn_until
+//   gate and the clip, 0 where c == 0. When a block's walk leaves a slot it
+//   reduces the sums in a fixed order (warp butterflies, then the warps in
+//   order) and writes one partial per (slot, block), zero for every slot it
+//   never visited: no atomics, so two launches give the same bits. The
+//   telemetry kernel adds the partials of a slot in block order.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -92,6 +102,7 @@ struct StdpArgs {
   long long until_slot;
   float* x_pre_out;            // (S, B, K)
   float* x_post_out;           // (S, B, N)
+  float* stats;                // (S, blocks, 2) partials of |dw|, dw^2 (kStats only)
   int S, B, K, N, rstdp;
   int tiles_n, tiles;          // column tiles, tiles per slot
   float a_plus, a_minus, decay_pre, decay_post, decay_elig, lr_reward, w_min, w_max;
@@ -355,6 +366,55 @@ __device__ __forceinline__ Synapse update(const StdpArgs& a, float gain, float l
   return {c > 0.0f ? clip(__fadd_rn(w, upd), a.w_min, a.w_max) : w, e_new};
 }
 
+// A thread's running |dw| and dw^2 sums over the synapses it committed in the
+// current slot (kStats).
+struct DwSums {
+  float l1 = 0.0f, sq = 0.0f;
+  __device__ __forceinline__ void add(float w_new, float w_old) {
+    const float d = __fsub_rn(w_new, w_old);
+    l1 = __fadd_rn(l1, fabsf(d));
+    sq = __fadd_rn(sq, __fmul_rn(d, d));
+  }
+};
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// The block leaves `slot` (every thread calls this together): write the
+// block's partial of `slot` and zeros for the slots in [*written, slot) it
+// never visited, then start the next slot's sums from zero. slot == S writes
+// the zeros of the rest.
+__device__ void flush_stats(const StdpArgs& a, DwSums& sums, int slot, int* written) {
+  __shared__ float red[2][kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const float l1 = warp_sum(sums.l1), sq = warp_sum(sums.sq);
+  if (lane == 0) {
+    red[0][warp] = l1;
+    red[1][warp] = sq;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float2* out = reinterpret_cast<float2*>(a.stats);
+    for (int s = *written; s < slot; ++s)
+      out[static_cast<long long>(s) * gridDim.x + blockIdx.x] = make_float2(0.0f, 0.0f);
+    if (slot < a.S) {
+      float t1 = red[0][0], t2 = red[1][0];
+      for (int w = 1; w < kWarps; ++w) {
+        t1 = __fadd_rn(t1, red[0][w]);
+        t2 = __fadd_rn(t2, red[1][w]);
+      }
+      out[static_cast<long long>(slot) * gridDim.x + blockIdx.x] = make_float2(t1, t2);
+    }
+  }
+  *written = slot + 1;
+  sums = DwSums();
+  __syncthreads();  // red is free for the next slot's flush
+}
+
 __device__ __forceinline__ float slot_gain(const StdpArgs& a, int slot) {
   return a.rstdp ? __fmul_rn(a.lr_reward, a.reward[slot * a.reward_slot]) : 0.0f;
 }
@@ -377,7 +437,7 @@ __device__ void copy_closed(const StdpArgs& a) {
 
 // The cp.async fill: c (and elig) kStages - 1 tiles ahead in the ring, w one
 // tile ahead in registers.
-template <bool kRstdp>
+template <bool kRstdp, bool kStats>
 __global__ void __launch_bounds__(kThreads, 2) stdp_update_kernel(StdpArgs a) {
   extern __shared__ __align__(16) float ring[];
   __shared__ Traces sh;
@@ -408,6 +468,8 @@ __global__ void __launch_bounds__(kThreads, 2) stdp_update_kernel(StdpArgs a) {
   fetch_item(a, cur, &tx, &ts);
 
   float ltp[kRowsPerWarp][4], ltd[kRowsPerWarp][4];
+  DwSums sums;
+  int written = 0;
   for (int i = 0; cur.slot < a.S; ++i) {
     // Pending, oldest first: c of tiles i + 1 .. i + kAhead - 1; now i + kAhead.
     if (cc.slot < a.S) {
@@ -451,6 +513,7 @@ __global__ void __launch_bounds__(kThreads, 2) stdp_update_kernel(StdpArgs a) {
           const Synapse syn = update(a, gain, ltp[r][j], ltd[r][j], cv[j], wv[j], ev[j]);
           wn[j] = syn.w;
           en[j] = syn.e;
+          if (kStats) sums.add(syn.w, wv[j]);
         }
         const long long g = static_cast<long long>(k) * a.N + n;
         if (kRstdp)
@@ -464,14 +527,16 @@ __global__ void __launch_bounds__(kThreads, 2) stdp_update_kernel(StdpArgs a) {
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) w_cur[r] = w_next[r];
     advance(cur, a);
+    if (kStats && cur.slot != t.slot) flush_stats(a, sums, t.slot, &written);
   }
+  if (kStats) flush_stats(a, sums, a.S, &written);
   asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
-template <bool kRstdp>
+template <bool kRstdp, bool kStats>
 cudaError_t launch_ring(const StdpArgs& a, int blocks, int smem, cudaStream_t stream) {
   static int opted = 0;  // per instantiation
-  auto kernel = stdp_update_kernel<kRstdp>;
+  auto kernel = stdp_update_kernel<kRstdp, kStats>;
   if (smem < kStages * (kRstdp ? 2 : 1) * kPlaneFloats * 4) return cudaErrorInvalidValue;
   if (smem > opted) {  // the static traces count against the default 48 KiB too
     const cudaError_t err =
@@ -484,14 +549,17 @@ cudaError_t launch_ring(const StdpArgs& a, int blocks, int smem, cudaStream_t st
 }
 
 // The element fill: any N and alignment, loads straight from device memory.
+template <bool kStats>
 __global__ void __launch_bounds__(kThreads, 2) stdp_update_element_kernel(StdpArgs a) {
   __shared__ Traces sh;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   copy_closed(a);
   float ltp[kRowsPerWarp][4], ltd[kRowsPerWarp][4];
+  DwSums sums;
+  int written = 0;
   Cursor cur{0, static_cast<int>(blockIdx.x)};
-  for (settle(cur, a); cur.slot < a.S; advance(cur, a)) {
+  for (settle(cur, a); cur.slot < a.S;) {
     const Tile t(cur, a);
     tile_sums(a, t, sh, ltp, ltd, warp, lane);
     const float gain = slot_gain(a, t.slot);
@@ -507,29 +575,36 @@ __global__ void __launch_bounds__(kThreads, 2) stdp_update_element_kernel(StdpAr
         const float cv = __ldg(a.c + t.slot * a.c_slot + g);
         float* w = a.w + t.slot * a.w_slot + g;
         float* e = a.elig + t.slot * a.elig_slot + g;
-        const Synapse syn = update(a, gain, ltp[r][j], ltd[r][j], cv, cv > 0.0f ? *w : 0.0f,
+        const float w_old = cv > 0.0f ? *w : 0.0f;
+        const Synapse syn = update(a, gain, ltp[r][j], ltd[r][j], cv, w_old,
                                    a.rstdp ? *e : 0.0f);
         if (a.rstdp) *e = syn.e;
         if (cv > 0.0f) *w = syn.w;
+        if (kStats) sums.add(syn.w, w_old);
       }
     }
+    advance(cur, a);
+    if (kStats && cur.slot != t.slot) flush_stats(a, sums, t.slot, &written);
   }
+  if (kStats) flush_stats(a, sums, a.S, &written);
 }
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
-// The last two ints are the plan (kernels/_stream.py StdpPlan.args): blocks
-// and the ring's dynamic shared memory; the fill follows from the operands'
-// alignment. Returns the cudaError_t of the launch (0 on success),
+// The last three ints are the plan (kernels/_stream.py StdpPlan.args): blocks,
+// stages and the ring's dynamic shared memory; the fill follows from the
+// operands' alignment. stats, when not null, receives the (S, blocks, 2) dw
+// partials (the kStats instantiations); null launches the plain ones. Returns the cudaError_t of the launch (0 on success),
 // cudaErrorInvalidValue for a shape or plan it cannot take. Never
 // synchronises and allocates nothing: the caller owns every buffer.
 extern "C" int repro_stdp_update(
     const void* s_pre, const void* x_pre, const void* s_post, const void* x_post, void* w,
     long long w_slot, const void* c, long long c_slot, void* elig, long long elig_slot,
     const void* reward, long long reward_slot, const void* tick, const void* learn_until,
-    long long until_slot, void* x_pre_out, void* x_post_out, int S, int B, int K, int N,
+    long long until_slot, void* x_pre_out, void* x_post_out, void* stats, int S, int B,
+    int K, int N,
     int rstdp, float a_plus, float a_minus, float decay_pre, float decay_post,
     float decay_elig, float lr_reward, float w_min, float w_max, int blocks, int stages,
     int smem, void* stream) {
@@ -555,6 +630,7 @@ extern "C" int repro_stdp_update(
   a.until_slot = until_slot;
   a.x_pre_out = static_cast<float*>(x_pre_out);
   a.x_post_out = static_cast<float*>(x_post_out);
+  a.stats = static_cast<float*>(stats);
   a.S = S;
   a.B = B;
   a.K = K;
@@ -579,10 +655,19 @@ extern "C" int repro_stdp_update(
                      (rstdp == 0 || (aligned16(elig) && elig_slot % 4 == 0));
   const auto st = static_cast<cudaStream_t>(stream);
   if (!async) {
-    stdp_update_element_kernel<<<blocks, kThreads, 0, st>>>(a);
+    if (stats != nullptr)
+      stdp_update_element_kernel<true><<<blocks, kThreads, 0, st>>>(a);
+    else
+      stdp_update_element_kernel<false><<<blocks, kThreads, 0, st>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
   if (stages != kStages) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(rstdp ? launch_ring<true>(a, blocks, smem, st)
-                                : launch_ring<false>(a, blocks, smem, st));
+  cudaError_t err;
+  if (stats != nullptr)
+    err = rstdp ? launch_ring<true, true>(a, blocks, smem, st)
+                : launch_ring<false, true>(a, blocks, smem, st);
+  else
+    err = rstdp ? launch_ring<true, false>(a, blocks, smem, st)
+                : launch_ring<false, false>(a, blocks, smem, st);
+  return static_cast<int>(err);
 }

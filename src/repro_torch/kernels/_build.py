@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("lif_step.cu", "tick_fused.cu", "stdp_update.cu", "event_dispatch.cu",
-           "spike_matmul.cu")
+           "spike_matmul.cu", "telemetry.cu")
 HEADERS = ("lif_epilogue.cuh", "masked_product.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -61,7 +61,7 @@ SIGNATURES = {
         _P, _P, _P, _P,                  # s_pre, x_pre, s_post, x_post
         _P, _L, _P, _L, _P, _L,          # w, c, elig (+ slot strides)
         _P, _L, _P, _P, _L,              # reward (+ stride), tick, learn_until (+ stride)
-        _P, _P,                          # x_pre_out, x_post_out
+        _P, _P, _P,                      # x_pre_out, x_post_out, dw stats (or null)
         _I, _I, _I, _I, _I,              # S, B, K, N, rstdp
         _F, _F, _F, _F, _F, _F, _F, _F,  # a_plus .. w_max
         _I, _I, _I, _P),                 # the plan (blocks, stages, smem), stream
@@ -77,6 +77,11 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P,          # s, w, c, out, workspace, counters
         _I, _I, _I, _I, _I,              # B, K, N, s_bf16, w_bf16
         _I, _I, _I, _I, _P),             # the plan (kt, stages, blocks, smem), stream
+    "repro_telemetry": (
+        _P, _I, _P, _I, _P, _I, _I,      # y (+ int), v (+ int), r, rows, n
+        _P, _I, _P, _I,                  # over, take_dense (+ rows per flag)
+        _P, _I, _I,                      # dw partials, rows per group, partials
+        _P, _P),                         # the accumulators' (9, rows) buffer, stream
 }
 
 

@@ -35,14 +35,6 @@ from repro_torch.kernels.ref import LIFStepOut, event_gather_sum
 
 OVERFLOW = ("fallback", "strict", "unchecked")
 KERNELS = ("db", "grid")
-ARMS = ("event", "dense on overflow", "dense by the knee")
-
-# A tally the caller may set to an integer tensor on the tick's device: every
-# top-k tick of :func:`event_lif_step` on the kernel path then adds, for each
-# network, one to the arm it took (``ARMS``), read from the flags the kernels
-# read, on the device (no host sync). A (3,) tally sums the slots' arms; an
-# (S, 3) tally keeps them per slot. None, the default, costs nothing.
-arm_ticks: Optional[torch.Tensor] = None
 
 _INFERENCE_ONLY = "{} backend is inference-only; use backend='jnp' to train"
 
@@ -274,6 +266,13 @@ def _per_slot(flag: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return flag.reshape(flag.shape + (1,) * (like.dim() - flag.dim()))
 
 
+def network_over(n_spiking: torch.Tensor, k: int, S: Optional[int]) -> torch.Tensor:
+    """Each network's overflow flag from its rows' spike counts ``(S, B)``: a
+    row spiked more than ``k`` times. ``(S,)`` with a slot axis, else 0-d."""
+    over = (n_spiking > k).any(-1)
+    return over.squeeze(0) if S is None else over
+
+
 def _overflow_check(over: torch.Tensor, k: int, flag: Optional[torch.Tensor]) -> None:
     """``overflow="strict"``: fold ``over`` (any slot's) into ``flag`` on the
     device, or, without a flag, raise at once (a host read)."""
@@ -360,7 +359,7 @@ def event_lif_step(lif_state: LIFState, spikes: torch.Tensor, params, ext: Optio
                    w_edges: Optional[torch.Tensor] = None,
                    wc_sentinel: Optional[torch.Tensor] = None,
                    take_dense: Optional[torch.Tensor] = None,
-                   overflow_flag: Optional[torch.Tensor] = None) -> LIFState:
+                   overflow_flag: Optional[torch.Tensor] = None, with_over: bool = False):
     """``TickEngine(backend="event")``'s datapath: synaptic input from the
     spike list (or the fan-in lists), drive, LIF step.
 
@@ -376,6 +375,12 @@ def event_lif_step(lif_state: LIFState, spikes: torch.Tensor, params, ext: Optio
     all-zero row appended (built here when None). The fan-in gather and the
     ``use_kernel=False`` path are plain PyTorch (:func:`event_synaptic_input`).
     ``w_edges``, ``overflow_flag``: see :func:`event_synaptic_input`.
+
+    Returns the new :class:`LIFState`; with ``with_over`` the pair
+    ``(state, over)``, ``over`` each network's device bool (0-d, or ``(S,)``
+    with a slot axis) that a row spiked past ``k_active`` on the top-k path,
+    in every overflow mode, as the reference's telemetry counts it (None on
+    the fan-in gather, which cannot overflow).
     """
     if use_kernel is None:
         use_kernel = fan_in is None and not surrogate
@@ -393,7 +398,16 @@ def event_lif_step(lif_state: LIFState, spikes: torch.Tensor, params, ext: Optio
         st = LIFState(v=flat(lif_state.v), r=flat(lif_state.r), y=flat(lif_state.y))
         out = lif_step(st, syn, row_params(params.lif, S is not None), mode=mode,
                        surrogate=surrogate)
-        return LIFState(v=out.v.reshape(shape), r=out.r.reshape(shape), y=out.y.reshape(shape))
+        new = LIFState(v=out.v.reshape(shape), r=out.r.reshape(shape), y=out.y.reshape(shape))
+        if not with_over:
+            return new
+        over = None
+        if fan_in is None:
+            from repro_torch.core.dispatch_policy import resolve_k_active
+
+            k = resolve_k_active(s.shape[-1], k_active)
+            over = network_over((s > 0).sum(-1), k, S)
+        return new, over
     if surrogate:
         raise ValueError("event kernel path is inference-only; use the jnp path to train")
     kernel = "db" if kernel is None else kernel
@@ -405,16 +419,12 @@ def event_lif_step(lif_state: LIFState, spikes: torch.Tensor, params, ext: Optio
 
     k = resolve_k_active(s.shape[-1], k_active)
     idx, counts, n_spiking = spike_list(s, k)
-    over = (n_spiking > k).any(-1)           # (S,), or (1,) without a slot axis
-    if S is None:
-        over = over.squeeze(0)
+    over = network_over(n_spiking, k, S)
     gate = take_dense
     if overflow == "fallback":
         gate = over if gate is None else gate | over
     elif overflow == "strict":
         _overflow_check(over, k, overflow_flag)
-    if arm_ticks is not None:
-        _tally_arm(gate, over)
     lif = params.lif
     rows = (lif.v_th, lif.leak, lif.r_ref, lif.gain, lif.i_bias, lif.v_reset)
     v, r = flat(lif_state.v), flat(lif_state.r)
@@ -431,16 +441,8 @@ def event_lif_step(lif_state: LIFState, spikes: torch.Tensor, params, ext: Optio
             wc_sentinel = sentinel_rows(wc)
         res = _event_kernel.event_lif_dispatch(idx, wc_sentinel, v, r, drive, *rows,
                                                mode=mode, skip=gate, out=out)
-    return LIFState(v=res.v.reshape(shape), r=res.r.reshape(shape), y=res.y.reshape(shape))
-
-
-def _tally_arm(gate: Optional[torch.Tensor], over: torch.Tensor) -> None:
-    """Add each network's arm this tick to :data:`arm_ticks`: event when its
-    gate is clear (or absent), else dense on overflow or dense by the knee."""
-    if gate is None:
-        gate = torch.zeros_like(over)
-    arm = torch.stack((~gate, gate & over, gate & ~over), dim=-1).to(arm_ticks.dtype)
-    arm_ticks.add_(arm.reshape(-1, 3).sum(0) if arm_ticks.dim() == 1 else arm)
+    new = LIFState(v=res.v.reshape(shape), r=res.r.reshape(shape), y=res.y.reshape(shape))
+    return (new, over) if with_over else new
 
 
 def sentinel_rows(wc: torch.Tensor) -> torch.Tensor:

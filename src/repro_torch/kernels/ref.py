@@ -212,7 +212,7 @@ def fused_stdp_step_ref(s_pre, x_pre, s_post, x_post, w, c, elig, reward, *,
                         rule: str, a_plus: float, a_minus: float, decay_pre: float,
                         decay_post: float, decay_elig: float, lr_reward: float,
                         w_min: float, w_max: float, tick=None,
-                        learn_until=None) -> STDPStepOut:
+                        learn_until=None, dw_stats: bool = False):
     """Twin of kernel B5: trace decay + pair-STDP outer-product update
     (``repro.kernels.ref.fused_stdp_step_ref``, in its association order).
 
@@ -226,6 +226,12 @@ def fused_stdp_step_ref(s_pre, x_pre, s_post, x_post, w, c, elig, reward, *,
     ``tick`` (0-d int32) and ``learn_until`` (0-d or ``(S,)`` int32) gate
     the whole update, as the reference engine's ``jnp.where`` does: where
     ``tick >= learn_until`` every output equals its input.
+
+    ``dw_stats=True`` returns ``(out, stats)`` with ``stats`` ``(G, 1, 2)``:
+    ``sum |dw|`` and ``sum dw^2`` of the committed delta ``dw = w' - w`` (the
+    reference engine's, after the gate and the clip) for each of the G
+    weight matrices, the slots or one shared -- kernel B5's statistics, with
+    one partial per matrix.
     """
     f32 = torch.float32
     x_pre_new = decay_pre * x_pre.to(f32) + s_pre.to(f32)
@@ -248,5 +254,10 @@ def fused_stdp_step_ref(s_pre, x_pre, s_post, x_post, w, c, elig, reward, *,
         elig_new = torch.where(_per_slot(gate, elig_new), elig_new, elig.to(f32))
         x_pre_new = torch.where(_per_slot(gate, x_pre_new), x_pre_new, x_pre.to(f32))
         x_post_new = torch.where(_per_slot(gate, x_post_new), x_post_new, x_post.to(f32))
-    return STDPStepOut(w=w_new.to(w.dtype), elig=elig_new.to(elig.dtype),
-                       x_pre=x_pre_new.to(x_pre.dtype), x_post=x_post_new.to(x_post.dtype))
+    out = STDPStepOut(w=w_new.to(w.dtype), elig=elig_new.to(elig.dtype),
+                      x_pre=x_pre_new.to(x_pre.dtype), x_post=x_post_new.to(x_post.dtype))
+    if not dw_stats:
+        return out
+    dw = (out.w.to(f32) - wf).reshape(-1, *wf.shape[-2:])
+    stats = torch.stack((dw.abs().sum((-2, -1)), (dw * dw).sum((-2, -1))), dim=-1)
+    return out, stats.unsqueeze(1)

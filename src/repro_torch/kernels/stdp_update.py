@@ -6,7 +6,10 @@ twin is :func:`repro_torch.kernels.ref.fused_stdp_step_ref`, with the same
 arguments. The wrapper runs the twin for tensors on the CPU and launches the
 kernel for tensors on the card; anything else raises. ``launches`` counts
 kernel launches; ``last_plan`` is the
-:class:`repro_torch.kernels._stream.StdpPlan` of the last launch.
+:class:`repro_torch.kernels._stream.StdpPlan` of the last launch. With
+``dw_stats=True`` the kernel also writes its per-block partial sums of
+``|dw|`` and ``dw^2`` for the tick telemetry (a separate instantiation:
+without it the kernel runs exactly as before).
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ last_plan = None
 def fused_stdp_step(s_pre, x_pre, s_post, x_post, w, c, elig, reward, *, rule: str,
                     a_plus: float, a_minus: float, decay_pre: float, decay_post: float,
                     decay_elig: float, lr_reward: float, w_min: float, w_max: float,
-                    tick=None, learn_until=None, in_place: bool = False) -> STDPStepOut:
+                    tick=None, learn_until=None, in_place: bool = False,
+                    dw_stats: bool = False):
     """One learning tick: ``(w', elig', x_pre', x_post')``.
 
     Shapes, for one network: ``s_pre, x_pre`` (B, K), ``s_post, x_post``
@@ -39,6 +43,12 @@ def fused_stdp_step(s_pre, x_pre, s_post, x_post, w, c, elig, reward, *, rule: s
     them; otherwise they are left as they were. For ``rule="stdp"`` the
     eligibility is never read or written (the returned ``elig`` is the
     input). The traces always come back in fresh buffers.
+
+    Returns the :class:`STDPStepOut`; with ``dw_stats=True`` the pair
+    ``(out, stats)``, where ``stats`` ``(G, P, 2)`` holds partial sums of
+    ``|w' - w|`` and ``(w' - w)^2`` of the committed update for each of the
+    G weight matrices (the slots, or one shared): the kernel's P per-block
+    partials, or the twin's one.
     """
     if rule not in RULES:
         raise ValueError(f"unknown plasticity rule {rule!r}; have {RULES}")
@@ -48,22 +58,24 @@ def fused_stdp_step(s_pre, x_pre, s_post, x_post, w, c, elig, reward, *, rule: s
                  decay_post=decay_post, decay_elig=decay_elig, lr_reward=lr_reward,
                  w_min=w_min, w_max=w_max)
     if w.device.type == "cpu":
-        out = fused_stdp_step_ref(s_pre, x_pre, s_post, x_post, w, c, elig, reward,
-                                  tick=tick, learn_until=learn_until, **hyper)
-        if not in_place:
-            return out
-        w.copy_(out.w)
-        if rule == "rstdp":
-            elig.copy_(out.elig)
-        return out._replace(w=w, elig=elig)
+        got = fused_stdp_step_ref(s_pre, x_pre, s_post, x_post, w, c, elig, reward,
+                                  tick=tick, learn_until=learn_until, dw_stats=dw_stats,
+                                  **hyper)
+        out, stats = got if dw_stats else (got, None)
+        if in_place:
+            w.copy_(out.w)
+            if rule == "rstdp":
+                elig.copy_(out.elig)
+            out = out._replace(w=w, elig=elig)
+        return (out, stats) if dw_stats else out
     if w.device.type != "cuda":
         raise ValueError(f"fused_stdp_step runs on cuda or cpu tensors, got {w.device}")
     return _launch(s_pre, x_pre, s_post, x_post, w, c, elig, reward, tick, learn_until,
-                   in_place, hyper)
+                   in_place, dw_stats, hyper)
 
 
 def _launch(s_pre, x_pre, s_post, x_post, w, c, elig, reward, tick, learn_until,
-            in_place, hyper) -> STDPStepOut:
+            in_place, dw_stats, hyper):
     global launches, last_plan
     slotted = s_pre.dim() == 3
     if not slotted:
@@ -97,10 +109,11 @@ def _launch(s_pre, x_pre, s_post, x_post, w, c, elig, reward, tick, learn_until,
                              strides=(w_slot, c_slot, e_slot if rstdp else 0),
                              is_aligned=_stream.aligned16(P(t) for t in streamed),
                              sms=_build.sm_count(dev))
+    stats = torch.empty((S, plan.blocks, 2), dtype=f32, device=dev) if dw_stats else None
     err = _build.library().repro_stdp_update(
         P(s_pre), P(x_pre), P(s_post), P(x_post), P(w), w_slot, P(c), c_slot,
         P(elig), e_slot, P(reward), r_slot, P(tick), P(learn_until), u_slot,
-        P(x_pre_out), P(x_post_out), S, B, K, N, int(rstdp),
+        P(x_pre_out), P(x_post_out), P(stats), S, B, K, N, int(rstdp),
         *(float(hyper[k]) for k in ("a_plus", "a_minus", "decay_pre", "decay_post",
                                     "decay_elig", "lr_reward", "w_min", "w_max")),
         *plan.args(), torch.cuda.current_stream(dev).cuda_stream)
@@ -109,4 +122,5 @@ def _launch(s_pre, x_pre, s_post, x_post, w, c, elig, reward, tick, learn_until,
     last_plan = plan
     if not slotted:
         x_pre_out, x_post_out = x_pre_out[0], x_post_out[0]
-    return STDPStepOut(w=w, elig=elig, x_pre=x_pre_out, x_post=x_post_out)
+    out = STDPStepOut(w=w, elig=elig, x_pre=x_pre_out, x_post=x_post_out)
+    return (out, stats) if dw_stats else out

@@ -21,8 +21,16 @@ and whose fan-in fits ``event_cap`` rides a second resident program, the
 event backend's fan-in gather (the reference's event program): admission
 plans it with :func:`repro_torch.core.dispatch_policy.plan` and keeps its
 padded fan-in lists, and waves are backend-homogeneous, one queue per
-program. Telemetry, metrics, continuous admission and the LM server arrive
-with later slices.
+program.
+
+Telemetry is on by default, as in the reference: every wave carries a
+per-slot :class:`~repro_torch.obs.telemetry.TickTelemetry` through its tick
+loop (one telemetry kernel launch per tick, no host sync), read once after
+the wave into the server's :class:`~repro_torch.obs.metrics.MetricsRegistry`
+(the reference's counters, gauges and histograms, under its names) and the
+per-tenant ledger behind :meth:`SNNServer.tenant_report`. Continuous
+admission and the LM server arrive with later slices; the instruments only
+they move are registered and stay at zero.
 
 Usage (on a machine with an NVIDIA GPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch snn-fused
@@ -45,8 +53,9 @@ from repro_torch.configs import get_bundle
 from repro_torch.core.engine import EngineOptions, TickEngine
 from repro_torch.core.lif import LIFParams
 from repro_torch.core.network_types import SNNParams, SNNState
-from repro_torch.kernels import event_dispatch, lif_step, stdp_update, tick_fused
+from repro_torch.kernels import event_dispatch, lif_step, stdp_update, telemetry, tick_fused
 from repro_torch.kernels.ops import EventFanIn
+from repro_torch.obs import MetricsRegistry, log_event, span
 from repro_torch.plasticity import PlasticityParams, PlasticityState
 
 
@@ -160,15 +169,21 @@ class SNNServer:
     def __init__(self, *, n_max: int, slots: int = 8, max_ticks: int = 32,
                  mode: str = "fixed_leak", backend: str = "jnp", plasticity=None,
                  event_density: Optional[float] = None, event_cap: Optional[int] = None,
-                 telemetry: bool = False, options: Optional[EngineOptions] = None,
-                 device=None):
+                 telemetry: bool = True, registry: Optional[MetricsRegistry] = None,
+                 options: Optional[EngineOptions] = None, device=None):
         """``device=None`` serves on the CUDA card (raising without one).
         ``plasticity`` is the learning rule of plastic tenants (default: the
         reference's STDP, ``a_plus=0.5, a_minus=0.25`` on ``[0, 255]``).
         ``event_density``: tenants at most this dense whose fan-in fits
         ``event_cap`` (default ``n_max // 4``, the width of every event
         slot's fan-in lists) ride the event program; None disables it.
-        ``telemetry`` belongs to a later slice and raises when set."""
+        ``telemetry`` carries the tick telemetry through every wave (feeding
+        :meth:`tenant_report` and the spike, overflow and weight-delta
+        metrics); False serves without it, launching no telemetry kernel.
+        ``registry``: the :class:`~repro_torch.obs.metrics.MetricsRegistry`
+        to report into (default: a fresh private one, ``server.registry``).
+        ``options`` supersedes ``mode``, ``backend``, ``plasticity`` and
+        ``telemetry``."""
         if options is not None:
             mode, backend, telemetry = options.mode, options.backend, options.telemetry
             plasticity = options.plasticity if plasticity is None else plasticity
@@ -179,16 +194,64 @@ class SNNServer:
         self.backend = backend
         self.event_density = event_density
         self.event_cap = int(event_cap or max(1, self.n_max // 4))
+        self.telemetry = bool(telemetry)
         if plasticity is None:
             plasticity = PlasticityParams.make(
                 "stdp", a_plus=0.5, a_minus=0.25, w_min=0.0, w_max=255.0)
         self._mk_engine = lambda b: TickEngine(EngineOptions(
-            mode=mode, backend=b, plasticity=plasticity, telemetry=telemetry))
+            mode=mode, backend=b, plasticity=plasticity, telemetry=self.telemetry))
         self.engine = self._mk_engine(backend)
         self._engines = {backend: self.engine}
         self.tenants: Dict[str, Tenant] = {}
         self._programs = set()   # backends that have run a wave
         self.requests_rejected = 0
+        self._tenant_obs: Dict[str, Dict] = {}   # accumulated telemetry
+        self.registry = registry if registry is not None else MetricsRegistry()
+        r = self.registry
+        self._c_requests = r.counter(
+            "snn_requests_total", "requests served to completion")
+        self._c_rejected = r.counter(
+            "snn_requests_rejected_total", "requests refused at admission")
+        self._c_rej_reason = r.counter(
+            "snn_admission_rejections_total",
+            "admission rejections, by reason", ("reason",))
+        self._c_waves = r.counter(
+            "snn_waves_total", "waves run, by resident program", ("backend",))
+        self._c_chunks = r.counter(
+            "snn_chunks_total",
+            "continuous-admission chunks run, by resident program",
+            ("backend",))
+        self._c_spikes = r.counter(
+            "snn_spikes_out_total", "rate-decoded output spikes")
+        self._c_slot_ticks = r.counter(
+            "snn_slot_ticks_total", "slot-ticks executed (slots x ticks)")
+        self._c_useful_ticks = r.counter(
+            "snn_useful_slot_ticks_total",
+            "slot-ticks inside a live request's budget (goodput numerator)")
+        self._c_overflow = r.counter(
+            "snn_event_overflow_ticks_total",
+            "event-backend ticks that overflowed k_active to dense fallback")
+        self._c_policy = r.counter(
+            "snn_event_policy_dense_ticks_total",
+            "event-backend ticks the adaptive knee routed dense for speed")
+        self._c_dw = r.counter(
+            "snn_weight_delta_l1_total", "summed |dw| applied by plasticity")
+        self._g_queue = r.gauge("snn_queue_depth", "requests awaiting a wave")
+        self._g_busy = r.gauge(
+            "snn_slots_busy", "slots holding a live request right now")
+        self._g_goodput = r.gauge(
+            "snn_slot_ticks_per_s", "raw slot-tick rate of the last serve call")
+        self._g_useful_goodput = r.gauge(
+            "snn_goodput_slot_ticks_per_s",
+            "useful (in-budget) slot-ticks per second of the last serve call")
+        self._h_ttft = r.histogram(
+            "snn_ttft_seconds", "enqueue-to-first-output latency")
+        self._h_wave = r.histogram(
+            "snn_wave_seconds", "wave wall time, by resident program",
+            ("backend",))
+        self._h_chunk = r.histogram(
+            "snn_chunk_seconds", "chunk wall time, by resident program",
+            ("backend",))
 
     @property
     def compiles(self) -> int:
@@ -276,25 +339,30 @@ class SNNServer:
                  rewards: Optional[torch.Tensor] = None, *, backend: Optional[str] = None,
                  neighbors: Optional[EventFanIn] = None):
         """``((S, N) rate-decoded spike counts, (S, N, N) learned weights or
-        None)`` of one wave on ``backend``'s program (default: the server's);
-        ticks at or past a slot's budget run but do not count, and a slot
-        learns (on its ``params.c``) only before its ``learn_until``; None runs
-        the frozen rollout. An event wave passes its slots' fan-in lists."""
+        None, per-slot telemetry or None)`` of one wave on ``backend``'s
+        program (default: the server's); ticks at or past a slot's budget run
+        but do not count, and a slot learns (on its ``params.c``) only before
+        its ``learn_until``; None runs the frozen rollout. An event wave
+        passes its slots' fan-in lists. The telemetry, with the server's
+        ``telemetry`` on, has shape ``(S,)`` and covers all ``max_ticks``
+        ticks (those past a budget run, they just do not count or learn)."""
         T, N, S = self.max_ticks, self.n_max, self.slots
         engine = self._engine_for(backend or self.backend)
         st = SNNState.zeros((S,), N, device=self.device)
         if learn_until is None:
             w2 = None
-            _, raster = engine.rollout(params, st, ext_seq, T,
-                                       neighbors=neighbors)               # (T, S, N)
+            out = engine.rollout(params, st, ext_seq, T, neighbors=neighbors)
+            raster = out[1]                                               # (T, S, N)
         else:
             pst = PlasticityState.zeros((), N, device=self.device, slots=S)
-            (_, _, w2), raster = engine.learning_rollout(
+            out = engine.learning_rollout(
                 params, st, pst, ext_seq, T, rewards=rewards, learn_until=learn_until,
                 neighbors=neighbors)
+            (_, _, w2), raster = out[:2]
+        telem = out[2] if self.telemetry else None
         ticks = torch.arange(T, device=self.device)
         tmask = (ticks[:, None] < budget[None, :]).to(raster.dtype)  # (T, S)
-        return (raster * tmask[:, :, None]).sum(dim=0), w2
+        return (raster * tmask[:, :, None]).sum(dim=0), w2, telem
 
     def _engine_for(self, backend: str) -> TickEngine:
         if backend not in self._engines:
@@ -309,10 +377,19 @@ class SNNServer:
         if len(backends) != 1:
             raise ValueError(f"wave mixes backends {sorted(backends)}")
         backend = backends.pop()
-        counts, w2 = self._wave_fn(*self._assemble(reqs), backend=backend,
-                                   neighbors=self._fan_in(reqs))
-        counts = counts.cpu().numpy()
+        with span(f"snn/wave/{backend}", histogram=self._h_wave, backend=backend):
+            counts, w2, telem = self._wave_fn(*self._assemble(reqs), backend=backend,
+                                              neighbors=self._fan_in(reqs))
+            counts = counts.cpu().numpy()       # waits for the wave
         self._programs.add(backend)
+        self._c_waves.inc(backend=backend)
+        self._c_slot_ticks.inc(self.slots * self.max_ticks)
+        tel = None
+        if telem is not None:
+            tel = telem.numpy()
+            self._c_overflow.inc(float(tel["overflow"].sum()))
+            self._c_policy.inc(float(tel["policy_dense"].sum()))
+            self._c_dw.inc(float(tel["dw_l1"].sum()))
         now = time.time()
         for i, r in enumerate(reqs):
             if r.rid < 0:
@@ -322,10 +399,59 @@ class SNNServer:
             r.counts = out
             r.pred = int(out.argmax())
             r.t_first = r.t_done = now
+            if tel is not None:
+                self._observe_slot(t, tel, i)
             if t.plastic:
                 # Register write-back: the tenant's next wave starts from what
                 # this one learned (a copy, so the wave's stack can be freed).
                 t.params = dataclasses.replace(t.params, w=w2[i].clone())
+
+    def _observe_slot(self, t: Tenant, tel: Dict[str, np.ndarray], i: int) -> None:
+        """Fold slot ``i`` of a wave's telemetry (on the host) into the tenant
+        ledger."""
+        o = self._tenant_obs.setdefault(t.name, {
+            "requests": 0, "ticks": 0, "spikes": 0.0, "v_max": 0.0,
+            "ref_sum": 0.0, "overflow_ticks": 0, "policy_dense_ticks": 0,
+            "dw_l1": 0.0})
+        o["requests"] += 1
+        o["ticks"] += int(tel["ticks"][i])
+        o["spikes"] += float(tel["spikes"][i])
+        o["v_max"] = max(o["v_max"], float(tel["v_max"][i]))
+        o["ref_sum"] += float(tel["ref_sum"][i])
+        o["overflow_ticks"] += int(tel["overflow"][i])
+        o["policy_dense_ticks"] += int(tel["policy_dense"][i])
+        o["dw_l1"] += float(tel["dw_l1"][i])
+
+    def tenant_report(self) -> Dict[str, Dict]:
+        """Per-tenant activity from the accumulated wave telemetry, field for
+        field the reference's.
+
+        ``spike_rate`` is spikes per live-neuron-tick (padded fabric neurons
+        carry an unreachable threshold, so every spike belongs to one of the
+        tenant's ``n`` live neurons); the refractory occupancy is rescaled
+        from the fabric axis to live neurons the same way. Empty when the
+        server was built with ``telemetry=False`` or has served nothing yet.
+        """
+        rep: Dict[str, Dict] = {}
+        for name in sorted(self._tenant_obs):
+            o, t = self._tenant_obs[name], self.tenants[name]
+            ticks = o["ticks"]
+            rescale = self.n_max / max(1, t.n)
+            rep[name] = {
+                "requests": o["requests"],
+                "ticks": ticks,
+                "spikes": o["spikes"],
+                "spike_rate": round(o["spikes"] / max(1, ticks * t.n), 4),
+                "v_max": round(o["v_max"], 4),
+                "refractory_occupancy": round(o["ref_sum"] / max(1, ticks) * rescale, 4),
+                "overflow_ticks": o["overflow_ticks"],
+                "policy_dense_ticks": o["policy_dense_ticks"],
+                "dw_l1": round(o["dw_l1"], 3),
+                "plastic": t.plastic,
+                "backend": t.backend,
+                "dispatch": t.plan.strategy if t.plan is not None else None,
+            }
+        return rep
 
     # -- the request loop ------------------------------------------------------
 
@@ -379,6 +505,11 @@ class SNNServer:
         rejected = [r for r in requests if r.tenant not in self.tenants]
         requests = [r for r in requests if r.tenant in self.tenants]
         self.requests_rejected += len(rejected)
+        if rejected:
+            self._c_rejected.inc(len(rejected))
+            self._c_rej_reason.inc(len(rejected), reason="unknown_tenant")
+            log_event("snn_requests_rejected", n=len(rejected),
+                      tenants=sorted({r.tenant for r in rejected}))
         if not requests:
             return self._stats(mode="wave", done=[], n_rejected=len(rejected))
         now = time.time()
@@ -390,6 +521,7 @@ class SNNServer:
         for backend in sorted({self.tenants[r.tenant].backend for r in requests}):
             queue = [r for r in requests if self.tenants[r.tenant].backend == backend]
             while queue:
+                self._g_queue.set(len(queue))
                 wave, deferred, plastic_in_wave = [], [], set()
                 for r in queue:
                     t = self.tenants[r.tenant]
@@ -407,11 +539,20 @@ class SNNServer:
                 self.run_wave(wave)
                 done.extend(r for r in wave if r.rid >= 0)
                 waves += 1
+        self._g_queue.set(0)
         t0 = min(r.t_submit for r in done)
         t1 = max(r.t_done for r in done)
-        return self._stats(mode="wave", done=done, n_rejected=len(rejected), waves=waves,
-                           ticks=waves * self.max_ticks,
-                           slot_ticks=waves * self.max_ticks * self.slots, wall_s=t1 - t0)
+        stats = self._stats(mode="wave", done=done, n_rejected=len(rejected), waves=waves,
+                            ticks=waves * self.max_ticks,
+                            slot_ticks=waves * self.max_ticks * self.slots, wall_s=t1 - t0)
+        self._c_requests.inc(len(done))
+        self._c_spikes.inc(stats["spikes_out"])
+        self._c_useful_ticks.inc(stats["useful_slot_ticks"])
+        self._g_goodput.set(stats["slot_ticks_per_s"])
+        self._g_useful_goodput.set(stats["goodput_slot_ticks_per_s"])
+        for r in done:
+            self._h_ttft.observe(r.t_first - r.t_submit)
+        return stats
 
 
 def make_demo_tenants(server: SNNServer, n_tenants: int = 8, *, seed: int = 0) -> List[str]:
@@ -488,9 +629,13 @@ def profiled_serve(server: SNNServer, reqs: List[ServeRequest], out_dir=None) ->
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # Device-side events only (kernels and copies): the CPU ops that launched
-    # them carry the same device time and would count it twice.
+    # them carry the same device time and would count it twice, and so do the
+    # wave spans and tick scopes ("snn/...", "tick/...") on the device
+    # timeline. (By name: the profiler's user-annotation flag left B4's kernel
+    # out of a device-time sum on the card.)
     rows = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), reverse=True)
+                   if e.device_type == DeviceType.CUDA
+                   and not e.key.startswith(("snn/", "tick/"))), reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
     print(f"profile: wall {wall:.6f} s, device busy {busy_s:.6f} s "
           f"({busy_s / wall:.4f} of wall), by kernel:")
@@ -520,7 +665,7 @@ def serve_snn_main(cfg, args) -> Dict:
         server.serve(make_demo_requests(server, names, n_req, seed=1))   # warm-up
     reqs = make_demo_requests(server, names, n_req)
     lif_step.launches = tick_fused.launches = stdp_update.launches = 0
-    event_dispatch.launches = event_dispatch.launches_db = 0
+    event_dispatch.launches = event_dispatch.launches_db = telemetry.launches = 0
     if args.profile:
         stats = profiled_serve(server, reqs, args.profile)
     else:
@@ -531,7 +676,20 @@ def serve_snn_main(cfg, args) -> Dict:
     print(f"kernel launches: tick_fused={tick_fused.launches} "
           f"lif_step={lif_step.launches} stdp_update={stdp_update.launches} "
           f"event_dispatch_db={event_dispatch.launches_db} "
-          f"event_dispatch={event_dispatch.launches}")
+          f"event_dispatch={event_dispatch.launches} telemetry={telemetry.launches}")
+    report = server.tenant_report()
+    if report:
+        print("\nper-tenant activity (wave telemetry):")
+        for name, row in report.items():
+            print(f"  {name}: " + ", ".join(f"{k}={v}" for k, v in row.items()))
+    print("\nmetrics exposition:")
+    print(server.registry.to_prometheus())
+    if args.metrics_out:
+        import json
+
+        with open(args.metrics_out, "w") as fh:
+            json.dump(server.registry.to_dict(), fh, indent=1, sort_keys=True)
+        print(f"wrote metrics JSON to {args.metrics_out}")
     return stats
 
 
@@ -544,6 +702,8 @@ def main(argv=None):
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="serve once to warm up, then serve under torch.profiler: "
                          "print device time by kernel, write a Chrome trace to DIR")
+    ap.add_argument("--metrics-out", metavar="PATH", default=None,
+                    help="write the metrics registry as JSON to PATH")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs the "
                          "kernels' plain twins)")

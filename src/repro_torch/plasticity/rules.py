@@ -34,7 +34,7 @@ def hyper_kwargs(params: PlasticityParams) -> dict:
 def plasticity_step(state: PlasticityState, s_pre: torch.Tensor, s_post: torch.Tensor,
                     w: torch.Tensor, c: torch.Tensor, params: PlasticityParams,
                     reward=None, *, backend: str = "jnp", tick=None, learn_until=None,
-                    in_place: bool = False) -> Tuple[PlasticityState, torch.Tensor]:
+                    in_place: bool = False, dw_stats: bool = False) -> Tuple:
     """One learning tick: update traces, eligibility and weights.
 
     Args:
@@ -48,8 +48,13 @@ def plasticity_step(state: PlasticityState, s_pre: torch.Tensor, s_post: torch.T
         0-d or ``(S,)``); where ``tick >= learn_until`` nothing changes.
       in_place: the caller owns ``w`` and ``state.elig`` and lets the
         kernel update them in their buffers (ignored by ``"jnp"``).
+      dw_stats: also return the ``(G, P, 2)`` partial sums of ``|dw|`` and
+        ``dw^2`` of the committed update, per weight matrix (the tick
+        telemetry's): kernel B5's per-block partials, or on ``"jnp"`` the
+        reference's ``w' - w`` summed in PyTorch.
 
-    Returns ``(new_state, new_weights)``.
+    Returns ``(new_state, new_weights)``, and the statistics third with
+    ``dw_stats``.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown plasticity backend {backend!r}")
@@ -64,17 +69,15 @@ def plasticity_step(state: PlasticityState, s_pre: torch.Tensor, s_post: torch.T
     if backend == "jnp":
         from repro_torch.kernels.ref import fused_stdp_step_ref
 
-        out = fused_stdp_step_ref(*args, tick=tick, learn_until=learn_until,
-                                  **hyper_kwargs(params))
+        got = fused_stdp_step_ref(*args, tick=tick, learn_until=learn_until,
+                                  dw_stats=dw_stats, **hyper_kwargs(params))
     else:
         from repro_torch.kernels import stdp_update
 
-        out = stdp_update.fused_stdp_step(*args, tick=tick, learn_until=learn_until,
-                                          in_place=in_place, **hyper_kwargs(params))
-    return (
-        PlasticityState(
-            x_pre=out.x_pre.reshape(s_pre.shape),
-            x_post=out.x_post.reshape(s_post.shape),
-            elig=out.elig),
-        out.w,
-    )
+        got = stdp_update.fused_stdp_step(*args, tick=tick, learn_until=learn_until,
+                                          in_place=in_place, dw_stats=dw_stats,
+                                          **hyper_kwargs(params))
+    out, stats = got if dw_stats else (got, None)
+    pst = PlasticityState(x_pre=out.x_pre.reshape(s_pre.shape),
+                          x_post=out.x_post.reshape(s_post.shape), elig=out.elig)
+    return (pst, out.w, stats) if dw_stats else (pst, out.w)

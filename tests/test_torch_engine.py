@@ -247,11 +247,23 @@ _EVENT_BAD = {"backend": "events", "plasticity_backend": "events", "event_k_acti
     ("surrogate", True),
 ])
 def test_later_slices_raise(field, value):
-    """The options of slices not ported yet raise; the event slice's options
-    (ported) now validate, and a bad value raises the reference's
-    ``ValueError``. The surrogate (ported with the classifier slice) is
-    accepted and trains on ``jnp``; the kernel backends raise the
-    reference's ``ValueError`` ("inference-only") when the tick runs."""
+    """The options of slices not ported yet (the mesh) raise; the event
+    slice's options (ported) now validate, and a bad value raises the
+    reference's ``ValueError``. The surrogate (ported with the classifier
+    slice) is accepted and trains on ``jnp``; the kernel backends raise the
+    reference's ``ValueError`` ("inference-only") when the tick runs.
+    Telemetry (ported with the observability slice) is accepted as the
+    reference accepts it, and a rollout then returns its accumulators."""
+    if field == "telemetry":
+        assert EngineOptions(telemetry=value).telemetry and j_net.EngineOptions(
+            telemetry=value).telemetry
+        p = interop.params_from_numpy(_tree(6, 3), "cpu")
+        st = t_net.SNNState.zeros((2,), 6, device="cpu")
+        ext = torch.from_numpy(_drive(3, (2,), 6, 4))
+        final, raster, tel = TickEngine(EngineOptions(telemetry=value)).rollout(p, st, ext, 3)
+        assert tel.ticks.tolist() == [3, 3] and torch.equal(tel.spikes, raster.sum((0, 2)))
+        assert torch.equal(final.lif.v, TickEngine().rollout(p, st, ext, 3)[0].lif.v)
+        return
     if field == "surrogate":
         assert EngineOptions(surrogate=value).surrogate and j_net.EngineOptions(
             surrogate=value).surrogate

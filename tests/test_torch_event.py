@@ -488,34 +488,52 @@ def test_knee_policy_bit_matches_reference_tick_by_tick():
     np.testing.assert_array_equal(final.lif.v.numpy(), np.asarray(jc.state.lif.v))
 
 
-def test_arm_tally_reads_the_device_choice(monkeypatch):
-    """``ops.arm_ticks`` counts, per tick, the arm the kernels' flag chose:
-    dense on overflow when a row passed ``k_active``, dense by the knee when
-    the hysteresis bit is set, else event; a rollout's totals are the
-    tick-by-tick sums, and without a knee only overflow goes dense."""
+def _arms(tel):
+    """Each row's arms from its telemetry: (event, dense on overflow, dense
+    by the knee) = (ticks - overflow - policy_dense, overflow, policy_dense)."""
+    ticks, over, policy = (np.asarray(tel.ticks), np.asarray(tel.overflow),
+                           np.asarray(tel.policy_dense))
+    return np.stack([ticks - over - policy, over, policy], axis=-1)
+
+
+def test_arm_tally_reads_the_device_choice():
+    """The telemetry's ``overflow`` and ``policy_dense`` counters count, per
+    tick, the arm the kernels' flag chose: dense on overflow when a row passed
+    ``k_active``, dense by the knee when the hysteresis bit is set, else event;
+    a rollout's totals are the tick-by-tick sums and equal the reference's
+    telemetry (exactly: integer counters), and without a knee only overflow
+    goes dense."""
+    from repro_torch.obs import TickTelemetry
+
     tree, ext, schedule, k, knee = _knee_case()
     n, b, T = ext.shape[-1], ext.shape[1], len(schedule)
-    tally = torch.zeros(3, dtype=torch.int64)
-    monkeypatch.setattr(t_ops, "arm_ticks", tally)
-    eng = TickEngine(EngineOptions(backend="event", event_k_active=k, event_knee=knee,
-                                   event_hysteresis=0.5))
-    tp = interop.params_from_numpy(tree, "cpu")
+    opts = dict(backend="event", event_k_active=k, event_knee=knee, event_hysteresis=0.5,
+                telemetry=True)
+    eng = TickEngine(EngineOptions(**opts))
+    tp, jp = interop.params_from_numpy(tree, "cpu"), _jax_params(tree)
     tc = TickCarry(state=t_net.SNNState.zeros((b,), n, device="cpu"),
+                   telem=TickTelemetry.zeros((b,), device="cpu"),
                    policy=torch.zeros((), dtype=torch.bool))
     want = np.zeros(3, np.int64)
     for t in range(T):
         m = int(tc.state.lif.y.sum(-1).max())
         tc, _ = eng.tick_body(tc, (_t(ext[t]), None), params=tp)
         want[1 if m > k else 2 if bool(tc.policy) else 0] += 1
-        np.testing.assert_array_equal(tally.numpy(), want, err_msg=f"tick {t}")
+        np.testing.assert_array_equal(_arms(tc.telem), np.tile(want, (b, 1)),
+                                      err_msg=f"tick {t}")
     assert want.sum() == T and want.min() > 0, want
-    tally.zero_()
-    eng.rollout(tp, t_net.SNNState.zeros((b,), n, device="cpu"), _t(ext), T)
-    np.testing.assert_array_equal(tally.numpy(), want)
-    tally.zero_()
-    TickEngine(EngineOptions(backend="event", event_k_active=k)).rollout(
+    _, _, tel = eng.rollout(tp, t_net.SNNState.zeros((b,), n, device="cpu"), _t(ext), T)
+    np.testing.assert_array_equal(_arms(tel), np.tile(want, (b, 1)))
+    _, _, jtel = JEngine(JOptions(**opts)).rollout(jp, j_net.SNNState.zeros((b,), n),
+                                                   jnp.asarray(ext), T)
+    np.testing.assert_array_equal(_arms(tel), _arms(jtel))
+    opts = dict(backend="event", event_k_active=k, telemetry=True)
+    _, _, tel = TickEngine(EngineOptions(**opts)).rollout(
         tp, t_net.SNNState.zeros((b,), n, device="cpu"), _t(ext), T)
-    np.testing.assert_array_equal(tally.numpy(), [want[0] + want[2], want[1], 0])
+    np.testing.assert_array_equal(_arms(tel), np.tile([want[0] + want[2], want[1], 0], (b, 1)))
+    _, _, jtel = JEngine(JOptions(**opts)).rollout(jp, j_net.SNNState.zeros((b,), n),
+                                                   jnp.asarray(ext), T)
+    np.testing.assert_array_equal(_arms(tel), _arms(jtel))
 
 
 def test_event_with_per_synapse_delays_matches_reference():

@@ -154,29 +154,31 @@ def test_slot_rollouts_match_reference_per_network(grid, knee):
 
 
 @pytest.mark.parametrize("knee", [KNEE, None])
-def test_arm_tally_per_slot(monkeypatch, knee):
-    """An ``(S, 3)`` ``ops.arm_ticks`` counts each slot's own arm: the quiet
-    slot stays on the event arm every tick while the busy one goes dense (by
-    the knee, or on overflow at ``k_active = 8``); a ``(3,)`` tally is their
-    sum."""
-    _, tp, ext = _slots(True)
+def test_arm_tally_per_slot(knee):
+    """Per-slot telemetry counts each slot's own arm: the quiet slot stays on
+    the event arm every tick while the busy one goes dense (by the knee, or
+    on overflow at ``k_active = 8``), and each slot's ``overflow`` and
+    ``policy_dense`` equal the reference's telemetry for that network alone
+    (exactly: integer counters)."""
+    trees, tp, ext = _slots(True)
     T = ext.shape[0]
-    opts = dict(backend="event", event_k_active=K_ACTIVE if knee else 8)
+    opts = dict(backend="event", event_k_active=K_ACTIVE if knee else 8, telemetry=True)
     if knee:
         opts.update(event_knee=knee, event_hysteresis=0.5)
-    eng = TickEngine(EngineOptions(**opts))
     st0 = t_net.SNNState.zeros((2, B), N, device="cpu")
-    per_slot = torch.zeros((2, 3), dtype=torch.int64)
-    monkeypatch.setattr(t_ops, "arm_ticks", per_slot)
-    eng.rollout(tp, st0, torch.as_tensor(ext), T)
-    busy, quiet = per_slot.tolist()
-    assert quiet == [T, 0, 0]
-    assert sum(busy) == T and busy[0] > 0 and busy[1] > 0
-    assert (busy[2] > 0) == bool(knee)
-    summed = torch.zeros(3, dtype=torch.int64)
-    monkeypatch.setattr(t_ops, "arm_ticks", summed)
-    eng.rollout(tp, st0, torch.as_tensor(ext), T)
-    assert summed.tolist() == per_slot.sum(0).tolist()
+    _, _, tel = TickEngine(EngineOptions(**opts)).rollout(tp, st0, torch.as_tensor(ext), T)
+    assert tuple(tel.overflow.shape) == (2, B)
+    over, policy = tel.overflow[:, 0].tolist(), tel.policy_dense[:, 0].tolist()
+    busy = [T - over[0] - policy[0], over[0], policy[0]]
+    assert [T - over[1] - policy[1], over[1], policy[1]] == [T, 0, 0]
+    assert busy[0] > 0 and busy[1] > 0 and (busy[2] > 0) == bool(knee)
+    for i, tree in enumerate(trees):
+        _, _, jtel = JEngine(JOptions(**opts)).rollout(
+            _jax_params(tree), j_net.SNNState.zeros((B,), N), jnp.asarray(ext[:, i]), T)
+        np.testing.assert_array_equal(tel.overflow[i].numpy(), np.asarray(jtel.overflow))
+        np.testing.assert_array_equal(tel.policy_dense[i].numpy(),
+                                      np.asarray(jtel.policy_dense))
+        np.testing.assert_array_equal(tel.ticks[i].numpy(), np.asarray(jtel.ticks))
 
 
 def test_plain_event_input_decides_per_slot():

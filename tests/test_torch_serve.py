@@ -139,7 +139,8 @@ def test_plastic_and_later_options_raise(reference):
     """A plastic tenant is accepted: a wave that holds it learns until the
     plastic slot's budget and not at all in the frozen slots (their
     ``learn_until`` is 0), a frozen-only wave does not learn; the event
-    program's options construct and the later slices' options raise."""
+    program's options construct, telemetry is on by default with its
+    registry, and ``telemetry=False`` builds a server without it."""
     banks = reference[0]
     server = _port_server(banks[:1], "jnp")
     name, bank, n_in, n_out = banks[0]
@@ -156,8 +157,9 @@ def test_plastic_and_later_options_raise(reference):
     sparse_server = t_serve.SNNServer(n_max=8, event_density=0.2, device="cpu")
     assert (sparse_server.event_density, sparse_server.event_cap) == (0.2, 2)
     assert sparse_server.backend == "jnp"
-    with pytest.raises(NotImplementedError, match="observability slice"):
-        t_serve.SNNServer(n_max=8, telemetry=True, device="cpu")
+    assert sparse_server.telemetry and sparse_server.registry.get("snn_requests_total")
+    quiet = t_serve.SNNServer(n_max=8, telemetry=False, device="cpu")
+    assert not quiet.telemetry and quiet.tenant_report() == {}
 
 
 def test_demo_generators_and_cli_smoke(capsys):
