@@ -79,6 +79,25 @@ script on any mismatch:
    times. The servers run with telemetry on, their default; the 16 requests
    served again with it off give every count, prediction and learned weight
    bitwise, and the tenant report and the registry's counters are printed.
+   Then continuous admission, by the reference's benchmark recipe
+   (``benchmarks/bench_serve.py``'s continuous section): two servers at the
+   same config with ``chunk_ticks`` 8, one warmed with 8 requests through
+   ``serve``, one through ``serve_continuous``, then the bimodal mix of 64
+   requests (seed 7) through each. Every count and prediction and the
+   plastic tenant's learned weights must be bitwise equal between the two
+   paths; frozen tenants' counts equal a ``jnp`` server's continuous serve;
+   B2 and the telemetry kernel launch chunks x 8 times and B5 learning
+   chunks x 8; every frozen chunk's B2 plan is premasked; every chunk
+   dispatch runs under ``torch.cuda.set_sync_debug_mode("error")``; the
+   second serve rebuilds nothing and adds no launch plan. It prints the
+   reference's continuous metrics (min-of-3 walls of mixes 100-102), the
+   host time per stage (fill, assemble, dispatch, retire), the device-busy
+   share from a profiled repeat of the last timed mix, and the clone the
+   owned learning carry avoids. Then an ``AsyncSNNServer`` over the
+   continuous server: a mix submitted concurrently while its worker is
+   held, then released (every result equal to a direct
+   ``serve_continuous`` of the same requests), with ``queue_full`` and
+   ``tenant_cap`` provoked and counted.
 5. event kernels: kernels B3 (``event_dispatch_db``) and B4
    (``event_dispatch``) against their plain twin, bitwise, on u8-grid
    ``W*C`` at the ``snn-event`` FULL shape (16 rows, K = N = 4096, spike
@@ -1318,6 +1337,330 @@ def run_serve_phase(dev):
         f"wall per wave {wall_f / n_waves:.4f} s ({cfg.snn_backend}), "
         f"{wall_j / stats_j['waves']:.4f} s (jnp); launches {launches}")
     return launches, frozen_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: continuous admission and the async front-end
+# ---------------------------------------------------------------------------
+
+CONT_CHUNK = 8        # chunk_ticks of the continuous phase
+CONT_REQUESTS = 64    # the bimodal mix (the reference's benchmark recipe)
+CONT_REPS = 3         # timed serves per path; the minimum wall is kept
+
+
+def make_serving_mix(server, names, n_requests, *, seed):
+    """A bimodal serving mix: about 75 % short requests (2 to max_ticks // 8
+    ticks), the rest running the full budget; a copy of
+    ``benchmarks/bench_serve.py``'s, draw for draw."""
+    import numpy as np
+
+    from repro_torch.launch.serve import ServeRequest
+
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(n_requests):
+        t = server.tenants[names[i % len(names)]]
+        if rng.random() < 0.75:
+            ticks = int(rng.integers(2, max(3, server.max_ticks // 8) + 1))
+        else:
+            ticks = server.max_ticks
+        ext = ((rng.random((ticks, t.n_in)) < 0.3)
+               * rng.integers(80, 255, (ticks, t.n_in))).astype(np.float32)
+        reqs.append(ServeRequest(rid=i, tenant=t.name, ext=ext, n_ticks=ticks))
+    return reqs
+
+
+def continuous_server(dev, cfg, backend):
+    """A server at the serve phase's configuration with ``chunk_ticks`` 8 and
+    the 8 demo tenants (the last, ``dense-7``, plastic)."""
+    from repro_torch.launch.serve import SNNServer, make_demo_tenants
+
+    server = SNNServer(n_max=cfg.n_neurons, slots=SLOTS, max_ticks=cfg.n_ticks,
+                       mode=cfg.snn_mode, backend=backend, chunk_ticks=CONT_CHUNK, device=dev)
+    return server, make_demo_tenants(server, SLOTS, seed=0)
+
+
+def plan_misses() -> dict:
+    """Misses of the kernel build and of every launch-plan cache: a miss is a
+    rebuild or a new plan."""
+    from repro_torch.kernels import _build, _event_plan, _plan, _stream
+
+    return {"build": _build.build.cache_info().misses, "B1/B2": _plan.plan.cache_info().misses,
+            "B5": _stream.stdp_plan.cache_info().misses,
+            "B6": _stream.spike_matmul_plan.cache_info().misses,
+            "B4": _event_plan.event_plan.cache_info().misses}
+
+
+def watch_chunks(server, log):
+    """Run every chunk dispatch of ``server`` under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync in it raises) and
+    log ``(learning, B2's plan)`` after each."""
+    import torch
+
+    from repro_torch.kernels import tick_fused
+
+    run = server._run_chunk
+
+    def watched(*args, learning, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run(*args, learning=learning, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        log.append((learning, tick_fused.last_plan))
+
+    server._run_chunk = watched
+
+
+def same_results(a, b) -> bool:
+    return all(x.rid == y.rid and np_equal(x.counts, y.counts) and x.pred == y.pred
+               for x, y in zip(a, b)) and len(a) == len(b)
+
+
+def timed_walls(serve) -> dict:
+    """The walls of ``CONT_REPS`` serves of fresh mixes (seeds 100, 101, ...),
+    by seed; the reference's benchmark keeps the minimum."""
+    import torch
+
+    walls = {}
+    for rep in range(CONT_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve(100 + rep)
+        torch.cuda.synchronize()
+        walls[100 + rep] = time.perf_counter() - t0
+    return walls
+
+
+def host_line(host: dict, chunks: int) -> str:
+    return ", ".join(f"{k} {v[0] * 1e6:.1f} us in {v[1]} ({v[0] / max(1, v[1]) * 1e6:.1f} us "
+                     f"each, {v[0] / max(1, chunks) * 1e6:.1f} us a chunk)"
+                     for k, v in host.items())
+
+
+def run_async_check(sw, sc, names):
+    """An ``AsyncSNNServer`` over the continuous server: the mix submitted
+    concurrently while the worker is held at the start of its scheduler run,
+    then released; every future resolves, with the results of a direct
+    ``serve_continuous`` of the same requests on the twin server. The held
+    worker provokes ``queue_full`` (a 65th request with 64 queued) and, in a
+    second burst of 8 requests of one tenant, ``tenant_cap``; both counted."""
+    import asyncio
+    import threading
+
+    import torch
+
+    from repro_torch.launch.serve import ServeRequest
+    from repro_torch.launch.serve_async import AsyncSNNServer
+
+    gate, idle = threading.Event(), threading.Event()
+    run = sc.serve_continuous
+
+    def held(*args, **kw):
+        if not gate.wait(timeout=300):
+            raise TimeoutError("the async check never released its worker")
+        try:
+            return run(*args, **kw)
+        finally:
+            idle.set()
+
+    sc.serve_continuous = held
+    mix = make_serving_mix(sc, names, CONT_REQUESTS, seed=104)
+    direct = make_serving_mix(sw, names, CONT_REQUESTS, seed=104)
+    tenant = names[0]
+    own = [r for r in mix if r.tenant == tenant][:SLOTS]
+    burst = [ServeRequest(rid=200 + i, tenant=tenant, ext=r.ext.copy(), n_ticks=r.n_ticks)
+             for i, r in enumerate(own)]
+    burst_direct = [ServeRequest(rid=r.rid, tenant=tenant, ext=r.ext.copy(), n_ticks=r.n_ticks)
+                    for r in burst]
+    extra = lambda rid: ServeRequest(rid=rid, tenant=tenant, ext=own[0].ext.copy(),
+                                     n_ticks=own[0].n_ticks)
+
+    async def queued(front, n):
+        for _ in range(1000):
+            if len(front._queue) == n:
+                return
+            await asyncio.sleep(0)
+        raise AssertionError(f"async: expected {n} queued requests, have {len(front._queue)}")
+
+    async def go():
+        front = AsyncSNNServer(sc, max_queue=CONT_REQUESTS, tenant_cap=SLOTS)
+        try:
+            tasks = [asyncio.ensure_future(front.submit(r)) for r in mix]
+            await queued(front, CONT_REQUESTS)
+            full = await front.submit(extra(900))
+            gate.set()
+            results = await asyncio.gather(*tasks)
+            # The worker's scheduler run polls its feeder once more after the
+            # last retire: wait for it to return before holding it again.
+            if not await asyncio.get_running_loop().run_in_executor(None, idle.wait, 300):
+                raise TimeoutError("async: the worker's first run never returned")
+            gate.clear()
+            tasks = [asyncio.ensure_future(front.submit(r)) for r in burst]
+            await queued(front, len(burst))
+            capped = await front.submit(extra(901))
+            gate.set()
+            results2 = await asyncio.gather(*tasks)
+        finally:
+            gate.set()
+            await front.aclose()
+        return full, results, capped, results2
+
+    t0 = time.perf_counter()
+    full, results, capped, results2 = asyncio.run(go())
+    wall = time.perf_counter() - t0
+    sc.serve_continuous = run
+    sw.serve_continuous(direct)
+    sw.serve_continuous(burst_direct)
+    if not (full.rejected and full.reason == "queue_full" and capped.rejected
+            and capped.reason == "tenant_cap"):
+        raise AssertionError(f"async: expected queue_full and tenant_cap, got {full}, {capped}")
+    if any(r.rejected for r in results + results2) or not same_results(direct, results) \
+            or not same_results(burst_direct, results2):
+        raise AssertionError("async: a result differs from the direct serve_continuous")
+    learner = names[-1]
+    if not torch.equal(sw.tenants[learner].params.w, sc.tenants[learner].params.w):
+        raise AssertionError(f"async: {learner} learned other weights than the direct serve")
+    reg = sc.registry
+    counts = {reason: reg.get("snn_admission_rejections_total").value(reason=reason)
+              for reason in ("queue_full", "tenant_cap", "unknown_tenant", "shutdown")}
+    if counts != {"queue_full": 1, "tenant_cap": 1, "unknown_tenant": 0, "shutdown": 0} \
+            or reg.get("snn_async_queue_depth").value() != 0 \
+            or reg.get("snn_async_submitted_total").value() != CONT_REQUESTS + len(burst):
+        raise AssertionError(f"async: rejections {counts}, depth or submissions off")
+    ttfts = sorted(r.ttft_s for r in results)
+    log(f"async: {len(results)} + {len(results2)} futures resolved, every result == a direct "
+        f"serve_continuous of the same requests (and {learner}'s weights); rejections "
+        f"{counts}; wall {wall:.4f} s, ttft {ttfts[0]:.4f}-{ttfts[-1]:.4f} s")
+
+
+def run_continuous_phase(dev):
+    """Continuous admission at snn-fused FULL against the wave path (the
+    reference's benchmark recipe), then the async front-end; returns the
+    continuous run's kernel launches."""
+    import torch
+
+    from repro_torch.launch.serve import device_profile, make_demo_requests
+
+    cfg = serve_config()
+    sw, names = continuous_server(dev, cfg, cfg.snn_backend)
+    sw.serve(make_demo_requests(sw, names, SLOTS, seed=99))
+    sc, _ = continuous_server(dev, cfg, cfg.snn_backend)
+    sc.serve_continuous(make_demo_requests(sc, names, SLOTS, seed=99))
+    learner = names[-1]
+    if not sc.tenants[learner].plastic:
+        raise AssertionError(f"continuous: expected {learner} plastic")
+    warm_compiles, misses0 = sc.compiles, plan_misses()
+    reqs_w = make_serving_mix(sw, names, CONT_REQUESTS, seed=7)
+    reqs_c = make_serving_mix(sc, names, CONT_REQUESTS, seed=7)
+    t0 = time.perf_counter()
+    stats_w = sw.serve(reqs_w)
+    torch.cuda.synchronize()
+    wall_w1 = time.perf_counter() - t0
+    chunk_log = []
+    watch_chunks(sc, chunk_log)
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    stats_c = sc.serve_continuous(reqs_c)
+    torch.cuda.synchronize()
+    wall_c1 = time.perf_counter() - t0
+    launches = kernel_launches()
+    misses1 = plan_misses()
+    del sc._run_chunk
+    host = {k: list(v) for k, v in sc.host_time.items()}
+    chunks, learning = stats_c["chunks"], sum(l for l, _ in chunk_log)
+    exact = same_results(reqs_w, reqs_c)
+    if not exact:
+        raise AssertionError("continuous: a count or prediction differs from the wave path")
+    if not torch.equal(sw.tenants[learner].params.w, sc.tenants[learner].params.w):
+        raise AssertionError(f"continuous: {learner}'s learned weights differ from the wave "
+                             "path's")
+    expected = {"tick_fused": chunks * CONT_CHUNK, "lif_step": 0,
+                "stdp_update": learning * CONT_CHUNK, "event_dispatch_db": 0,
+                "event_dispatch": 0, "spike_matmul": 0, "telemetry": chunks * CONT_CHUNK}
+    if launches != expected or len(chunk_log) != chunks or not 0 < learning < chunks:
+        raise AssertionError(f"continuous: launches {launches}, expected {expected} (chunks "
+                             f"{chunks}, learning {learning}, logged {len(chunk_log)})")
+    frozen_plans = {(p.has_c, str(p)) for l, p in chunk_log if not l}
+    if any(has_c for has_c, _ in frozen_plans) or any(not p.has_c for l, p in chunk_log if l):
+        raise AssertionError(f"continuous: a frozen chunk streamed w and c: {frozen_plans}")
+    recompiles = sc.compiles - warm_compiles
+    if misses1 != misses0 or recompiles or stats_c["recompiles_after_warmup"]:
+        raise AssertionError(f"continuous: a rebuild or new plan on the second serve: "
+                             f"{misses0} -> {misses1}, compiles {warm_compiles} -> "
+                             f"{sc.compiles}")
+    # Frozen tenants against the plain jnp server's continuous serve (the
+    # frozen tenants' requests alone: their counts do not depend on the
+    # schedule).
+    sj, _ = continuous_server(dev, cfg, "jnp")
+    frozen = [r for r in make_serving_mix(sj, names, CONT_REQUESTS, seed=7)
+              if not sj.tenants[r.tenant].plastic]
+    sj.serve_continuous(frozen)
+    by_rid = {r.rid: r for r in reqs_c}
+    if not same_results(frozen, [by_rid[r.rid] for r in frozen]):
+        raise AssertionError("continuous: a frozen tenant's counts differ from jnp's")
+    del sj
+    log(f"continuous: {stats_c['n_requests']} requests in {chunks} chunks of {CONT_CHUNK} "
+        f"ticks ({learning} learning, {chunks - learning} frozen on the premasked stack) "
+        f"against {stats_w['waves']} waves of {cfg.n_ticks}; every count and prediction == "
+        f"the wave path, {learner}'s weights == the wave path's bitwise, {len(frozen)} frozen "
+        f"requests == jnp; launches {launches}; no host sync in {chunks} dispatches; plans "
+        f"{misses1} (unchanged), compiles {sc.compiles} (unchanged), frozen B2 plan "
+        f"{sorted(frozen_plans)}; first walls {wall_w1:.4f} s (wave), {wall_c1:.4f} s")
+    log(f"continuous host time, first serve of the mix (no profiler): "
+        f"{host_line(host, chunks)}")
+    walls_w = timed_walls(lambda s: sw.serve(make_serving_mix(sw, names, CONT_REQUESTS,
+                                                              seed=s)))
+    chunks_c = {}
+
+    def serve_c(seed):
+        chunks_c[seed] = sc.serve_continuous(
+            make_serving_mix(sc, names, CONT_REQUESTS, seed=seed))["chunks"]
+
+    walls_c = timed_walls(serve_c)
+    last = max(walls_c)
+    log(f"continuous host time, timed serve of mix {last} (warm, no profiler): "
+        f"{host_line(sc.host_time, chunks_c[last])}")
+    log("continuous walls by mix seed (s): wave " + ", ".join(
+        f"{k}: {v:.4f}" for k, v in walls_w.items()) + "; continuous " + ", ".join(
+        f"{k}: {v:.4f} ({chunks_c[k]} chunks)" for k, v in walls_c.items()))
+    wall_w, wall_c = min(walls_w.values()), min(walls_c.values())
+    useful = stats_w["useful_slot_ticks"]
+    metrics = {
+        "continuous_n_requests": CONT_REQUESTS,
+        "continuous_chunk_ticks": CONT_CHUNK,
+        "continuous_useful_slot_ticks": useful,
+        "continuous_goodput_slot_ticks_per_s": round(useful / max(1e-9, wall_c), 1),
+        "continuous_p99_ttft_s": stats_c["p99_ttft_s"],
+        "continuous_goodput_win_vs_wave": round(wall_w / max(1e-9, wall_c), 3),
+        "continuous_wave_exact": bool(exact),
+        "continuous_recompiles": recompiles,
+        "continuous_wall_s": round(wall_c, 4),
+        "wave_wall_s_on_mix": round(wall_w, 4),
+        "wave_p99_ttft_s": stats_w["p99_ttft_s"],
+    }
+    log("continuous metrics: " + json.dumps(metrics))
+    # The last timed mix again under the profiler: the same kernels on the
+    # same schedule (its device work does not depend on the learned values).
+    stats_p, wall_p, busy_p, rows, _ = device_profile(
+        lambda: sc.serve_continuous(make_serving_mix(sc, names, CONT_REQUESTS, seed=last)), dev)
+    sw.serve(make_serving_mix(sw, names, CONT_REQUESTS, seed=last))   # the same history
+    if not torch.equal(sw.tenants[learner].params.w, sc.tenants[learner].params.w):
+        raise AssertionError(f"continuous: {learner}'s weights differ from the wave server's "
+                             "after the same timed mixes")
+    if stats_p["chunks"] != chunks_c[last]:
+        raise AssertionError("continuous: the profiled serve ran another schedule")
+    log(f"continuous profile (mix seed {last}, {stats_p['chunks']} chunks): device busy "
+        f"{busy_p:.4f} s, {busy_p / walls_c[last]:.4f} of the unprofiled wall "
+        f"{walls_c[last]:.4f} s ({busy_p / wall_p:.4f} of {wall_p:.4f} s under the profiler); "
+        + "; ".join(f"{key[:60]} {us / 1e3:.3f} ms {n}x" for us, n, key in rows[:8]))
+    clone_ms = device_ms(lambda: sc.tenants[learner].params.w.expand(
+        SLOTS, -1, -1).clone(), runs=10)
+    log(f"continuous: the learning carry's clone that the owned carry avoids, {SLOTS} x "
+        f"{cfg.n_neurons}^2 f32: {clone_ms:.4f} ms device time a learning chunk")
+    run_async_check(sw, sc, names)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2727,6 +3070,7 @@ def main() -> int:
     learn_launches = phase("learning", run_learning_phase, dev, gen)
     launches, frozen_launches = phase("serve", run_serve_phase, dev)
     launches["lif_step"] = b1_launches
+    cont_launches = phase("continuous", run_continuous_phase, dev)
     event_errs = phase("event", run_event_kernel_phase, dev, gen)
     errs["lif_step"] = max(errs["lif_step"], event_errs.pop("lif_step"))
     errs.update(event_errs)
@@ -2746,7 +3090,8 @@ def main() -> int:
     timed["spike_matmul"] = phase("spike_matmul", time_spike_matmul, dev, gen, card)
     launches["spike_matmul"] = phase("classifiers", run_classifier_phase, dev)
     if min(launches.values()) < 1 or min(learn_launches.values()) < 1 \
-            or frozen_launches["tick_fused"] < 1 or min(event_learn.values()) < 1:
+            or frozen_launches["tick_fused"] < 1 or min(event_learn.values()) < 1 \
+            or min(cont_launches[k] for k in ("tick_fused", "stdp_update", "telemetry")) < 1:
         raise AssertionError(f"a kernel of a path never launched: serve and rollouts "
                              f"{launches}, frozen serve {frozen_launches}, learning "
                              f"rollouts {learn_launches}, event learning {event_learn}")
@@ -2776,7 +3121,8 @@ def main() -> int:
         f"rollouts), event_dispatch_db {launches['event_dispatch_db']} (snn-event topk "
         f"rollout), event_dispatch {launches['event_dispatch']} (snn-event topk rollout on "
         f"B4), spike_matmul {launches['spike_matmul']} (one per predict_int, Iris and "
-        f"MNIST); frozen-only serve {frozen_launches}; learning rollouts {learn_launches}; "
+        f"MNIST); frozen-only serve {frozen_launches}; continuous serve {cont_launches}; "
+        f"learning rollouts {learn_launches}; "
         f"event learning {event_learn}; event serve waves {event_waves}; B2 streaming w "
         f"and c {b2_streamed_ms:.4f} ms")
     log(f"seconds: {time.perf_counter() - start:.1f} in all; "

@@ -344,26 +344,27 @@ class TickEngine:
     # -- the event arm -------------------------------------------------------
 
     def prepare_event(self, params: SNNParams, wc: Optional[torch.Tensor], neighbors, *,
-                      learning: bool) -> EventPrep:
+                      learning: bool, w_edges: Optional[torch.Tensor] = None) -> EventPrep:
         """The event arm's per-rollout operands: the strategy and spike budget,
         the fan-in lists with int64 indices and (frozen) the per-edge
-        weights, kernel B4's sentinel-row operand, the strict-overflow flag."""
+        weights (the caller's ``w_edges`` when given), kernel B4's
+        sentinel-row operand, the strict-overflow flag."""
         opts = self.options
         strategy = opts._event_strategy(neighbors)
         n = params.w.shape[-2]
         k = dispatch_policy.resolve_k_active(n, opts.event_k_active)
         dev = params.w.device
-        fan_in = w_edges = sentinel = flag = None
+        fan_in = edges = sentinel = flag = None
         if strategy == "fan_in":
             fan_in = ops.EventFanIn(idx=neighbors.idx.long(), mask=neighbors.mask)
             if not learning:
-                w_edges = ops.fan_in_edges(wc, fan_in)
+                edges = ops.fan_in_edges(wc, fan_in) if w_edges is None else w_edges
         elif strategy == "topk":
             if opts.event_kernel == "grid" and not learning:
                 sentinel = ops.sentinel_rows(wc)
             if opts.event_overflow == "strict":
                 flag = torch.zeros((), dtype=torch.bool, device=dev)
-        return EventPrep(strategy=strategy, k=k, fan_in=fan_in, w_edges=w_edges,
+        return EventPrep(strategy=strategy, k=k, fan_in=fan_in, w_edges=edges,
                          sentinel=sentinel, overflow_flag=flag)
 
     def _event_tick(self, carry: TickCarry, st: SNNState, arriving: torch.Tensor,
@@ -485,18 +486,28 @@ class TickEngine:
         plastic_c: Optional[torch.Tensor] = None,
         learn_until=None,
         neighbors: Optional[ops.EventFanIn] = None,
+        wc: Optional[torch.Tensor] = None,
+        w_edges: Optional[torch.Tensor] = None,
+        owned: bool = False,
     ) -> Tuple[TickCarry, torch.Tensor]:
         """Run ``n_ticks`` ticks (``len(ext_seq)`` when given); returns
         ``(final_carry, raster)`` with the raster ``(T, ..., n)``.
 
         Frozen carries (``carry0.w is None``) get ``W*C`` hoisted once for
-        the loop. Learning carries stream their ``w`` every tick; ``rewards``
-        is ``(T,)`` or, per slot, ``(T, S)``. The caller's tensors are never
-        written: on ``"pallas_fused"`` with ``D > 1`` the loop owns its ring
-        buffers (kernel B2 writes the new spikes into the one ring in place,
-        or with per-synapse delays into a second buffer, the two alternating
-        tick by tick), and a learning loop on kernel B5 clones ``w`` and
-        ``elig`` once and then updates them in place.
+        the loop, or use the caller's ``wc`` (and on the event backend's
+        fan-in path its per-edge weights ``w_edges``), which must equal what
+        the hoist would compute: a caller that keeps them resident across
+        calls (the continuous server) passes them. Learning carries stream
+        their ``w`` every tick; ``rewards`` is ``(T,)`` or, per slot,
+        ``(T, S)``. The caller's tensors are never written: on
+        ``"pallas_fused"`` with ``D > 1`` the loop owns its ring buffers
+        (kernel B2 writes the new spikes into the one ring in place, or with
+        per-synapse delays into a second buffer, the two alternating tick by
+        tick), and a learning loop on kernel B5 clones ``w`` and ``elig``
+        once and then updates them in place. ``owned=True`` hands the loop
+        the carry's ``w``, ``plast.elig`` and ``telem`` to update in their
+        buffers instead, with no clone: the caller owns them and reads them
+        back from the returned carry.
 
         On ``"event"`` the arm's operands are prepared once here
         (:meth:`prepare_event`), the knee's hysteresis bit is seeded into
@@ -512,8 +523,9 @@ class TickEngine:
         opts = self.options
         T = int(n_ticks) if ext_seq is None else int(ext_seq.shape[0])
         learning = carry0.w is not None
-        wc = None
-        if not learning and (opts.backend != "pallas" or delays is not None):
+        if learning:
+            wc = None
+        elif wc is None and (opts.backend != "pallas" or delays is not None):
             wc = masked_weights(params)
         state = carry0.state
         D = state.delay_buf.shape[-2]
@@ -526,7 +538,8 @@ class TickEngine:
         carry = dataclasses.replace(carry0, state=state)
         event = None
         if opts.backend == "event" and delays is None:
-            event = self.prepare_event(params, wc, neighbors, learning=learning)
+            event = self.prepare_event(params, wc, neighbors, learning=learning,
+                                       w_edges=w_edges)
             if (opts.event_knee is not None and event.strategy == "topk"
                     and carry.policy is None):
                 S = ops.slot_count(params)
@@ -534,10 +547,14 @@ class TickEngine:
                     () if S is None else (S,), dtype=torch.bool, device=state.tick.device))
         if opts.telemetry:
             v0 = state.lif.v
-            carry = dataclasses.replace(carry, telem=(
-                carry.telem.clone() if carry.telem is not None
-                else TickTelemetry.zeros(v0.shape[:-1], device=v0.device)))
-        if learning and opts.plasticity is not None and opts.plasticity_pass() == "pallas":
+            telem = carry.telem
+            if telem is None:
+                telem = TickTelemetry.zeros(v0.shape[:-1], device=v0.device)
+            elif not owned:
+                telem = telem.clone()
+            carry = dataclasses.replace(carry, telem=telem)
+        if (learning and not owned and opts.plasticity is not None
+                and opts.plasticity_pass() == "pallas"):
             # B5 leaves elig untouched under rule="stdp": only R-STDP writes it.
             elig = carry.plast.elig
             if opts.plasticity.rule == "rstdp":
@@ -651,16 +668,21 @@ class TickEngine:
               delays: Optional[torch.Tensor] = None,
               plastic_c: Optional[torch.Tensor] = None,
               learn_until=None,
-              neighbors: Optional[ops.EventFanIn] = None) -> Tuple[TickCarry, torch.Tensor]:
+              neighbors: Optional[ops.EventFanIn] = None,
+              wc: Optional[torch.Tensor] = None,
+              w_edges: Optional[torch.Tensor] = None,
+              owned: bool = False) -> Tuple[TickCarry, torch.Tensor]:
         """``n_ticks`` more ticks from an existing carry: K chunks of T ticks
         equal one rollout of K*T ticks (the tick counter, traces, weights and
         telemetry ride the carry). On learning carries ``rewards`` default to
-        zeros and ``plastic_c`` to ``params.c``."""
+        zeros and ``plastic_c`` to ``params.c``. ``wc``, ``w_edges`` and
+        ``owned``: see :meth:`scan` (by default the caller's carry is never
+        written)."""
         if carry.w is not None:
             rewards, plastic_c = self._learning_defaults(
                 params, rewards, plastic_c, n_ticks, carry.state.tick.device,
                 "a learning chunk")
         return self.scan(params, carry, ext_seq, n_ticks, rewards=rewards,
                          delays=delays, plastic_c=plastic_c, learn_until=learn_until,
-                         neighbors=neighbors)
+                         neighbors=neighbors, wc=wc, w_edges=w_edges, owned=owned)
 

@@ -63,6 +63,7 @@ class Plan:
     k_chunk: int   # K rows per block of the cluster (the last may have fewer)
     smem: int      # dynamic shared memory per block, bytes
     path: str      # the fill: "cp.async" or "element"
+    has_c: bool = True   # w and c streamed; False: w is the premasked W*C
 
     @property
     def grid(self) -> tuple:
@@ -136,7 +137,7 @@ def plan(S: int, B: int, K: int, N: int, *, has_c: bool, delays: bool = False,
 
     kt, stages = _pipeline(bb, planes, n_planes, path)
     return Plan(S=S, B=B, K=K, N=N, bb=bb, kt=kt, stages=stages, ks=ks, k_chunk=k_chunk,
-                smem=smem_bytes(bb, kt, stages, planes, n_planes), path=path)
+                smem=smem_bytes(bb, kt, stages, planes, n_planes), path=path, has_c=has_c)
 
 
 def _pipeline(bb: int, planes: int, n_planes: int, path: str) -> tuple:

@@ -28,12 +28,24 @@ per-slot :class:`~repro_torch.obs.telemetry.TickTelemetry` through its tick
 loop (one telemetry kernel launch per tick, no host sync), read once after
 the wave into the server's :class:`~repro_torch.obs.metrics.MetricsRegistry`
 (the reference's counters, gauges and histograms, under its names) and the
-per-tenant ledger behind :meth:`SNNServer.tenant_report`. Continuous
-admission and the LM server arrive with later slices; the instruments only
-they move are registered and stay at zero.
+per-tenant ledger behind :meth:`SNNServer.tenant_report`.
+
+:meth:`SNNServer.serve_continuous` is the reference's continuous admission:
+the fabric runs in chunks of ``chunk_ticks`` ticks, a slot whose request has
+run its budget retires after a chunk and is refilled from the queue at once,
+so a short request no longer waits for the longest one of its wave. The
+group keeps its slots' registers and carry resident on the device and
+downloads one tenant's image into one slot in place (a fixed set of copies,
+no host sync); counts accumulate on the device and are read once per retire
+round. The slots share one tick counter, so a plastic slot's learning bound
+is put on that clock (its fill tick plus its budget). A chunk runs the
+learning tick only while a plastic request is resident, otherwise the
+premasked frozen tick on a resident ``W*C`` stack, as frozen-only waves do.
+:mod:`repro_torch.launch.serve_async` puts the asyncio front-end on it. The
+LM server arrives with a later slice.
 
 Usage (on a machine with an NVIDIA GPU):
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch snn-fused
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch snn-fused [--continuous]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch snn --smoke --device cpu
 """
 from __future__ import annotations
@@ -42,7 +54,8 @@ import argparse
 import dataclasses
 import os
 import time
-from typing import Dict, List, Optional
+from collections import deque
+from typing import Callable, Deque, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -50,12 +63,13 @@ import torch.nn.functional as F
 
 from repro_torch import device as _device
 from repro_torch.configs import get_bundle
-from repro_torch.core.engine import EngineOptions, TickEngine
+from repro_torch.core.engine import EngineOptions, TickCarry, TickEngine
 from repro_torch.core.lif import LIFParams
-from repro_torch.core.network_types import SNNParams, SNNState
+from repro_torch.core.network_types import SNNParams, SNNState, masked_weights
 from repro_torch.kernels import event_dispatch, lif_step, stdp_update, telemetry, tick_fused
-from repro_torch.kernels.ops import EventFanIn
+from repro_torch.kernels.ops import EventFanIn, fan_in_edges
 from repro_torch.obs import MetricsRegistry, log_event, span
+from repro_torch.obs.telemetry import TickTelemetry
 from repro_torch.plasticity import PlasticityParams, PlasticityState
 
 
@@ -78,12 +92,16 @@ class ServeRequest:
 
 @dataclasses.dataclass(frozen=True)
 class ServeResult:
-    """Immutable completion record, one per served request."""
+    """Immutable completion record, one per served request; ``ttft_s`` runs
+    from enqueue (``t_submit``). A request refused at admission gets one too,
+    with ``rejected`` set and the ``reason``."""
 
     rid: int
     tenant: str = ""
     counts: Optional[np.ndarray] = None
     pred: Optional[int] = None
+    rejected: bool = False
+    reason: str = ""                      # admission-rejection reason
     t_submit: float = 0.0
     t_first: Optional[float] = None
     t_done: Optional[float] = None
@@ -98,6 +116,12 @@ class ServeResult:
     def of(cls, r: ServeRequest) -> "ServeResult":
         return cls(rid=r.rid, tenant=r.tenant, counts=r.counts, pred=r.pred,
                    t_submit=r.t_submit, t_first=r.t_first, t_done=r.t_done)
+
+    @classmethod
+    def rejection(cls, r: ServeRequest, reason: str) -> "ServeResult":
+        now = time.time()
+        return cls(rid=r.rid, tenant=r.tenant, rejected=True, reason=reason,
+                   t_submit=r.t_submit or now, t_first=None, t_done=now)
 
 
 _PAD_VTH = 1e30  # padded neurons can never reach threshold
@@ -161,16 +185,20 @@ class SNNServer:
     Every wave runs S slots x ``max_ticks`` ticks of one engine, with
     static shapes ``(S, n_max)``; per-request tick budgets are runtime masks
     at decode and bound each slot's learning (``learn_until``), and tenant
-    swaps only change array values. Nothing is traced, so ``compiles``
-    counts the resident programs in use (one per backend) and
-    ``recompiles_after_warmup`` is always 0.
+    swaps only change array values. Nothing is traced: ``compiles`` counts
+    the programs put into use under the keys the reference counts its
+    traces under (``<backend>`` for a wave program, ``chunk/<backend>`` for
+    each chunk size a backend has run, ``fill/<backend>`` once a slot has
+    been refilled), so it equals the reference's after the same calls, and
+    ``recompiles_after_warmup`` counts a key used past its first program.
     """
 
     def __init__(self, *, n_max: int, slots: int = 8, max_ticks: int = 32,
                  mode: str = "fixed_leak", backend: str = "jnp", plasticity=None,
                  event_density: Optional[float] = None, event_cap: Optional[int] = None,
                  telemetry: bool = True, registry: Optional[MetricsRegistry] = None,
-                 options: Optional[EngineOptions] = None, device=None):
+                 options: Optional[EngineOptions] = None,
+                 chunk_ticks: Optional[int] = None, device=None):
         """``device=None`` serves on the CUDA card (raising without one).
         ``plasticity`` is the learning rule of plastic tenants (default: the
         reference's STDP, ``a_plus=0.5, a_minus=0.25`` on ``[0, 255]``).
@@ -183,7 +211,9 @@ class SNNServer:
         ``registry``: the :class:`~repro_torch.obs.metrics.MetricsRegistry`
         to report into (default: a fresh private one, ``server.registry``).
         ``options`` supersedes ``mode``, ``backend``, ``plasticity`` and
-        ``telemetry``."""
+        ``telemetry``. ``chunk_ticks``: the chunk size of
+        :meth:`serve_continuous` (default ``max(1, min(8, max_ticks //
+        4))``)."""
         if options is not None:
             mode, backend, telemetry = options.mode, options.backend, options.telemetry
             plasticity = options.plasticity if plasticity is None else plasticity
@@ -195,6 +225,12 @@ class SNNServer:
         self.event_density = event_density
         self.event_cap = int(event_cap or max(1, self.n_max // 4))
         self.telemetry = bool(telemetry)
+        self.chunk_ticks = self._check_chunk(
+            max(1, min(8, self.max_ticks // 4)) if chunk_ticks is None else chunk_ticks)
+        if (self.device.type == "cuda" and self.device.index is None):
+            # The explicit card, so a worker thread never relies on its own
+            # current device.
+            self.device = torch.device("cuda", torch.cuda.current_device())
         if plasticity is None:
             plasticity = PlasticityParams.make(
                 "stdp", a_plus=0.5, a_minus=0.25, w_min=0.0, w_max=255.0)
@@ -203,7 +239,9 @@ class SNNServer:
         self.engine = self._mk_engine(backend)
         self._engines = {backend: self.engine}
         self.tenants: Dict[str, Tenant] = {}
-        self._programs = set()   # backends that have run a wave
+        self._compiles: Dict[str, int] = {}   # programs in use, under the reference's keys
+        self._chunk_sizes: Dict[str, set] = {}
+        self.host_time: Dict[str, List[float]] = {}   # see serve_continuous
         self.requests_rejected = 0
         self._tenant_obs: Dict[str, Dict] = {}   # accumulated telemetry
         self.registry = registry if registry is not None else MetricsRegistry()
@@ -255,7 +293,15 @@ class SNNServer:
 
     @property
     def compiles(self) -> int:
-        return len(self._programs)
+        """Programs in use, summed over the reference's trace keys."""
+        return sum(self._compiles.values())
+
+    def _check_chunk(self, chunk) -> int:
+        chunk = int(chunk)
+        if not 1 <= chunk <= self.max_ticks:
+            raise ValueError(f"chunk_ticks must lie in [1, max_ticks={self.max_ticks}], "
+                             f"got {chunk}")
+        return chunk
 
     # -- tenant registry ---------------------------------------------------
 
@@ -381,7 +427,7 @@ class SNNServer:
             counts, w2, telem = self._wave_fn(*self._assemble(reqs), backend=backend,
                                               neighbors=self._fan_in(reqs))
             counts = counts.cpu().numpy()       # waits for the wave
-        self._programs.add(backend)
+        self._compiles.setdefault(backend, 1)
         self._c_waves.inc(backend=backend)
         self._c_slot_ticks.inc(self.slots * self.max_ticks)
         tel = None
@@ -481,13 +527,29 @@ class SNNServer:
             "mean_ttft_s": round(float(np.mean(ttfts)), 4) if done else 0.0,
             "p99_ttft_s": round(float(np.percentile(ttfts, 99)), 4) if done else 0.0,
             "compiles": self.compiles,
-            "recompiles_after_warmup": 0,
+            "recompiles_after_warmup": sum(max(0, c - 1) for c in self._compiles.values()),
             "backends": {
                 b: sum(1 for r in done if self.tenants[r.tenant].backend == b)
                 for b in sorted({self.tenants[r.tenant].backend for r in done})},
             "preds": {r.rid: r.pred for r in done},
             "results": [ServeResult.of(r) for r in done],
         }
+
+    def _empty_stats(self, rejected: int, mode: str = "wave") -> Dict:
+        """A well-formed zero report: nothing ran, nothing was served."""
+        return self._stats(mode=mode, done=[], n_rejected=rejected)
+
+    def _reject_unknown(self, requests: List[ServeRequest]):
+        """Split off (counted, logged) the requests naming an unregistered
+        tenant; returns ``(admitted, rejected)``."""
+        rejected = [r for r in requests if r.tenant not in self.tenants]
+        if rejected:
+            self.requests_rejected += len(rejected)
+            self._c_rejected.inc(len(rejected))
+            self._c_rej_reason.inc(len(rejected), reason="unknown_tenant")
+            log_event("snn_requests_rejected", n=len(rejected),
+                      tenants=sorted({r.tenant for r in rejected}))
+        return [r for r in requests if r.tenant in self.tenants], rejected
 
     def serve(self, requests: List[ServeRequest]) -> Dict:
         """Wave admission over a request queue; returns the stats dict.
@@ -502,16 +564,9 @@ class SNNServer:
         this one learned. A short wave is padded with budget-0 slots of the
         same program.
         """
-        rejected = [r for r in requests if r.tenant not in self.tenants]
-        requests = [r for r in requests if r.tenant in self.tenants]
-        self.requests_rejected += len(rejected)
-        if rejected:
-            self._c_rejected.inc(len(rejected))
-            self._c_rej_reason.inc(len(rejected), reason="unknown_tenant")
-            log_event("snn_requests_rejected", n=len(rejected),
-                      tenants=sorted({r.tenant for r in rejected}))
+        requests, rejected = self._reject_unknown(requests)
         if not requests:
-            return self._stats(mode="wave", done=[], n_rejected=len(rejected))
+            return self._empty_stats(len(rejected))
         now = time.time()
         for r in requests:
             if not r.t_submit:   # TTFT from enqueue: keep the caller's stamp
@@ -553,6 +608,362 @@ class SNNServer:
         for r in done:
             self._h_ttft.observe(r.t_first - r.t_submit)
         return stats
+
+    # -- continuous admission (per-slot refill, not per-wave) ----------------
+
+    @staticmethod
+    def _next_admittable(pending: Deque[ServeRequest], busy_plastic: set,
+                         tenants: Dict[str, Tenant]) -> Optional[ServeRequest]:
+        """Pop the first queued request whose tenant is not a resident
+        *plastic* tenant (two slots learning from the same registers would
+        race on the write-back: the wave path's one-plastic-request-per-wave
+        rule, per slot)."""
+        for idx, r in enumerate(pending):
+            if tenants[r.tenant].plastic and r.tenant in busy_plastic:
+                continue
+            del pending[idx]
+            return r
+        return None
+
+    def _route(self, r: ServeRequest, pending_map: Dict[str, Deque[ServeRequest]],
+               rejected: List[ServeRequest]) -> None:
+        """Admit one feeder-supplied request into its program's queue,
+        stamping its enqueue time if the caller did not."""
+        if not r.t_submit:
+            r.t_submit = time.time()
+        admitted, refused = self._reject_unknown([r])
+        rejected.extend(refused)
+        for r in admitted:
+            pending_map.setdefault(self.tenants[r.tenant].backend, deque()).append(r)
+
+    def serve_continuous(
+        self,
+        requests: Optional[List[ServeRequest]] = None,
+        *,
+        chunk_ticks: Optional[int] = None,
+        feeder: Optional[Callable[[], Optional[ServeRequest]]] = None,
+        on_complete: Optional[Callable[[ServeRequest], None]] = None,
+    ) -> Dict:
+        """Per-slot continuous admission, with the reference's semantics.
+
+        The fabric runs in chunks of ``chunk_ticks`` ticks (default the
+        server's); after each chunk the slots whose request has run its
+        budget retire (decode, write back learned weights, complete) and are
+        refilled from the queue. A request's latency is its own budget plus
+        at most ``chunk_ticks - 1`` ticks. The queue splits by program, and
+        the program whose queue holds the oldest waiting request runs next;
+        at most one request per plastic tenant is resident at a time; a
+        zero-budget request completes without a tick.
+
+        Args:
+          requests: the initial queue (any mix of tenants and programs).
+          feeder: optional non-blocking callable, polled once per chunk (and
+            once more before returning) for late arrivals; None means none
+            right now. This is how the async front-end streams admissions in.
+          on_complete: optional callback, called in this thread with each
+            request as it retires.
+
+        Returns :meth:`serve`'s stats with ``mode="continuous"`` and the
+        chunk accounting. ``host_time`` then holds this call's host seconds
+        and counts per stage: ``fill`` (per refill), ``assemble`` and
+        ``dispatch`` (per chunk), ``retire`` (per retire round).
+        """
+        chunk = self._check_chunk(self.chunk_ticks if chunk_ticks is None else chunk_ticks)
+        t_start = time.time()
+        self.host_time = {k: [0.0, 0] for k in ("fill", "assemble", "dispatch", "retire")}
+        requests, rejected = self._reject_unknown(list(requests or []))
+        for r in requests:
+            if not r.t_submit:
+                r.t_submit = t_start
+        pending_map: Dict[str, Deque[ServeRequest]] = {}
+        for r in requests:
+            pending_map.setdefault(self.tenants[r.tenant].backend, deque()).append(r)
+        done: List[ServeRequest] = []
+        chunks = 0
+        while True:
+            live = [b for b, q in pending_map.items() if q]
+            if not live:
+                if feeder is None:
+                    break
+                # One more poll: a request may have arrived since the last chunk.
+                n_before, got = len(rejected), False
+                while (r := feeder()) is not None:
+                    self._route(r, pending_map, rejected)
+                    got = True
+                if not got and len(rejected) == n_before:
+                    break
+                continue
+            # FIFO across programs: the oldest waiting request's program runs.
+            backend = min(live, key=lambda b: pending_map[b][0].t_submit)
+            chunks += self._continuous_group(backend, pending_map, rejected, chunk, feeder,
+                                             on_complete, done)
+        self._g_queue.set(0)
+        self._g_busy.set(0)
+        if not done:
+            return self._empty_stats(len(rejected), mode="continuous")
+        t0 = min(r.t_submit for r in done)
+        t1 = max(r.t_done for r in done)
+        stats = self._stats(mode="continuous", done=done, n_rejected=len(rejected),
+                            chunks=chunks, ticks=chunks * chunk,
+                            slot_ticks=chunks * chunk * self.slots, wall_s=t1 - t0)
+        self._c_spikes.inc(stats["spikes_out"])
+        self._g_goodput.set(stats["slot_ticks_per_s"])
+        self._g_useful_goodput.set(stats["goodput_slot_ticks_per_s"])
+        return stats
+
+    def _clock(self, stage: str, t0: float) -> None:
+        entry = self.host_time[stage]
+        entry[0] += time.perf_counter() - t0
+        entry[1] += 1
+
+    def _continuous_group(self, backend: str, pending_map: Dict[str, Deque[ServeRequest]],
+                          rejected: List[ServeRequest], chunk: int, feeder, on_complete,
+                          done: List[ServeRequest]) -> int:
+        """Run one program's chunks until its queue drains; returns the
+        number of chunks run.
+
+        Which request holds a slot, its tick offset and budget live on the
+        host; the registers, carry and running counts live on the device in
+        a :class:`_Resident`, which a refill rewrites one slot of. The slots
+        share one tick counter, which starts at 0 for the group (a fresh
+        carry), so a plastic slot's learning bound is its fill tick plus its
+        budget on that clock (``clock`` mirrors it on the host), and 0 for a
+        frozen slot."""
+        S, N = self.slots, self.n_max
+        pending = pending_map.setdefault(backend, deque())
+        engine = self._engine_for(backend)
+        slot_req: List[Optional[ServeRequest]] = [None] * S
+        slot_tenant: List[Optional[Tenant]] = [None] * S
+        busy_plastic: set = set()
+        res: Optional[_Resident] = None
+        offset = np.zeros((S,), np.int64)    # ticks each request has run
+        budget = np.zeros((S,), np.int32)
+        until = np.zeros((S,), np.int32)     # learning bounds on the shared clock
+        clock = 0
+        chunks = 0
+
+        def fill(i: int, r: ServeRequest) -> None:
+            nonlocal res
+            t0 = time.perf_counter()
+            t = self.tenants[r.tenant]
+            slot_req[i], slot_tenant[i] = r, t
+            offset[i] = 0
+            budget[i] = min(int(r.n_ticks), self.max_ticks)
+            until[i] = clock + budget[i] if t.plastic else 0
+            if t.plastic:
+                busy_plastic.add(t.name)
+            if res is None:
+                # The first fill seeds every slot with this image; idle slots
+                # ride along at budget 0, like the wave path's padding.
+                res = _Resident(self, backend, t)
+            else:
+                res.fill(i, t)
+                self._compiles.setdefault(f"fill/{backend}", 1)
+            self._clock("fill", t0)
+
+        def retire(i: int, now: float, row: Optional[np.ndarray] = None,
+                   tel: Optional[Dict[str, np.ndarray]] = None) -> None:
+            r, t = slot_req[i], slot_tenant[i]
+            if row is None:   # a request that ran no tick: its row is still zero
+                row = np.zeros((N,), np.float32)
+            out = row[t.n - t.n_out: t.n]
+            r.counts = out
+            r.pred = int(out.argmax())
+            r.t_first = r.t_done = now
+            if tel is not None and offset[i] > 0:
+                self._observe_slot(t, tel, i)
+                self._c_overflow.inc(float(tel["overflow"][i]))
+                self._c_policy.inc(float(tel["policy_dense"][i]))
+                self._c_dw.inc(float(tel["dw_l1"][i]))
+            if t.plastic:
+                # Register write-back: the tenant's next request starts from
+                # what this one learned (a copy: the slot's row is reused).
+                t.params = dataclasses.replace(t.params, w=res.w[i].clone())
+                busy_plastic.discard(t.name)
+            until[i] = 0
+            slot_req[i] = slot_tenant[i] = None
+            done.append(r)
+            self._c_requests.inc()
+            self._c_useful_ticks.inc(int(budget[i]))
+            self._h_ttft.observe(r.t_done - r.t_submit)
+            if on_complete is not None:
+                on_complete(r)
+
+        while True:
+            while feeder is not None and (r := feeder()) is not None:
+                self._route(r, pending_map, rejected)
+            # Refill free slots in queue order; a zero-budget request
+            # completes without running a tick (zero counts, nothing learned).
+            for i in range(S):
+                if slot_req[i] is None and pending:
+                    r = self._next_admittable(pending, busy_plastic, self.tenants)
+                    if r is not None:
+                        fill(i, r)
+                if slot_req[i] is not None and budget[i] <= offset[i]:
+                    retire(i, time.time())
+            busy = [i for i in range(S) if slot_req[i] is not None]
+            self._g_queue.set(sum(len(q) for q in pending_map.values()))
+            self._g_busy.set(len(busy))
+            if not busy:
+                if pending:
+                    continue   # a plastic tenant was freed: admit again
+                break
+            # The learning tick only while a plastic request is resident.
+            self._run_chunk(res, engine, backend, chunk, [slot_req[i] for i in range(S)],
+                            offset, budget, until, learning=bool(busy_plastic))
+            sizes = self._chunk_sizes.setdefault(backend, set())
+            sizes.add(chunk)
+            self._compiles[f"chunk/{backend}"] = len(sizes)
+            chunks += 1
+            clock += chunk
+            self._c_chunks.inc(backend=backend)
+            self._c_slot_ticks.inc(S * chunk)
+            for i in busy:
+                offset[i] += chunk
+            due = [i for i in busy if offset[i] >= budget[i]]
+            if due:
+                # One (S, N) read (and one telemetry pull) serves every retire
+                # of the round: the only time the host waits for the device.
+                t0 = time.perf_counter()
+                rows = res.counts.to("cpu", copy=True).numpy()   # a copy on the CPU too
+                tel = res.telem.numpy() if res.telem is not None else None
+                now = time.time()
+                for i in due:
+                    retire(i, now, rows[i], tel)
+                self._clock("retire", t0)
+        return chunks
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the server's device without waiting for it: on the
+        card from pinned memory, asynchronously (a pageable copy would
+        synchronize the stream)."""
+        t = torch.from_numpy(a)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _run_chunk(self, res: "_Resident", engine: TickEngine, backend: str, chunk: int,
+                   slot_req: List[Optional[ServeRequest]], offset: np.ndarray,
+                   budget: np.ndarray, until: np.ndarray, *, learning: bool) -> None:
+        """One chunk of every slot from its carried state: assemble the
+        ``(chunk, S, N)`` drive (and ``(chunk, S)`` rewards when learning) on
+        the host, upload it, run ``TickEngine.chunk`` on the resident stacks
+        (which it updates in place) and add the in-budget spikes to the
+        device counts. Nothing here waits for the device.
+
+        The count mask compares each absolute tick ``offset + t`` with the
+        budget, so the partial counts add up to the wave path's masked sum
+        exactly (small integers in f32)."""
+        t0 = time.perf_counter()
+        S, N = self.slots, self.n_max
+        ext = np.zeros((chunk, S, N), np.float32)
+        rew = np.zeros((chunk, S), np.float32) if learning else None
+        for i, r in enumerate(slot_req):
+            if r is None:
+                continue
+            o = int(offset[i])
+            if r.ext is not None and o < r.ext.shape[0]:
+                seg = np.asarray(r.ext[o:o + chunk], np.float32)
+                ext[:seg.shape[0], i, :seg.shape[1]] = seg
+            if learning and r.rewards is not None and o < len(r.rewards):
+                seg = np.asarray(r.rewards[o:o + chunk], np.float32)
+                rew[:seg.shape[0], i] = seg
+        meta = np.stack([offset.astype(np.int32), budget, until])    # (3, S)
+        ext_d, meta_d = self._upload(ext), self._upload(meta)
+        rew_d = None if rew is None else self._upload(rew)
+        self._clock("assemble", t0)
+        t0 = time.perf_counter()
+        with span(f"snn/chunk/{backend}", histogram=self._h_chunk, backend=backend):
+            params = SNNParams(w=res.w, c=res.c, w_in=res.w_in, lif=res.lif)
+            fan = None if res.fan_idx is None else EventFanIn(idx=res.fan_idx, mask=res.fan_mask)
+            if learning:
+                carry = TickCarry(state=res.state, plast=res.plast, w=res.w, telem=res.telem)
+                carry, raster = engine.chunk(params, carry, ext_d, chunk, rewards=rew_d,
+                                             learn_until=meta_d[2], neighbors=fan, owned=True)
+                res.w, res.plast = carry.w, carry.plast
+            else:
+                carry, raster = engine.chunk(params, TickCarry(state=res.state, telem=res.telem),
+                                             ext_d, chunk, neighbors=fan, wc=res.wc,
+                                             w_edges=res.w_edges, owned=True)
+            res.state, res.telem = carry.state, carry.telem
+            t_abs = meta_d[0][None, :] + res.ticks[:chunk, None]           # (chunk, S)
+            tmask = (t_abs < meta_d[1][None, :]).to(raster.dtype)
+            res.counts += (raster * tmask[:, :, None]).sum(dim=0)
+        self._clock("dispatch", t0)
+
+
+class _Resident:
+    """One continuous group's program inputs, resident on the device: the
+    slots' register images (weights, connection list, the premasked ``W*C``
+    the frozen tick reads on every program but ``pallas`` -- whose kernel
+    masks per tile --, input weights, LIF rows; on the event program the
+    fan-in lists and the per-edge weights of the frozen tick), their carry
+    (state, traces and eligibility, telemetry) and their running counts.
+    The state's tick counter is shared by the slots. Chunks update the
+    stacks in place (the learning ones through an owned carry); a refill
+    rewrites one slot."""
+
+    def __init__(self, server: SNNServer, backend: str, t: Tenant):
+        S, N, dev = server.slots, server.n_max, server.device
+        self.rstdp = server.engine.options.plasticity.rule == "rstdp"
+
+        def seed(a: torch.Tensor, dtype=None) -> torch.Tensor:
+            """Every slot starts from this image."""
+            return a.unsqueeze(0).expand((S,) + tuple(a.shape)).to(dtype or a.dtype).clone()
+
+        p = t.params
+        self.w, self.c, self.w_in = seed(p.w), seed(p.c), seed(p.w_in)
+        self.lif = LIFParams(**{f.name: seed(getattr(p.lif, f.name))
+                                for f in dataclasses.fields(LIFParams)})
+        self.wc = None if backend == "pallas" else seed(masked_weights(p))
+        self.fan_idx = self.fan_mask = self.w_edges = None
+        if backend == "event":
+            # int64 ids: the event arm indexes with them, once per chunk.
+            self.fan_idx, self.fan_mask = seed(t.fan_idx, torch.int64), seed(t.fan_mask)
+            self.w_edges = fan_in_edges(self.wc, EventFanIn(idx=self.fan_idx,
+                                                            mask=self.fan_mask))
+        self.state = SNNState.zeros((S,), N, device=dev)
+        self.plast = PlasticityState.zeros((), N, device=dev, slots=S)
+        self.telem = TickTelemetry.zeros((S,), device=dev) if server.telemetry else None
+        self.counts = torch.zeros((S, N), dtype=torch.float32, device=dev)
+        self.ticks = torch.arange(server.max_ticks, device=dev)
+
+    @property
+    def fill_copies(self) -> int:
+        """The writes :meth:`fill` makes: the register image (``w``, ``c``,
+        ``w_in`` and 6 LIF rows), 3 state rows, 2 trace rows and the counts
+        row; ``W*C`` on every program but ``pallas``, the eligibility row
+        under R-STDP, the telemetry row with telemetry on, and the fan-in
+        lists and per-edge weights on the event program."""
+        return (15 + (self.wc is not None) + self.rstdp + (self.telem is not None)
+                + 3 * (self.fan_idx is not None))
+
+    def fill(self, i: int, t: Tenant) -> None:
+        """The register download: tenant ``t``'s image into slot ``i``, with
+        a fresh state, traces, telemetry and counts. Every write goes into
+        the resident stacks in place (:attr:`fill_copies` of them), with no
+        host sync. The delay line (depth 1) is never written, so it stays
+        zero, and the server arms no knee, so there is no hysteresis bit."""
+        p = t.params
+        self.w[i].copy_(p.w)
+        self.c[i].copy_(p.c)
+        self.w_in[i].copy_(p.w_in)
+        for f in dataclasses.fields(LIFParams):
+            getattr(self.lif, f.name)[i].copy_(getattr(p.lif, f.name))
+        if self.wc is not None:
+            torch.mul(p.w, p.c, out=self.wc[i])          # masked_weights, bit for bit
+        if self.fan_idx is not None:
+            self.fan_idx[i].copy_(t.fan_idx)
+            self.fan_mask[i].copy_(t.fan_mask)
+            self.w_edges[i].copy_(fan_in_edges(
+                self.wc[i], EventFanIn(idx=self.fan_idx[i], mask=self.fan_mask[i])))
+        lif = self.state.lif
+        for x in (lif.v, lif.r, lif.y, self.plast.x_pre, self.plast.x_post, self.counts):
+            x[i].zero_()
+        if self.rstdp:
+            self.plast.elig[i].zero_()
+        if self.telem is not None:
+            self.telem.buf[:, i].zero_()
 
 
 def make_demo_tenants(server: SNNServer, n_tenants: int = 8, *, seed: int = 0) -> List[str]:
@@ -612,35 +1023,48 @@ def make_demo_requests(server: SNNServer, names: List[str], n_requests: int, *,
     return reqs
 
 
-def profiled_serve(server: SNNServer, reqs: List[ServeRequest], out_dir=None) -> Dict:
-    """Serve ``reqs`` under ``torch.profiler``; print device time by kernel
-    and the device's busy share of the wall time (kernels on one stream do
-    not overlap, so their summed time is the busy time). ``out_dir`` also
-    receives a Chrome trace."""
+def device_profile(fn: Callable[[], object], device: torch.device):
+    """Run ``fn()`` under ``torch.profiler``; returns ``(its result, wall
+    seconds, device-busy seconds, [(device us, count, name)] by kernel, the
+    profiler)``. Kernels on one stream do not overlap, so their summed device
+    time is the busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    cuda = server.device.type == "cuda"
+    cuda = device.type == "cuda"
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        stats = server.serve(reqs)
+        out = fn()
         if cuda:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # Device-side events only (kernels and copies): the CPU ops that launched
     # them carry the same device time and would count it twice, and so do the
-    # wave spans and tick scopes ("snn/...", "tick/...") on the device
+    # wave and chunk spans and tick scopes ("snn/...", "tick/...") on the device
     # timeline. (By name: the profiler's user-annotation flag left B4's kernel
     # out of a device-time sum on the card.)
     rows = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
                    and not e.key.startswith(("snn/", "tick/"))), reverse=True)
-    busy_s = sum(r[0] for r in rows) / 1e6
+    return out, wall, sum(r[0] for r in rows) / 1e6, rows, prof
+
+
+def profiled_serve(server: SNNServer, reqs: List[ServeRequest], out_dir=None, *,
+                   continuous: bool = False) -> Dict:
+    """Serve ``reqs`` (``continuous``: through :meth:`SNNServer.serve_continuous`)
+    under ``torch.profiler``; print device time by kernel, the device's busy
+    share of the wall time and, for the continuous loop, its host time per
+    stage. ``out_dir`` also receives a Chrome trace."""
+    run = server.serve_continuous if continuous else server.serve
+    stats, wall, busy_s, rows, prof = device_profile(lambda: run(reqs), server.device)
     print(f"profile: wall {wall:.6f} s, device busy {busy_s:.6f} s "
           f"({busy_s / wall:.4f} of wall), by kernel:")
     for us, count, key in rows[:12]:
         print(f"  {us / 1e3:10.3f} ms  {count:6d}x  {key[:90]}")
+    if continuous:
+        print(f"host time under the profiler, {stats['chunks']} chunks: " + ", ".join(
+            f"{stage} {sec * 1e6:.1f} us in {n}" for stage, (sec, n) in server.host_time.items()))
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(out_dir, "serve_trace.json"))
@@ -654,6 +1078,7 @@ def serve_snn_main(cfg, args) -> Dict:
     backend = "jnp" if cfg.snn_backend == "event" else cfg.snn_backend
     server = SNNServer(n_max=cfg.n_neurons, slots=args.slots, max_ticks=cfg.n_ticks,
                        mode=cfg.snn_mode, backend=backend, event_density=0.2,
+                       chunk_ticks=max(1, min(cfg.snn_chunk_ticks, cfg.n_ticks)),
                        device=args.device)
     names = make_demo_tenants(server, max(8, args.slots))
     on_event = [n for n in names if server.tenants[n].backend == "event"]
@@ -661,15 +1086,16 @@ def serve_snn_main(cfg, args) -> Dict:
           f"resident tenants, {args.slots} slots, backend {server.backend}; "
           f"event program (fan-in cap {server.event_cap}) for {on_event}")
     n_req = max(args.requests, len(names))
+    run = server.serve_continuous if args.continuous else server.serve
     if args.profile:
-        server.serve(make_demo_requests(server, names, n_req, seed=1))   # warm-up
+        run(make_demo_requests(server, names, n_req, seed=1))   # warm-up
     reqs = make_demo_requests(server, names, n_req)
     lif_step.launches = tick_fused.launches = stdp_update.launches = 0
     event_dispatch.launches = event_dispatch.launches_db = telemetry.launches = 0
     if args.profile:
-        stats = profiled_serve(server, reqs, args.profile)
+        stats = profiled_serve(server, reqs, args.profile, continuous=args.continuous)
     else:
-        stats = server.serve(reqs)
+        stats = run(reqs)
     for k, v in stats.items():
         if k != "results":
             print(f"{k}: {v}")
@@ -690,6 +1116,8 @@ def serve_snn_main(cfg, args) -> Dict:
         with open(args.metrics_out, "w") as fh:
             json.dump(server.registry.to_dict(), fh, indent=1, sort_keys=True)
         print(f"wrote metrics JSON to {args.metrics_out}")
+    if stats["recompiles_after_warmup"]:
+        raise AssertionError("a tenant swap or slot refill put a new program into use")
     return stats
 
 
@@ -699,6 +1127,9 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--continuous", action="store_true",
+                    help="per-slot continuous admission in chunks of the config's "
+                         "snn_chunk_ticks instead of synchronous waves")
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="serve once to warm up, then serve under torch.profiler: "
                          "print device time by kernel, write a Chrome trace to DIR")

@@ -34,7 +34,9 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
             "repro_torch.core.classifier", "repro_torch.core.quant",
             "repro_torch.core.surrogate", "repro_torch.data.iris", "repro_torch.data.mnist",
             "repro_torch.configs.iris_snn", "repro_torch.configs.mnist_snn",
-            "repro_torch.examples.quickstart", "repro_torch.examples.mnist_snn"} <= set(mods)
+            "repro_torch.examples.quickstart", "repro_torch.examples.mnist_snn",
+            "repro_torch.launch.serve_async",
+            "repro_torch.examples.serve_multi_tenant"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -63,12 +65,17 @@ def test_entry_points_default_to_the_card():
     from repro_torch.core.lif import LIFParams
     from repro_torch.core.network import SNNState, params_from_registers
     from repro_torch.core.registers import RegisterBank
+    from repro_torch.examples import serve_multi_tenant
+    from repro_torch.launch import serve_async
     from repro_torch.launch.serve import SNNServer
 
     calls = [lambda: SNNServer(n_max=8), lambda: params_from_registers(RegisterBank(4)),
-             lambda: SNNState.zeros((1,), 4), lambda: LIFParams.make(4)]
+             lambda: SNNState.zeros((1,), 4), lambda: LIFParams.make(4),
+             lambda: serve_async.main(["--smoke"]),
+             lambda: serve_multi_tenant.main(["--fast"])]
     if torch.cuda.is_available():
         assert SNNState.zeros((1,), 4).tick.device.type == "cuda"
+        assert SNNServer(n_max=8).device.index is not None
         assert not torch.backends.cuda.matmul.allow_tf32
         return
     for call in calls:
