@@ -173,7 +173,39 @@ script on any mismatch:
    give equal test predictions (float and integer), and a 100-epoch fit from
    one init agrees within 1e-4 on the two. Accuracies and the wall times of
    ``train`` and ``predict_int`` are logged.
-11. a JSON line of the kernels (the six ported ones and the telemetry
+11. learning workload: ``online_learning --fast`` (the ``mnist-stdp`` fabric:
+   64 inputs, 64 feature neurons under STDP with a fixed -127 lateral block,
+   10 R-STDP outputs, 8 ticks a presentation) on ``pallas`` (B1 and B5),
+   ``pallas_fused`` (B2 and B5) and ``jnp``, every launch count zeroed just
+   before and read just after: the reference's PASS condition, the readback
+   byte-exact with 18576 transactions and identical spikes, B1 or B2 once a
+   tick of every rollout and B5 once a learning tick. On each kernel
+   backend, the whole ``--fast`` schedule in lockstep with ``jnp`` from
+   shared states (it must reproduce the run's learned state bitwise): every
+   presentation agrees with ``jnp`` unless a tick had a rounding tie, the
+   first 32 of each stage and every disagreement held tick by tick against
+   the plain path as in phase 3 (ties counted), the WTA block bitwise; the
+   run's accuracies and probed spikes equal ``jnp``'s run's unless the
+   lockstep showed rounding. From the run's learned state, its frozen
+   rollouts (``feature_counts`` on 128 and 32 rows at N = 128,
+   ``readout_predict`` on 32 at N = 74) against ``jnp`` tick by tick, rasters
+   and predictions equal up to counted ties, and the readback (40 rows)
+   bitwise ``jnp``'s. One presentation of each stage under
+   ``torch.cuda.set_sync_debug_mode("error")``; the device-busy share over
+   16 presentations of each stage under the profiler; the full run once on
+   ``pallas`` (its accuracies, seconds and presentations per second a stage,
+   and its frozen rollouts at 320 and 80 rows held the same way); B1, B2 and
+   B5 bitwise equal to their twins on u8-grid inputs at every batch shape of
+   the workload (B = 1, 32, 40, 80, 128, 320 at 128 neurons; 1, 8, 32, 80 at
+   74), on the fill each width asks for, and timed beside their bounds,
+   their twins and ``torch.matmul`` (B5: ``torch.addmm`` of its LTP term).
+12. reconfiguration: ``reconfigure_runtime.main`` (one 74-neuron fabric,
+   Iris, MNIST and Iris again by register rewrites, 4 ticks over 8 rows on
+   ``pallas_fused``): B2 launched 12 times and nothing else; the same
+   programs on ``pallas`` (B1) and ``jnp``: rasters bitwise equal to
+   ``jnp``'s, spike totals 2344 / 2288 / 2344, one program in use and no
+   new launch plan after the first.
+13. a JSON line of the kernels (the six ported ones and the telemetry
    kernel), the card's name and power limit, and the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -257,8 +289,10 @@ def device_ms(fn, runs: int = RUNS) -> float:
     ``runs`` calls after two warm-up calls. Unlike :func:`median_ms` it
     leaves out the host's launch overhead, which dominates a call shorter
     than the Python that launches it. A trace that comes back with no device
-    activity at all (it happened once on the H100, to one ``torch.matmul``
-    trace of the crossover sweep) is taken again, up to three traces."""
+    activity at all (seen on the H100 once in the crossover sweep, and once
+    in three traces in a row of B6 at ``predict_int``'s shapes) is taken
+    again; after three such traces the call is timed by :func:`events_ms`
+    instead, and a line says so."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -275,7 +309,27 @@ def device_ms(fn, runs: int = RUNS) -> float:
                  if e.device_type == DeviceType.CUDA)
         if us > 0:
             return us / runs / 1e3
-    raise AssertionError("torch.profiler recorded no device time in 3 traces")
+    ms = events_ms(fn, runs)
+    log(f"device_ms: torch.profiler recorded no device time in 3 traces; timed by CUDA "
+        f"events behind a device sleep instead: {ms:.4f} ms")
+    return ms
+
+
+def events_ms(fn, runs: int = RUNS) -> float:
+    """Median device time of one call of ``fn`` from a CUDA event pair around
+    it, behind a device sleep at least four times as long as the host takes
+    to launch ``fn`` (at 2 GHz), so that every launch of ``fn`` is queued
+    before the device reaches the first event and the pair brackets the
+    device's work alone."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return paired_ms({"fn": fn}, runs, sleep=max(SLEEP_CYCLES, int(8e9 * host_s)))["fn"]
 
 
 def nbytes(*ts) -> int:
@@ -516,13 +570,14 @@ def run_split_cases(dev, gen, errs):
     return cases
 
 
-def paired_ms(fns: dict, runs: int = RUNS, flush=None) -> dict:
+def paired_ms(fns: dict, runs: int = RUNS, flush=None, sleep: int = SLEEP_CYCLES) -> dict:
     """Median device time of each of ``fns`` over ``runs`` rounds, the
     functions taken in turns within a round (so a kernel and its library
     call see the same card state). Each launch is preceded by a sleep kernel,
     so the CUDA events bracket the device's work and not the host's Python;
     with ``flush`` (a buffer larger than the 50 MB L2) read before each
-    launch, every launch starts from a cold L2."""
+    launch, every launch starts from a cold L2. ``sleep`` is the sleep's
+    length in device cycles."""
     import torch
 
     for fn in fns.values():
@@ -533,7 +588,7 @@ def paired_ms(fns: dict, runs: int = RUNS, flush=None) -> dict:
         for name, fn in fns.items():
             if flush is not None:
                 flush.sum()
-            torch.cuda._sleep(SLEEP_CYCLES)
+            torch.cuda._sleep(sleep)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             fn()
@@ -1651,9 +1706,12 @@ def run_continuous_phase(dev):
                              "after the same timed mixes")
     if stats_p["chunks"] != chunks_c[last]:
         raise AssertionError("continuous: the profiled serve ran another schedule")
-    log(f"continuous profile (mix seed {last}, {stats_p['chunks']} chunks): device busy "
-        f"{busy_p:.4f} s, {busy_p / walls_c[last]:.4f} of the unprofiled wall "
-        f"{walls_c[last]:.4f} s ({busy_p / wall_p:.4f} of {wall_p:.4f} s under the profiler); "
+    log(f"continuous profile (mix seed {last}, {stats_p['chunks']} chunks): "
+        + (f"device busy {busy_p:.4f} s, {busy_p / walls_c[last]:.4f} of the unprofiled wall "
+           f"{walls_c[last]:.4f} s ({busy_p / wall_p:.4f} of {wall_p:.4f} s under the "
+           "profiler); " if busy_p > 0 else
+           f"device busy not measured (the profiler recorded no device time; unprofiled "
+           f"wall {walls_c[last]:.4f} s)")
         + "; ".join(f"{key[:60]} {us / 1e3:.3f} ms {n}x" for us, n, key in rows[:8]))
     clone_ms = device_ms(lambda: sc.tenants[learner].params.w.expand(
         SLOTS, -1, -1).clone(), runs=10)
@@ -2988,6 +3046,602 @@ def run_classifier_phase(dev):
     return launches["spike_matmul"]
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the on-device learning workload (mnist-stdp, online_learning)
+# ---------------------------------------------------------------------------
+
+LEARN_BACKENDS = ("pallas", "pallas_fused", "jnp")   # the example's default first
+LEARN_CHECKED = 32     # presentations of each stage held tick by tick against jnp
+LEARN_PROFILED = 16    # presentations of each stage under the profiler
+# Frozen rollouts a run: feature_counts x 4, readout_predict, the readback x 2.
+LEARN_FROZEN = 7
+LEARN_LINES = (r"random init ([\d.]+) -> STDP ([\d.]+)", r"end-to-end test accuracy: ([\d.]+)",
+               r"(\d+) transactions", r"spikes identical before/after \((\d+) hidden")
+
+
+def learning_schedule(schedule: str):
+    """The example's ``SCHEDULES[schedule]`` and its split: ``(train spikes,
+    train labels, test spikes, test labels, stage-1 epochs, stage-2 epochs)``."""
+    from repro_torch.examples import online_learning as ol
+
+    n_per_class, ep1, ep2 = ol.SCHEDULES[schedule]
+    return (*ol.load_split(n_per_class), ep1, ep2)
+
+
+def learning_expected(backend: str, schedule: str):
+    """The launches an ``online_learning`` run must make: one B1 (``pallas``)
+    or B2 (``pallas_fused``) launch a tick of every rollout and one B5 launch
+    a learning tick; nothing on ``jnp``. Also the stages' presentations."""
+    from repro_torch.configs.mnist_stdp import RUN
+
+    _, ytr, _, _, ep1, ep2 = learning_schedule(schedule)
+    train = len(ytr)
+    ticks = RUN.ticks_per_sample
+    learning = (ep1 + ep2) * train * ticks
+    want = dict.fromkeys(kernel_launches(), 0)
+    if backend != "jnp":
+        want["lif_step" if backend == "pallas" else "tick_fused"] = (
+            learning + LEARN_FROZEN * ticks)
+        want["stdp_update"] = learning
+    return want, (ep1 * train, ep2 * train)
+
+
+def run_online_learning(backend: str, schedule: str):
+    """``online_learning.main`` on the card, its launches counted from 0: the
+    exit code, its output, the wall, each stage's seconds (a sync on either
+    side of ``train_features`` and ``train_readout``), the launches and what
+    each stage learned (``(w, theta)``, ``w_out``)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.examples import online_learning as ol
+
+    seconds, learned = {}, {}
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            learned[name] = out
+            return out
+        return run
+
+    real = ol.train_features, ol.train_readout
+    ol.train_features = timed("stage 1", real[0])
+    ol.train_readout = timed("stage 2", real[1])
+    buf = io.StringIO()
+    try:
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            code = ol.main((["--fast"] if schedule == "fast" else []) + ["--backend", backend])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_launches()
+    finally:
+        ol.train_features, ol.train_readout = real
+    return code, buf.getvalue(), wall, seconds, launches, learned
+
+
+def check_frozen_ticks(kernel_eng, plain_eng, params, ext, *, what=""):
+    """A frozen rollout from rest, tick by tick from the kernel path's state:
+    one tick through the kernels and one through the plain path, both on the
+    ``W*C`` a rollout hoists. Every spike that differs must be a rounding tie,
+    and ``v`` agree to rtol=1e-5, atol=1e-3 elsewhere. Returns ``(the kernel
+    path's final state, its raster, ties)``."""
+    import torch
+
+    from repro_torch.core.engine import TickCarry
+    from repro_torch.core.network import SNNState
+    from repro_torch.core.network_types import masked_weights
+    from repro_torch.kernels import ops
+
+    wc = masked_weights(params)
+    carry = TickCarry(state=SNNState.zeros((ext.shape[1],), ext.shape[2], device=ext.device))
+    ties, ys = 0, []
+    for t in range(ext.shape[0]):
+        ck, yk = kernel_eng.tick_body(carry, (ext[t], None), params=params, wc=wc)
+        cp, yp = plain_eng.tick_body(carry, (ext[t], None), params=params, wc=wc)
+        diff = yk != yp
+        if diff.any():
+            v_tilde, v_th = pre_threshold(carry, params, ext[t])
+            tie = (v_tilde - v_th).abs() <= TIE * v_th.abs().clamp_min(1.0)
+            off = ops.flatten_state(diff, None) & ~tie
+            if off.any():
+                raise AssertionError(f"{what} tick {t}: {int(off.sum())} spikes differ from the "
+                                     "plain path and are no rounding tie")
+            ties += int(diff.sum())
+        vk, vp = ck.state.lif.v, cp.state.lif.v
+        if not bool((torch.isclose(vk, vp, rtol=1e-5, atol=1e-3) | diff).all()):
+            raise AssertionError(f"{what} tick {t}: v differs from the plain path beyond "
+                                 "rtol=1e-5, atol=1e-3")
+        carry = ck
+        ys.append(yk)
+    return carry.state, torch.stack(ys), ties
+
+
+def lockstep_presentations(dev, backend: str):
+    """The ``--fast`` run's whole schedule on ``backend`` as ``main`` walks it
+    (the seed-0 initial state and order, stage 2 fed the kernel path's own
+    ``feature_counts`` raster), each presentation also on ``jnp`` from the
+    same state. Every presentation must agree with ``jnp`` (counts and
+    predictions exactly, ``w`` and ``theta`` to ``rtol=1e-5, atol=1e-3``)
+    unless a tick had a rounding tie: the first ``LEARN_CHECKED`` of each
+    stage and every one that disagrees are held tick by tick (phase 3's
+    check), which counts the ties. The fixed WTA block comes out bitwise.
+    Then one presentation of each stage under ``set_sync_debug_mode("error")``.
+    Returns per stage ``(presentations, ties, presentations whose w or theta
+    is not bitwise jnp's, max |dv|, max |dw|)``, the learned state
+    ``((w, theta), w_out)`` and the profiling inputs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.mnist_stdp import N_CLASSES, N_HIDDEN, N_INPUT, RUN
+    from repro_torch.core.engine import TickCarry
+    from repro_torch.core.network import SNNState
+    from repro_torch.examples import online_learning as ol
+    from repro_torch.plasticity import PlasticityState
+
+    T = RUN.ticks_per_sample
+    kern, plain = ol.ENGINES[backend], ol.ENGINES["jnp"]
+    xtr, ytr, _, _, ep1, ep2 = learning_schedule("fast")
+    xs = torch.as_tensor(np.asarray(xtr, np.float32), device=dev)
+    close = lambda a, b: bool(torch.isclose(a, b, rtol=1e-5, atol=1e-3).all())
+    fresh = lambda n: TickCarry(state=SNNState.zeros((1,), n, device=dev),
+                                plast=PlasticityState.zeros((1,), n, device=dev))
+    found = {}
+
+    def held(tally, k, agree, check, what):
+        if k < LEARN_CHECKED or not agree:
+            _, ties, dv, dw = check(what)
+            if not agree and not ties:
+                raise AssertionError(f"{what}: differs from jnp with no rounding tie")
+            tally[1] += ties
+            tally[3], tally[4] = max(tally[3], dv), max(tally[4], dw)
+
+    n = N_INPUT + N_HIDDEN
+    rng = np.random.default_rng(0)
+    w, theta = ol.init_feature_state(rng, dev)
+    lateral = w[N_INPUT:, N_INPUT:].clone()
+    tally = [0, 0, 0, 0.0, 0.0]
+    for _ in range(ep1):
+        for i in rng.permutation(len(xtr)):
+            x = xs[int(i)]
+            wk, tk, ck = ol.stdp_present(w, theta, x, backend=backend)
+            wp, tp, cp = ol.stdp_present(w, theta, x, backend="jnp")
+            ext = ol._clamp(x.unsqueeze(0), n, T)
+            held(tally, tally[0], torch.equal(ck, cp) and close(wk, wp) and close(tk, tp),
+                 lambda what: check_learning_ticks(
+                     kern.feature, plain.feature, ol.feature_net(w, theta),
+                     dataclasses.replace(fresh(n), w=w), T, lambda t: ext[t], lambda t: None,
+                     plastic_c=ol.plastic_mask(dev), what=what),
+                 f"online_learning stage 1 ({backend}) presentation {tally[0]}")
+            tally[2] += not (torch.equal(wk, wp) and torch.equal(tk, tp))
+            if not torch.equal(wk[N_INPUT:, N_INPUT:], lateral):
+                raise AssertionError(f"online_learning stage 1 ({backend}): the fixed WTA block "
+                                     "moved")
+            w, theta = wk, tk
+            tally[0] += 1
+    found["stage 1"] = tuple(tally)
+
+    m = N_HIDDEN + N_CLASSES
+    _, raster = ol.feature_counts(w, theta, xs, backend=backend)
+    hid = raster[..., N_INPUT:]
+    rng = np.random.default_rng(1)      # train_readout's generator (seed + 1)
+    w_out = torch.as_tensor(rng.uniform(0.5 * RUN.readout_w_init, 1.5 * RUN.readout_w_init,
+                                        (m, m)).astype(np.float32), device=dev)
+    zero = torch.zeros((), device=dev)
+    tally = [0, 0, 0, 0.0, 0.0]
+    for _ in range(ep2):
+        for i in rng.permutation(len(ytr)):
+            hr, label = hid[:, int(i)], int(ytr[i])
+            wk, pk = ol.rstdp_present(w_out, hr, label, backend=backend)
+            wp, pp = ol.rstdp_present(w_out, hr, label, backend="jnp")
+            ext = torch.zeros((T, 1, m), device=dev)
+            ext[:, 0, :N_HIDDEN] = hr
+            held(tally, tally[0], int(pk) == int(pp) and close(wk, wp),
+                 lambda what: check_learning_ticks(
+                     kern.readout, plain.readout, ol.readout_net(w_out),
+                     dataclasses.replace(fresh(m), w=w_out), T, lambda t: ext[t],
+                     lambda t: zero, what=what),
+                 f"online_learning stage 2 ({backend}) presentation {tally[0]}")
+            tally[2] += not torch.equal(wk, wp)
+            w_out = wk
+            tally[0] += 1
+    found["stage 2"] = tuple(tally)
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ol.stdp_present(w, theta, xs[0], backend=backend)
+        ol.rstdp_present(w_out, hid[:, 0], int(ytr[0]), backend=backend)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return found, ((w, theta), w_out), (w, theta, xs, w_out, hid, ytr)
+
+
+def check_frozen_paths(dev, backend: str, schedule: str, learned):
+    """A run's frozen rollouts from its learned state, at the run's batch
+    shapes, through ``backend``'s kernels against ``jnp``: ``feature_counts``
+    on the train and test sets (N = 128) and ``readout_predict`` on the test
+    set (N = 74, fed ``jnp``'s test raster), rasters and predictions equal up
+    to rounding ties counted tick by tick (a prediction may also turn on a
+    score within rounding of the runner-up's); then the readback (B = 40, u8
+    weights and thresholds): register payload, probed count and rasters
+    bitwise ``jnp``'s. Returns ``{rollout: (rows, ties, spikes that differ,
+    predictions that differ)}``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.mnist_stdp import N_CLASSES, N_HIDDEN, N_INPUT, RUN
+    from repro_torch.core.network import SNNState
+    from repro_torch.examples import online_learning as ol
+
+    T = RUN.ticks_per_sample
+    kern, plain = ol.ENGINES[backend].infer, ol.ENGINES["jnp"].infer
+    (w, theta), w_out = learned["stage 1"], learned["stage 2"]
+    xtr, _, xte, _, _, _ = learning_schedule(schedule)
+    n, m = N_INPUT + N_HIDDEN, N_HIDDEN + N_CLASSES
+    what = f"online_learning {schedule} ({backend})"
+    found = {}
+
+    def held(name, params, ext, raster_k, raster_p):
+        _, raster_t, ties = check_frozen_ticks(kern, plain, params, ext, what=f"{what} {name}")
+        if not torch.equal(raster_t.float(), raster_k.float()):
+            raise AssertionError(f"{what} {name}: the rollout's raster is not its ticks' raster")
+        differ = int((raster_k != raster_p).sum())
+        if differ and not ties:
+            raise AssertionError(f"{what} {name}: {differ} spikes differ from jnp's with no "
+                                 "rounding tie")
+        found[name] = (ext.shape[1], ties, differ, None)
+
+    for name, x in (("feature_counts train", xtr), ("feature_counts test", xte)):
+        xs = torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        _, rk = ol.feature_counts(w, theta, xs, backend=backend)
+        _, rp = ol.feature_counts(w, theta, xs, backend="jnp")
+        held(name, ol.feature_net(w, theta), ol._clamp(xs, n, T), rk, rp)
+
+    hid = rp[..., N_INPUT:]
+    b = hid.shape[1]
+    params = ol.readout_net(w_out)
+    ext = torch.zeros((T, b, m), device=dev)
+    ext[..., :N_HIDDEN] = hid
+    pk = ol.readout_predict(w_out, hid, backend=backend)
+    pp = ol.readout_predict(w_out, hid, backend="jnp")
+    st0 = SNNState.zeros((b,), m, device=dev)
+    fk, rk = kern.rollout(params, st0, ext, T)
+    _, rp = plain.rollout(params, st0, ext, T)
+    held("readout_predict test", params, ext, rk, rp)
+    score = rk[..., N_HIDDEN:].sum(0) * RUN.readout_v_th + fk.lif.v[:, N_HIDDEN:]
+    if not torch.equal(torch.argmax(score, dim=-1), pk):
+        raise AssertionError(f"{what} readout_predict: not the argmax of its own rollout")
+    wrong = pk != pp
+    if wrong.any():
+        gap = (score.gather(1, pk[:, None]) - score.gather(1, pp[:, None])).abs()[:, 0]
+        near = gap <= TIE * score.abs().amax(1).clamp_min(1.0)
+        if not found["readout_predict test"][1] and not bool(near[wrong].all()):
+            raise AssertionError(f"{what} readout_predict: {int(wrong.sum())} predictions "
+                                 "differ from jnp's with no rounding tie")
+    found["readout_predict test"] = found["readout_predict test"][:3] + (int(wrong.sum()),)
+
+    (bk, nk), (bp, npl) = (ol.readback_roundtrip(w, theta, backend=b)
+                           for b in (backend, "jnp"))
+    probe = ol.readback_probe(dev)
+    rk, rp = (ol.readback_spikes(bk, probe, backend=b) for b in (backend, "jnp"))
+    if bk.serialize() != bp.serialize() or nk != npl or not torch.equal(rk, rp):
+        raise AssertionError(f"{what} readback: payload, probed spikes ({nk} vs {npl}) or "
+                             "raster not bitwise jnp's")
+    found["readback"] = (probe.shape[1], 0, 0, None)
+    return found
+
+
+def frozen_line(found: dict) -> str:
+    return "; ".join(f"{k} B={rows}: {ties} ties, {differ} spikes differ"
+                     + ("" if wrong is None else f", {wrong} predictions differ")
+                     for k, (rows, ties, differ, wrong) in found.items())
+
+
+def profile_presentations(dev, backend: str, state):
+    """``LEARN_PROFILED`` presentations of each stage, once without and once
+    under the profiler: the device-busy share of the unprofiled wall and the
+    kernels by device time."""
+    import torch
+
+    from repro_torch.examples import online_learning as ol
+    from repro_torch.launch.serve import device_profile
+
+    w, theta, xs, w_out, hid, ytr = state
+    stages = {
+        "stage 1": lambda: [ol.stdp_present(w, theta, xs[i], backend=backend)
+                            for i in range(LEARN_PROFILED)],
+        "stage 2": lambda: [ol.rstdp_present(w_out, hid[:, i], int(ytr[i]), backend=backend)
+                            for i in range(LEARN_PROFILED)],
+    }
+    for name, fn in stages.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for _ in range(3):       # a trace with no device activity is taken again
+            _, wall_p, busy, rows, _ = device_profile(fn, dev)
+            if busy > 0:
+                break
+        log(f"online_learning profile ({backend}, {name}, {LEARN_PROFILED} presentations): "
+            + (f"device busy {busy * 1e3:.4f} ms, {busy / wall:.4f} of the unprofiled wall "
+               if busy > 0 else "device busy not measured (the profiler recorded no device "
+               "time in 3 traces), unprofiled wall ")
+            + f"{wall * 1e3:.3f} ms ({wall / LEARN_PROFILED * 1e3:.4f} ms a presentation; "
+            + (f"{busy / wall_p:.4f} of " if busy > 0 else "")
+            + f"{wall_p * 1e3:.3f} ms under the profiler); "
+            + "; ".join(f"{key[:50]} {us / 1e3:.4f} ms {n}x" for us, n, key in rows[:6]))
+
+
+# B1 and B2 at the learning workload's and the reconfiguration's shapes:
+# (label, rows, width, learning tick). A learning tick streams w and c into
+# both kernels (masked); a frozen rollout gives B2 the hoisted W*C
+# (premasked) and B1 w and c.
+LEARN_TIMED = (
+    ("stage-1 learning tick", 1, 128, True),
+    ("feature_counts, --fast test set", 32, 128, False),
+    ("readback probe", 40, 128, False),
+    ("feature_counts, full test set", 80, 128, False),
+    ("feature_counts, --fast train set", 128, 128, False),
+    ("feature_counts, full train set", 320, 128, False),
+    ("stage-2 learning tick", 1, 74, True),
+    ("reconfiguration program", 8, 74, False),
+    ("readout_predict, --fast test set", 32, 74, False),
+    ("readout_predict, full test set", 80, 74, False),
+)
+
+
+def time_learning_kernels(dev, gen, card):
+    """B1, B2 and B5 at the learning workload's shapes (128 and 74 neurons)
+    on u8-grid inputs: each call bitwise equal to its twin (tolerance 0) and
+    on the fill its width asks for (``cp.async`` at 128, ``element`` at 74),
+    then timed by profiler device time (a launch here is shorter than its
+    Python) beside its twin, ``torch.matmul(s, W*C)`` for B1/B2 and its
+    bound. B5 runs on the example's plastic masks (the 64 x 64 block of
+    128 x 128 under ``stdp``, with the fixed -127 WTA block where the mask is
+    0, which must come out untouched; the 64 x 10 block of 74 x 74 under
+    ``rstdp``), beside ``torch.addmm`` of its LTP term. Returns each kernel's
+    largest |error|."""
+    import torch
+
+    from repro_torch.configs.mnist_stdp import RUN
+    from repro_torch.core import connectivity
+    from repro_torch.kernels import lif_step, ref, stdp_update, tick_fused
+
+    bw, flops = card
+    errs = {"lif_step": 0.0, "tick_fused": 0.0, "stdp_update": 0.0}
+
+    def same(name, what, got, want):
+        err = max_abs_err(got, want)
+        errs[name] = max(errs[name], err)
+        if err != 0.0 or not all(torch.equal(g, x) for g, x in zip(got, want) if x is not None):
+            raise AssertionError(f"{name} ({what}): differs from its twin, max |err| {err}")
+
+    for label, B, n, learning in LEARN_TIMED:
+        inp = kernel_inputs(gen, dev, 1, B, False, n=n)
+        rows_in = tuple(inp["rows"].values())
+        s = inp["y"]
+        for name in ("lif_step", "tick_fused"):
+            form = "masked" if learning or name == "lif_step" else "premasked"
+            w, c = (inp["wc"], None) if form == "premasked" else (inp["w"], inp["c"])
+            if name == "tick_fused":
+                args, _ = tick_case(inp, premasked=form == "premasked", ring=False,
+                                    delays=False, drive=True, in_place=False)
+                kernel, twin, mod = tick_fused.fused_tick, ref.fused_tick_ref, tick_fused
+                moved = nbytes(args[0], s, w, c, inp["v"], inp["r"], inp["drive"], *rows_in)
+            else:
+                args = (s, w, c, inp["v"], inp["r"], inp["drive"], *rows_in)
+                kernel, twin, mod = lif_step.fused_lif_step, ref.fused_lif_step_ref, lif_step
+                moved = nbytes(s, w, c, inp["v"], inp["r"], inp["drive"], *rows_in)
+            what = f"{label}, B={B} N=K={n}, {form}"
+            same(name, what, kernel(*args), twin(*args))
+            torch.cuda.synchronize()
+            fill = "cp.async" if n % 4 == 0 else "element"
+            if mod.last_plan.path != fill:
+                raise AssertionError(f"{name} ({what}): plan {mod.last_plan}, expected the "
+                                     f"{fill} fill")
+            moved += 3 * nbytes(inp["v"])
+            ops = 2 * B * n * n + (n * n if c is not None else 0)
+            bound = max(moved / bw, ops / flops) * 1e3
+            wc = inp["wc"]
+            t = {"kernel": device_ms(lambda: kernel(*args)),
+                 "plain": device_ms(lambda: twin(*args)),
+                 "library": device_ms(lambda: torch.matmul(s, wc))}
+            log(f"time {name} ({label}, {form}): == twin bitwise; {t['kernel'] * 1e3:.3f} us "
+                f"device time at B={B} N=K={n}, {100 * bound / t['kernel']:.1f}% of its bound "
+                f"{bound * 1e3:.4f} us ({moved / 2**10:.1f} KiB); plain {t['plain'] * 1e3:.3f} "
+                f"us, torch.matmul(s, W*C) {t['library'] * 1e3:.3f} us; plan {mod.last_plan}")
+    for label, rule, n, blocks in (("stage-1 learning tick", "stdp", 128, (64, 64)),
+                                   ("stage-2 learning tick", "rstdp", 74, (64, 10))):
+        inp = stdp_inputs(gen, dev, 1, 1, n, n, slotted=False, masks="ones")
+        inp["c"] = torch.as_tensor(connectivity.layered(list(blocks)), dtype=torch.float32,
+                                   device=dev)
+        if rule == "stdp":
+            lo = blocks[0]
+            inp["w"][lo:, lo:] = torch.as_tensor(
+                -RUN.lateral_inhibition * connectivity.all_to_all(n - lo), dtype=torch.float32,
+                device=dev)
+        reward = torch.zeros((), device=dev)
+        args = [inp[k] for k in STDP_ARGS]
+        hyper = stdp_hyper(rule)
+        got = stdp_update.fused_stdp_step(*args, reward, **hyper)
+        same("stdp_update", f"{label}, {rule}", got,
+             ref.fused_stdp_step_ref(*args, reward, **hyper))
+        fixed = inp["c"] == 0
+        if not torch.equal(got.w[fixed], inp["w"][fixed]):
+            raise AssertionError(f"stdp_update ({label}): a weight outside the plastic mask moved")
+        moved = stdp_bytes(inp, reward, rule, [True])
+        ops = 10 * n * n
+        bound = max(moved / bw, ops / flops) * 1e3
+        t = {"kernel": device_ms(lambda: stdp_update.fused_stdp_step(*args, reward, **hyper)),
+             "plain": device_ms(lambda: ref.fused_stdp_step_ref(*args, reward, **hyper)),
+             "library": device_ms(lambda: torch.addmm(inp["w"], inp["x_pre"].T,
+                                                      inp["s_post"]))}
+        log(f"time stdp_update ({label}, {rule}, plastic block {blocks[0]}x{blocks[1]} of "
+            f"{n}x{n}): == twin bitwise, the weights outside the mask untouched; "
+            f"{t['kernel'] * 1e3:.3f} us device time, "
+            f"{100 * bound / t['kernel']:.1f}% of its bound {bound * 1e3:.4f} us "
+            f"({moved / 2**10:.1f} KiB); plain {t['plain'] * 1e3:.3f} us, torch.addmm (LTP term "
+            f"alone) {t['library'] * 1e3:.3f} us; plan {stdp_update.last_plan}")
+    return errs
+
+
+def run_learning_workload_phase(dev, gen, card):
+    """The on-device learning workload: ``online_learning --fast`` on each of
+    ``LEARN_BACKENDS`` (PASS, the readback byte-exact with identical spikes,
+    B1 or B2 once a tick run and B5 once a learning tick); on each kernel
+    backend the whole ``--fast`` schedule in lockstep with ``jnp``, which
+    must reproduce the run's learned state bitwise, and that run's frozen
+    rollouts from its learned state against ``jnp``. The accuracies and the
+    probed spike count must equal ``jnp``'s run's unless the lockstep showed
+    rounding (ties, or weights off jnp's last bits). Then a profiler pass,
+    the full run once on the default backend with its frozen rollouts held
+    the same way, and the kernels checked and timed at the workload's
+    shapes. Returns each run's launches, by ``<schedule>/<backend>``, and
+    the kernels' largest |error|."""
+    import torch
+
+    runs, accs, learned = {}, {}, {}
+    for backend in LEARN_BACKENDS:
+        code, out, wall, seconds, launches, learned[backend] = run_online_learning(
+            backend, "fast")
+        want, (p1, p2) = learning_expected(backend, "fast")
+        found = [re.search(p, out) for p in LEARN_LINES]
+        if code != 0 or "PASS - on-device learning separates classes" not in out \
+                or not all(found) or found[2].group(1) != "18576":
+            raise AssertionError(f"online_learning --fast --backend {backend}: exit {code}\n{out}")
+        if launches != want:
+            raise AssertionError(f"online_learning --fast --backend {backend}: launches "
+                                 f"{launches}, expected {want}")
+        runs[f"fast/{backend}"] = launches
+        accs[backend] = (found[0].group(1), found[0].group(2), found[1].group(1),
+                         found[3].group(1))
+        log(f"online_learning --fast --backend {backend}: PASS; cluster accuracy "
+            f"{accs[backend][0]} -> {accs[backend][1]}, readout {accs[backend][2]}; readback "
+            f"{found[2].group(1)} transactions, spikes identical ({found[3].group(1)} hidden "
+            f"spikes probed); launches {launches}; wall {wall:.3f} s, stage 1 "
+            f"{seconds['stage 1']:.3f} s ({p1} presentations, {p1 / seconds['stage 1']:.1f}/s), "
+            f"stage 2 {seconds['stage 2']:.3f} s ({p2}, {p2 / seconds['stage 2']:.1f}/s)")
+    log(f"online_learning --fast (random init, STDP, readout, probed spikes) by backend {accs}")
+    state = None
+    for backend in LEARN_BACKENDS[:2]:
+        found, mine, st = lockstep_presentations(dev, backend)
+        state = state or st
+        run = learned[backend]
+        if not all(torch.equal(a, b) for a, b in zip((*mine[0], mine[1]),
+                                                     (*run["stage 1"], run["stage 2"]))):
+            raise AssertionError(f"online_learning {backend}: the lockstep walk did not "
+                                 "reproduce the run's learned state")
+        shown = sum(ties + rounded for _, ties, rounded, _, _ in found.values())
+        if accs[backend] != accs["jnp"] and not shown:
+            raise AssertionError(f"online_learning --fast {backend}: {accs[backend]} against "
+                                 f"jnp's {accs['jnp']} with no rounding on the way")
+        frozen = check_frozen_paths(dev, backend, "fast", run)
+        log(f"online_learning {backend}: the whole --fast schedule in lockstep with jnp from "
+            f"shared states (the run's learned state bitwise; the first {LEARN_CHECKED} of "
+            f"each stage and every disagreement tick by tick, rtol=1e-5, atol=1e-3): "
+            + "; ".join(f"{k} {p} presentations, {t} rounding ties, {r} with w off jnp's bits, "
+                        f"max |dv| {dv:.3g}, max |dw| {dw:.3g}"
+                        for k, (p, t, r, dv, dw) in found.items())
+            + "; the fixed WTA block bitwise; one presentation of each stage with no host "
+            f"sync; accuracies and probed spikes "
+            + ("equal to jnp's run" if accs[backend] == accs["jnp"] else "differ (rounding)")
+            + f"; frozen rollouts from the learned state against jnp: {frozen_line(frozen)}")
+    profile_presentations(dev, LEARN_BACKENDS[0], state)
+
+    backend = LEARN_BACKENDS[0]
+    code, out, wall, seconds, launches, full = run_online_learning(backend, "full")
+    want, (p1, p2) = learning_expected(backend, "full")
+    found = [re.search(p, out) for p in LEARN_LINES]
+    if code != 0 or not all(found) or launches != want:
+        raise AssertionError(f"online_learning --backend {backend} (full): exit {code}, "
+                             f"launches {launches}, expected {want}\n{out}")
+    runs[f"full/{backend}"] = launches
+    frozen = check_frozen_paths(dev, backend, "full", full)
+    log(f"online_learning --backend {backend} (full, {p1} + {p2} presentations): PASS; "
+        f"cluster accuracy {found[0].group(1)} -> {found[0].group(2)}, readout "
+        f"{found[1].group(1)}; readback {found[2].group(1)} transactions, spikes identical "
+        f"({found[3].group(1)} probed); launches {launches}; wall {wall:.3f} s, stage 1 "
+        f"{seconds['stage 1']:.3f} s ({p1 / seconds['stage 1']:.1f} presentations/s), "
+        f"stage 2 {seconds['stage 2']:.3f} s ({p2 / seconds['stage 2']:.1f}/s); frozen "
+        f"rollouts from the learned state against jnp: {frozen_line(frozen)}")
+    return runs, time_learning_kernels(dev, gen, card)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: runtime reconfiguration (reconfigure_runtime)
+# ---------------------------------------------------------------------------
+
+RECONF_TOTALS = [2344.0, 2288.0, 2344.0]   # the reference's spike totals
+RECONF_TICKS = 4
+
+
+def run_reconfigure_phase(dev):
+    """``reconfigure_runtime.main`` on the card (``pallas_fused``, launches
+    counted from 0: B2 once a tick of each of the three programs), then the
+    same programs on ``pallas`` (B1) and ``jnp``: every raster bitwise equal
+    to ``jnp``'s, the reference's spike totals, one program in use and, after
+    the first program, no new launch plan. Returns
+    the launches of the main run."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.engine import EngineOptions, TickEngine
+    from repro_torch.examples import reconfigure_runtime as rc
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    zero_launches()
+    with contextlib.redirect_stdout(buf):
+        fused = rc.main([])
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    want = dict.fromkeys(launches, 0)
+    want["tick_fused"] = len(rc.TASKS) * RECONF_TICKS
+    if launches != want:
+        raise AssertionError(f"reconfigure: launches {launches}, expected {want}")
+    runs = {"pallas_fused": fused}
+    for backend in ("pallas", "jnp"):
+        zero_launches()
+        runs[backend] = rc.reconfigure(TickEngine(EngineOptions(backend=backend)), dev)
+        torch.cuda.synchronize()
+        got = kernel_launches()["lif_step"]
+        if got != (len(rc.TASKS) * RECONF_TICKS if backend == "pallas" else 0):
+            raise AssertionError(f"reconfigure on {backend}: {got} B1 launches")
+    for backend, out in runs.items():
+        if out["spikes"] != RECONF_TOTALS or out["programs"] != 1 or out["new_plans"]:
+            raise AssertionError(f"reconfigure on {backend}: spikes {out['spikes']}, programs "
+                                 f"{out['programs']}, new plans "
+                                 f"{out['new_plans']}")
+        if not all(np.array_equal(a, b) for a, b in zip(out["rasters"], runs["jnp"]["rasters"])):
+            raise AssertionError(f"reconfigure on {backend}: a raster differs from jnp's")
+    log("reconfigure: " + "; ".join(
+        f"{b} spikes {[int(s) for s in o['spikes']]}, {o['programs']} program, "
+        f"{o['new_plans']} new plans after the first, walls "
+        + ", ".join(f"{s * 1e3:.3f}" for s in o["seconds"]) + " ms"
+        for b, o in runs.items())
+        + f"; rasters bitwise equal to jnp's; launches {launches}")
+    for line in buf.getvalue().splitlines():
+        if line.strip():
+            log(f"reconfigure | {line}")
+    return launches
+
+
 def ptxas_kernels(text: str) -> list:
     """``(kernel, registers, spill store bytes)`` for each entry function in
     the compiler's ``-Xptxas=-v`` report."""
@@ -3089,12 +3743,21 @@ def main() -> int:
     errs["spike_matmul"] = phase("spike_matmul", run_spike_matmul_phase, dev, gen)
     timed["spike_matmul"] = phase("spike_matmul", time_spike_matmul, dev, gen, card)
     launches["spike_matmul"] = phase("classifiers", run_classifier_phase, dev)
+    workload, workload_errs = phase("learning workload", run_learning_workload_phase, dev,
+                                    gen, card)
+    for name, err in workload_errs.items():
+        errs[name] = max(errs[name], err)
+    reconf = phase("reconfigure", run_reconfigure_phase, dev)
     if min(launches.values()) < 1 or min(learn_launches.values()) < 1 \
             or frozen_launches["tick_fused"] < 1 or min(event_learn.values()) < 1 \
-            or min(cont_launches[k] for k in ("tick_fused", "stdp_update", "telemetry")) < 1:
+            or min(cont_launches[k] for k in ("tick_fused", "stdp_update", "telemetry")) < 1 \
+            or min(workload["fast/pallas"][k] for k in ("lif_step", "stdp_update")) < 1 \
+            or min(workload["fast/pallas_fused"][k] for k in ("tick_fused", "stdp_update")) < 1 \
+            or reconf["tick_fused"] < 1:
         raise AssertionError(f"a kernel of a path never launched: serve and rollouts "
                              f"{launches}, frozen serve {frozen_launches}, learning "
-                             f"rollouts {learn_launches}, event learning {event_learn}")
+                             f"rollouts {learn_launches}, event learning {event_learn}, "
+                             f"learning workload {workload}, reconfiguration {reconf}")
 
     sources = {
         "tick_fused": ("src/repro_torch/csrc/tick_fused.cu", "src/repro/kernels/tick_fused.py:66"),
@@ -3123,8 +3786,8 @@ def main() -> int:
         f"B4), spike_matmul {launches['spike_matmul']} (one per predict_int, Iris and "
         f"MNIST); frozen-only serve {frozen_launches}; continuous serve {cont_launches}; "
         f"learning rollouts {learn_launches}; "
-        f"event learning {event_learn}; event serve waves {event_waves}; B2 streaming w "
-        f"and c {b2_streamed_ms:.4f} ms")
+        f"event learning {event_learn}; event serve waves {event_waves}; learning workload "
+        f"{workload}; reconfiguration {reconf}; B2 streaming w and c {b2_streamed_ms:.4f} ms")
     log(f"seconds: {time.perf_counter() - start:.1f} in all; "
         + ", ".join(f"{name} {s:.1f}" for name, s in seconds.items()))
     print(json.dumps({"kernels": kernels}))
