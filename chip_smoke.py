@@ -205,7 +205,30 @@ script on any mismatch:
    programs on ``pallas`` (B1) and ``jnp``: rasters bitwise equal to
    ``jnp``'s, spike totals 2344 / 2288 / 2344, one program in use and no
    new launch plan after the first.
-13. a JSON line of the kernels (the six ported ones and the telemetry
+13. the sharded fabric: ``snn-64k`` FULL (65,536 neurons, ``c=None``, ``W``
+   16 GiB of f32 built rank-local) as a world of one rank on the card
+   (NCCL), through ``serve_sharded_main`` on ``jnp``, ``event`` (B1's dense
+   arm and B3 behind its gate), ``pallas`` (B1 on ``W`` alone) and
+   ``pallas_fused`` (B2 on ``W`` alone), the telemetry kernel on each: 6
+   chunks of 8 ticks after a warm-up each, no new launch plan, every run's
+   rasters, potentials and telemetry bitwise the ``jnp`` run's, a sparse
+   event tick (B3 gathering about 2048 rows of ``W``) bitwise ``jnp``'s, the
+   peak device memory of each, and ticks timed by CUDA events beside their
+   bounds (the bytes of ``W`` each reads over the card's memory rate) and
+   ``torch.matmul(s, W)``. Then a world of two gloo ranks sharing the card
+   (their spike exchange staged through the host) at 4096 neurons with an
+   explicit ``c``, 8 rows, 16 ticks, telemetry on: frozen on ``pallas`` (B1
+   at N = 2048), ``pallas_fused`` (remapped to B1), ``event`` (B3) and
+   ``event`` on B4, every raster and final state bitwise the world of one
+   on ``jnp`` (the plain path; the dyadic grid makes every sum order exact)
+   and on its own backend; learning on ``pallas`` (B5): bitwise the world of
+   one on ``pallas``, and tick by tick from the sharded kernels' carry
+   against the plain path's world of one (``jnp``, the plain plasticity
+   pass) within rtol=1e-5, atol=1e-3 outside counted rounding ties; the
+   telemetry totals as the CPU tests hold them. Each rank's launches and
+   plans are printed, and every launch count of the runs goes into the
+   kernels line.
+14. a JSON line of the kernels (the six ported ones and the telemetry
    kernel), the card's name and power limit, and the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -970,50 +993,62 @@ def pre_threshold(carry, params, ext):
 def check_learning_ticks(kernel_eng, plain_eng, params, carry, n_ticks, ext_at, reward_at,
                          *, plastic_c=None, learn_until=None, what=""):
     """Gate (c): from the kernel path's carry, one tick through the kernels
-    and one through the plain path, for every tick. ``v``, ``w``, ``elig``
-    and the traces must agree to rtol=1e-5, atol=1e-3 outside the neurons
-    (and weight columns) of rounding ties; every spike that differs must be
-    a tie. Returns ``(final kernel carry, ties, max |dv|, max |dw|)``."""
-    import torch
-
-    from repro_torch.kernels import ops
-
-    S = ops.slot_count(params)
+    and one through the plain path, for every tick, held to each other by
+    :func:`compare_learning_tick`. Returns ``(final kernel carry, ties, max
+    |dv|, max |dw|)``."""
     ties, dv, dw = 0, 0.0, 0.0
-    close = lambda a, b, ok: bool((torch.isclose(a, b, rtol=1e-5, atol=1e-3) | ~ok).all())
     for t in range(n_ticks):
         xs = (ext_at(t), reward_at(t))
         kw = dict(params=params, plastic_c=plastic_c, learn_until=learn_until)
         ck, yk = kernel_eng.tick_body(carry, xs, **kw)
         cp, yp = plain_eng.tick_body(carry, xs, **kw)
-        diff = ops.flatten_state(yk != yp, S)                      # (S|1, B, N)
-        if diff.any():
-            v_tilde, v_th = pre_threshold(carry, params, xs[0])
-            tie = (v_tilde - v_th).abs() <= TIE * v_th.abs().clamp_min(1.0)
-            if (diff & ~tie).any():
-                raise AssertionError(f"{what} tick {t}: {int((diff & ~tie).sum())} spikes "
-                                     "differ from the plain path and are no rounding tie")
-            ties += int(diff.sum())
-        same = ~diff
-        cols = ~diff.any(dim=-2, keepdim=True)                       # (S|1, 1, N)
-        wcols = cols if S is not None else cols[0]
-        flat = lambda x: ops.flatten_state(x, S)
-        checks = [
-            ("v", flat(ck.state.lif.v), flat(cp.state.lif.v), same),
-            ("r", flat(ck.state.lif.r).float(), flat(cp.state.lif.r).float(), same),
-            ("x_pre", flat(ck.plast.x_pre), flat(cp.plast.x_pre), torch.ones_like(same)),
-            ("x_post", flat(ck.plast.x_post), flat(cp.plast.x_post), same),
-            ("w", ck.w, cp.w, wcols.expand_as(ck.w)),
-            ("elig", ck.plast.elig, cp.plast.elig, wcols.expand_as(ck.plast.elig)),
-        ]
-        for name, a, b, ok in checks:
-            if not close(a, b, ok):
-                raise AssertionError(f"{what} tick {t}: {name} differs from the plain path "
-                                     "beyond rtol=1e-5, atol=1e-3")
-        dv = max(dv, ((flat(ck.state.lif.v) - flat(cp.state.lif.v)).abs() * same).max().item())
-        dw = max(dw, ((ck.w - cp.w).abs() * wcols).max().item())
+        tt, tv, tw = compare_learning_tick(carry, params, xs[0], ck, yk, cp, yp,
+                                           what=f"{what} tick {t}")
+        ties, dv, dw = ties + tt, max(dv, tv), max(dw, tw)
         carry = ck
     return carry, ties, dv, dw
+
+
+def compare_learning_tick(carry, params, ext, ck, yk, cp, yp, *, what=""):
+    """One learning tick from ``carry``: the kernel path's ``(ck, yk)``
+    against the plain path's ``(cp, yp)``. ``v``, ``w``, ``elig`` and the
+    traces must agree to rtol=1e-5, atol=1e-3 outside the neurons (and
+    weight columns) of rounding ties; every spike that differs must be a
+    tie. Returns ``(ties, max |dv|, max |dw|)``."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    S = ops.slot_count(params)
+    ties = 0
+    close = lambda a, b, ok: bool((torch.isclose(a, b, rtol=1e-5, atol=1e-3) | ~ok).all())
+    diff = ops.flatten_state(yk != yp, S)                      # (S|1, B, N)
+    if diff.any():
+        v_tilde, v_th = pre_threshold(carry, params, ext)
+        tie = (v_tilde - v_th).abs() <= TIE * v_th.abs().clamp_min(1.0)
+        if (diff & ~tie).any():
+            raise AssertionError(f"{what}: {int((diff & ~tie).sum())} spikes "
+                                 "differ from the plain path and are no rounding tie")
+        ties += int(diff.sum())
+    same = ~diff
+    cols = ~diff.any(dim=-2, keepdim=True)                       # (S|1, 1, N)
+    wcols = cols if S is not None else cols[0]
+    flat = lambda x: ops.flatten_state(x, S)
+    checks = [
+        ("v", flat(ck.state.lif.v), flat(cp.state.lif.v), same),
+        ("r", flat(ck.state.lif.r).float(), flat(cp.state.lif.r).float(), same),
+        ("x_pre", flat(ck.plast.x_pre), flat(cp.plast.x_pre), torch.ones_like(same)),
+        ("x_post", flat(ck.plast.x_post), flat(cp.plast.x_post), same),
+        ("w", ck.w, cp.w, wcols.expand_as(ck.w)),
+        ("elig", ck.plast.elig, cp.plast.elig, wcols.expand_as(ck.plast.elig)),
+    ]
+    for name, a, b, ok in checks:
+        if not close(a, b, ok):
+            raise AssertionError(f"{what}: {name} differs from the plain path "
+                                 "beyond rtol=1e-5, atol=1e-3")
+    dv = ((flat(ck.state.lif.v) - flat(cp.state.lif.v)).abs() * same).max().item()
+    dw = ((ck.w - cp.w).abs() * wcols).max().item()
+    return ties, dv, dw
 
 
 # ---------------------------------------------------------------------------
@@ -3642,6 +3677,434 @@ def run_reconfigure_phase(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the sharded fabric
+# ---------------------------------------------------------------------------
+
+SHARD_N = 4096          # the two-rank world's fabric (the snn-event width)
+SHARD_ROWS = 8          # its batch rows
+SHARD_TICKS = 16
+SHARD_DENSITY = 0.05    # with this threshold the fabric starts sparse (the event arm)
+SHARD_V_TH = 3.5        # and turns dense near the end (the overflow fallback to B1)
+SHARD_RATE = 0.05
+SHARD_REQUESTS = 6      # serve_sharded_main's timed chunks at snn-64k FULL (the CLI's default)
+SHARD_TIMED = 10        # one-tick chunks timed at snn-64k FULL
+SHARD_SPARSE = 1 / 32   # the spike rate of the 64k event tick held against jnp (B3's gather)
+SHARD_64K = ("jnp", "event", "pallas", "pallas_fused")
+SHARD_CASES = (("frozen pallas", dict(backend="pallas")),
+               ("frozen pallas_fused", dict(backend="pallas_fused")),
+               ("frozen event", dict(backend="event")),
+               ("frozen event grid", dict(backend="event", event_kernel="grid")),
+               ("learning pallas", dict(backend="pallas", learning=True)))
+SHARD_PLASTICITY = dict(rule="stdp", a_plus=0.05, a_minus=0.05)
+
+
+def device_sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def shard_inputs():
+    """The two-rank world's global inputs, on the host: dyadic weights (exact
+    f32 sums in any order), ``sparse_random(4096, 0.05)``, ``w_in = 2 I``, a
+    0.05-rate drive over 8 rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import connectivity
+    from repro_torch.core.lif import LIFParams
+    from repro_torch.core.network_types import SNNParams
+    from repro_torch.parallel import snn_sharding
+
+    n = SHARD_N
+    params = SNNParams(
+        w=snn_sharding.make_sharded_dyadic_weights(n, device="cpu"),
+        c=torch.from_numpy(connectivity.sparse_random(n, SHARD_DENSITY, seed=1)
+                           .astype(np.float32)),
+        w_in=torch.eye(n) * 2.0,
+        lif=LIFParams.make(n, v_th=SHARD_V_TH, leak=0.25, r_ref=1, device="cpu"))
+    rng = np.random.default_rng(1)
+    ext = torch.from_numpy((rng.random((SHARD_TICKS, SHARD_ROWS, n)) < SHARD_RATE)
+                           .astype(np.float32))
+    return params, ext
+
+
+def shard_run(mesh, engine_mesh, opts: dict) -> dict:
+    """One case of the two-rank world on ``mesh``'s shard (``engine_mesh=None``
+    with a one-rank ``mesh``: the single-device engine on the whole fabric),
+    telemetry on; every launch count zeroed just before and read just after.
+    Returns the results gathered to the global layout on the host."""
+    import torch
+
+    from repro_torch.core.engine import EngineOptions, TickEngine
+    from repro_torch.core.network_types import SNNState
+    from repro_torch.kernels import event_dispatch, lif_step, stdp_update
+    from repro_torch.parallel import snn_sharding
+    from repro_torch.plasticity import PlasticityParams, PlasticityState
+
+    opts = dict(opts)
+    learning = opts.pop("learning", False)
+    rules = snn_sharding.snn_rules(mesh.axis)
+    glob, ext = shard_inputs()
+    params = snn_sharding.place(glob, snn_sharding.params_specs(rules, glob), mesh)
+    st0 = SNNState.zeros((SHARD_ROWS,), SHARD_N, device="cpu")
+    st_specs = snn_sharding.state_specs(rules, st0)
+    st0 = snn_sharding.place(st0, st_specs, mesh)
+    ext = ext.to(mesh.device)
+    eng = TickEngine(EngineOptions(
+        mesh=engine_mesh, telemetry=True, **opts,
+        plasticity=PlasticityParams.make(**SHARD_PLASTICITY) if learning else None))
+    device_sync(mesh.device)
+    zero_launches()
+    lif_step.last_plan = event_dispatch.last_plan = stdp_update.last_plan = None
+    t0 = time.perf_counter()
+    if learning:
+        pl_specs = PlasticityState(x_pre=None, x_post=-1, elig=-1)
+        pl0 = snn_sharding.place(PlasticityState.zeros((SHARD_ROWS,), SHARD_N, device="cpu"),
+                                 pl_specs, mesh)
+        (st, _, w), raster, tel = eng.learning_rollout(params, st0, pl0, ext, SHARD_TICKS)
+    else:
+        (st, raster, tel), w = eng.rollout(params, st0, ext, SHARD_TICKS), None
+    device_sync(mesh.device)
+    wall = time.perf_counter() - t0
+    launches = kernel_launches()
+    st = snn_sharding.collect(st, st_specs, mesh)
+    return {"raster": mesh.all_gather(raster).cpu().numpy(),
+            "v": st.lif.v.cpu().numpy(), "r": st.lif.r.cpu().numpy(),
+            "w": None if w is None else mesh.all_gather(w).cpu().numpy(),
+            "telem": tel.numpy(), "launches": launches, "wall": wall,
+            "plans": {k: str(p) for k, p in (("B1", lif_step.last_plan),
+                                            ("B4", event_dispatch.last_plan),
+                                            ("B5", stdp_update.last_plan)) if p is not None}}
+
+
+def sharded_learning_ticks(mesh) -> dict:
+    """The two-rank learning case tick by tick: from the sharded kernel
+    chain's carry, one tick of the sharded kernels (B1 at N = n/2, B5 with a
+    full-width ``x_pre``; a one-tick ``chunk``) and, on rank 0, one tick of
+    the plain path's world of one on the gathered carry (``jnp``, the plain
+    plasticity pass), held by :func:`compare_learning_tick`. Run after the
+    rollout's launches were read: these launches compare and do not count.
+    Returns rank 0's ties and largest gaps and the chain's final ``w``."""
+    import torch
+
+    from repro_torch.core.engine import EngineOptions, TickCarry, TickEngine
+    from repro_torch.core.network_types import SNNState
+    from repro_torch.parallel import snn_sharding
+    from repro_torch.plasticity import PlasticityParams, PlasticityState
+
+    pp = PlasticityParams.make(**SHARD_PLASTICITY)
+    rules = snn_sharding.snn_rules(mesh.axis)
+    glob, ext = shard_inputs()
+    params = snn_sharding.place(glob, snn_sharding.params_specs(rules, glob), mesh)
+    whole = snn_sharding.place(glob, None, mesh)        # the world of one's operands
+    full = TickCarry(state=SNNState.zeros((SHARD_ROWS,), SHARD_N, device="cpu"),
+                     plast=PlasticityState.zeros((SHARD_ROWS,), SHARD_N, device="cpu"),
+                     w=glob.w)
+    specs = snn_sharding.carry_specs(rules, full)
+    carry = snn_sharding.place(full, specs, mesh)
+    g = snn_sharding.place(full, None, mesh)
+    ext = ext.to(mesh.device)
+    zero = torch.zeros((), device=mesh.device)
+    eng = TickEngine(EngineOptions(mesh=mesh, backend="pallas", plasticity=pp))
+    plain = TickEngine(EngineOptions(backend="jnp", plasticity=pp, plasticity_backend="jnp"))
+    ties, dv, dw = 0, 0.0, 0.0
+    for t in range(SHARD_TICKS):
+        nxt, y = eng.chunk(params, carry, ext[t:t + 1], 1)
+        g1 = snn_sharding.collect(nxt, specs, mesh)
+        gy = mesh.all_gather(y[0])
+        if mesh.rank == 0:
+            cp, yp = plain.tick_body(g, (ext[t], zero), params=whole)
+            tt, tv, tw = compare_learning_tick(g, whole, ext[t], g1, gy, cp, yp,
+                                               what=f"sharded pair learning, tick {t}")
+            ties, dv, dw = ties + tt, max(dv, tv), max(dw, tw)
+        carry, g = nxt, g1
+    return {"ties": ties, "dv": dv, "dw": dw,
+            "w": g.w.cpu().numpy() if mesh.rank == 0 else None}
+
+
+def sharded_pair_rank(mesh) -> dict:
+    """A rank of the 4096-neuron world: every case of ``SHARD_CASES``, then
+    the learning case tick by tick against the plain path."""
+    out = {"exchange": mesh.exchange, "device": str(mesh.device),
+           **{name: shard_run(mesh, mesh, opts) for name, opts in SHARD_CASES}}
+    out["learning ticks"] = sharded_learning_ticks(mesh)
+    return out
+
+
+def sparse_event_tick(mesh, eng, params, carry, x1):
+    """B3's row gather at snn-64k: ``carry`` with ``SHARD_SPARSE`` of the
+    neurons spiking (under the spike budget, so the event arm runs), one
+    tick of ``eng`` (``event``) against one of the ``jnp`` engine, bitwise.
+    Returns the sparse carry and the arriving spikes; raises unless B3
+    launched once."""
+    import torch
+
+    from repro_torch.core.engine import TickEngine
+
+    gen = torch.Generator(device=mesh.device)
+    gen.manual_seed(65)
+    y = carry.state.lif.y
+    y = (torch.rand(y.shape, generator=gen, device=mesh.device) < SHARD_SPARSE).to(y.dtype)
+    lif = dataclasses.replace(carry.state.lif, y=y)
+    sparse = dataclasses.replace(carry, state=dataclasses.replace(carry.state, lif=lif))
+    before = kernel_launches()["event_dispatch_db"]
+    ev, ev_y = eng.chunk(params, sparse, x1, 1)
+    launched = kernel_launches()["event_dispatch_db"] - before
+    plain = TickEngine(dataclasses.replace(eng.options, backend="jnp"))
+    pj, pj_y = plain.chunk(params, sparse, x1, 1)
+    arriving = int(mesh.all_reduce(y.sum()).item())
+    if launched != 1 or not (torch.equal(ev_y, pj_y) and torch.equal(ev.state.lif.v, pj.state.lif.v)
+                             and torch.equal(ev.state.lif.r, pj.state.lif.r)):
+        raise AssertionError(f"sharded 64k: the event tick on {arriving} arriving spikes "
+                             f"(B3 launched {launched} times) differs from jnp's")
+    return sparse, arriving
+
+
+def sharded_64k_rank(mesh, card) -> dict:
+    """A rank of a world at snn-64k FULL: ``serve_sharded_main`` on every
+    backend of ``SHARD_64K`` (each builds its own ``W`` columns, rank-local),
+    launches counted from 0 and the peak device memory from a reset for each;
+    then a tick timed by CUDA events on the served fabric after a loud and
+    after a silent tick (and, on ``event``, on a sparse tick that B3 gathers,
+    first held against ``jnp``), and ``torch.matmul`` over the same ``W``
+    alone. Rasters and potentials come back gathered to the global layout."""
+    import argparse
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_bundle
+    from repro_torch.core.dispatch_policy import resolve_k_active
+    from repro_torch.launch.serve import serve_sharded_main
+
+    one = torch.ones(1, device=mesh.device)
+    dist.all_reduce(one, group=mesh.group)     # the process group answers
+    cfg = get_bundle("snn-64k").model
+    out = {"exchange": mesh.exchange, "backend": mesh.backend, "all_reduce": one.item(),
+           "size": mesh.size}
+    for backend in SHARD_64K:
+        device_sync(mesh.device)
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        zero_launches()
+        t0 = time.perf_counter()
+        stats = serve_sharded_main(dataclasses.replace(cfg, snn_backend=backend),
+                                   argparse.Namespace(requests=SHARD_REQUESTS, device=None,
+                                                      metrics_out=None))
+        device_sync(mesh.device)
+        wall = time.perf_counter() - t0
+        launches = kernel_launches()
+        peak = torch.cuda.max_memory_allocated(mesh.device)
+        res = stats.pop("results")
+        eng, params, carry = res["engine"], res["params"], res["carry"]
+        gen = torch.Generator(device=mesh.device)
+        gen.manual_seed(64)
+        x1 = (torch.rand((1, params.w_in.shape[0]), generator=gen, device=mesh.device)
+              < cfg.snn_rate).to(torch.float32)
+        # The fabric alternates loud ticks (every neuron out of refractoriness
+        # fires) and silent ones: time a tick after each kind, and on event a
+        # sparse one. The bound counts the rows of this rank's W the arm reads
+        # (all of them on the dense arms, the arriving spikes' on the event
+        # arm) and its w_in, once.
+        carries = [carry, eng.chunk(params, carry, x1, 1)[0]]
+        if backend == "event":
+            carries.append(sparse_event_tick(mesh, eng, params, carry, x1)[0])
+        ticks = {}
+        for c in carries:
+            arriving = int(mesh.all_reduce(c.state.lif.y.sum()).item())
+            dense = backend != "event" or arriving > resolve_k_active(
+                cfg.n_neurons, eng.options.event_k_active)
+            rows = params.w.shape[0] if dense else arriving
+            nbytes = 4 * (rows * params.w.shape[1] + params.w_in.numel())
+            ticks[arriving] = (median_ms(lambda: eng.chunk(params, c, x1, 1), SHARD_TIMED),
+                               nbytes / card[0] * 1e3, "dense" if dense else "event")
+        s = mesh.all_gather(carry.state.lif.y).reshape(1, -1)
+        matmul_ms = median_ms(lambda: torch.matmul(s, params.w), SHARD_TIMED)
+        out[backend] = {
+            "stats": stats, "wall": wall, "launches": launches, "peak": peak,
+            "w_bytes": params.w.numel() * params.w.element_size(),
+            "rasters": np.stack([mesh.all_gather(r).cpu().numpy() > 0
+                                 for r in res["rasters"]]),
+            "v": mesh.all_gather(carry.state.lif.v).cpu().numpy(),
+            "telemetry": res["telemetry"], "ticks": ticks, "matmul_ms": matmul_ms}
+        del res, eng, params, carry, carries, c, s
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_64k_world(ranks, full, smi, card, add):
+    """Hold a world's snn-64k runs (every rank's results) to their contract
+    (stats, finite potentials, telemetry spikes == the rasters', every
+    backend == ``jnp`` bitwise, its kernels and telemetry launched), add
+    every rank's launches and log rank 0's figures."""
+    import numpy as np
+
+    big = ranks[0]
+    for other in ranks[1:]:
+        for name in SHARD_64K:
+            add(other[name]["launches"])
+    jnp_run = big["jnp"]
+    d = big["size"]
+    for name in SHARD_64K:
+        run = big[name]
+        st = run["stats"]
+        if (st["recompiles_after_warmup"] or st["n_devices"] != d
+                or st["n_neurons"] != full.n_neurons):
+            raise AssertionError(f"sharded 64k on {name}: stats {st}")
+        if not np.isfinite(run["v"]).all():
+            raise AssertionError(f"sharded 64k on {name}: a potential is not finite")
+        if run["telemetry"]["spikes"] != float(run["rasters"].sum()):
+            raise AssertionError(f"sharded 64k on {name}: telemetry spikes "
+                                 f"{run['telemetry']['spikes']} against the rasters' "
+                                 f"{int(run['rasters'].sum())}")
+        add(run["launches"])
+    same = [k for k in jnp_run["telemetry"] if k not in ("overflow_ticks", "policy_dense_ticks")]
+    for name in SHARD_64K[1:]:
+        run = big[name]
+        if not (np.array_equal(run["rasters"], jnp_run["rasters"])
+                and np.array_equal(run["v"], jnp_run["v"])
+                and all(run["telemetry"][k] == jnp_run["telemetry"][k] for k in same)):
+            raise AssertionError(f"sharded 64k, {d} rank(s): the {name} run differs from jnp's")
+    need = {"event": ("lif_step", "event_dispatch_db"), "pallas": ("lif_step",),
+            "pallas_fused": ("tick_fused",)}
+    for name in SHARD_64K:
+        counts = big[name]["launches"]
+        if min(counts[k] for k in need.get(name, ()) + ("telemetry",)) < 1:
+            raise AssertionError(f"sharded 64k on {name}: launches {counts}")
+    gib = 2 ** 30
+    log(f"sharded 64k (snn-64k FULL: {full.n_neurons} neurons, c=None, a world of {d} "
+        f"rank(s), {big['backend']}, all_reduce {big['all_reduce']:.0f}, exchange "
+        f"{big['exchange']}): {SHARD_REQUESTS} chunks of 8 ticks after the warm-up on "
+        + ", ".join(SHARD_64K) + f", recompiles 0; rasters "
+        f"({int(jnp_run['rasters'].sum())} spikes in {jnp_run['rasters'].shape[0] * 8} ticks), "
+        f"final potentials and telemetry of every backend == jnp bitwise (event overflow "
+        f"ticks {big['event']['telemetry']['overflow_ticks']:.0f}); a sparse event tick "
+        f"(B3 gathering the arriving spikes' rows) == jnp's bitwise; rank 0's launches "
+        + "; ".join(f"{name} {big[name]['launches']}" for name in SHARD_64K))
+    for name in SHARD_64K:
+        run = big[name]
+        log(f"sharded 64k {name}, {d} rank(s): peak device memory of rank 0 "
+            f"{run['peak'] / gib:.2f} GiB (its W {run['w_bytes'] / gib:.2f} GiB), "
+            f"serve_sharded_main wall {run['wall']:.2f} s (W built rank-local), ticks_per_s "
+            f"{run['stats']['ticks_per_s']:.1f} over {run['stats']['ticks']} ticks, "
+            f"synops_per_s {run['stats']['synops_per_s']:.4g}; telemetry "
+            + ", ".join(f"{k}={v:.4g}" for k, v in run["telemetry"].items()))
+        for arriving, (ms, bound, arm) in sorted(run["ticks"].items()):
+            log(f"time sharded 64k tick ({name}, {d} rank(s), {arriving} spikes arriving, the "
+                f"{arm} arm; a one-tick chunk, CUDA events on rank 0, median of "
+                f"{SHARD_TIMED}): {ms:.4f} ms, bound {bound:.4f} ms (the rows of the rank's W "
+                f"it reads and its w_in, over {card[0] / 1e12:.2f} TB/s), {bound / ms:.0%} of "
+                f"it; torch.matmul(s, W) over the rank's W alone {run['matmul_ms']:.4f} ms; "
+                f"card {smi}")
+
+
+def plain_opts(opts: dict) -> dict:
+    """A case's options on the plain path: ``jnp``, and the plain plasticity
+    pass when it learns."""
+    out = {k: v for k, v in opts.items() if not k.startswith("event_")}
+    out["backend"] = "jnp"
+    if out.get("learning"):
+        out["plasticity_backend"] = "jnp"
+    return out
+
+
+def run_sharded_phase(dev, card, smi):
+    """The sharded fabric on the card: snn-64k FULL as a world of one rank
+    (NCCL) through ``serve_sharded_main`` on every backend, bitwise equal to
+    ``jnp``; then a world of two gloo ranks sharing the card at 4096 neurons
+    with an explicit ``c``. Every frozen case is bitwise the world of one on
+    ``jnp`` (the plain path) and on its own backend; the learning case is
+    bitwise the world of one on its backend, and tick by tick the plain
+    path's within counted ties. Returns the phase's launches, summed over
+    its ranks and runs."""
+    import numpy as np
+
+    from repro_torch.configs import get_bundle
+    from repro_torch.launch.mesh import run_world
+    from repro_torch.obs.telemetry import FIELDS
+    from repro_torch.parallel.mesh import SNNMesh
+
+    total = dict.fromkeys(kernel_launches(), 0)
+    full = get_bundle("snn-64k").model
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    # -- snn-64k FULL ------------------------------------------------------------
+    check_64k_world(run_world("chip_smoke:sharded_64k_rank", 1, card, device=dev,
+                              backend="nccl" if dev.type == "cuda" else "gloo", timeout=600),
+                    full, smi, card, add)
+
+    # -- 4096 neurons, two gloo ranks sharing the card ---------------------------------
+    pair = run_world("chip_smoke:sharded_pair_rank", 2, device=dev, backend="gloo",
+                     timeout=600)
+    one = SNNMesh(rank=0, size=1, device=dev)
+    w0 = shard_inputs()[0].w.numpy()
+    for name, opts in SHARD_CASES:
+        want = shard_run(one, None, opts)
+        plain = shard_run(one, None, plain_opts(opts))
+        learning = want["w"] is not None
+        if learning and float(np.abs(want["w"] - w0).sum()) == 0:
+            raise AssertionError("sharded pair: the learning run learned nothing")
+        refs = (("the world of one", want, ("raster", "v", "r", "w")),)
+        if not learning:   # the dyadic grid: the plain path's sums are exact in any order
+            refs += (("the plain path's world of one", plain, ("raster", "v", "r")),)
+        for r, rank in enumerate(pair):
+            got = rank[name]
+            for what, ref, keys in refs:
+                for key in keys:
+                    if not (got[key] is None and ref[key] is None
+                            or np.array_equal(got[key], ref[key])):
+                        raise AssertionError(f"sharded pair {name}, rank {r}: {key} differs "
+                                             f"from {what}")
+                for f in FIELDS:
+                    if ref is plain and f in ("overflow", "policy_dense"):
+                        continue
+                    a, b = got["telem"][f], ref["telem"][f]
+                    tol = (0 if f in ("ticks", "spikes", "v_max", "overflow", "policy_dense")
+                           else 1e-6 if f in ("v_sum", "ref_sum") else 1e-5)
+                    if not np.allclose(a, b, rtol=tol, atol=0):
+                        raise AssertionError(f"sharded pair {name}, rank {r}: telemetry {f} "
+                                             f"{a} against {what}'s {b}")
+            add(got["launches"])
+        tail = ""
+        if learning:
+            lt = pair[0]["learning ticks"]
+            if not np.array_equal(lt["w"], pair[0][name]["w"]):
+                raise AssertionError("sharded pair learning: the one-tick chunks' w differs "
+                                     "from the rollout's")
+            tail = (f"; tick by tick against the plain path's world of one (jnp, plain "
+                    f"plasticity pass) within rtol=1e-5, atol=1e-3: {lt['ties']} rounding "
+                    f"ties, max |dv| {lt['dv']:.3g}, max |dw| {lt['dw']:.3g}; free-running "
+                    f"against it {int((plain['raster'] != want['raster']).sum())} raster "
+                    f"entries differ, max |dw| {np.abs(plain['w'] - want['w']).max():.3g}")
+        arms = (want["telem"]["ticks"][0] - want["telem"]["overflow"][0],
+                want["telem"]["overflow"][0])
+        log(f"sharded pair {name} (n={SHARD_N}, {SHARD_ROWS} rows, {SHARD_TICKS} ticks, 2 "
+            f"gloo ranks on {pair[0]['device']}, exchange {pair[0]['exchange']}): raster "
+            f"({int(want['raster'].sum())} spikes), state"
+            + (", learned w == the world of one bitwise" if learning else
+               " == the world of one bitwise, on its backend and on jnp")
+            + ", telemetry totals as the CPU tests hold them; launches "
+            + ", ".join(f"rank {r} {p[name]['launches']}" for r, p in enumerate(pair))
+            + f" (world of one {want['launches']}); walls {pair[0][name]['wall']:.3f} / "
+            f"{want['wall']:.3f} s"
+            + (f"; event arm {arms[0]} ticks, dense on overflow {arms[1]}"
+               if opts.get("backend") == "event" else "") + tail)
+        for kernel, plan in pair[0][name]["plans"].items():
+            log(f"plan {kernel} (sharded pair {name}, rank 0): {plan}")
+    for kernel in ("lif_step", "event_dispatch_db", "event_dispatch", "stdp_update",
+                   "telemetry"):
+        if total[kernel] < 1:
+            raise AssertionError(f"sharded phase: {kernel} never launched ({total})")
+    log(f"sharded phase launches (both worlds, every rank): {total}")
+    return total
+
+
 def ptxas_kernels(text: str) -> list:
     """``(kernel, registers, spill store bytes)`` for each entry function in
     the compiler's ``-Xptxas=-v`` report."""
@@ -3748,6 +4211,9 @@ def main() -> int:
     for name, err in workload_errs.items():
         errs[name] = max(errs[name], err)
     reconf = phase("reconfigure", run_reconfigure_phase, dev)
+    sharded = phase("sharded", run_sharded_phase, dev, card, smi)
+    for name, count in sharded.items():
+        launches[name] += count
     if min(launches.values()) < 1 or min(learn_launches.values()) < 1 \
             or frozen_launches["tick_fused"] < 1 or min(event_learn.values()) < 1 \
             or min(cont_launches[k] for k in ("tick_fused", "stdp_update", "telemetry")) < 1 \
@@ -3787,7 +4253,8 @@ def main() -> int:
         f"MNIST); frozen-only serve {frozen_launches}; continuous serve {cont_launches}; "
         f"learning rollouts {learn_launches}; "
         f"event learning {event_learn}; event serve waves {event_waves}; learning workload "
-        f"{workload}; reconfiguration {reconf}; B2 streaming w and c {b2_streamed_ms:.4f} ms")
+        f"{workload}; reconfiguration {reconf}; sharded fabric (added to each) {sharded}; "
+        f"B2 streaming w and c {b2_streamed_ms:.4f} ms")
     log(f"seconds: {time.perf_counter() - start:.1f} in all; "
         + ", ".join(f"{name} {s:.1f}" for name, s in seconds.items()))
     print(json.dumps({"kernels": kernels}))

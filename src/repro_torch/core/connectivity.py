@@ -13,8 +13,8 @@ neuron ``m``, matching the paper's ``connection list[n][m]``.
 The numpy builders of ``repro.core.connectivity``, copied so that the
 port never imports the JAX package: the topologies, the bit packing, and
 the compressed layouts the event backend plans from (CSR, padded
-neighbour lists, :func:`stats`). The shard helpers arrive with the
-sharding slice.
+neighbour lists, :func:`stats`) and the shard helpers of the sharded
+fabric (:func:`shard_fan_in`, :func:`shard_stats`, :func:`shard_imbalance`).
 """
 from __future__ import annotations
 
@@ -204,6 +204,97 @@ def padded_fan_in(c: np.ndarray, cap: Optional[int] = None) -> PaddedNeighbors:
     data-dependent control flow, FLOPs ``B*n*cap`` instead of ``B*n*n``.
     """
     return _padded_lists(c, cap, "in")
+
+
+def shard_fan_in(
+    c: np.ndarray, n_shards: int, cap: Optional[int] = None
+) -> Tuple[PaddedNeighbors, ...]:
+    """Slice the padded fan-in lists by DESTINATION shard (DESIGN.md §15).
+
+    Shard ``i`` gets the rows of :func:`padded_fan_in` for its own
+    postsynaptic neurons ``[i*n/D, (i+1)*n/D)``:
+
+    * ``idx`` entries stay **global** presynaptic ids -- under the
+      fabric's column sharding each shard's ``wc`` slab keeps the full
+      presynaptic row axis, so no index translation ever happens;
+    * the cap is the **global** max fan-in for every shard -- uniform
+      shapes, so every shard runs the same event-backend tick.
+
+    Per-shard ``n_edges``/``max_degree`` are recomputed on the slice, so
+    the returned stats expose the load balance the topology actually
+    gives each shard (see :func:`shard_stats` for the full view).
+    """
+    full = padded_fan_in(c, cap)
+    n = full.idx.shape[0]
+    if n_shards < 1 or n % n_shards:
+        raise ValueError(
+            f"n={n} destinations do not split evenly over {n_shards} shards")
+    n_local = n // n_shards
+    out = []
+    for i in range(n_shards):
+        idx = full.idx[i * n_local:(i + 1) * n_local]
+        mask = full.mask[i * n_local:(i + 1) * n_local]
+        degrees = mask.sum(axis=1).astype(np.int64)
+        out.append(PaddedNeighbors(
+            idx=idx, mask=mask, cap=full.cap, axis="in",
+            n_edges=int(degrees.sum()),
+            max_degree=int(degrees.max()) if degrees.size else 0))
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardStats:
+    """Per-shard load view of a destination-sharded topology.
+
+    ``n_edges_in`` is the shard's synaptic work per tick (its fan-in dot
+    reduces exactly these edges); ``n_edges_out`` is how many of the
+    fabric's synapses *originate* from the shard's own neurons (how much
+    of the gathered spike vector the rest of the fabric consumes from
+    it).  A balanced topology keeps ``n_edges_in`` near ``edges / D``.
+    """
+
+    shard: int
+    n_post: int
+    n_edges_in: int
+    max_fan_in: int
+    mean_fan_in: float
+    n_edges_out: int
+    max_fan_out: int
+    mean_fan_out: float
+
+
+def shard_stats(c: np.ndarray, n_shards: int) -> Tuple[ShardStats, ...]:
+    """Host-side per-shard statistics (the sharded serve CLI prints them at
+    load), from the dense list directly -- no padded layout needed."""
+    cb = np.asarray(c) > 0
+    validate(cb)
+    n = cb.shape[0]
+    if n_shards < 1 or n % n_shards:
+        raise ValueError(
+            f"n={n} destinations do not split evenly over {n_shards} shards")
+    n_local = n // n_shards
+    out = []
+    for i in range(n_shards):
+        lo, hi = i * n_local, (i + 1) * n_local
+        fi = cb[:, lo:hi].sum(axis=0)          # fan-in of local posts
+        fo = cb[lo:hi, :].sum(axis=1)          # fan-out of local pres
+        out.append(ShardStats(
+            shard=i, n_post=n_local,
+            n_edges_in=int(fi.sum()),
+            max_fan_in=int(fi.max()) if fi.size else 0,
+            mean_fan_in=float(fi.mean()) if fi.size else 0.0,
+            n_edges_out=int(fo.sum()),
+            max_fan_out=int(fo.max()) if fo.size else 0,
+            mean_fan_out=float(fo.mean()) if fo.size else 0.0))
+    return tuple(out)
+
+
+def shard_imbalance(stats: Sequence[ShardStats]) -> float:
+    """Max/mean ratio of per-shard synaptic work (1.0 = perfectly even;
+    the weak-scaling efficiency ceiling is roughly its reciprocal)."""
+    edges = [s.n_edges_in for s in stats]
+    mean = sum(edges) / max(1, len(edges))
+    return max(edges) / mean if mean else 1.0
 
 
 @dataclasses.dataclass(frozen=True)

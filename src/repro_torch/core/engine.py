@@ -47,8 +47,14 @@ before and the telemetry kernel never launches). ``rollout`` and
 
 ``surrogate=True`` (surrogate-gradient BPTT) runs on ``"jnp"`` and on the
 event backend's plain path; the kernel backends raise the reference's
-``ValueError`` ("inference-only") at the tick. The sharded mesh arrives with
-a later slice; asking for it raises ``NotImplementedError``.
+``ValueError`` ("inference-only") at the tick.
+
+``mesh`` (a :class:`~repro_torch.parallel.mesh.SNNMesh`) shards the fabric by
+destination columns over a world of ranks: ``scan`` and everything that goes
+through it (``rollout``, ``learning_rollout``, ``chunk``) run
+:func:`repro_torch.parallel.snn_sharding.sharded_scan` on this rank's
+operands, and the tick body all-gathers the arriving spikes before the
+backend dispatch (DESIGN.md §15).
 """
 from __future__ import annotations
 
@@ -71,9 +77,6 @@ _BACKENDS = ("jnp", "pallas", "pallas_fused", "event")
 _MODES = ("fixed_leak", "euler", "int")
 _OVERFLOW = ops.OVERFLOW
 _DISPATCH = ("auto", "fan_in", "topk", "dense")
-LATER = {
-    "mesh": "the sharded fabric arrives with the sharding slice (ROADMAP A.5)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,8 +110,7 @@ class TickCarry:
 class EngineOptions:
     """The engine's configuration, validated at construction.
 
-    Same field names, defaults and checks as the reference; ``mesh`` (the
-    sharding slice, not ported yet) raises ``NotImplementedError`` when set.
+    Same field names, defaults and checks as the reference.
 
     ``plasticity`` (a :class:`~repro_torch.plasticity.stdp.PlasticityParams`)
     arms the plasticity hook for carries that hold weights;
@@ -123,6 +125,15 @@ class EngineOptions:
     list), the adaptive knee and its release fraction, and the elementwise
     diagonal drive. ``event_kernel`` (the port's own field) picks the
     spike-list kernel: ``"db"`` (B3, the default) or ``"grid"`` (B4).
+
+    ``mesh`` (a :class:`~repro_torch.parallel.mesh.SNNMesh`) runs ``scan`` and
+    everything that goes through it on this rank's shard of the fabric, cut
+    by destination columns (:mod:`repro_torch.parallel.snn_sharding`; its
+    operands and results are the rank's own). ``shard_axis`` names the mesh
+    axis (None: the mesh's first), checked against the mesh; set without
+    ``mesh`` it only marks the options ``sharded``, as in the reference. The
+    engine that runs inside a shard is the :class:`TickEngine` given a
+    ``gather`` mesh.
     """
 
     mode: str = "fixed_leak"
@@ -132,6 +143,7 @@ class EngineOptions:
     plasticity_backend: Optional[str] = None
     telemetry: bool = False
     mesh: Optional[Any] = None
+    shard_axis: Optional[str] = None
     event_k_active: Optional[int] = None
     event_overflow: str = "fallback"
     event_dispatch: str = "auto"
@@ -173,7 +185,53 @@ class EngineOptions:
             raise ValueError("event_hysteresis is a release *fraction* of the knee and "
                              f"must lie in (0, 1], got {self.event_hysteresis}")
         if self.mesh is not None:
-            raise NotImplementedError(LATER["mesh"])
+            # Checked by what the engine calls on it, so the core imports no
+            # mesh module.
+            if not all(callable(getattr(self.mesh, a, None))
+                       for a in ("all_gather", "all_reduce", "columns")):
+                raise ValueError(f"mesh must be a repro_torch.parallel.mesh.SNNMesh, "
+                                 f"got {type(self.mesh)}")
+            axis = self.shard_axis if self.shard_axis is not None else self.mesh.axis
+            if axis not in self.mesh.axis_names:
+                raise ValueError(f"shard_axis {axis!r} is not a mesh axis "
+                                 f"(axes: {self.mesh.axis_names})")
+        if self.sharded and self.event_ext_diag:
+            raise ValueError(
+                "event_ext_diag is unavailable on the sharded path: each shard holds "
+                "a rectangular (n_in, n/D) slice of w_in whose diagonal is NOT the "
+                "diagonal drive; the full ext @ w_in product is rectangular-safe, "
+                "use that")
+
+    @property
+    def sharded(self) -> bool:
+        """True when the options name a partition of the fabric: a ``mesh``
+        or, as in the reference, a ``shard_axis``."""
+        return self.mesh is not None or self.shard_axis is not None
+
+    def resolved_shard_axis(self) -> Optional[str]:
+        """The mesh axis the fabric shards over (None when unsharded)."""
+        if self.shard_axis is not None:
+            return self.shard_axis
+        if self.mesh is not None:
+            return self.mesh.axis_names[0]
+        return None
+
+    def effective_backend(self) -> str:
+        """The backend the tick body dispatches to.
+
+        Sharded ``"pallas_fused"`` remaps to ``"pallas"``: the whole-tick
+        kernel B2 couples the ring's width to the state's inside one launch
+        and so cannot span the per-tick spike all-gather; kernel B1 (ring
+        read and write outside) composes with it unchanged. On the frozen
+        path the weights live on the dyadic u8 grid, where every f32 sum
+        order is exact, so the two arms are bitwise equal; learning pushes
+        weights off the grid, so remapped learning equals single-device
+        ``"pallas"`` bitwise and the whole-tick kernel to the ulp. (A
+        one-rank mesh skips the remap: see ``sharded_scan``. The tick body
+        itself remaps by its ``gather``: see :class:`TickEngine`.)"""
+        if self.sharded and self.backend == "pallas_fused":
+            return "pallas"
+        return self.backend
 
     def plasticity_pass(self) -> str:
         """The plasticity hook's backend: ``"pallas"`` (kernel B5) or ``"jnp"``
@@ -219,12 +277,22 @@ class EventPrep:
 
 
 class TickEngine:
-    """The resident tick datapath, configured by :class:`EngineOptions`."""
+    """The resident tick datapath, configured by :class:`EngineOptions`.
 
-    def __init__(self, options: Optional[EngineOptions] = None):
+    ``gather`` (the :class:`~repro_torch.parallel.mesh.SNNMesh` of a shard,
+    set by ``sharded_scan`` for its inner engine) makes the tick body
+    all-gather the arriving spikes over the mesh before the synaptic
+    product, and remaps ``"pallas_fused"`` to ``"pallas"`` (see
+    :meth:`EngineOptions.effective_backend`): it alone marks the engine that
+    runs inside a shard."""
+
+    def __init__(self, options: Optional[EngineOptions] = None, *, gather=None):
         if options is not None and not isinstance(options, EngineOptions):
             raise TypeError(f"options must be an EngineOptions, got {type(options)}")
         self.options = options if options is not None else EngineOptions()
+        self.gather = gather
+        backend = self.options.backend
+        self.backend = "pallas" if gather is not None and backend == "pallas_fused" else backend
 
     def masked_weights(self, params: SNNParams) -> torch.Tensor:
         """``W*C``; ``w`` itself for the implicit all-to-all (``c=None``)."""
@@ -279,14 +347,10 @@ class TickEngine:
         ext, reward = xs
         opts = self.options
         st = carry.state
-        backend = opts.backend
+        backend = self.backend
         learning = carry.w is not None
         # A learning tick streams this tick's w and c into the kernels.
         p = dataclasses.replace(params, w=carry.w) if learning else params
-        if params.c is None and backend in ("pallas", "pallas_fused"):
-            raise ValueError(
-                "c=None (implicit all-to-all) needs the jnp backend: the kernels "
-                "take c as an explicit operand")
         D = st.delay_buf.shape[-2]
 
         if backend == "pallas_fused":
@@ -302,10 +366,18 @@ class TickEngine:
         slot = torch.remainder(st.tick, D)
         if wc is None and (delays is not None or backend != "pallas"):
             wc = masked_weights(p)
-        policy = flags = None
+        policy = flags = s_pre = None
         if delays is None:
             arriving = (st.delay_buf.index_select(-2, slot.reshape(1).long()).squeeze(-2)
                         if D > 1 else st.lif.y)
+            if self.gather is not None:
+                # The cross-shard spike exchange, the one collective a tick:
+                # every rank reduces its columns over the full fan-in in the
+                # single-device order. It sits before the event arm's knee,
+                # so every rank's device gates see the same spikes. Learning
+                # reads the gathered spikes as the presynaptic events.
+                with tracing.trace_scope("tick/spike_all_gather", traced):
+                    arriving = s_pre = self.gather.all_gather(arriving)
             if backend == "pallas":
                 with tracing.trace_scope("tick/pallas", traced):
                     lif_state = ops.fused_lif_step(st.lif, arriving, p, ext,
@@ -339,7 +411,8 @@ class TickEngine:
         if policy is not None:
             carry = dataclasses.replace(carry, policy=policy)
         return self._tick_tail(carry, st, state2, reward, params, plastic_c,
-                               learn_until, in_place, flags=flags, traced=traced)
+                               learn_until, in_place, flags=flags, traced=traced,
+                               s_pre=s_pre)
 
     # -- the event arm -------------------------------------------------------
 
@@ -422,13 +495,16 @@ class TickEngine:
 
     def _tick_tail(self, carry: TickCarry, st: SNNState, state2: SNNState, reward,
                    params: SNNParams, plastic_c, learn_until, in_place: bool,
-                   flags=None, traced: bool = False) -> Tuple[TickCarry, torch.Tensor]:
+                   flags=None, traced: bool = False,
+                   s_pre: Optional[torch.Tensor] = None) -> Tuple[TickCarry, torch.Tensor]:
         """The plasticity hook (when the carry holds weights), the telemetry
         fold (when it holds telemetry) and the new carry.
 
-        ``s_pre`` is ``st.lif.y``, the previous tick's emissions (what arrives
-        with ``max_delay == 1``, which learning requires); ``s_post`` is this
-        tick's. The hook runs after the tick kernel, as its own pass over
+        ``s_pre`` defaults to ``st.lif.y``, the previous tick's emissions (what
+        arrives with ``max_delay == 1``, which learning requires); a shard's
+        tick passes the gathered full-width spikes instead, so the pass sees
+        the whole presynaptic axis against its local columns. ``s_post`` is
+        this tick's. The hook runs after the tick kernel, as its own pass over
         ``(w, elig, traces)``; the ``learn_until`` gate is folded into it.
         With telemetry it also hands back the committed delta's ``|dw|`` and
         ``dw^2`` sums, and one launch of the telemetry kernel folds them, the
@@ -443,7 +519,7 @@ class TickEngine:
         if carry.w is not None and opts.plasticity is not None:
             with tracing.trace_scope("tick/plasticity", traced):
                 out = plasticity_rules.plasticity_step(
-                    carry.plast, st.lif.y, y, carry.w,
+                    carry.plast, st.lif.y if s_pre is None else s_pre, y, carry.w,
                     params.c if plastic_c is None else plastic_c, opts.plasticity, reward,
                     backend=opts.plasticity_pass(),
                     tick=None if learn_until is None else st.tick, learn_until=learn_until,
@@ -519,17 +595,29 @@ class TickEngine:
         on from them) or seeded at zero with the state's batch shape, one per
         slot on a slot axis, and the loop folds every tick into them in
         place. Whether a profiler runs is asked once, here.
+
+        With ``mesh`` set the whole scan runs on this rank's shard instead
+        (:func:`repro_torch.parallel.snn_sharding.sharded_scan`): the operands
+        and results are the rank's own, the hoisted ``W*C`` is the local slab.
         """
         opts = self.options
+        if opts.mesh is not None:
+            from repro_torch.parallel import snn_sharding
+
+            return snn_sharding.sharded_scan(
+                self, params, carry0, ext_seq, n_ticks, rewards=rewards, delays=delays,
+                plastic_c=plastic_c, learn_until=learn_until, neighbors=neighbors, wc=wc,
+                w_edges=w_edges, owned=owned)
+        backend = self.backend
         T = int(n_ticks) if ext_seq is None else int(ext_seq.shape[0])
         learning = carry0.w is not None
         if learning:
             wc = None
-        elif wc is None and (opts.backend != "pallas" or delays is not None):
+        elif wc is None and (backend != "pallas" or delays is not None):
             wc = masked_weights(params)
         state = carry0.state
         D = state.delay_buf.shape[-2]
-        fused_ring = opts.backend == "pallas_fused" and D > 1
+        fused_ring = backend == "pallas_fused" and D > 1
         spare = None
         if fused_ring:
             state = dataclasses.replace(state, delay_buf=state.delay_buf.clone())
@@ -537,7 +625,7 @@ class TickEngine:
                 spare = torch.empty_like(state.delay_buf)
         carry = dataclasses.replace(carry0, state=state)
         event = None
-        if opts.backend == "event" and delays is None:
+        if backend == "event" and delays is None:
             event = self.prepare_event(params, wc, neighbors, learning=learning,
                                        w_edges=w_edges)
             if (opts.event_knee is not None and event.strategy == "topk"
@@ -597,6 +685,10 @@ class TickEngine:
              neighbors: Optional[ops.EventFanIn] = None) -> SNNState:
         """One frozen-weight tick (the public ``network.step`` semantics): a
         one-tick :meth:`scan`."""
+        if self.options.mesh is not None:
+            raise ValueError(
+                "tick() is single-device; the sharded engine runs through "
+                "scan()/rollout()/chunk() (a 1-tick chunk() is the sharded single tick)")
         final, _ = self.scan(params, TickCarry(state=state),
                              None if ext is None else ext.unsqueeze(0), 1, delays=delays,
                              neighbors=neighbors)

@@ -44,9 +44,14 @@ premasked frozen tick on a resident ``W*C`` stack, as frozen-only waves do.
 :mod:`repro_torch.launch.serve_async` puts the asyncio front-end on it. The
 LM server arrives with a later slice.
 
+:func:`serve_sharded_main` is the other end of the scale axis: one network
+too large for one device (``--arch snn-64k``), its fabric sharded by
+destination columns over the ranks of the world the CLI was started in.
+
 Usage (on a machine with an NVIDIA GPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch snn-fused [--continuous]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch snn --smoke --device cpu
+  PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.serve --arch snn-64k
 """
 from __future__ import annotations
 
@@ -1121,12 +1126,143 @@ def serve_snn_main(cfg, args) -> Dict:
     return stats
 
 
+def _plan_misses() -> int:
+    """Rebuilds and new launch plans so far (every kernel's plan cache): what
+    a retrace is to the reference."""
+    from repro_torch.kernels import _build, _event_plan, _plan, _stream
+
+    return sum(f.cache_info().misses for f in (
+        _build.build, _plan.plan, _stream.stdp_plan, _stream.spike_matmul_plan,
+        _event_plan.event_plan))
+
+
+def serve_sharded_main(cfg, args) -> Dict:
+    """Serve a sharded fabric: ONE network over every rank of this world.
+
+    The slotted :class:`SNNServer` time-shares one small fabric between many
+    tenants; this is the other end of the scale axis (DESIGN.md §15): a
+    single network whose ``(n, n)`` weight matrix is partitioned by
+    destination columns over the mesh, each rank building only its own
+    columns. The serving loop is the chunk contract: ``TickEngine.chunk``
+    calls threading the rank-resident carry, no new launch plan after the
+    warm-up chunk (``recompiles_after_warmup`` counts them). Above 4096
+    neurons the topology is the implicit all-to-all (``c=None``): ``W*C`` is
+    ``W`` itself and no second 16 GiB buffer exists. Every backend serves it,
+    the kernels B1 and B2 on ``W`` alone (the reference's Pallas kernels
+    refuse ``c=None`` and its CLI serves them on ``jnp`` there; ROADMAP §C).
+
+    The world is the one this process was started in (:func:`~repro_torch.
+    launch.mesh.init_world`): a lone process is a world of one rank, and
+    ``torchrun --nproc-per-node D`` gives D. The reference simulates
+    ``cfg.snn_mesh`` devices in one process; the port serves on the ranks it
+    has and prints D. Every rank builds the same drive from the same seed;
+    rank 0 prints. The returned stats hold, under ``"results"``, this rank's
+    rasters of every chunk (the warm-up first), its final carry, the
+    telemetry summary, and the engine and this rank's parameters it served.
+    """
+    from repro_torch.core import connectivity
+    from repro_torch.launch.mesh import init_world
+    from repro_torch.parallel import snn_sharding
+    from repro_torch.parallel.mesh import make_snn_mesh
+
+    import torch.distributed as dist
+
+    joined = not dist.is_initialized()
+    init_world(args.device)
+    joined = joined and dist.is_initialized()
+    mesh = make_snn_mesh(None, device=args.device)
+    n, n_dev = cfg.n_neurons, mesh.size
+    say = print if mesh.rank == 0 else (lambda *a, **k: None)
+    if n_dev != cfg.snn_mesh:
+        say(f"config {cfg.name!r} names a {cfg.snn_mesh}-device mesh; this world has "
+            f"{n_dev} rank(s), and the fabric shards over those")
+    backend = cfg.snn_backend
+    use_implicit = n > 4096          # c=None: no (n, n) mask at scale
+    engine = TickEngine(EngineOptions(mode=cfg.snn_mode, backend=backend, telemetry=True,
+                                      mesh=mesh))
+
+    # -- the fabric: W rank-local from the start, the small leaves cut --------
+    w = snn_sharding.make_sharded_dyadic_weights(n, mesh)
+    c = None
+    if not use_implicit:
+        c_np = connectivity.sparse_random(n, cfg.snn_density, seed=0)
+        sstats = connectivity.shard_stats(c_np, n_dev)
+        say(f"topology: density={cfg.snn_density}, edge imbalance across {n_dev} "
+            f"shards = {connectivity.shard_imbalance(sstats):.3f}")
+        c = torch.from_numpy(c_np.astype(np.float32))
+    n_in = min(n, 256)
+    rng = np.random.default_rng(7)
+    w_in = torch.from_numpy(rng.integers(0, 8, (n_in, n)).astype(np.float32) * 0.25)
+    lif = LIFParams.make(n, v_th=1.0, leak=0.25, r_ref=1, device="cpu")
+    specs = snn_sharding.params_specs(snn_sharding.snn_rules(mesh.axis),
+                                      SNNParams(w=w, c=c, w_in=w_in, lif=lif))
+    params = SNNParams(w=w, c=snn_sharding.place(c, specs.c, mesh),
+                       w_in=snn_sharding.place(w_in, specs.w_in, mesh),
+                       lif=snn_sharding.place(lif, specs.lif, mesh))
+    carry = TickCarry(state=SNNState.zeros((), n // n_dev, device=mesh.device),
+                      telem=TickTelemetry.zeros((), device=mesh.device))
+
+    chunk_ticks = max(1, cfg.snn_chunk_ticks)
+    n_chunks = max(2, args.requests)
+
+    def _ext():
+        spikes = rng.random((chunk_ticks, n_in)) < cfg.snn_rate
+        return torch.from_numpy(spikes.astype(np.float32)).to(mesh.device)
+
+    def _sync():
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+
+    say(f"serving sharded SNN fabric n={n} on a {n_dev}-rank mesh of {mesh.device} "
+        f"(spike exchange: {mesh.exchange}; {backend} backend, {chunk_ticks}-tick "
+        f"chunks, {n_chunks} chunks)")
+    rasters = []
+    carry, raster = engine.chunk(params, carry, _ext(), chunk_ticks, owned=True)  # warm-up
+    rasters.append(raster)
+    _sync()
+    warm = _plan_misses()
+    t0 = time.perf_counter()
+    for _ in range(n_chunks):
+        carry, raster = engine.chunk(params, carry, _ext(), chunk_ticks, owned=True)
+        rasters.append(raster)
+    _sync()
+    dt = time.perf_counter() - t0
+
+    ticks = n_chunks * chunk_ticks
+    tel = carry.telem.summary(n)
+    stats = {
+        "mode": "sharded",
+        "n_neurons": n,
+        "n_devices": n_dev,
+        "ticks": ticks,
+        "ticks_per_s": ticks / dt,
+        "synops_per_s": ticks / dt * float(n) * float(n),
+        "recompiles_after_warmup": _plan_misses() - warm,
+    }
+    for k, v in stats.items():
+        say(f"{k}: {v}")
+    say("telemetry: " + ", ".join(f"{k}={v:.4g}" for k, v in tel.items()))
+    if args.metrics_out and mesh.rank == 0:
+        import json
+
+        with open(args.metrics_out, "w") as fh:
+            json.dump({**stats, "telemetry": tel}, fh, indent=1, sort_keys=True)
+        say(f"wrote metrics JSON to {args.metrics_out}")
+    if stats["recompiles_after_warmup"]:
+        raise AssertionError("the chunk loop put a new launch plan into use")
+    stats["results"] = {"rasters": rasters, "carry": carry, "telemetry": tel,
+                        "engine": engine, "params": params}
+    if joined:   # the world this call joined ends with it
+        dist.destroy_process_group()
+    return stats
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="snn-fused")
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--requests", type=int, default=16)
-    ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--continuous", action="store_true",
                     help="per-slot continuous admission in chunks of the config's "
                          "snn_chunk_ticks instead of synchronous waves")
@@ -1143,6 +1279,8 @@ def main(argv=None):
     cfg = bundle.smoke if args.smoke else bundle.model
     if cfg.family != "snn":
         raise SystemExit(f"{args.arch}: only the SNN server is ported")
+    if cfg.snn_mesh:
+        return serve_sharded_main(cfg, args)
     return serve_snn_main(cfg, args)
 
 

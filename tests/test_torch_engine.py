@@ -121,9 +121,14 @@ def test_implicit_all_to_all_c_none():
     assert params.c is None
     st0 = t_net.SNNState.zeros((2,), n, device="cpu")
     _assert_rollout_equal(t_net.rollout(params, st0, torch.as_tensor(ext), ticks), j_out)
+    # Deliberate difference (ROADMAP §C): the reference's Pallas kernels
+    # refuse c=None; the port's B1 and B2 run on W alone.
     for backend in ("pallas", "pallas_fused"):
         with pytest.raises(ValueError, match="c=None"):
-            t_net.rollout(params, st0, torch.as_tensor(ext), ticks, backend=backend)
+            j_net.rollout(_jax_params(tree), j_net.SNNState.zeros((2,), n),
+                          jnp.asarray(ext), ticks, backend=backend)
+        _assert_rollout_equal(t_net.rollout(params, st0, torch.as_tensor(ext), ticks,
+                                            backend=backend), j_out)
 
 
 @pytest.mark.parametrize("backend", BACKENDS)
@@ -247,9 +252,11 @@ _EVENT_BAD = {"backend": "events", "plasticity_backend": "events", "event_k_acti
     ("surrogate", True),
 ])
 def test_later_slices_raise(field, value):
-    """The options of slices not ported yet (the mesh) raise; the event
-    slice's options (ported) now validate, and a bad value raises the
-    reference's ``ValueError``. The surrogate (ported with the classifier
+    """Every option of a later slice is ported now. The mesh (the sharding
+    slice) must be a ``SNNMesh``: anything else raises the reference's
+    ``ValueError``, and a one-rank mesh runs the plain engine. The event
+    slice's options validate, and a bad value raises the reference's
+    ``ValueError``. The surrogate (ported with the classifier
     slice) is accepted and trains on ``jnp``; the kernel backends raise the
     reference's ``ValueError`` ("inference-only") when the tick runs.
     Telemetry (ported with the observability slice) is accepted as the
@@ -278,9 +285,18 @@ def test_later_slices_raise(field, value):
             with pytest.raises(ValueError, match="inference-only"):
                 eng.tick(st, p, ext)
         return
-    if field not in _EVENT_BAD:
-        with pytest.raises(NotImplementedError, match="slice"):
-            EngineOptions(**{field: value})
+    if field == "mesh":
+        for opts in (EngineOptions, j_net.EngineOptions):
+            with pytest.raises(ValueError, match="mesh must be"):
+                opts(mesh=value)
+        from repro_torch.launch.mesh import make_snn_mesh
+
+        p = interop.params_from_numpy(_tree(6, 3), "cpu")
+        st = t_net.SNNState.zeros((2,), 6, device="cpu")
+        ext = torch.from_numpy(_drive(3, (2,), 6, 4))
+        sharded = TickEngine(EngineOptions(mesh=make_snn_mesh(1, device="cpu")))
+        got, want = sharded.rollout(p, st, ext, 3), TickEngine().rollout(p, st, ext, 3)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0].lif.v, want[0].lif.v)
         return
     opts = EngineOptions(**{field: value})
     assert getattr(opts, field) == value

@@ -38,7 +38,9 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
             "repro_torch.launch.serve_async",
             "repro_torch.examples.serve_multi_tenant", "repro_torch.configs.mnist_stdp",
             "repro_torch.examples.online_learning",
-            "repro_torch.examples.reconfigure_runtime"} <= set(mods)
+            "repro_torch.examples.reconfigure_runtime", "repro_torch.parallel.snn_sharding",
+            "repro_torch.launch.mesh", "repro_torch.parallel.mesh",
+            "repro_torch.configs.snn_64k"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -51,6 +53,26 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "", f"the port imported {out.stdout.strip()}"
+
+
+def test_the_core_engine_imports_no_launch_layer():
+    """The engine checks a mesh by the collectives it calls, so importing it,
+    and giving it a mesh, loads no launcher module (the mesh lives in
+    ``repro_torch.parallel``)."""
+    code = (
+        "import sys\n"
+        "from repro_torch.core.engine import EngineOptions\n"
+        "before = sorted(m for m in sys.modules if m.startswith(('repro_torch.launch',\n"
+        "                                                          'repro_torch.parallel')))\n"
+        "from repro_torch.parallel.mesh import make_snn_mesh\n"
+        "EngineOptions(mesh=make_snn_mesh(1, device='cpu'), backend='pallas_fused')\n"
+        "after = sorted(m for m in sys.modules if m.startswith('repro_torch.launch'))\n"
+        "print(','.join(before + after))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", f"the engine loaded {out.stdout.strip()}"
 
 
 def test_no_source_names_jax_or_repro():

@@ -237,10 +237,21 @@ def test_learning_errors_match_reference():
     eng = TickEngine(EngineOptions(plasticity=pp))
     with pytest.raises(ValueError, match="plastic_c"):
         eng.chunk(tp_none, eng.init_learning_carry(tp_none, st, pst), None, 2)
+    # Deliberate difference (ROADMAP §C): the reference's Pallas kernels
+    # refuse c=None; the port's B1 and B2 learn on W alone, as on an
+    # explicit all-ones mask.
+    ones = torch.ones(n, n)
     for backend in ("pallas", "pallas_fused"):
         with pytest.raises(ValueError, match="c=None"):
-            t_net.learning_rollout(tp_none, st, pst, None, 2, plasticity=pp, backend=backend,
-                                   plastic_c=torch.ones(n, n))
+            j_net.learning_rollout(dataclasses.replace(jp, c=None), j_net.SNNState.zeros((), n),
+                                   JPS.zeros((), n), None, 2, plasticity=JPP.make(),
+                                   backend=backend, plastic_c=jnp.ones((n, n)))
+        got = t_net.learning_rollout(tp_none, st, pst, None, 2, plasticity=pp,
+                                     backend=backend, plastic_c=ones)
+        want = t_net.learning_rollout(dataclasses.replace(tp, c=ones), st, pst, None, 2,
+                                      plasticity=pp, backend=backend, plastic_c=ones)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0][2], want[0][2])
+        assert torch.equal(got[0][0].lif.v, want[0][0].lif.v)
 
 
 def test_implicit_all_to_all_learns_with_explicit_mask():

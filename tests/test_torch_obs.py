@@ -602,7 +602,7 @@ def test_tenant_report_matches_reference(served):
 def test_cli_prints_report_and_writes_metrics(tmp_path, capsys):
     out = tmp_path / "metrics.json"
     stats = t_serve.main(["--arch", "snn", "--smoke", "--device", "cpu", "--requests", "9",
-                          "--metrics-out", str(out)])
+                          "--slots", "8", "--metrics-out", str(out)])
     text = capsys.readouterr().out
     assert "per-tenant activity (wave telemetry):" in text
     assert "# TYPE snn_requests_total counter" in text and "telemetry=" in text

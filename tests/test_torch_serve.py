@@ -163,7 +163,8 @@ def test_plastic_and_later_options_raise(reference):
 
 
 def test_demo_generators_and_cli_smoke(capsys):
-    stats = t_serve.main(["--arch", "snn", "--smoke", "--device", "cpu", "--requests", "9"])
+    stats = t_serve.main(["--arch", "snn", "--smoke", "--device", "cpu", "--requests", "9",
+                           "--slots", "8"])
     assert stats["n_requests"] == 9 and stats["recompiles_after_warmup"] == 0
     assert "kernel launches" in capsys.readouterr().out
 

@@ -601,7 +601,7 @@ def test_refill_makes_its_stated_writes_in_place(program, rule, telemetry):
 
 def test_cli_serves_continuously(capsys):
     stats = t_serve.main(["--arch", "snn", "--smoke", "--device", "cpu", "--requests", "9",
-                          "--continuous"])
+                          "--slots", "8", "--continuous"])
     out = capsys.readouterr().out
     assert stats["mode"] == "continuous" and stats["n_requests"] == 9
     assert stats["chunks"] > 0 and stats["recompiles_after_warmup"] == 0
