@@ -205,7 +205,22 @@ script on any mismatch:
    programs on ``pallas`` (B1) and ``jnp``: rasters bitwise equal to
    ``jnp``'s, spike totals 2344 / 2288 / 2344, one program in use and no
    new launch plan after the first.
-13. the sharded fabric: ``snn-64k`` FULL (65,536 neurons, ``c=None``, ``W``
+13. analysis: the port's static-analysis gate
+   (``repro_torch.analysis.check``, ``--all``) on the card, with 0 errors;
+   every tick program (4 backends x frozen/learning x telemetry on/off) at
+   snn-fused FULL (4096 neurons, 8 slots, 32 ticks), then the wave, chunk
+   and refill programs of a ``jnp`` server at the same config with the event
+   program (the demo tenants), each with its tick body (and the refill)
+   under ``torch.cuda.set_sync_debug_mode("error")``; every kernel launch
+   the earlier phases profiled (``device_ms``), the launches of three of
+   those tick programs at FULL (B1, B2, B3, B5, telemetry; B6 on its
+   stream-K split at 8 x 4096 x 4096 in the first's trace) held to the
+   launch descriptor its
+   wrapper built: the trace's grid, block and shared memory (a launch whose
+   traces came back empty twice is profiled once more here, and an empty
+   trace fails the phase); and each kernel's static shared memory in the
+   compiler's report equal to its descriptors'.
+14. the sharded fabric: ``snn-64k`` FULL (65,536 neurons, ``c=None``, ``W``
    16 GiB of f32 built rank-local) as a world of one rank on the card
    (NCCL), through ``serve_sharded_main`` on ``jnp``, ``event`` (B1's dense
    arm and B3 behind its gate), ``pallas`` (B1 on ``W`` alone) and
@@ -228,7 +243,7 @@ script on any mismatch:
    telemetry totals as the CPU tests hold them. Each rank's launches and
    plans are printed, and every launch count of the runs goes into the
    kernels line.
-14. a JSON line of the kernels (the six ported ones and the telemetry
+15. a JSON line of the kernels (the six ported ones and the telemetry
    kernel), the card's name and power limit, and the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -237,6 +252,7 @@ the package is missing. Nothing here imports JAX or the ``repro`` package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -244,6 +260,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -315,7 +332,10 @@ def device_ms(fn, runs: int = RUNS) -> float:
     activity at all (seen on the H100 once in the crossover sweep, and once
     in three traces in a row of B6 at ``predict_int``'s shapes) is taken
     again; after three such traces the call is timed by :func:`events_ms`
-    instead, and a line says so."""
+    instead, and a line says so. The launches a trace holds are held to the
+    descriptors their wrappers built (:func:`hold_trace`, for the analysis
+    phase); a call whose traces hold none of them is kept for that phase to
+    profile once more."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -323,19 +343,128 @@ def device_ms(fn, runs: int = RUNS) -> float:
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    for attempt in range(3):
+        with launches_seen() as seen, profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
         us = sum(e.self_device_time_total for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA)
         if us > 0:
+            if attempt < 2 and not hold_trace(prof, seen):
+                TRACES["retry"].append(fn)   # profiled once more by the analysis phase
             return us / runs / 1e3
+        if attempt == 1 and seen:
+            TRACES["retry"].append(fn)   # profiled once more by the analysis phase
     ms = events_ms(fn, runs)
     log(f"device_ms: torch.profiler recorded no device time in 3 traces; timed by CUDA "
         f"events behind a device sleep instead: {ms:.4f} ms")
     return ms
+
+# The profiled kernel launches held to their descriptors (the analysis
+# phase): keys checked, launches checked, mismatches, and the calls whose
+# traces came back empty twice.
+TRACES = {"checked": {}, "launches": 0, "dropped": 0, "bad": [], "retry": [], "missing": []}
+KERNEL_MODULES = ("lif_step", "tick_fused", "event_dispatch", "stdp_update", "spike_matmul",
+                  "telemetry")
+
+
+@contextlib.contextmanager
+def launches_seen():
+    """Every launch descriptor the kernel wrappers build while active, in
+    launch order (each wrapper keeps its last as ``last_launch``)."""
+    import importlib
+
+    mods = [importlib.import_module(f"repro_torch.kernels.{m}") for m in KERNEL_MODULES]
+    seen = []
+    saved = [(m, m._launch) for m in mods]
+
+    def watched(m, fn):
+        def launch(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            seen.append(m.last_launch)
+            return out
+        return launch
+
+    for m, fn in saved:
+        m._launch = watched(m, fn)
+    try:
+        yield seen
+    finally:
+        for m, fn in saved:
+            m._launch = fn
+
+
+def launch_key(d) -> tuple:
+    return (d.symbol, d.grid, d.block, d.smem_dynamic, d.smem_static)
+
+
+def trace_kernels(prof, symbols) -> tuple:
+    """``(kernel events whose names hold one of symbols, in start order, every
+    device event's category and name, the runtime calls)`` of a profiler
+    trace."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    import os
+
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.unlink(path)
+    got = [e for e in events if e.get("cat") == "kernel"
+           and any(sym in e.get("name", "") for sym in symbols)]
+    if got and not TRACES["launches"]:
+        log(f"analysis: a kernel event's args in the trace: {sorted(got[0].get('args', {}))}")
+    device = [(e.get("cat"), e.get("name", "")[:60]) for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    runtime = sorted({e.get("name") for e in events if e.get("cat") == "cuda_runtime"})
+    return sorted(got, key=lambda e: e["ts"]), device, runtime
+
+
+def hold_trace(prof, seen) -> bool:
+    """Hold every profiled launch's grid, block and shared memory equal to the
+    descriptor its wrapper built for it (once per distinct descriptor);
+    returns False when the trace holds no kernel event for some descriptor.
+
+    The profiler can drop a launch's kernel record (seen: 1-7 of 30 B4
+    launches in a trace), so events are matched to the launches in order by
+    kernel name, a launch with no record skipped and counted."""
+    if not seen or all(launch_key(d) in TRACES["checked"] for d in seen):
+        return True
+    events, device, runtime = trace_kernels(prof, {d.symbol for d in seen})
+    j, held = 0, set()
+    for e in events:
+        while j < len(seen) and seen[j].symbol not in e["name"]:
+            j += 1
+        if j == len(seen):
+            TRACES["bad"].append(f"a kernel event {e['name'][:60]} past the launches of "
+                                 f"{sorted({d.name for d in seen})}")
+            return True
+        d = seen[j]
+        j += 1
+        args = e.get("args", {})
+        grid, block = tuple(args.get("grid", ())), tuple(args.get("block", ()))
+        # CUPTI's record sums static and dynamic shared memory
+        smem, want = int(args.get("shared memory", -1)), d.smem_static + d.smem_dynamic
+        if grid != d.grid or block != d.block or smem != want:
+            TRACES["bad"].append(f"{d.name}: traced {e['name'][:60]} grid {grid} block "
+                                 f"{block} shared {smem} against the descriptor's grid "
+                                 f"{d.grid} block {d.block} shared {want}")
+            continue
+        held.add(launch_key(d))
+        TRACES["checked"][launch_key(d)] = TRACES["checked"].get(launch_key(d), 0) + 1
+        TRACES["launches"] += 1
+    TRACES["dropped"] += len(seen) - len(events)
+    if {launch_key(d) for d in seen} - held - set(TRACES["checked"]):
+        TRACES["missing"].append(sorted({d.name for d in seen}))
+        log(f"analysis: no kernel event of {sorted({d.symbol for d in seen})} in a trace of "
+            f"{len(seen)} launches; its device events {device[:6]} ({len(device)}), runtime "
+            f"calls {runtime}")
+        return False
+    return True
 
 
 def events_ms(fn, runs: int = RUNS) -> float:
@@ -4105,6 +4234,283 @@ def run_sharded_phase(dev, card, smi):
     return total
 
 
+# -- 13. analysis ---------------------------------------------------------------------
+
+
+def guard_loop(counts: dict, key: str):
+    """Run ``TickEngine.tick_body`` (the tick loop's body, once a tick) under
+    ``torch.cuda.set_sync_debug_mode("error")``, counting its calls under
+    ``counts[key]``; returns the undo."""
+    import torch
+
+    from repro_torch.core.engine import TickEngine
+
+    body = TickEngine.tick_body
+
+    def guarded(self, *args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return body(self, *args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            counts[key[0]] = counts.get(key[0], 0) + 1
+
+    TickEngine.tick_body = guarded
+    return lambda: setattr(TickEngine, "tick_body", body)
+
+
+def full_width_params(dev, gen):
+    """An 8-slot snn-fused FULL fabric: u8-grid weights, 5 % masks, identity
+    input weights, the reference's LIF rows, every leaf per slot."""
+    import torch
+
+    from repro_torch.core.lif import LIFParams
+    from repro_torch.core.network_types import SNNParams
+
+    n, S = N, SLOTS
+    w = torch.randint(0, 8, (S, n, n), generator=gen, device=dev).float() * 0.25
+    c = (torch.rand((S, n, n), generator=gen, device=dev) < 0.05).float()
+    w_in = torch.eye(n, device=dev).expand(S, n, n).contiguous()
+    lif = LIFParams.make(n, v_th=1.0, leak=0.25, r_ref=1, device=dev)
+    lif = dataclasses.replace(lif, **{f.name: getattr(lif, f.name).expand(S, n).contiguous()
+                                      for f in dataclasses.fields(lif)})
+    return SNNParams(w=w, c=c, w_in=w_in, lif=lif)
+
+
+def run_tick_programs(dev, gen, extra) -> None:
+    """Every tick program of the gate's registry at snn-fused FULL, with the
+    tick loop under ``set_sync_debug_mode("error")`` (the read after the
+    loop, ``event_overflow="strict"``'s, is not part of it). ``extra`` runs
+    in the first profiled program's trace (a trace of a few launches alone
+    has come back with no device activity at all)."""
+    import torch
+
+    from repro_torch.analysis import programs
+    from repro_torch.core.engine import TickEngine
+    from repro_torch.core.network_types import SNNState
+    from repro_torch.plasticity.stdp import PlasticityState
+
+    params = full_width_params(dev, gen)
+    ext = (torch.rand((TICKS, SLOTS, N), generator=gen, device=dev) < 0.05).float()
+    ticks = {}
+    key = [None]
+    undo = guard_loop(ticks, key)
+    try:
+        for name in programs.program_names():
+            parts = name.split("/")
+            if parts[0] != "tick" or parts[1] not in programs.BACKENDS:
+                continue
+            _, backend, tag, tel = parts
+            learning = tag == "learning"
+            engine = TickEngine(programs.tick_options(backend, learning, tel == "telem"))
+            state = SNNState.zeros((SLOTS,), N, device=dev)
+            key[0] = name
+
+            def run():
+                if learning:
+                    pst = PlasticityState.zeros((), N, device=dev, slots=SLOTS)
+                    return engine.learning_rollout(params, state, pst, ext, TICKS)
+                return engine.rollout(params, state, ext, TICKS)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if name in PROFILED_PROGRAMS:
+                guarded = ticks[name]
+                traced = run if name != PROFILED_PROGRAMS[0] else lambda: (run(), extra())
+                profiled_launches(traced, runs=1)
+                ticks[name] = guarded
+            spikes = int(out[1].sum().item())
+            if ticks.get(name) != TICKS:
+                raise AssertionError(f"analysis {name}: {ticks.get(name)} ticks guarded, not "
+                                     f"{TICKS}")
+            log(f"analysis {name} at snn-fused FULL ({N} neurons, {SLOTS} slots, {TICKS} "
+                f"ticks): {ticks[name]} ticks under set_sync_debug_mode('error'), no host "
+                f"sync; {spikes} spikes; {wall:.3f} s")
+    finally:
+        undo()
+
+
+# Tick programs whose launches at snn-fused FULL are profiled and held to their
+# descriptors (B1, B2, B3, B5 and the telemetry kernel; the earlier phases
+# profile these kernels at smaller shapes only).
+PROFILED_PROGRAMS = ("tick/pallas/learning/telem", "tick/pallas_fused/frozen/telem",
+                     "tick/event/frozen/notelem")
+
+
+def profiled_launches(fn, runs: int = 3) -> None:
+    """Run ``fn`` once, then ``runs`` times under the profiler, and hold its
+    kernel launches to their descriptors; an empty trace is retaken once,
+    then fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with launches_seen() as seen, profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        if hold_trace(prof, seen):
+            return
+    raise AssertionError(f"analysis: the trace of {sorted({d.name for d in seen})} came back "
+                         f"with no kernel events twice")
+
+
+def run_serve_programs(dev) -> None:
+    """The wave, chunk and refill programs of a ``jnp`` server at snn-fused
+    FULL whose sparse demo tenants ride the event program, with every tick
+    body and every refill under ``set_sync_debug_mode("error")``."""
+    import torch
+
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch.serve import SNNServer, make_demo_requests, make_demo_tenants
+
+    cfg = serve_config()
+    server = SNNServer(n_max=cfg.n_neurons, slots=SLOTS, max_ticks=cfg.n_ticks,
+                       mode=cfg.snn_mode, backend="jnp", device=dev, event_density=0.2,
+                       chunk_ticks=CONT_CHUNK)
+    names = make_demo_tenants(server, SLOTS, seed=0)
+    reqs = make_demo_requests(server, names, 2 * SLOTS, seed=1)
+    ticks, key = {}, [None]
+    fill = serve_mod._Resident.fill
+    fills = {}
+
+    def guarded_fill(res, i, t):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fill(res, i, t)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        name = f"serve/refill/{'jnp' if res.fan_idx is None else 'event'}"
+        fills[name] = fills.get(name, 0) + 1
+
+    run_wave, run_chunk = server.run_wave, server._run_chunk
+
+    def wave(batch):
+        key[0] = "serve/wave/" + server.tenants[batch[0].tenant].backend
+        run_wave(batch)
+
+    def chunk(res, engine, backend, *args, **kwargs):
+        key[0] = f"serve/chunk/{backend}"
+        run_chunk(res, engine, backend, *args, **kwargs)
+
+    server.run_wave, server._run_chunk = wave, chunk
+    undo = guard_loop(ticks, key)
+    serve_mod._Resident.fill = guarded_fill
+    try:
+        t0 = time.perf_counter()
+        server.serve(reqs)
+        server.serve_continuous(make_demo_requests(server, names, 2 * SLOTS, seed=1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        undo()
+        serve_mod._Resident.fill = fill
+        del server.run_wave, server._run_chunk
+    want = {"serve/wave/jnp", "serve/wave/event", "serve/chunk/jnp"}
+    if not want <= set(ticks) or "serve/refill/jnp" not in fills:
+        raise AssertionError(f"analysis: serve programs ran {ticks}, refills {fills}")
+    for name, n in sorted(ticks.items()):
+        log(f"analysis {name} at snn-fused FULL ({len(reqs)} demo requests, {SLOTS} slots): "
+            f"{n} ticks under set_sync_debug_mode('error'), no host sync")
+    for name, n in sorted(fills.items()):
+        log(f"analysis {name} at snn-fused FULL: {n} refills under "
+            f"set_sync_debug_mode('error'), no host sync")
+    log(f"analysis: the serve programs (a wave serve, then a continuous serve) {wall:.3f} s")
+
+
+def retry_traces() -> None:
+    """Profile once more each call whose traces came back empty twice in
+    ``device_ms``; an empty trace now fails the phase."""
+    for fn in TRACES["retry"]:
+        profiled_launches(fn)
+    TRACES["retry"].clear()
+
+
+def static_smem_line(build_log: str) -> str:
+    """Each kernel's static shared memory in the compiler's report against its
+    descriptors' (``-Xptxas=-v``: "Used N registers, M bytes smem")."""
+    from repro_torch.analysis import programs
+    from repro_torch.kernels import _stream, stdp_update
+
+    want = {}
+    plans = [_stream.stdp_plan(1, 1, 74, 74, rstdp=False), _stream.stdp_plan(1, 1, 128, 128,
+                                                                            rstdp=True)]
+    launches = [d for _, x in programs.kernel_launches()
+                for d in (x if isinstance(x, tuple) else (x,))]
+    launches += [stdp_update.stdp_launch(p, dw_stats=s) for p in plans for s in (False, True)]
+    for d in launches:
+        want.setdefault(d.symbol, set()).add(d.smem_static)
+    got, name = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"Used \d+ registers", line)
+        if m and name:
+            m = re.search(r"(\d+) bytes smem", line)   # absent when there is none
+            # longest symbol first: "stdp_update_kernel" is no part of the
+            # element kernel's name, but be safe against prefixes
+            sym = max((s for s in want if s in name), key=len, default=None)
+            if sym is not None:
+                got.setdefault(sym, set()).add(int(m.group(1)) if m else 0)
+            name = None
+    if got != want:
+        raise AssertionError(f"analysis: static shared memory by kernel in the compiler's "
+                             f"report {got} against the descriptors' {want}")
+    return f"{ {k: sorted(v) for k, v in sorted(got.items())} }"
+
+
+def run_analysis_phase(dev, gen, build_log: str) -> None:
+    import torch
+
+    from repro_torch.analysis import check
+    from repro_torch.analysis.findings import ERROR, INFO, WARNING
+
+    t0 = time.perf_counter()
+    report = check.run(device=dev)
+    counts = {sev: sum(1 for f in report.findings if f.severity == sev)
+              for sev in (ERROR, WARNING, INFO)}
+    log(f"analysis gate (--all on {dev}): {len(report.programs_checked)} programs, "
+        f"findings {counts} in {time.perf_counter() - t0:.2f} s")
+    for f in report.findings:
+        if f.severity != INFO:
+            log(f"analysis {f.severity.upper()} {f.program} {f.rule}: {f.message[:160]}")
+    if not report.ok():
+        raise AssertionError(f"analysis gate: {len(report.errors)} error(s)")
+    # B6 on its stream-K split at 8 x 4096 x 4096 (timed by CUDA events
+    # earlier), profiled inside a tick program's trace
+    from repro_torch.kernels import spike_matmul
+
+    s = (torch.rand((ROWS, N), generator=gen, device=dev) < 0.5).float()
+    w = torch.rand((N, N), generator=gen, device=dev)
+    c = (torch.rand((N, N), generator=gen, device=dev) < 0.5).float()
+    run_tick_programs(dev, gen, lambda: spike_matmul.spike_matmul(s, w, c))
+    del s, w, c
+    run_serve_programs(dev)
+    retry_traces()
+    log(f"analysis: traces without the launches' kernel events: {TRACES['missing']}")
+    if TRACES["bad"]:
+        raise AssertionError("analysis: profiled launches against their descriptors: "
+                             + "; ".join(TRACES["bad"][:5]))
+    kinds = sorted({k[0] for k in TRACES["checked"]})
+    names = {"lif_step_kernel", "tick_fused_kernel", "event_dispatch_db_kernel",
+             "event_dispatch_kernel", "spike_matmul_kernel", "telemetry_kernel"}
+    if not names <= set(kinds) or not any(k.startswith("stdp_update") for k in kinds):
+        raise AssertionError(f"analysis: profiled launches held only of {kinds}")
+    log(f"analysis: {TRACES['launches']} profiled launches of {len(TRACES['checked'])} "
+        f"distinct descriptors ({', '.join(kinds)}) held to the descriptors their wrappers "
+        f"built: grid, block and shared memory (static + dynamic) equal; "
+        f"{TRACES['dropped']} launches left no kernel record in their traces")
+    log(f"analysis: static shared memory by kernel (ptxas) == the descriptors': "
+        f"{static_smem_line(build_log)}")
+    torch.cuda.synchronize()
+
+
 def ptxas_kernels(text: str) -> list:
     """``(kernel, registers, spill store bytes)`` for each entry function in
     the compiler's ``-Xptxas=-v`` report."""
@@ -4211,6 +4617,9 @@ def main() -> int:
     for name, err in workload_errs.items():
         errs[name] = max(errs[name], err)
     reconf = phase("reconfigure", run_reconfigure_phase, dev)
+    agen = torch.Generator(device=dev)
+    agen.manual_seed(22)
+    phase("analysis", run_analysis_phase, dev, agen, build.log)
     sharded = phase("sharded", run_sharded_phase, dev, card, smi)
     for name, count in sharded.items():
         launches[name] += count

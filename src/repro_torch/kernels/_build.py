@@ -12,6 +12,7 @@ update rounding as the plain PyTorch twins' separate elementwise ops do.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -20,6 +21,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -177,6 +179,28 @@ def sm_count(device) -> int:
     import torch
 
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+_twin = threading.local()
+
+
+@contextlib.contextmanager
+def twin(name: str):
+    """Mark the plain twin of kernel ``name`` running in its wrapper's CPU
+    branch, so that an op recorder (:mod:`repro_torch.analysis.op_rules`)
+    sees the call as one opaque kernel, as the card runs it, and not as the
+    twin's elementwise ops. The card's branch never enters it."""
+    outer = getattr(_twin, "name", None)
+    _twin.name = outer or name
+    try:
+        yield
+    finally:
+        _twin.name = outer
+
+
+def twin_running() -> "str | None":
+    """The kernel whose plain twin this thread is running, or None."""
+    return getattr(_twin, "name", None)
 
 
 def check(name: str, err: int) -> None:

@@ -157,3 +157,13 @@ def _pipeline(bb: int, planes: int, n_planes: int, path: str) -> tuple:
     raise ValueError(f"cannot stage {n_planes} ring planes of {bb} rows: even one stage "
                      f"of 4 rows needs {BARRIER_BYTES + stage_bytes(bb, 4, planes, n_planes)} "
                      f"bytes of shared memory, more than {MAX_SMEM}")
+
+
+def block_tile(p: Plan, block) -> tuple:
+    """``(slot, b0, n0, k0, k1, rank)`` of one block: its slot, first batch
+    row and first column, the ``[k0, k1)`` range of K its cluster rank sums
+    (``masked_product.cuh`` ``block_range``) and that rank."""
+    x, y, z = block
+    rank = x % p.ks
+    k0 = min(p.K, rank * p.k_chunk)
+    return z, y * p.bb, (x // p.ks) * BLOCK_N, k0, min(p.K, k0 + p.k_chunk), rank

@@ -8,19 +8,67 @@ the twin for tensors on the CPU and launches the kernel for tensors on the
 card; anything else raises. Either way the accumulators are updated in
 their buffers; the kernel takes them as the one buffer that
 :meth:`TickTelemetry.zeros` and ``clone`` make. ``launches`` counts kernel
-launches.
+launches; ``last_launch`` is the
+:class:`~repro_torch.kernels.launch_spec.KernelLaunch` of the last one
+(:func:`telemetry_launch`).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
 from repro_torch.core.lif import LIFState
 from repro_torch.kernels import _build
+from repro_torch.kernels.launch_spec import IN, OUT, Alias, KernelLaunch, Operand
 from repro_torch.obs.telemetry import FIELDS, TickTelemetry
 
 launches = 0
+last_launch = None
+THREADS = 1024      # csrc/telemetry.cu kThreads: a block per row of the state
+# its static shared memory: float red[5][kWarps] and int cnt[kWarps]
+STATIC_SMEM = 6 * (THREADS // 32) * 4
+
+
+@functools.lru_cache(maxsize=512)
+def telemetry_launch(rows: int, n: int, *, y_int: bool = False, v_int: bool = False,
+                     over: int = 0, dense: int = 0, dw: int = 0,
+                     parts: int = 0) -> KernelLaunch:
+    """The descriptor of one telemetry launch (``csrc/telemetry.cu``
+    ``repro_telemetry``): ``rows`` blocks of 1024 threads, each folding one
+    row of the ``(rows, n)`` state into its column of the ``(9, rows)``
+    accumulators in place. ``over``, ``dense``, ``dw``: the networks the
+    flags and the dw partials are given for (0: absent); ``parts``: the dw
+    partials per network."""
+    def row(block, rank, ex):
+        return [((block[0], block[0] + 1), (0, n))]
+
+    def flag(groups):
+        return lambda block, rank, ex: [((block[0] // (rows // groups),
+                                          block[0] // (rows // groups) + 1),)]
+
+    def acc(block, rank, ex):
+        return [((0, len(FIELDS)), (block[0], block[0] + 1))]
+
+    ins = [Operand("y", (rows, n), "int32" if y_int else "float32", IN, row),
+           Operand("v", (rows, n), "int32" if v_int else "float32", IN, row),
+           Operand("r", (rows, n), "int32", IN, row),
+           Operand("acc", (len(FIELDS), rows), "int32", IN, acc)]
+    if over:
+        ins.append(Operand("over", (over,), "bool", IN, flag(over)))
+    if dense:
+        ins.append(Operand("take_dense", (dense,), "bool", IN, flag(dense)))
+    if dw:
+        g = flag(dw)
+        ins.append(Operand("dw_stats", (dw, parts, 2), "float32", IN,
+                           lambda block, rank, ex: [g(block, rank, ex)[0] + ((0, parts),
+                                                                            (0, 2))]))
+    return KernelLaunch(
+        name="telemetry", symbol="telemetry_kernel", grid=(rows, 1, 1), block=(THREADS, 1, 1),
+        smem_static=STATIC_SMEM,
+        operands=tuple(ins) + (Operand("acc_out", (len(FIELDS), rows), "int32", OUT, acc),),
+        aliases=(Alias("acc", "acc_out", shared=True),))
 
 
 def tick_telemetry(telem: TickTelemetry, y: torch.Tensor, v: torch.Tensor, r: torch.Tensor, *,
@@ -44,14 +92,15 @@ def tick_telemetry(telem: TickTelemetry, y: torch.Tensor, v: torch.Tensor, r: to
         is added to its rows' ``dw_l1`` and ``dw_sq``.
     """
     if y.device.type == "cpu":
-        over_inc = None if over is None else over.to(torch.int32)
-        policy_inc = None
-        if take_dense is not None:
-            gate = take_dense if over is None else take_dense & ~over
-            policy_inc = gate.to(torch.int32)
-        new = telem.accumulate(LIFState(v=v, r=r, y=y), overflow_inc=over_inc,
-                               policy_inc=policy_inc, dw_stats=dw_stats)
-        return telem.copy_(new)
+        with _build.twin("telemetry"):
+            over_inc = None if over is None else over.to(torch.int32)
+            policy_inc = None
+            if take_dense is not None:
+                gate = take_dense if over is None else take_dense & ~over
+                policy_inc = gate.to(torch.int32)
+            new = telem.accumulate(LIFState(v=v, r=r, y=y), overflow_inc=over_inc,
+                                   policy_inc=policy_inc, dw_stats=dw_stats)
+            return telem.copy_(new)
     if y.device.type != "cuda":
         raise ValueError(f"tick_telemetry runs on cuda or cpu tensors, got {y.device}")
     return _launch(telem, y, v, r, over, take_dense, dw_stats)
@@ -75,7 +124,7 @@ def _launch(telem, y, v, r, over, take_dense, dw_stats) -> TickTelemetry:
     # This runs every tick on the host, where eager rollouts spend their time,
     # so the checks are one expression over the state and one over the
     # accumulators' buffer.
-    global launches
+    global launches, last_launch
     n = y.shape[-1]
     rows = y.numel() // n
     dev = y.device
@@ -101,6 +150,10 @@ def _launch(telem, y, v, r, over, take_dense, dw_stats) -> TickTelemetry:
                              f"{tuple(dw_stats.shape)}")
         parts = dw_stats.shape[1]
     P = _build.ptr
+    groups = lambda t: 0 if t is None else (t.shape[0] if t.dim() else 1)
+    desc = telemetry_launch(rows, n, y_int=y.dtype == torch.int32,
+                            v_int=v.dtype == torch.int32, over=groups(over),
+                            dense=groups(take_dense), dw=groups(dw_stats), parts=parts)
     err = _build.library().repro_telemetry(
         y.data_ptr(), y.dtype == torch.int32, v.data_ptr(), v.dtype == torch.int32,
         r.data_ptr(), rows, n,
@@ -111,4 +164,5 @@ def _launch(telem, y, v, r, over, take_dense, dw_stats) -> TickTelemetry:
         parts, buf.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check("telemetry", err)
     launches += 1
+    last_launch = desc
     return telem

@@ -36,9 +36,14 @@ def _gather_single(out: torch.Tensor, x: torch.Tensor, group) -> None:
     fn(out, x, group=group)
 
 
-@dataclasses.dataclass(frozen=True, eq=False)
+@dataclasses.dataclass(frozen=True)
 class SNNMesh:
     """A 1-D mesh of ``size`` ranks over the ``axis`` the fabric shards on.
+
+    Two meshes of one world compare and hash equal (on rank, size, device,
+    backend and axis; the process-group handle is left out of both), so
+    :class:`~repro_torch.core.engine.EngineOptions` carrying one stays
+    hash-stable across independent builds.
 
     Attributes:
       rank: this process's rank; it owns postsynaptic columns
@@ -55,7 +60,7 @@ class SNNMesh:
     size: int
     device: torch.device
     backend: Optional[str] = None
-    group: Any = None
+    group: Any = dataclasses.field(default=None, compare=False)
     axis: str = AXIS
 
     @property

@@ -40,7 +40,11 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
             "repro_torch.examples.online_learning",
             "repro_torch.examples.reconfigure_runtime", "repro_torch.parallel.snn_sharding",
             "repro_torch.launch.mesh", "repro_torch.parallel.mesh",
-            "repro_torch.configs.snn_64k"} <= set(mods)
+            "repro_torch.configs.snn_64k", "repro_torch.kernels.launch_spec",
+            "repro_torch.analysis", "repro_torch.analysis.findings",
+            "repro_torch.analysis.launch_rules", "repro_torch.analysis.op_rules",
+            "repro_torch.analysis.sharding_rules", "repro_torch.analysis.static_rules",
+            "repro_torch.analysis.programs", "repro_torch.analysis.check"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -86,6 +90,7 @@ def test_no_source_names_jax_or_repro():
 
 def test_entry_points_default_to_the_card():
     """``device=None`` means cuda: without a GPU it raises, naming the GPU."""
+    from repro_torch.analysis import check
     from repro_torch.core.lif import LIFParams
     from repro_torch.core.network import SNNState, params_from_registers
     from repro_torch.core.registers import RegisterBank
@@ -97,7 +102,8 @@ def test_entry_points_default_to_the_card():
              lambda: SNNState.zeros((1,), 4), lambda: LIFParams.make(4),
              lambda: serve_async.main(["--smoke"]),
              lambda: serve_multi_tenant.main(["--fast"]),
-             lambda: online_learning.main([]), lambda: reconfigure_runtime.main([])]
+             lambda: online_learning.main([]), lambda: reconfigure_runtime.main([]),
+             lambda: check.main(["--program", "tick/jnp/frozen/notelem"])]
     if torch.cuda.is_available():
         assert SNNState.zeros((1,), 4).tick.device.type == "cuda"
         assert SNNServer(n_max=8).device.index is not None
