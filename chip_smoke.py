@@ -243,7 +243,23 @@ script on any mismatch:
    telemetry totals as the CPU tests hold them. Each rank's launches and
    plans are printed, and every launch count of the runs goes into the
    kernels line.
-15. a JSON line of the kernels (the six ported ones and the telemetry
+15. LM serving: ``python -m repro_torch.launch.serve`` with no arguments
+   (``repro_torch.launch.serve.main([])``: smollm-135m FULL in bf16, 6
+   requests, 12 new tokens each, 4 slots, a 64-token cache) served twice,
+   cold and warm, with every kernel count at 0 before and after (no
+   hand-written kernel lies on the LM path: cuBLAS products and plain tensor
+   ops, as the reference computes its LM in jnp); 72 tokens each time, the
+   two runs' tokens equal. The first wave replayed from the same seeded
+   parameters: its tokens equal the CLI's, its prefill and decode logits
+   within 2^-3 of one no-cache forward over the same prefix, and every greedy
+   token that forward's argmax unless its top-2 gap is under 2^-2 (ties
+   counted and printed). smollm-135m SMOKE in f32 from the same parameters on
+   the card and the CPU: the served tokens equal, a wave's logits within
+   1e-4. Then one decode step of each FULL config (smollm-135m, smollm-360m,
+   qwen3-0.6b, starcoder2-15b at 31.9 GB, musicgen-large) timed: wall,
+   device time and device events a step, the busy share, the byte bound
+   (parameters and cache over the card's memory rate), peak memory.
+16. a JSON line of the kernels (the six ported ones and the telemetry
    kernel), the card's name and power limit, and the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -4511,6 +4527,259 @@ def run_analysis_phase(dev, gen, build_log: str) -> None:
     torch.cuda.synchronize()
 
 
+# ---------------------------------------------------------------------------
+# phase 15: LM serving (the serve CLI's default arch) and decode steps at FULL
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("smollm-135m", "smollm-360m", "qwen3-0.6b", "starcoder2-15b", "musicgen-large")
+LM_SLOTS, LM_MAX_LEN, LM_MAX_NEW = 4, 64, 12   # the serve CLI's defaults
+LM_LOGIT_TOL = 2.0 ** -3   # bf16: the cached decode against a no-cache forward, |logit| ~ 4
+LM_TIE = 2 * LM_LOGIT_TOL  # a greedy choice whose forward top-2 gap is under this is a tie
+LM_SMOKE_TOL = 1e-4        # f32 SMOKE logits, the card against the CPU (TF32 off)
+LM_PROMPT = 8              # the timed decode step's prompt length (its position)
+LM_TIMED = 20              # timed decode steps per FULL config
+LM_PROFILED = 5            # decode steps under the profiler per FULL config
+
+
+def lm_requests(cfg, n: int, max_new: int):
+    """The serve CLI's requests: prompts of 4-11 tokens from numpy seed 0."""
+    import numpy as np
+
+    from repro_torch.launch.serve import ServeRequest
+
+    rng = np.random.default_rng(0)
+    reqs = []
+    for i in range(n):
+        plen = int(rng.integers(4, 12))
+        shape = (plen, cfg.n_codebooks) if cfg.family == "audio" else (plen,)
+        reqs.append(ServeRequest(rid=i, prompt=rng.integers(0, cfg.vocab_size, shape)
+                                 .astype(np.int32), max_new=max_new))
+    return reqs
+
+
+def lm_wave(cfg, params, reqs, dev):
+    """One wave replayed step by step as ``WaveServer.run_wave`` serves it (every
+    request runs ``LM_MAX_NEW`` tokens): the padded prompt, and the f32 logits
+    and greedy tokens of the prefill and of each decode step."""
+    import torch
+
+    from repro_torch.launch.serve import WaveServer
+    from repro_torch.models import model as M
+
+    server = WaveServer(cfg, params, slots=LM_SLOTS, max_len=LM_MAX_LEN, device=dev)
+    toks = torch.from_numpy(server._pad_prompts(reqs)).to(dev)
+    caches = M.init_cache(cfg, LM_SLOTS, LM_MAX_LEN, dev)
+    last, caches = M.prefill_fn(params, cfg, {"inputs": toks}, caches)
+    logits, tokens = [last.float()], [last.argmax(-1)]
+    for i in range(LM_MAX_NEW - 1):
+        last, caches = M.decode_fn(params, cfg, {"token": tokens[-1][:, None],
+                                                 "pos": toks.shape[1] + i}, caches)
+        logits.append(last.float())
+        tokens.append(last.argmax(-1))
+    return toks, torch.stack(logits, 1), torch.stack(tokens, 1)
+
+
+def check_lm_wave(cfg, params, reqs, dev, served, smi) -> None:
+    """The first wave's prefill and decode logits against one no-cache forward
+    over the same prefix (bf16, within ``LM_LOGIT_TOL``); every greedy token
+    equals that forward's argmax unless its top-2 gap is under ``LM_TIE``."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    toks, logits, tokens = lm_wave(cfg, params, reqs, dev)
+    got = {r.rid: tokens[i, :8].cpu().tolist() for i, r in enumerate(reqs)}
+    if got != {r.rid: served[r.rid] for r in reqs}:
+        raise AssertionError(f"lm wave: the replay's tokens {got} are not the CLI's {served}")
+    seq = torch.cat([toks.long(), tokens[:, :-1]], dim=1)
+    plen = toks.shape[1]
+    full = M.forward(params, cfg, seq, mode="train")[0][:, plen - 1:].float()
+    err = float((full - logits).abs().max())
+    if not err <= LM_LOGIT_TOL:
+        raise AssertionError(f"lm wave: decode logits {err} from the no-cache forward "
+                             f"(tolerance {LM_LOGIT_TOL})")
+    top2 = full.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    differ = full.argmax(-1) != tokens
+    if bool((differ & (gap >= LM_TIE)).any()):
+        raise AssertionError(f"lm wave: a greedy token differs from the no-cache forward's "
+                             f"with a top-2 gap of at least {LM_TIE}")
+    log(f"lm wave 1 of smollm-135m FULL (4 requests, prompts padded to {plen}, "
+        f"{LM_MAX_NEW} tokens each) on {smi}: the replay's tokens == the CLI's; prefill "
+        f"and {LM_MAX_NEW - 1} decode steps' logits against one no-cache forward over the "
+        f"same prefix: max |err| {err:.4g} (bf16, tolerance {LM_LOGIT_TOL}, |logit| max "
+        f"{float(full.abs().max()):.3g}); greedy tokens == its argmax at "
+        f"{int((~differ).sum())} of {differ.numel()}, {int(differ.sum())} rounding ties "
+        f"(top-2 gap under {LM_TIE}; smallest gap {float(gap.min()):.3g})")
+
+
+def check_lm_smoke(dev, smi) -> None:
+    """smollm-135m SMOKE in f32 from the same params on the card and the CPU:
+    served tokens equal, logits within ``LM_SMOKE_TOL``."""
+    import torch
+
+    from repro_torch.configs import get_bundle
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as M
+
+    cfg = get_bundle("smollm-135m").smoke
+    cpu = torch.device("cpu")
+    host = M.init(cfg, torch.Generator().manual_seed(0), cpu)
+    card_params = tree_to(host, dev)
+    stats = {d: serve(cfg, p, lm_requests(cfg, 6, LM_MAX_NEW), slots=LM_SLOTS,
+                      max_len=LM_MAX_LEN, device=d)
+             for d, p in ((cpu, host), (dev, card_params))}
+    outs = {d: [r.out for r in st["results"]] for d, st in stats.items()}
+    if outs[cpu] != outs[dev]:
+        raise AssertionError("lm smoke: the card's tokens differ from the CPU's")
+    reqs = lm_requests(cfg, LM_SLOTS, LM_MAX_NEW)
+    waves = {d: lm_wave(cfg, p, reqs, d) for d, p in ((cpu, host), (dev, card_params))}
+    err = float((waves[dev][1].cpu() - waves[cpu][1]).abs().max())
+    if not err <= LM_SMOKE_TOL or not torch.equal(waves[dev][2].cpu(), waves[cpu][2]):
+        raise AssertionError(f"lm smoke: card logits {err} from the CPU's "
+                             f"(tolerance {LM_SMOKE_TOL}) or tokens differ")
+    log(f"lm smoke (smollm-135m SMOKE, f32, the same params) on {smi}: 6 requests served, "
+        f"{stats[dev]['new_tokens']} tokens == the CPU's token for token; a wave's prefill "
+        f"and decode logits max |card - CPU| {err:.3g} (tolerance {LM_SMOKE_TOL})")
+
+
+def tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def time_lm_decode(arch: str, dev, card, smi) -> dict:
+    """One decode step of ``arch`` FULL (bf16, the port's seeded draws) at the
+    CLI's 4 slots and 64-token cache, position ``LM_PROMPT``: the wall per
+    step (host clock around a synchronised step, median of ``LM_TIMED``), its
+    device time and device events (``torch.profiler`` over ``LM_PROFILED``
+    steps), against the byte bound: the parameters and the cache read once."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_bundle
+    from repro_torch.launch.serve import device_profile
+    from repro_torch.models import model as M
+
+    cfg = get_bundle(arch).model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = M.init(cfg, gen, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    caches = M.init_cache(cfg, LM_SLOTS, LM_MAX_LEN, dev)
+    shape = (LM_SLOTS, LM_PROMPT) + ((cfg.n_codebooks,) if cfg.family == "audio" else ())
+    prompt = torch.randint(0, cfg.vocab_size, shape, generator=gen, device=dev)
+    last, caches = M.prefill_fn(params, cfg, {"inputs": prompt}, caches)
+    token = last.argmax(-1)[:, None]
+
+    def step():
+        return M.decode_fn(params, cfg, {"token": token, "pos": LM_PROMPT}, caches)[0]
+
+    for _ in range(3):
+        logits = step()
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"lm decode {arch}: non-finite logits")
+    walls = []
+    for _ in range(LM_TIMED):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall_ms = statistics.median(walls) * 1e3
+    device, events = None, None
+    for _ in range(3):   # the profiler has returned traces with no device activity
+        _, _, busy_s, rows, _ = device_profile(lambda: [step() for _ in range(LM_PROFILED)],
+                                               dev)
+        if rows:
+            device = busy_s * 1e3 / LM_PROFILED
+            events = sum(r[1] for r in rows) / LM_PROFILED
+            break
+    n = M.n_params(cfg)
+    cache_bytes = sum(t.numel() * t.element_size() for st in caches for lay in st.values()
+                      for t in lay["kv"].values())
+    moved = n * 2 + cache_bytes
+    bound_ms = moved / card[0] * 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
+    del params, caches
+    torch.cuda.empty_cache()
+    share = "not measured" if device is None else f"{device / wall_ms:.3f}"
+    dev_text = ("device time not measured (three traces without device activity)"
+                if device is None else
+                f"device {device:.4f} ms in {events:.0f} device events a step (busy {share} "
+                f"of the wall; the bound is {bound_ms / device:.0%} of the device time)")
+    log(f"lm decode step {arch} FULL ({n:,} params, bf16, {LM_SLOTS} slots, cache "
+        f"{LM_MAX_LEN}, position {LM_PROMPT}) on {smi}: wall {wall_ms:.4f} ms (median of "
+        f"{LM_TIMED}), {dev_text}; bound {bound_ms:.4f} ms ({moved / 1e6:.1f} MB of params "
+        f"and cache over {card[0] / 1e12:.2f} TB/s); peak memory {peak / 2**30:.2f} GiB; "
+        f"init {init_s:.2f} s")
+    if not math.isfinite(wall_ms):
+        raise AssertionError(f"lm decode {arch}: no wall time")
+    return {"wall_ms": wall_ms, "device_ms": device, "events": events, "bound_ms": bound_ms}
+
+
+def run_lm_phase(dev, card, smi) -> dict:
+    """The LM serving path: ``python -m repro_torch.launch.serve`` with no
+    arguments (smollm-135m FULL in bf16 on the card) served twice (cold, then
+    warm), no hand-written kernel launched; its first wave replayed against a
+    no-cache forward; the SMOKE config in f32 against the CPU; one decode step
+    timed at each of the five FULL configs. Returns the decode timings."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.configs import get_bundle
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import model as M
+
+    torch.cuda.empty_cache()
+    runs = []
+    for which in ("cold", "warm"):
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        zero_launches()
+        with contextlib.redirect_stdout(buf):
+            stats = serve_mod.main([])
+        torch.cuda.synchronize()
+        launches = kernel_launches()
+        if any(launches.values()):
+            raise AssertionError(f"lm serve: a hand-written kernel launched: {launches}")
+        if (stats["n_requests"], stats["new_tokens"]) != (6, 6 * LM_MAX_NEW):
+            raise AssertionError(f"lm serve: {stats['n_requests']} requests, "
+                                 f"{stats['new_tokens']} tokens")
+        runs.append(stats)
+        log(f"lm serve ({which}; no arguments: smollm-135m FULL, bf16, 6 requests, --max-new "
+            f"{LM_MAX_NEW}, {LM_SLOTS} slots, --max-len {LM_MAX_LEN}) on {smi}: "
+            f"{stats['new_tokens']} new tokens in {stats['decode_steps']} decode steps, "
+            f"tokens_per_s {stats['tokens_per_s']}, mean TTFT {stats['mean_ttft_s']} s, p99 "
+            f"TTFT {stats['p99_ttft_s']} s, wall {stats['wall_s']} s; hand-written kernel "
+            f"launches {launches} (none lies on this path)")
+    if runs[0]["outputs"] != runs[1]["outputs"]:
+        raise AssertionError("lm serve: the two runs' tokens differ")
+    for line in buf.getvalue().splitlines():
+        if line.strip():
+            log(f"lm serve | {line}")
+    cfg = get_bundle("smollm-135m").model
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = M.init(cfg, gen, dev)
+    reqs = lm_requests(cfg, 6, LM_MAX_NEW)[:LM_SLOTS]
+    check_lm_wave(cfg, params, reqs, dev, runs[1]["outputs"], smi)
+    del params
+    check_lm_smoke(dev, smi)
+    return {arch: time_lm_decode(arch, dev, card, smi) for arch in LM_ARCHS}
+
+
+
 def ptxas_kernels(text: str) -> list:
     """``(kernel, registers, spill store bytes)`` for each entry function in
     the compiler's ``-Xptxas=-v`` report."""
@@ -4623,6 +4892,7 @@ def main() -> int:
     sharded = phase("sharded", run_sharded_phase, dev, card, smi)
     for name, count in sharded.items():
         launches[name] += count
+    phase("lm", run_lm_phase, dev, card, smi)
     if min(launches.values()) < 1 or min(learn_launches.values()) < 1 \
             or frozen_launches["tick_fused"] < 1 or min(event_learn.values()) < 1 \
             or min(cont_launches[k] for k in ("tick_fused", "stdp_update", "telemetry")) < 1 \

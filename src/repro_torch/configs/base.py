@@ -1,8 +1,8 @@
-"""Config dataclasses (copy of ``repro.configs.base``): model, parallelism, bundle."""
+"""Config dataclasses (copy of ``repro.configs.base``): model, shape, parallelism, bundle."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping, Tuple
+from typing import Any, Dict, Mapping, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +95,22 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
+
+
+@dataclasses.dataclass(frozen=True)
 class ParallelConfig:
     """Per-(arch, shape) distribution knobs -- the hillclimb surface."""
     fsdp: bool = False
@@ -122,3 +138,13 @@ class ArchBundle:
             return self.parallel[shape_name]
         return self.parallel.get("*", ParallelConfig())
 
+
+def applicable_shapes(cfg: ModelConfig) -> Tuple[str, ...]:
+    """Assignment rules: long_500k only for sub-quadratic archs; SNN archs
+    use their own tick-driven shapes (not the LM set)."""
+    if cfg.family == "snn":
+        return ()
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if not cfg.full_attention:
+        names.append("long_500k")
+    return tuple(names)

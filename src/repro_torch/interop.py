@@ -19,6 +19,14 @@ fields with the lists under ``"neighbors.idx"`` / ``"neighbors.mask"``.
 The classifier's models too: a ``TrainedSNN`` as its arrays and scalars, a
 ``DeployedSNN`` with its register bank as the ``serialize()`` byte stream
 plus the device-local bias register.
+
+The LM's parameters and decode caches travel as the reference's own trees
+(``{"embed", "lm_head"?, "stages": [{"layerI": {"mixer", "ffn"}}],
+"final_ln"}``, every stacked leaf with its leading ``groups`` axis; caches
+``[{"layerI": {"kv": {"k", "v"}}}]``) with numpy leaves. numpy has no
+bfloat16 and the port does not import ``ml_dtypes``: a bf16 array travels as
+float32 (``np.asarray(x, np.float32)``, exact), and the port casts each leaf
+back to its spec's dtype.
 """
 from __future__ import annotations
 
@@ -200,3 +208,55 @@ def deployed_from_numpy(tree: Dict):
     bank.set_bias(tree["bias"])
     return DeployedSNN(bank=bank, scale=float(tree["scale"]), n_ticks=int(tree["n_ticks"]),
                        **{k: np.array(tree[k], np.int32) for k in _DEPLOYED_ARRAYS})
+
+
+def _lm_tree_from_numpy(tree, specs, dtype, dev):
+    from repro_torch.models.common import Spec, torch_dtype
+
+    if isinstance(specs, Spec):
+        return torch.from_numpy(np.array(tree)).to(dev, torch_dtype(specs.dtype or dtype))
+    if isinstance(specs, dict):
+        if set(tree) != set(specs):
+            raise KeyError(f"tree keys {sorted(tree)} are not the spec's {sorted(specs)}")
+        return {k: _lm_tree_from_numpy(tree[k], specs[k], dtype, dev) for k in specs}
+    if len(tree) != len(specs):
+        raise ValueError(f"{len(tree)} stages, the spec has {len(specs)}")
+    return [_lm_tree_from_numpy(t, s, dtype, dev) for t, s in zip(tree, specs)]
+
+
+def _lm_tree_to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _lm_tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_lm_tree_to_numpy(v) for v in tree]
+    t = tree.detach()
+    return np.array(_to_np(t.float() if t.is_floating_point() else t))   # never a view
+
+
+def lm_params_from_numpy(tree, cfg, device=None):
+    """An LM's parameters (``repro_torch.models.model`` layout) from the
+    reference's tree of numpy arrays, each cast to its spec's dtype."""
+    from repro_torch.models import model
+
+    return _lm_tree_from_numpy(tree, model.specs(cfg), model.dtype_of(cfg),
+                               _device.resolve(device))
+
+
+def lm_params_to_numpy(params):
+    """The parameters as a tree of numpy arrays (floats as float32)."""
+    return _lm_tree_to_numpy(params)
+
+
+def lm_cache_from_numpy(tree, cfg, device=None):
+    """A decode cache from the reference's (a list per stage, leaves
+    ``(groups, batch, s_max, ...)``), each leaf cast to the model dtype."""
+    from repro_torch.models import model
+
+    first = np.shape(tree[0]["layer0"]["kv"]["k"])
+    specs = model.make_cache_specs(cfg, first[1], first[2])
+    return _lm_tree_from_numpy(tree, specs, model.dtype_of(cfg), _device.resolve(device))
+
+
+def lm_cache_to_numpy(caches):
+    """A decode cache as a list of trees of numpy arrays (floats as float32)."""
+    return _lm_tree_to_numpy(caches)

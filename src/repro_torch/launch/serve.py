@@ -1,6 +1,14 @@
-"""Multi-tenant SNN serving: many resident networks, one tick datapath.
+"""Batched serving: the LM wave server and multi-tenant SNN serving.
 
-Counterpart of ``repro.launch.serve`` for the wave path, frozen and plastic
+Counterpart of ``repro.launch.serve``. :class:`WaveServer` and :func:`serve`
+serve the LM model zoo's dense and audio families (``repro_torch.models``):
+requests are grouped into waves of ``slots``, each wave's prompts are
+left-padded to a common length and prefilled in one batched call, then all
+slots decode greedily in lock-step. It is the CLI's default
+(``--arch smollm-135m``, as the reference's); the other LM families exit
+naming ROADMAP A.7b.
+
+:class:`SNNServer` serves the SNN processor itself, frozen and plastic
 tenants. S independent networks -- each its own ``W/C/thresholds/leak`` register
 image, loaded through :func:`repro_torch.core.network.params_from_registers`
 and zero-padded onto the ``n_max`` fabric -- ride one tick loop with a slot
@@ -41,14 +49,15 @@ round. The slots share one tick counter, so a plastic slot's learning bound
 is put on that clock (its fill tick plus its budget). A chunk runs the
 learning tick only while a plastic request is resident, otherwise the
 premasked frozen tick on a resident ``W*C`` stack, as frozen-only waves do.
-:mod:`repro_torch.launch.serve_async` puts the asyncio front-end on it. The
-LM server arrives with a later slice.
+:mod:`repro_torch.launch.serve_async` puts the asyncio front-end on it.
 
 :func:`serve_sharded_main` is the other end of the scale axis: one network
 too large for one device (``--arch snn-64k``), its fabric sharded by
 destination columns over the ranks of the world the CLI was started in.
 
 Usage (on a machine with an NVIDIA GPU):
+  PYTHONPATH=src python -m repro_torch.launch.serve        # smollm-135m FULL, 6 requests
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch snn-fused [--continuous]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch snn --smoke --device cpu
   PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.serve --arch snn-64k
@@ -73,6 +82,8 @@ from repro_torch.core.lif import LIFParams
 from repro_torch.core.network_types import SNNParams, SNNState, masked_weights
 from repro_torch.kernels import event_dispatch, lif_step, stdp_update, telemetry, tick_fused
 from repro_torch.kernels.ops import EventFanIn, fan_in_edges
+from repro_torch.models import model as M
+from repro_torch.models import transformer as tf
 from repro_torch.obs import MetricsRegistry, log_event, span
 from repro_torch.obs.telemetry import TickTelemetry
 from repro_torch.plasticity import PlasticityParams, PlasticityState
@@ -80,14 +91,23 @@ from repro_torch.plasticity import PlasticityParams, PlasticityState
 
 @dataclasses.dataclass
 class ServeRequest:
-    """One request: the SNN fields of the reference's unified request type
-    (the LM fields arrive with their slice)."""
+    """One request type for both servers, the reference's fields in its
+    order. The LM :class:`WaveServer` reads ``prompt``/``max_new``; the
+    :class:`SNNServer` reads ``ext``/``n_ticks``/``rewards``. ``t_submit`` is
+    the enqueue time (a caller that queues stamps it; the servers stamp it
+    only while it is 0). The result fields are filled in place."""
 
     rid: int
+    # -- LM fields
+    prompt: Optional[np.ndarray] = None   # (S,) or (S, K) int32
+    max_new: int = 0
+    # -- SNN fields
     tenant: str = ""
     ext: Optional[np.ndarray] = None      # (T_req, n_in) input spike train
     n_ticks: int = 0                      # tick budget for this request
     rewards: Optional[np.ndarray] = None  # (T_req,) dopamine (R-STDP)
+    # -- result fields (filled by the servers)
+    out: List = dataclasses.field(default_factory=list)   # LM: generated ids
     counts: Optional[np.ndarray] = None   # (n_out,) rate-decoded counts
     pred: Optional[int] = None            # argmax over output neurons
     t_submit: float = 0.0
@@ -103,7 +123,8 @@ class ServeResult:
 
     rid: int
     tenant: str = ""
-    counts: Optional[np.ndarray] = None
+    out: tuple = ()                       # LM: generated token ids
+    counts: Optional[np.ndarray] = None   # SNN: rate-decoded counts
     pred: Optional[int] = None
     rejected: bool = False
     reason: str = ""                      # admission-rejection reason
@@ -119,14 +140,129 @@ class ServeResult:
 
     @classmethod
     def of(cls, r: ServeRequest) -> "ServeResult":
-        return cls(rid=r.rid, tenant=r.tenant, counts=r.counts, pred=r.pred,
-                   t_submit=r.t_submit, t_first=r.t_first, t_done=r.t_done)
+        return cls(rid=r.rid, tenant=r.tenant, out=tuple(r.out), counts=r.counts,
+                   pred=r.pred, t_submit=r.t_submit, t_first=r.t_first, t_done=r.t_done)
 
     @classmethod
     def rejection(cls, r: ServeRequest, reason: str) -> "ServeResult":
         now = time.time()
         return cls(rid=r.rid, tenant=r.tenant, rejected=True, reason=reason,
                    t_submit=r.t_submit or now, t_first=None, t_done=now)
+
+
+class WaveServer:
+    """The LM server: requests are grouped into waves of ``slots``; a wave's
+    prompts are left-padded with token 0 to a common length (the pads are
+    attended to, as in the reference), prefilled in one batched call, then
+    every slot decodes greedily in lock-step until its ``max_new`` tokens or
+    position ``max_len - 1``. A wave's KV cache is made once and written in
+    place by every step."""
+
+    def __init__(self, cfg, params, *, slots: int, max_len: int, device=None):
+        self.cfg = cfg
+        self.params = params
+        self.slots = slots
+        self.max_len = max_len
+        self.device = _device.resolve(device)
+
+    def _pad_prompts(self, reqs: List[ServeRequest]) -> np.ndarray:
+        plen = max(len(r.prompt) for r in reqs)
+        shape = (self.slots, plen) + (
+            (self.cfg.n_codebooks,) if self.cfg.family == "audio" else ())
+        toks = np.zeros(shape, np.int32)
+        for i, r in enumerate(reqs):
+            toks[i, plen - len(r.prompt):] = r.prompt  # left-pad with 0
+        return toks
+
+    def run_wave(self, reqs: List[ServeRequest]) -> int:
+        """Prefill + decode one wave to completion; returns decode steps. The
+        greedy token stays on the device as the next step's input; each step
+        copies it to the host once for the requests' outputs."""
+        cfg = self.cfg
+        toks = self._pad_prompts(reqs)
+        plen = toks.shape[1]
+        caches = M.init_cache(cfg, self.slots, self.max_len, self.device)
+        last, caches = M.prefill_fn(
+            self.params, cfg, {"inputs": torch.from_numpy(toks).to(self.device)}, caches)
+        nxt = last.argmax(-1)                          # (slots,) or (slots, K)
+        cur = nxt.cpu().numpy()
+        now = time.time()
+        for r_i, r in enumerate(reqs):
+            r.t_first = now
+            r.out.append(int(np.atleast_1d(cur[r_i]).flat[0]))
+
+        steps = 0
+        pos = plen
+        active = {i for i, r in enumerate(reqs) if len(r.out) < r.max_new}
+        for r_i, r in enumerate(reqs):
+            if r_i not in active:
+                r.t_done = now
+        max_new = max(r.max_new for r in reqs)
+        while active and pos < self.max_len - 1 and steps < max_new:
+            logits, caches = M.decode_fn(self.params, cfg, {"token": nxt[:, None], "pos": pos},
+                                         caches)
+            nxt = logits.argmax(-1)
+            cur = nxt.cpu().numpy()
+            steps += 1
+            pos += 1
+            now = time.time()
+            for r_i in list(active):
+                r = reqs[r_i]
+                r.out.append(int(np.atleast_1d(cur[r_i]).flat[0]))
+                if len(r.out) >= r.max_new:
+                    r.t_done = now
+                    active.discard(r_i)
+        now = time.time()
+        for r in reqs:
+            if r.t_done is None:
+                r.t_done = now
+        return steps
+
+
+def serve(cfg, params, requests: List[ServeRequest], *, slots: int = 4,
+          max_len: int = 64, device=None) -> Dict:
+    """Serve LM requests in waves on ``device`` (None: the card), where
+    ``params`` live; the reference's stats keys."""
+    if not requests:
+        # Empty queue: a well-formed zero report, never np.mean([]).
+        return {"n_requests": 0, "requests_served": 0, "decode_steps": 0,
+                "new_tokens": 0, "wall_s": 0.0, "tokens_per_s": 0.0,
+                "mean_ttft_s": 0.0, "p99_ttft_s": 0.0, "outputs": {},
+                "results": []}
+    server = WaveServer(cfg, params, slots=slots, max_len=max_len, device=device)
+    now = time.time()
+    for r in requests:
+        # TTFT counts from enqueue: keep a caller-stamped submit time.
+        if not r.t_submit:
+            r.t_submit = now
+    done: List[ServeRequest] = []
+    steps = 0
+    queue = list(requests)
+    while queue:
+        wave = queue[:slots]
+        queue = queue[slots:]
+        # pad the wave with dummy clones so the batch shape is static
+        while len(wave) < slots:
+            wave.append(ServeRequest(rid=-1, prompt=wave[0].prompt, max_new=1))
+        steps += server.run_wave(wave)
+        done.extend(r for r in wave if r.rid >= 0)
+
+    total_new = sum(len(r.out) for r in done)
+    t0 = min(r.t_submit for r in done)
+    t1 = max(r.t_done for r in done)
+    ttfts = [r.t_first - r.t_submit for r in done]
+    return {
+        "n_requests": len(done),
+        "requests_served": len(done),
+        "decode_steps": steps,
+        "new_tokens": total_new,
+        "wall_s": round(t1 - t0, 3),
+        "tokens_per_s": round(total_new / max(1e-9, t1 - t0), 2),
+        "mean_ttft_s": round(float(np.mean(ttfts)), 3),
+        "p99_ttft_s": round(float(np.percentile(ttfts, 99)), 4),
+        "outputs": {r.rid: r.out[:8] for r in done},
+        "results": [ServeResult.of(r) for r in done],
+    }
 
 
 _PAD_VTH = 1e30  # padded neurons can never reach threshold
@@ -1257,28 +1393,80 @@ def serve_sharded_main(cfg, args) -> Dict:
     return stats
 
 
+def serve_lm_main(cfg, args) -> Dict:
+    """The LM branch of the CLI: parameters drawn from a seeded generator on
+    the device, ``--requests`` random prompts of 4-11 tokens (numpy seed 0,
+    as the reference's), served in waves. ``--profile`` serves once to warm
+    up, then serves under ``torch.profiler`` and prints device time by
+    kernel."""
+    try:
+        tf.check_ported(cfg)
+    except NotImplementedError as e:
+        raise SystemExit(f"{args.arch}: not served by the port yet: {e}") from None
+    print(f"serving {cfg.name}: {M.n_params(cfg):,} params, "
+          f"{args.slots} slots, {args.requests} requests")
+    dev = _device.resolve(args.device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = M.init(cfg, gen, dev)
+
+    def requests():
+        rng = np.random.default_rng(0)
+        reqs = []
+        for i in range(args.requests):
+            plen = int(rng.integers(4, 12))
+            if cfg.family == "audio":
+                prompt = rng.integers(0, cfg.vocab_size, (plen, cfg.n_codebooks))
+            else:
+                prompt = rng.integers(0, cfg.vocab_size, (plen,))
+            reqs.append(ServeRequest(rid=i, prompt=prompt.astype(np.int32),
+                                     max_new=args.max_new))
+        return reqs
+
+    run = lambda: serve(cfg, params, requests(), slots=args.slots, max_len=args.max_len,
+                        device=dev)
+    if args.profile:
+        run()   # warm-up
+        stats, wall, busy_s, rows, prof = device_profile(run, dev)
+        print(f"profile: wall {wall:.6f} s, device busy {busy_s:.6f} s "
+              f"({busy_s / wall:.4f} of wall), {sum(r[1] for r in rows)} device events, "
+              f"by kernel:")
+        for us, count, key in rows[:12]:
+            print(f"  {us / 1e3:10.3f} ms  {count:6d}x  {key[:90]}")
+        os.makedirs(args.profile, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.profile, "serve_trace.json"))
+    else:
+        stats = run()
+    for k, v in stats.items():
+        if k != "results":
+            print(f"{k}: {v}")
+    return stats
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="snn-fused")
+    ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--max-new", type=int, default=12)
     ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=64)
     ap.add_argument("--continuous", action="store_true",
                     help="per-slot continuous admission in chunks of the config's "
-                         "snn_chunk_ticks instead of synchronous waves")
+                         "snn_chunk_ticks instead of synchronous waves (SNN server only)")
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="serve once to warm up, then serve under torch.profiler: "
                          "print device time by kernel, write a Chrome trace to DIR")
     ap.add_argument("--metrics-out", metavar="PATH", default=None,
-                    help="write the metrics registry as JSON to PATH")
+                    help="write the metrics registry as JSON to PATH (SNN server only)")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the CUDA card; 'cpu' runs the "
-                         "kernels' plain twins)")
+                    help="torch device (default: the CUDA card; 'cpu' runs on the host, "
+                         "the kernels as their plain twins)")
     args = ap.parse_args(argv)
     bundle = get_bundle(args.arch)
     cfg = bundle.smoke if args.smoke else bundle.model
     if cfg.family != "snn":
-        raise SystemExit(f"{args.arch}: only the SNN server is ported")
+        return serve_lm_main(cfg, args)
     if cfg.snn_mesh:
         return serve_sharded_main(cfg, args)
     return serve_snn_main(cfg, args)

@@ -1,0 +1,155 @@
+"""Shared model machinery: param specs, init, norms, rotary embeddings.
+
+Counterpart of ``repro.models.common``. Parameters are plain trees (nested
+dicts and lists of tensors). Each leaf is described once by a :class:`Spec`
+carrying shape, logical axes and init style; ``init_params``,
+``zeros_params`` and ``param_count`` all derive from the same spec tree.
+
+The draws are the port's own, from a ``torch.Generator`` (a deliberate
+difference, ROADMAP §C): the shapes, dtypes and std rule are the
+reference's, the random numbers are not. Parity tests carry the reference's
+draws across with :func:`repro_torch.interop.lm_params_from_numpy`.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import device as _device
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def torch_dtype(name) -> torch.dtype:
+    """A dtype name of the configs (``"bfloat16"``, ...) as a torch dtype."""
+    return name if isinstance(name, torch.dtype) else DTYPES[name]
+
+
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    init: str = "normal"       # normal | zeros | ones | small
+    scale: float = 1.0         # fan-in override multiplier
+    dtype: Optional[str] = None  # override model dtype (e.g. f32 SSM states)
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape/axes rank mismatch: {self.shape} vs {self.axes}")
+
+
+def map_specs(fn: Callable[[Spec], object], tree):
+    """``fn`` applied to every :class:`Spec` of a tree of dicts and lists."""
+    if isinstance(tree, Spec):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_specs(fn, v) for v in tree)
+    raise TypeError(f"not a spec tree: {type(tree).__name__}")
+
+
+def init_params(specs, gen: torch.Generator, dtype="bfloat16", device=None):
+    """Materialize a spec tree on ``device`` from ``gen``: normal draws in f32
+    times the reference's std (``scale / sqrt(fan_in)``, fan_in the product
+    of every dim but the last, a stacked leaf's groups axis included; ``0.02
+    * scale`` for ``small``), cast to the leaf's dtype. A stacked leaf
+    (leading ``groups`` axis) is drawn slab by slab into its buffer, so the
+    transient f32 draw is one slab and the peak stays near the parameters'
+    bytes."""
+    dev = _device.resolve(device)
+
+    def draw(spec: Spec) -> torch.Tensor:
+        leaf_dtype = torch_dtype(spec.dtype or dtype)
+        if spec.init == "zeros":
+            return torch.zeros(spec.shape, dtype=leaf_dtype, device=dev)
+        if spec.init == "ones":
+            return torch.ones(spec.shape, dtype=leaf_dtype, device=dev)
+        fan_in = max(1, math.prod(spec.shape[:-1]) if len(spec.shape) > 1 else spec.shape[0])
+        std = spec.scale * 0.02 if spec.init == "small" else spec.scale / math.sqrt(fan_in)
+        if spec.axes[:1] != ("groups",):
+            a = torch.randn(spec.shape, generator=gen, dtype=torch.float32, device=dev)
+            return (a * std).to(leaf_dtype)
+        out = torch.empty(spec.shape, dtype=leaf_dtype, device=dev)
+        for g in range(spec.shape[0]):
+            a = torch.randn(spec.shape[1:], generator=gen, dtype=torch.float32, device=dev)
+            out[g] = a * std
+        return out
+
+    return map_specs(draw, specs)
+
+
+def zeros_params(specs, dtype="bfloat16", device=None):
+    """All-zeros materialization (cache init)."""
+    dev = _device.resolve(device)
+    return map_specs(lambda s: torch.zeros(s.shape, dtype=torch_dtype(s.dtype or dtype),
+                                           device=dev), specs)
+
+
+def stack_specs(specs, n: int, axis_name: Optional[str] = "groups"):
+    """Prepend a stacking dim (the loop over groups) to every leaf spec."""
+    return map_specs(
+        lambda s: Spec((n,) + s.shape, (axis_name,) + s.axes, s.init, s.scale, s.dtype), specs)
+
+
+def param_count(specs) -> int:
+    sizes = []
+    map_specs(lambda s: sizes.append(math.prod(s.shape)), specs)
+    return sum(sizes)
+
+
+# ---------------------------------------------------------------------------
+# numerics
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * gamma.float()).to(x.dtype)
+
+
+def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32, device=device) / d_head
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, d_head); positions: (..., seq) integers. The
+    split-half rotation, in f32."""
+    d_head = x.shape[-1]
+    freqs = rope_freqs(d_head, theta, x.device)             # (d_head/2,)
+    angles = positions[..., None].float() * freqs            # (..., seq, d/2)
+    cos = torch.cos(angles)[..., None, :]                    # (..., seq, 1, d/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_pos_embed(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """MusicGen-style absolute sinusoidal embedding; positions (..., seq)."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token NLL; logits in any float dtype (softmax in f32)."""
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(lp, -1, labels[..., None].long())[..., 0]
+    return nll.mean()
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return F.silu(x)

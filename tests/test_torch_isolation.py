@@ -11,7 +11,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:\.|\s|$)", re.M)
+FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro|ml_dtypes)(?:\.|\s|$)", re.M)
 
 
 def _port_modules():
@@ -44,13 +44,24 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
             "repro_torch.analysis", "repro_torch.analysis.findings",
             "repro_torch.analysis.launch_rules", "repro_torch.analysis.op_rules",
             "repro_torch.analysis.sharding_rules", "repro_torch.analysis.static_rules",
-            "repro_torch.analysis.programs", "repro_torch.analysis.check"} <= set(mods)
+            "repro_torch.analysis.programs", "repro_torch.analysis.check",
+            "repro_torch.models", "repro_torch.models.common", "repro_torch.models.attention",
+            "repro_torch.models.ffn", "repro_torch.models.transformer",
+            "repro_torch.models.model", "repro_torch.examples.serve_lm",
+            "repro_torch.configs.smollm_135m", "repro_torch.configs.smollm_360m",
+            "repro_torch.configs.qwen3_0_6b", "repro_torch.configs.starcoder2_15b",
+            "repro_torch.configs.musicgen_large", "repro_torch.configs.llama4_scout_17b_a16e",
+            "repro_torch.configs.moonshot_v1_16b_a3b",
+            "repro_torch.configs.jamba_1_5_large_398b",
+            "repro_torch.configs.llama_3_2_vision_90b",
+            "repro_torch.configs.rwkv6_1_6b"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "             or m == 'repro' or m.startswith('repro.'))\n"
+        "             or m == 'repro' or m.startswith('repro.')\n"
+        "             or m == 'ml_dtypes' or m.startswith('ml_dtypes.'))\n"
         "print(','.join(bad))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
@@ -86,6 +97,7 @@ def test_no_source_names_jax_or_repro():
     assert offenders == []
     assert FORBIDDEN.search("from repro.core import x") and FORBIDDEN.search("import jax\n")
     assert not FORBIDDEN.search("from repro_torch.core import x")
+    assert FORBIDDEN.search("import ml_dtypes\n")
 
 
 def test_entry_points_default_to_the_card():
@@ -94,16 +106,25 @@ def test_entry_points_default_to_the_card():
     from repro_torch.core.lif import LIFParams
     from repro_torch.core.network import SNNState, params_from_registers
     from repro_torch.core.registers import RegisterBank
-    from repro_torch.examples import online_learning, reconfigure_runtime, serve_multi_tenant
+    from repro_torch.configs import get_bundle
+    from repro_torch.examples import (online_learning, reconfigure_runtime, serve_lm,
+                                      serve_multi_tenant)
+    from repro_torch.launch import serve as t_serve
     from repro_torch.launch import serve_async
-    from repro_torch.launch.serve import SNNServer
+    from repro_torch.launch.serve import SNNServer, WaveServer
+    from repro_torch.models import model as M
 
+    lm = get_bundle("smollm-135m").smoke
     calls = [lambda: SNNServer(n_max=8), lambda: params_from_registers(RegisterBank(4)),
              lambda: SNNState.zeros((1,), 4), lambda: LIFParams.make(4),
              lambda: serve_async.main(["--smoke"]),
              lambda: serve_multi_tenant.main(["--fast"]),
              lambda: online_learning.main([]), lambda: reconfigure_runtime.main([]),
-             lambda: check.main(["--program", "tick/jnp/frozen/notelem"])]
+             lambda: check.main(["--program", "tick/jnp/frozen/notelem"]),
+             lambda: t_serve.main([]), lambda: serve_lm.main([]),
+             lambda: M.init(lm, torch.Generator()), lambda: M.init_cache(lm, 1, 8),
+             lambda: WaveServer(lm, {}, slots=1, max_len=8),
+             lambda: t_serve.serve(lm, {}, [t_serve.ServeRequest(rid=0)])]
     if torch.cuda.is_available():
         assert SNNState.zeros((1,), 4).tick.device.type == "cuda"
         assert SNNServer(n_max=8).device.index is not None

@@ -460,16 +460,32 @@ def test_cli_serves_on_the_worlds_ranks(worlds, capsys):
 
 
 def test_cli_defaults_equal_the_reference(monkeypatch):
-    """Every flag both serve CLIs share defaults alike (``--arch`` given: the
-    reference's default arch is an LM, which the port does not serve)."""
-    monkeypatch.setattr(j_serve, "serve_snn_main", lambda cfg, args: vars(args))
-    monkeypatch.setattr(t_serve, "serve_snn_main", lambda cfg, args: vars(args))
-    argv = ["--arch", "snn", "--smoke"]
-    ref, port = j_serve.main(argv), t_serve.main(argv)
+    """Every flag both serve CLIs share defaults alike, ``--arch`` included
+    (the reference's default is the LM smollm-135m, which the port serves):
+    each CLI's parsed arguments, caught before it serves anything."""
+    import argparse
+
+    class Parsed(Exception):
+        pass
+
+    parse = argparse.ArgumentParser.parse_args
+
+    def catch(self, args=None, namespace=None):
+        raise Parsed(vars(parse(self, args, namespace)))
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", catch)
+    parsed = []
+    for mod in (j_serve, t_serve):
+        with pytest.raises(Parsed) as exc:
+            mod.main([])
+        parsed.append(exc.value.args[0])
+    ref, port = parsed
     shared = set(ref) & set(port)
-    assert {"requests", "slots", "continuous", "profile", "metrics_out"} <= shared
+    assert {"arch", "smoke", "requests", "max_new", "slots", "max_len", "continuous",
+            "profile", "metrics_out"} <= shared
     assert {k: port[k] for k in shared} == {k: ref[k] for k in shared}
-    assert (port["requests"], port["slots"]) == (6, 4)
+    assert (port["arch"], port["requests"], port["slots"], port["max_new"],
+            port["max_len"]) == ("smollm-135m", 6, 4, 12, 64)
 
 
 def test_c_none_runs_on_the_kernels_where_the_reference_refuses():
