@@ -227,10 +227,12 @@ script on any mismatch:
    ``pallas_fused`` (B2 on ``W`` alone), the telemetry kernel on each: 6
    chunks of 8 ticks after a warm-up each, no new launch plan, every run's
    rasters, potentials and telemetry bitwise the ``jnp`` run's, a sparse
-   event tick (B3 gathering about 2048 rows of ``W``) bitwise ``jnp``'s, the
-   peak device memory of each, and ticks timed by CUDA events beside their
-   bounds (the bytes of ``W`` each reads over the card's memory rate) and
-   ``torch.matmul(s, W)``. Then a world of two gloo ranks sharing the card
+   event tick (B3 gathering about 2048 rows of ``W``) bitwise ``jnp``'s and
+   ``torch.matmul`` over the same ``W`` on its spikes timed (B3's library
+   call at that shape), the peak device memory of each, and ticks timed
+   by CUDA events beside their bounds (the bytes of ``W`` each reads over
+   the card's memory rate) and ``torch.matmul(s, W)``. Then a world of two
+   gloo ranks sharing the card
    (their spike exchange staged through the host) at 4096 neurons with an
    explicit ``c``, 8 rows, 16 ticks, telemetry on: frozen on ``pallas`` (B1
    at N = 2048), ``pallas_fused`` (remapped to B1), ``event`` (B3) and
@@ -259,7 +261,26 @@ script on any mismatch:
    qwen3-0.6b, starcoder2-15b at 31.9 GB, musicgen-large) timed: wall,
    device time and device events a step, the busy share, the byte bound
    (parameters and cache over the card's memory rate), peak memory.
-16. a JSON line of the kernels (the six ported ones and the telemetry
+16. LM serving for the moe, hybrid, rwkv and vlm families:
+   ``python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b`` (FULL,
+   28.4 B parameters, 56.8 GB in bf16) and ``--arch rwkv6-1.6b`` (FULL),
+   each once with every kernel count at 0 (no hand-written kernel lies on
+   this path) and 72 tokens; each first wave replayed from the same seeded
+   parameters (its tokens the CLI's) and held against one no-cache forward
+   over the same prefix, within 2^-3 (moonshot with ``capacity_factor`` 8.0
+   on both sides, the rows that dropped a claim left out and counted), every
+   greedy token that forward's argmax unless its top-2 gap is under 2^-2.
+   The five archs' SMOKE configs in f32 on the card and the CPU from the
+   same parameters: served tokens equal (the vlm, which the server refuses,
+   through ``prefill_fn`` / ``decode_fn`` with seeded ``vision_embeds``), a
+   wave's logits within 1e-4. Then one decode step timed at moonshot and
+   rwkv6 FULL, scout FULL cut to 8 of its 48 layers, the vlm FULL cut to 2
+   of its 20 groups (seeded vision input), and one decode-mode layer of
+   each of jamba FULL's kinds (mamba + dense, mamba + MoE, attn + dense):
+   wall, device time and events, the busy share, the byte bound over every
+   expert and over the experts routed to, the decode-time capacity drops,
+   peak memory.
+17. a JSON line of the kernels (the six ported ones and the telemetry
    kernel), the card's name and power limit, and the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -4055,8 +4076,16 @@ def sharded_64k_rank(mesh, card) -> dict:
         # (all of them on the dense arms, the arriving spikes' on the event
         # arm) and its w_in, once.
         carries = [carry, eng.chunk(params, carry, x1, 1)[0]]
+        b3_library = None
         if backend == "event":
-            carries.append(sparse_event_tick(mesh, eng, params, carry, x1)[0])
+            sparse, arriving = sparse_event_tick(mesh, eng, params, carry, x1)
+            carries.append(sparse)
+            # B3's library call at this shape: the dense product over the
+            # same W (B1's 64k cell's call), on the sparse tick's spikes.
+            s_sparse = mesh.all_gather(sparse.state.lif.y).reshape(1, -1)
+            b3_library = (arriving, median_ms(lambda: torch.matmul(s_sparse, params.w),
+                                              SHARD_TIMED))
+            del sparse, s_sparse
         ticks = {}
         for c in carries:
             arriving = int(mesh.all_reduce(c.state.lif.y.sum()).item())
@@ -4074,7 +4103,8 @@ def sharded_64k_rank(mesh, card) -> dict:
             "rasters": np.stack([mesh.all_gather(r).cpu().numpy() > 0
                                  for r in res["rasters"]]),
             "v": mesh.all_gather(carry.state.lif.v).cpu().numpy(),
-            "telemetry": res["telemetry"], "ticks": ticks, "matmul_ms": matmul_ms}
+            "telemetry": res["telemetry"], "ticks": ticks, "matmul_ms": matmul_ms,
+            "b3_library": b3_library}
         del res, eng, params, carry, carries, c, s
         torch.cuda.empty_cache()
     return out
@@ -4144,6 +4174,12 @@ def check_64k_world(ranks, full, smi, card, add):
                 f"it reads and its w_in, over {card[0] / 1e12:.2f} TB/s), {bound / ms:.0%} of "
                 f"it; torch.matmul(s, W) over the rank's W alone {run['matmul_ms']:.4f} ms; "
                 f"card {smi}")
+        if run["b3_library"] is not None:
+            arriving, ms = run["b3_library"]
+            log(f"time sharded 64k B3 library ({name}, {d} rank(s)): torch.matmul(s, W) over "
+                f"the rank's W with s the sparse tick's {arriving} arriving spikes (CUDA "
+                f"events on rank 0, median of {SHARD_TIMED}; the call of B1's 64k cell) "
+                f"{ms:.4f} ms; card {smi}")
 
 
 def plain_opts(opts: dict) -> dict:
@@ -4536,6 +4572,9 @@ LM_SLOTS, LM_MAX_LEN, LM_MAX_NEW = 4, 64, 12   # the serve CLI's defaults
 LM_LOGIT_TOL = 2.0 ** -3   # bf16: the cached decode against a no-cache forward, |logit| ~ 4
 LM_TIE = 2 * LM_LOGIT_TOL  # a greedy choice whose forward top-2 gap is under this is a tie
 LM_SMOKE_TOL = 1e-4        # f32 SMOKE logits, the card against the CPU (TF32 off)
+LM_F32_TOL = 2.0 ** -5     # f32 FULL, cached against a no-cache forward: cuBLAS sums in
+                           # another order at another batch shape, amplified through 24
+                           # rwkv6 layers (measured 0.0096 on an H100)
 LM_PROMPT = 8              # the timed decode step's prompt length (its position)
 LM_TIMED = 20              # timed decode steps per FULL config
 LM_PROFILED = 5            # decode steps under the profiler per FULL config
@@ -4557,10 +4596,11 @@ def lm_requests(cfg, n: int, max_new: int):
     return reqs
 
 
-def lm_wave(cfg, params, reqs, dev):
+def lm_wave(cfg, params, reqs, dev, vision=None):
     """One wave replayed step by step as ``WaveServer.run_wave`` serves it (every
     request runs ``LM_MAX_NEW`` tokens): the padded prompt, and the f32 logits
-    and greedy tokens of the prefill and of each decode step."""
+    and greedy tokens of the prefill and of each decode step. ``vision`` (the
+    vlm's ``vision_embeds``) goes to the prefill."""
     import torch
 
     from repro_torch.launch.serve import WaveServer
@@ -4569,7 +4609,10 @@ def lm_wave(cfg, params, reqs, dev):
     server = WaveServer(cfg, params, slots=LM_SLOTS, max_len=LM_MAX_LEN, device=dev)
     toks = torch.from_numpy(server._pad_prompts(reqs)).to(dev)
     caches = M.init_cache(cfg, LM_SLOTS, LM_MAX_LEN, dev)
-    last, caches = M.prefill_fn(params, cfg, {"inputs": toks}, caches)
+    batch = {"inputs": toks}
+    if vision is not None:
+        batch["vision_embeds"] = vision
+    last, caches = M.prefill_fn(params, cfg, batch, caches)
     logits, tokens = [last.float()], [last.argmax(-1)]
     for i in range(LM_MAX_NEW - 1):
         last, caches = M.decode_fn(params, cfg, {"token": tokens[-1][:, None],
@@ -4651,18 +4694,34 @@ def tree_to(tree, dev):
     return tree.to(dev)
 
 
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tree_leaves(v)]
+    return [tree]
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def state_bytes(caches) -> int:
+    """The bytes of a cache's recurrent states (every leaf but the KV caches'):
+    a decode step rewrites them whole."""
+    if isinstance(caches, dict):
+        return sum(state_bytes(v) for k, v in caches.items() if k != "kv")
+    if isinstance(caches, (list, tuple)):
+        return sum(state_bytes(v) for v in caches)
+    return caches.numel() * caches.element_size()
+
+
 def time_lm_decode(arch: str, dev, card, smi) -> dict:
     """One decode step of ``arch`` FULL (bf16, the port's seeded draws) at the
-    CLI's 4 slots and 64-token cache, position ``LM_PROMPT``: the wall per
-    step (host clock around a synchronised step, median of ``LM_TIMED``), its
-    device time and device events (``torch.profiler`` over ``LM_PROFILED``
-    steps), against the byte bound: the parameters and the cache read once."""
-    import math
-
+    CLI's 4 slots and 64-token cache, position ``LM_PROMPT`` (:func:`time_decode`)."""
     import torch
 
     from repro_torch.configs import get_bundle
-    from repro_torch.launch.serve import device_profile
     from repro_torch.models import model as M
 
     cfg = get_bundle(arch).model
@@ -4673,28 +4732,89 @@ def time_lm_decode(arch: str, dev, card, smi) -> dict:
     t0 = time.perf_counter()
     params = M.init(cfg, gen, dev)
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    out = time_decode(cfg, params, gen, dev, card, smi, f"{arch} FULL",
+                      time.perf_counter() - t0)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_decode(cfg, params, gen, dev, card, smi, label: str, init_s: float,
+                vision=None) -> dict:
+    """One decode step of ``cfg`` at the CLI's 4 slots and 64-token cache,
+    position ``LM_PROMPT`` (a prompt drawn from ``gen``, ``vision`` to the
+    prefill): the wall per step (host clock around a synchronised step,
+    median of ``LM_TIMED``), its device time and device events
+    (``torch.profiler`` over ``LM_PROFILED`` steps), against the byte bound:
+    the parameters and the cache read once and the recurrent states written
+    once. A MoE config also runs one step with its routing recorded
+    (:func:`moe_routes`): the capacity drops and the bound over the experts
+    routed to."""
+    import math
+
+    import torch
+
+    from repro_torch.models import model as M
+
     caches = M.init_cache(cfg, LM_SLOTS, LM_MAX_LEN, dev)
     shape = (LM_SLOTS, LM_PROMPT) + ((cfg.n_codebooks,) if cfg.family == "audio" else ())
     prompt = torch.randint(0, cfg.vocab_size, shape, generator=gen, device=dev)
-    last, caches = M.prefill_fn(params, cfg, {"inputs": prompt}, caches)
+    batch = {"inputs": prompt}
+    if vision is not None:
+        batch["vision_embeds"] = vision
+    last, caches = M.prefill_fn(params, cfg, batch, caches)
     token = last.argmax(-1)[:, None]
 
     def step():
         return M.decode_fn(params, cfg, {"token": token, "pos": LM_PROMPT}, caches)[0]
 
+    timed = time_step(step, dev, label)
+    n = M.n_params(cfg)
+    moved = n * 2 + tree_bytes(caches) + state_bytes(caches)
+    extra = ""
+    if cfg.n_experts:
+        routes = []
+        with moe_routes(routes):
+            step()
+        extra = routed_text(routes, moved, card)
+    peak = torch.cuda.max_memory_allocated(dev)
+    del caches
+    bound_ms = moved / card[0] * 1e3
+    device, events, wall_ms = timed["device_ms"], timed["events"], timed["wall_ms"]
+    share = "not measured" if device is None else f"{device / wall_ms:.3f}"
+    dev_text = ("device time not measured (three traces without device activity)"
+                if device is None else
+                f"device {device:.4f} ms in {events:.0f} device events a step (busy {share} "
+                f"of the wall; the bound is {bound_ms / device:.0%} of the device time)")
+    log(f"lm decode step {label} ({n:,} params, bf16, {LM_SLOTS} slots, cache "
+        f"{LM_MAX_LEN}, position {LM_PROMPT}) on {smi}: wall {wall_ms:.4f} ms (median of "
+        f"{LM_TIMED}), {dev_text}; bound {bound_ms:.4f} ms ({moved / 1e6:.1f} MB of params "
+        f"and cache over {card[0] / 1e12:.2f} TB/s){extra}; peak memory "
+        f"{peak / 2**30:.2f} GiB; init {init_s:.2f} s")
+    if not math.isfinite(wall_ms):
+        raise AssertionError(f"lm decode {label}: no wall time")
+    return {"wall_ms": wall_ms, "device_ms": device, "events": events, "bound_ms": bound_ms}
+
+
+def time_step(step, dev, label: str) -> dict:
+    """``step`` after 3 warm-up calls: the median wall of ``LM_TIMED``
+    synchronised calls, and device time and events a call from the profiler
+    over ``LM_PROFILED`` calls (None when three traces came back empty)."""
+    import torch
+
+    from repro_torch.launch.serve import device_profile
+
     for _ in range(3):
-        logits = step()
+        out = step()
     torch.cuda.synchronize()
-    if not bool(torch.isfinite(logits).all()):
-        raise AssertionError(f"lm decode {arch}: non-finite logits")
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"lm decode {label}: non-finite output")
     walls = []
     for _ in range(LM_TIMED):
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    wall_ms = statistics.median(walls) * 1e3
     device, events = None, None
     for _ in range(3):   # the profiler has returned traces with no device activity
         _, _, busy_s, rows, _ = device_profile(lambda: [step() for _ in range(LM_PROFILED)],
@@ -4703,27 +4823,7 @@ def time_lm_decode(arch: str, dev, card, smi) -> dict:
             device = busy_s * 1e3 / LM_PROFILED
             events = sum(r[1] for r in rows) / LM_PROFILED
             break
-    n = M.n_params(cfg)
-    cache_bytes = sum(t.numel() * t.element_size() for st in caches for lay in st.values()
-                      for t in lay["kv"].values())
-    moved = n * 2 + cache_bytes
-    bound_ms = moved / card[0] * 1e3
-    peak = torch.cuda.max_memory_allocated(dev)
-    del params, caches
-    torch.cuda.empty_cache()
-    share = "not measured" if device is None else f"{device / wall_ms:.3f}"
-    dev_text = ("device time not measured (three traces without device activity)"
-                if device is None else
-                f"device {device:.4f} ms in {events:.0f} device events a step (busy {share} "
-                f"of the wall; the bound is {bound_ms / device:.0%} of the device time)")
-    log(f"lm decode step {arch} FULL ({n:,} params, bf16, {LM_SLOTS} slots, cache "
-        f"{LM_MAX_LEN}, position {LM_PROMPT}) on {smi}: wall {wall_ms:.4f} ms (median of "
-        f"{LM_TIMED}), {dev_text}; bound {bound_ms:.4f} ms ({moved / 1e6:.1f} MB of params "
-        f"and cache over {card[0] / 1e12:.2f} TB/s); peak memory {peak / 2**30:.2f} GiB; "
-        f"init {init_s:.2f} s")
-    if not math.isfinite(wall_ms):
-        raise AssertionError(f"lm decode {arch}: no wall time")
-    return {"wall_ms": wall_ms, "device_ms": device, "events": events, "bound_ms": bound_ms}
+    return {"wall_ms": statistics.median(walls) * 1e3, "device_ms": device, "events": events}
 
 
 def run_lm_phase(dev, card, smi) -> dict:
@@ -4778,6 +4878,367 @@ def run_lm_phase(dev, card, smi) -> dict:
     check_lm_smoke(dev, smi)
     return {arch: time_lm_decode(arch, dev, card, smi) for arch in LM_ARCHS}
 
+
+
+# ---------------------------------------------------------------------------
+# phase 16: LM serving for the moe, hybrid, rwkv and vlm families
+# ---------------------------------------------------------------------------
+
+FAMILY_SERVED = ("moonshot-v1-16b-a3b", "rwkv6-1.6b")   # whole on the card, through the CLI
+FAMILY_SMOKES = ("llama4-scout-17b-a16e", "moonshot-v1-16b-a3b", "jamba-1.5-large-398b",
+                 "llama-3.2-vision-90b", "rwkv6-1.6b")
+FAMILY_CAPACITY = 8.0   # both sides of a MoE cached-against-uncached check (as the
+                        # reference's tests/test_models.py)
+SCOUT_LAYERS = 8        # scout FULL is 216.5 GB: 8 of its 48 layers at full width
+VLM_GROUPS = 2          # llama-3.2-vision FULL is 175.4 GB: 2 of its 20 groups of 5
+
+
+@contextlib.contextmanager
+def moe_routes(records: list):
+    """While open, every MoE FFN call also appends its routing to ``records``
+    (:func:`repro_torch.models.ffn.route` on the same normed tokens, the
+    same capacity): the claims dropped past capacity, the (row, position)
+    of each token that lost one, the experts routed to, and the bytes of one
+    expert's weights."""
+    from repro_torch.models import ffn
+    from repro_torch.models.common import rms_norm
+
+    moe = ffn.moe_ffn
+
+    def spy(x, p, cfg, cap_factor=None):
+        b, s, d = x.shape
+        g = min(ffn.MOE_GROUP_TOKENS, b * s)
+        cap = ffn._capacity(cfg, g, cap_factor or cfg.capacity_factor)
+        r = ffn.route(rms_norm(x, p["ln"]).reshape(b * s // g, g, d), p["router"], cfg, cap)
+        lost = r.dropped().any(-1).reshape(b, s)
+        records.append({
+            "dropped": int(r.dropped().sum()), "lost": lost.nonzero().cpu().tolist(),
+            "routed": int((r.expert_mask.amax(dim=(0, 1)) > 0).sum()),
+            "experts": cfg.n_experts,
+            "expert_bytes": sum(p[k][0].numel() * p[k][0].element_size()
+                                for k in ("w_gate", "w_up", "w_down"))})
+        return moe(x, p, cfg, cap_factor)
+
+    ffn.moe_ffn = spy
+    try:
+        yield records
+    finally:
+        ffn.moe_ffn = moe
+
+
+def routed_text(routes: list, moved: int, card) -> str:
+    """The capacity drops of one recorded step and its bound over the experts
+    routed to (every other expert's weights left out of ``moved``)."""
+    unrouted = sum((r["experts"] - r["routed"]) * r["expert_bytes"] for r in routes)
+    routed_ms = (moved - unrouted) / card[0] * 1e3
+    mean = sum(r["routed"] for r in routes) / len(routes)
+    return (f"; the dense dispatch reads all {routes[0]['experts']} experts of each of "
+            f"{len(routes)} MoE layers, the step routed to {mean:.2f} on average: bound over "
+            f"the routed experts {routed_ms:.4f} ms ({(moved - unrouted) / 1e6:.1f} MB); "
+            f"decode capacity drops {sum(r['dropped'] for r in routes)} claim(s) in "
+            f"{sum(1 for r in routes if r['dropped'])} of {len(routes)} layers")
+
+
+def family_serve(arch: str, dev, smi) -> dict:
+    """``python -m repro_torch.launch.serve --arch <arch>`` (FULL, bf16, the
+    CLI's defaults) once, every kernel count at 0 before and after."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.launch import serve as serve_mod
+
+    torch.cuda.empty_cache()
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    zero_launches()
+    with contextlib.redirect_stdout(buf):
+        stats = serve_mod.main(["--arch", arch])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    launches = kernel_launches()
+    if any(launches.values()):
+        raise AssertionError(f"lm serve {arch}: a hand-written kernel launched: {launches}")
+    if (stats["n_requests"], stats["new_tokens"]) != (6, 6 * LM_MAX_NEW):
+        raise AssertionError(f"lm serve {arch}: {stats['n_requests']} requests, "
+                             f"{stats['new_tokens']} tokens")
+    log(f"lm serve --arch {arch} (FULL, bf16, 6 requests, --max-new {LM_MAX_NEW}, "
+        f"{LM_SLOTS} slots, --max-len {LM_MAX_LEN}) on {smi}: {stats['new_tokens']} new tokens "
+        f"in {stats['decode_steps']} decode steps, tokens_per_s {stats['tokens_per_s']}, mean "
+        f"TTFT {stats['mean_ttft_s']} s, p99 TTFT {stats['p99_ttft_s']} s, wall "
+        f"{stats['wall_s']} s; hand-written kernel launches {launches} (none lies on this "
+        f"path)")
+    for line in buf.getvalue().splitlines():
+        if line.strip():
+            log(f"lm serve {arch} | {line}")
+    return stats
+
+
+def wave_against_forward(cfg, params, reqs, dev) -> dict:
+    """A wave of ``cfg`` replayed (:func:`lm_wave`) and one no-cache forward
+    over the same prefix, their MoE routing recorded: the logits' largest
+    difference over the rows where neither run dropped a claim, and the
+    greedy tokens against the forward's argmax there."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    routes = []
+    with moe_routes(routes):
+        toks, logits, tokens = lm_wave(cfg, params, reqs, dev)
+        seq = torch.cat([toks.long(), tokens[:, :-1]], dim=1)
+        plen = toks.shape[1]
+        full = M.forward(params, cfg, seq, mode="train")[0][:, plen - 1:].float()
+    keep = torch.ones(LM_SLOTS, dtype=torch.bool)
+    for r in routes:
+        for row, _ in r["lost"]:
+            keep[row] = False
+    if not bool(keep.any()):
+        raise AssertionError(f"lm wave {cfg.name}: every row dropped a claim")
+    keep = keep.to(dev)
+    top2 = full.topk(2, dim=-1).values
+    return {"err": float((full - logits)[keep].abs().max()), "plen": plen,
+            "gap": (top2[..., 0] - top2[..., 1])[keep],
+            "differ": (full.argmax(-1) != tokens)[keep],
+            "dropped": sum(r["dropped"] for r in routes), "left_out": LM_SLOTS - int(keep.sum()),
+            "logit_max": float(full.abs().max())}
+
+
+def check_family_wave(cfg, params, reqs, dev, served, smi) -> None:
+    """The first wave of ``cfg`` replayed as the CLI served it (its tokens ==
+    the CLI's), then its prefill and decode logits against one no-cache
+    forward over the same prefix (:func:`wave_against_forward`): within
+    ``LM_LOGIT_TOL`` in bf16, every greedy token that forward's argmax unless
+    its top-2 gap is under ``LM_TIE``. A MoE config runs both at
+    ``FAMILY_CAPACITY`` (the prefill and the forward group their tokens
+    differently, so at the config's factor they drop different claims), the
+    rows that still dropped one left out. rwkv6 is held in f32
+    (``LM_F32_TOL``, its own seeded f32 draws, 6.4 GB): its group norm
+    amplifies the bf16 rounding of products taken at other batch shapes
+    until the two bf16 runs part (the bf16 difference is printed, not
+    held)."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    _, _, tokens = lm_wave(cfg, params, reqs, dev)
+    got = {r.rid: tokens[i, :8].cpu().tolist() for i, r in enumerate(reqs)}
+    if got != {r.rid: served[r.rid] for r in reqs}:
+        raise AssertionError(f"lm wave {cfg.name}: the replay's tokens {got} are not the "
+                             f"CLI's {served}")
+    check = dataclasses.replace(cfg, capacity_factor=FAMILY_CAPACITY) if cfg.n_experts else cfg
+    tol, tie, how, bf16_text = LM_LOGIT_TOL, LM_TIE, "bf16", ""
+    run_params = params
+    if cfg.family == "rwkv":
+        bf16 = wave_against_forward(check, params, reqs, dev)
+        bf16_text = (f"; in bf16 the two differ by {bf16['err']:.4g} (printed, not held: "
+                     f"{int(bf16['differ'].sum())} of {bf16['differ'].numel()} greedy tokens "
+                     f"differ)")
+        check = dataclasses.replace(check, dtype="float32")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        run_params = M.init(check, gen, dev)
+        tol, tie, how = LM_F32_TOL, 2 * LM_F32_TOL, "f32, the same seeded draws"
+    res = wave_against_forward(check, run_params, reqs, dev)
+    del run_params
+    torch.cuda.empty_cache()
+    if not res["err"] <= tol:
+        raise AssertionError(f"lm wave {cfg.name}: decode logits {res['err']} from the no-cache "
+                             f"forward ({how}, tolerance {tol})")
+    differ, gap = res["differ"], res["gap"]
+    if bool((differ & (gap >= tie)).any()):
+        raise AssertionError(f"lm wave {cfg.name}: a greedy token differs from the no-cache "
+                             f"forward's with a top-2 gap of at least {tie}")
+    moe = (f" (capacity_factor {FAMILY_CAPACITY} on both sides; {res['dropped']} claim(s) "
+           f"dropped, {res['left_out']} row(s) left out)" if cfg.n_experts else "")
+    log(f"lm wave 1 of {cfg.name} FULL (4 requests, prompts padded to {res['plen']}, "
+        f"{LM_MAX_NEW} tokens each) on {smi}: the replay's tokens == the CLI's; prefill and "
+        f"{LM_MAX_NEW - 1} decode steps' logits against one no-cache forward over the same "
+        f"prefix{moe}: max |err| {res['err']:.4g} ({how}, tolerance {tol}, |logit| max "
+        f"{res['logit_max']:.3g}); greedy tokens == its argmax at {int((~differ).sum())} of "
+        f"{differ.numel()}, {int(differ.sum())} rounding ties (top-2 gap under {tie}; "
+        f"smallest gap {float(gap.min()):.3g}){bf16_text}")
+
+
+def smoke_vision(cfg, dev):
+    """Seeded ``vision_embeds`` for a vlm config in its dtype, made on the CPU
+    (the same on every device), or None."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    if cfg.family != "vlm":
+        return None
+    gen = torch.Generator().manual_seed(16)
+    shape = (LM_SLOTS, cfg.n_vision_tokens, cfg.d_vision)
+    return torch.randn(shape, generator=gen).to(dev, M.dtype_of(cfg))
+
+
+def check_family_smokes(dev, smi) -> None:
+    """Each of the five archs' SMOKE configs in f32 from the same parameters
+    on the card and the CPU: the served tokens equal (the vlm, which the
+    server refuses, through ``prefill_fn`` / ``decode_fn`` with seeded
+    ``vision_embeds``), a wave's logits within ``LM_SMOKE_TOL`` and its
+    greedy tokens equal."""
+    import torch
+
+    from repro_torch.configs import get_bundle
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as M
+
+    cpu = torch.device("cpu")
+    for arch in FAMILY_SMOKES:
+        cfg = get_bundle(arch).smoke
+        host = M.init(cfg, torch.Generator().manual_seed(0), cpu)
+        on = {cpu: host, dev: tree_to(host, dev)}
+        served = ""
+        if cfg.family != "vlm":
+            outs = {d: [r.out for r in serve(cfg, p, lm_requests(cfg, 6, LM_MAX_NEW),
+                                             slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                                             device=d)["results"]]
+                    for d, p in on.items()}
+            if outs[cpu] != outs[dev]:
+                raise AssertionError(f"lm smoke {arch}: the card's tokens differ from the "
+                                     f"CPU's")
+            served = f"6 requests served, {sum(map(len, outs[dev]))} tokens == the CPU's; "
+        reqs = lm_requests(cfg, LM_SLOTS, LM_MAX_NEW)
+        waves = {d: lm_wave(cfg, p, reqs, d, smoke_vision(cfg, d)) for d, p in on.items()}
+        err = float((waves[dev][1].cpu() - waves[cpu][1]).abs().max())
+        if not err <= LM_SMOKE_TOL or not torch.equal(waves[dev][2].cpu(), waves[cpu][2]):
+            raise AssertionError(f"lm smoke {arch}: card logits {err} from the CPU's "
+                                 f"(tolerance {LM_SMOKE_TOL}) or tokens differ")
+        log(f"lm smoke {arch} ({cfg.name}, {cfg.family}, f32, the same params) on {smi}: "
+            f"{served}a wave's prefill and {LM_MAX_NEW - 1} decode steps"
+            + (" (seeded vision_embeds)" if cfg.family == "vlm" else "")
+            + f": tokens equal, logits max |card - CPU| {err:.3g} (tolerance {LM_SMOKE_TOL})")
+
+
+def time_jamba_layers(dev, card, smi) -> None:
+    """One decode-mode ``_apply_layer`` of each of jamba FULL's layer kinds at
+    full width (a group alone is about 88 GB): mamba + dense (index 0),
+    mamba + MoE (1), attn + dense (4), each from its own seeded parameters
+    and a zero cache at position ``LM_PROMPT``, timed as :func:`time_decode`
+    times a step."""
+    import torch
+
+    from repro_torch.configs import get_bundle
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import init_params, zeros_params
+
+    cfg = get_bundle("jamba-1.5-large-398b").model
+    plan = tf.stage_plans(cfg)[0]
+    for idx in (0, 1, cfg.attn_index):
+        lp = plan.layers[idx]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(idx)
+        t0 = time.perf_counter()
+        p = init_params(tf._layer_specs(cfg, lp), gen, cfg.dtype, dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        cache = zeros_params(tf._layer_cache_specs(cfg, lp, LM_SLOTS, LM_MAX_LEN), cfg.dtype,
+                             dev)
+        x = torch.randn((LM_SLOTS, 1, cfg.d_model), generator=gen, device=dev)
+        x = x.to(torch.bfloat16)
+        positions = torch.full((LM_SLOTS, 1), LM_PROMPT, dtype=torch.int64, device=dev)
+
+        def step():
+            return tf._apply_layer(x, p, cfg, lp, mode="decode", positions=positions,
+                                   cache_pos=LM_PROMPT, cache=cache, vision_proj=None)[0]
+
+        timed = time_step(step, dev, f"jamba layer {idx}")
+        n = sum(t.numel() for t in tree_leaves(p))
+        moved = tree_bytes(p) + tree_bytes(cache or {}) + state_bytes(cache or {})
+        extra = ""
+        if lp.ffn == "moe":
+            routes = []
+            with moe_routes(routes):
+                step()
+            extra = routed_text(routes, moved, card)
+        peak = torch.cuda.max_memory_allocated(dev)
+        bound_ms = moved / card[0] * 1e3
+        device = timed["device_ms"]
+        dev_text = ("device time not measured (three traces without device activity)"
+                    if device is None else
+                    f"device {device:.4f} ms in {timed['events']:.0f} device events a step "
+                    f"(busy {device / timed['wall_ms']:.3f} of the wall; the bound is "
+                    f"{bound_ms / device:.0%} of the device time)")
+        log(f"lm decode layer jamba-1.5-large-398b FULL layer {idx} ({lp.mixer} + {lp.ffn}, "
+            f"{n:,} params, bf16, {LM_SLOTS} slots, position {LM_PROMPT}) on {smi}: wall "
+            f"{timed['wall_ms']:.4f} ms (median of {LM_TIMED}), {dev_text}; bound "
+            f"{bound_ms:.4f} ms ({moved / 1e6:.1f} MB of params and state over "
+            f"{card[0] / 1e12:.2f} TB/s){extra}; peak memory {peak / 2**30:.2f} GiB; init "
+            f"{init_s:.2f} s")
+        del p, cache, x
+    torch.cuda.empty_cache()
+
+
+def time_family_decode(arch: str, dev, card, smi, params=None, init_s: float = 0.0,
+                       **cut) -> None:
+    """One decode step of ``arch`` FULL (its depth cut by ``cut``, e.g.
+    ``n_layers``), from ``params`` when given (drawn from seed 0 otherwise,
+    ``init_s`` the draw's seconds), timed by :func:`time_decode`; a vlm
+    prefill takes seeded ``vision_embeds``."""
+    import torch
+
+    from repro_torch.configs import get_bundle
+    from repro_torch.models import model as M
+
+    full = get_bundle(arch).model
+    cfg = dataclasses.replace(full, **cut)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    if params is None:
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = M.init(cfg, gen, dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+    label = f"{arch} FULL" + (f" ({cfg.n_layers} of its {full.n_layers} layers)"
+                              if cfg.n_layers != full.n_layers else "")
+    time_decode(cfg, params, gen, dev, card, smi, label, init_s, vision=smoke_vision(cfg, dev))
+    del params
+    torch.cuda.empty_cache()
+
+
+def run_family_phase(dev, card, smi) -> None:
+    """LM serving for the moe, hybrid, rwkv and vlm families:
+    moonshot-v1-16b-a3b FULL (56.8 GB) and rwkv6-1.6b FULL served through the
+    CLI, each first wave held against a no-cache forward; the five archs'
+    SMOKE configs against the CPU; one decode step timed at each arch's
+    width (scout at 8 of 48 layers, the vlm at 2 of 20 groups, jamba one
+    layer of each kind)."""
+    import torch
+
+    from repro_torch.configs import get_bundle
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    for arch in FAMILY_SERVED:
+        served = family_serve(arch, dev, smi)
+        cfg = get_bundle(arch).model
+        torch.cuda.reset_peak_memory_stats(dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        t1 = time.perf_counter()
+        params = M.init(cfg, gen, dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t1
+        check_family_wave(cfg, params, lm_requests(cfg, 6, LM_MAX_NEW)[:LM_SLOTS], dev,
+                          served["outputs"], smi)
+        time_family_decode(arch, dev, card, smi, params=params, init_s=init_s)
+        del params
+        torch.cuda.empty_cache()
+    check_family_smokes(dev, smi)
+    time_family_decode("llama4-scout-17b-a16e", dev, card, smi, n_layers=SCOUT_LAYERS)
+    vlm = get_bundle("llama-3.2-vision-90b").model
+    time_family_decode("llama-3.2-vision-90b", dev, card, smi,
+                       n_layers=VLM_GROUPS * vlm.group_size)
+    time_jamba_layers(dev, card, smi)
+    log(f"lm families phase: {time.perf_counter() - t0:.1f} s")
 
 
 def ptxas_kernels(text: str) -> list:
@@ -4893,6 +5354,7 @@ def main() -> int:
     for name, count in sharded.items():
         launches[name] += count
     phase("lm", run_lm_phase, dev, card, smi)
+    phase("lm families", run_family_phase, dev, card, smi)
     if min(launches.values()) < 1 or min(learn_launches.values()) < 1 \
             or frozen_launches["tick_fused"] < 1 or min(event_learn.values()) < 1 \
             or min(cont_launches[k] for k in ("tick_fused", "stdp_update", "telemetry")) < 1 \

@@ -4,9 +4,9 @@ Counterpart of ``repro.configs``, with every id the reference registers:
 the SNN configs (``snn-fused``, ``snn`` and ``snn-event`` served,
 ``iris-snn`` and ``mnist-snn`` the paper's classifiers, ``mnist-stdp`` the
 on-device learning workload, ``snn-64k`` the sharded fabric) and the ten
-LM configs. The registry holds a family before the port runs it: of the LM
-families, ``dense`` and ``audio`` are served (``repro_torch.models``); the
-others raise when their layers are built (ROADMAP A.7b).
+LM configs. Every LM family runs (``repro_torch.models``); the serve CLI
+serves all but ``vlm``, whose reference server passes no vision inputs
+(``repro_torch.launch.serve``).
 """
 from __future__ import annotations
 

@@ -21,12 +21,15 @@ The classifier's models too: a ``TrainedSNN`` as its arrays and scalars, a
 plus the device-local bias register.
 
 The LM's parameters and decode caches travel as the reference's own trees
-(``{"embed", "lm_head"?, "stages": [{"layerI": {"mixer", "ffn"}}],
-"final_ln"}``, every stacked leaf with its leading ``groups`` axis; caches
-``[{"layerI": {"kv": {"k", "v"}}}]``) with numpy leaves. numpy has no
-bfloat16 and the port does not import ``ml_dtypes``: a bf16 array travels as
-float32 (``np.asarray(x, np.float32)``, exact), and the port casts each leaf
-back to its spec's dtype.
+(``{"embed", "lm_head"?, "vision_proj"?, "stages": [{"layerI": {"mixer",
+"ffn"}}], "final_ln"}``, every stacked leaf with its leading ``groups``
+axis, the MoE FFN's ``shared`` subtree included; caches ``[{"layerI":
+{"kv": {"k", "v"}} | {"conv", "h"} | {"att_x", "ffn_x", "wkv"}}]``) with
+numpy leaves. numpy has no bfloat16 and the port does not import
+``ml_dtypes``: a bf16 array travels as float32 (``np.asarray(x,
+np.float32)``, exact), and the port casts each leaf back to its spec's
+dtype (the f32 state leaves, mamba ``h`` and rwkv ``wkv``, stay f32). The
+vlm's ``vision_embeds`` travel the same way.
 """
 from __future__ import annotations
 
@@ -249,14 +252,42 @@ def lm_params_to_numpy(params):
 
 def lm_cache_from_numpy(tree, cfg, device=None):
     """A decode cache from the reference's (a list per stage, leaves
-    ``(groups, batch, s_max, ...)``), each leaf cast to the model dtype."""
+    ``(groups, batch, ...)``), each leaf cast to its spec's dtype. The batch
+    is read from any leaf and ``s_max`` from a self-attention layer's K (a
+    cache without one, rwkv's, has no ``s_max``)."""
     from repro_torch.models import model
+    from repro_torch.models import transformer as tf
 
-    first = np.shape(tree[0]["layer0"]["kv"]["k"])
-    specs = model.make_cache_specs(cfg, first[1], first[2])
+    batch, s_max = np.shape(next(iter(_leaves(tree))))[1], 1
+    for stage, plan in zip(tree, tf.stage_plans(cfg)):
+        attn = [i for i, lp in enumerate(plan.layers) if lp.mixer == "attn"]
+        if attn:
+            s_max = np.shape(stage[f"layer{attn[0]}"]["kv"]["k"])[2]
+            break
+    specs = model.make_cache_specs(cfg, batch, s_max)
     return _lm_tree_from_numpy(tree, specs, model.dtype_of(cfg), _device.resolve(device))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def lm_cache_to_numpy(caches):
     """A decode cache as a list of trees of numpy arrays (floats as float32)."""
     return _lm_tree_to_numpy(caches)
+
+
+def lm_vision_from_numpy(vision_embeds, cfg, device=None) -> torch.Tensor:
+    """The vlm's ``vision_embeds`` (B, n_vision_tokens, d_vision) from the
+    reference's array, in the model dtype (``batch_specs``'s)."""
+    from repro_torch.models import model
+
+    return torch.from_numpy(np.array(vision_embeds, np.float32)).to(
+        _device.resolve(device), model.dtype_of(cfg))

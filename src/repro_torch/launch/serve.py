@@ -1,12 +1,14 @@
 """Batched serving: the LM wave server and multi-tenant SNN serving.
 
 Counterpart of ``repro.launch.serve``. :class:`WaveServer` and :func:`serve`
-serve the LM model zoo's dense and audio families (``repro_torch.models``):
-requests are grouped into waves of ``slots``, each wave's prompts are
-left-padded to a common length and prefilled in one batched call, then all
-slots decode greedily in lock-step. It is the CLI's default
-(``--arch smollm-135m``, as the reference's); the other LM families exit
-naming ROADMAP A.7b.
+serve the LM model zoo (``repro_torch.models``): requests are grouped into
+waves of ``slots``, each wave's prompts are left-padded to a common length
+and prefilled in one batched call, then all slots decode greedily in
+lock-step. It is the CLI's default (``--arch smollm-135m``, as the
+reference's). The dense, audio, moe, hybrid and rwkv families are served;
+the recurrent ones carry the left-pad zeros through their state, as the
+reference does. The vlm family is refused (:data:`VLM_REFUSAL`): the
+reference's server passes its model no vision inputs and fails.
 
 :class:`SNNServer` serves the SNN processor itself, frozen and plastic
 tenants. S independent networks -- each its own ``W/C/thresholds/leak`` register
@@ -83,7 +85,6 @@ from repro_torch.core.network_types import SNNParams, SNNState, masked_weights
 from repro_torch.kernels import event_dispatch, lif_step, stdp_update, telemetry, tick_fused
 from repro_torch.kernels.ops import EventFanIn, fan_in_edges
 from repro_torch.models import model as M
-from repro_torch.models import transformer as tf
 from repro_torch.obs import MetricsRegistry, log_event, span
 from repro_torch.obs.telemetry import TickTelemetry
 from repro_torch.plasticity import PlasticityParams, PlasticityState
@@ -148,6 +149,21 @@ class ServeResult:
         now = time.time()
         return cls(rid=r.rid, tenant=r.tenant, rejected=True, reason=reason,
                    t_submit=r.t_submit or now, t_first=None, t_done=now)
+
+
+VLM_REFUSAL = (
+    "the vlm family is not served: the reference's WaveServer prefills with "
+    "{'inputs': ...} alone (src/repro/launch/serve.py:174), so its cross layers get "
+    "vision_proj None and fail in project_vision_kv (src/repro/models/attention.py:255, "
+    "AttributeError: 'NoneType' object has no attribute 'shape'); the port serves only "
+    "what the reference serves and runs the vlm model through forward / prefill_fn / "
+    "decode_fn with vision_embeds")
+
+
+def check_servable(cfg) -> None:
+    """Raise ``NotImplementedError`` for a config the LM server refuses (vlm)."""
+    if cfg.family == "vlm":
+        raise NotImplementedError(f"{cfg.name}: {VLM_REFUSAL}")
 
 
 class WaveServer:
@@ -222,7 +238,9 @@ class WaveServer:
 def serve(cfg, params, requests: List[ServeRequest], *, slots: int = 4,
           max_len: int = 64, device=None) -> Dict:
     """Serve LM requests in waves on ``device`` (None: the card), where
-    ``params`` live; the reference's stats keys."""
+    ``params`` live; the reference's stats keys. A vlm config is refused
+    (:func:`check_servable`)."""
+    check_servable(cfg)
     if not requests:
         # Empty queue: a well-formed zero report, never np.mean([]).
         return {"n_requests": 0, "requests_served": 0, "decode_steps": 0,
@@ -1398,11 +1416,11 @@ def serve_lm_main(cfg, args) -> Dict:
     the device, ``--requests`` random prompts of 4-11 tokens (numpy seed 0,
     as the reference's), served in waves. ``--profile`` serves once to warm
     up, then serves under ``torch.profiler`` and prints device time by
-    kernel."""
+    kernel. A vlm config exits before anything is drawn (:data:`VLM_REFUSAL`)."""
     try:
-        tf.check_ported(cfg)
+        check_servable(cfg)
     except NotImplementedError as e:
-        raise SystemExit(f"{args.arch}: not served by the port yet: {e}") from None
+        raise SystemExit(f"{args.arch}: {e}") from None
     print(f"serving {cfg.name}: {M.n_params(cfg):,} params, "
           f"{args.slots} slots, {args.requests} requests")
     dev = _device.resolve(args.device)

@@ -1,3 +1,3 @@
-from repro_torch.models import attention, common, ffn, model, transformer
+from repro_torch.models import attention, common, ffn, model, rwkv, ssm, transformer
 
-__all__ = ["attention", "common", "ffn", "model", "transformer"]
+__all__ = ["attention", "common", "ffn", "model", "rwkv", "ssm", "transformer"]

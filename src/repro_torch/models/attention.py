@@ -1,8 +1,8 @@
-"""GQA self-attention with padded q heads.
+"""GQA self- and cross-attention with padded q heads.
 
-Counterpart of ``repro.models.attention`` (the self-attention sublayer;
-cross-attention arrives with the vlm family, ROADMAP A.7b). The layout is
-the reference's, so its parameters carry across and ``n_params`` matches:
+Counterpart of ``repro.models.attention``: the self-attention sublayer and
+the vlm family's cross-attention over projected vision tokens. The layout
+is the reference's, so its parameters carry across and ``n_params`` matches:
 
 * **Q side**: projection columns are padded to ``head_pad`` whole heads --
   ``Hqp = ceil(Hq/head_pad)*head_pad`` -- and the dead pad heads are
@@ -63,7 +63,9 @@ def _head_tensors(cfg: ModelConfig, device: torch.device):
     return torch.from_numpy(to_kv.astype(np.int64)).to(device), live
 
 
-def attn_specs(cfg: ModelConfig) -> Dict[str, Spec]:
+def attn_specs(cfg: ModelConfig, *, cross: bool = False) -> Dict[str, Spec]:
+    """The sublayer's parameters; a cross layer (``cross=True``) has the same
+    leaves as a self-attention one, as in the reference."""
     d, hkv, dh = cfg.d_model, cfg.n_kv_heads, cfg.d_head
     hqp = padded_q_heads(cfg)
     s = {
@@ -213,3 +215,34 @@ def self_attention(
     out = _mask_heads(out, cfg)
     out = out.reshape(b, -1, hqp * dh)
     return x + out @ p["wo"], new_cache
+
+
+def cross_attention(
+    x: torch.Tensor,
+    p: Dict[str, torch.Tensor],
+    cfg: ModelConfig,
+    *,
+    kv_cache: KVCache,
+) -> torch.Tensor:
+    """Cross-attention over precomputed (cached) flat vision K/V: no rope on
+    q (positions None), non-causal over the vision tokens."""
+    b, sq = x.shape[0], x.shape[1]
+    hkv, dh = cfg.n_kv_heads, cfg.d_head
+    hqp = padded_q_heads(cfg)
+    h = rms_norm(x, p["ln"])
+    q = _project_q(h, p, cfg, None)
+    t = kv_cache.k.shape[1]
+    ke = _expand_kv(kv_cache.k.reshape(b, t, hkv, dh), cfg)
+    ve = _expand_kv(kv_cache.v.reshape(b, t, hkv, dh), cfg)
+    out = _mask_heads(_sdpa(q, ke, ve, causal=False, q_offset=0), cfg)
+    return x + out.reshape(b, sq, hqp * dh) @ p["wo"]
+
+
+def project_vision_kv(vision_proj: torch.Tensor, p: Dict[str, torch.Tensor],
+                      cfg: ModelConfig) -> KVCache:
+    """Project (already d_model-projected) vision tokens to flat K/V (no
+    rope: positions None)."""
+    b, t = vision_proj.shape[0], vision_proj.shape[1]
+    hkv, dh = cfg.n_kv_heads, cfg.d_head
+    k, v = _project_kv(vision_proj, p, cfg, None)
+    return KVCache(k=k.reshape(b, t, hkv * dh), v=v.reshape(b, t, hkv * dh))

@@ -1,16 +1,36 @@
-"""FFN sublayers: SwiGLU and non-gated GELU, dense.
+"""FFN sublayers: SwiGLU dense + top-k MoE with capacity-based dispatch.
 
-Counterpart of ``repro.models.ffn``'s dense FFN. The top-k MoE FFN arrives
-with the moe and hybrid families (ROADMAP A.7b).
+Counterpart of ``repro.models.ffn``. The MoE dispatch follows the
+reference's GShard/MaxText form exactly: tokens are split batch-major into
+groups of ``min(MOE_GROUP_TOKENS, B*S)``; each expert accepts ``capacity =
+max(ceil(top_k * group_tokens * capacity_factor / n_experts), top_k)``
+tokens per group, in token order, and the overflow is dropped. The one-hot
+dispatch and combine tensors ``(G, T_g, E, C)`` are in the model dtype, and
+every expert's weights take part in the products (the dense dispatch; a
+grouped-expert kernel that reads only the routed experts is later work).
+
+Two places where PyTorch differs from JAX are pinned:
+
+* ``jax.lax.top_k`` puts the lower index first on equal values and
+  ``torch.topk`` promises no order, so the top k come from a stable
+  descending sort (bf16 router logits tie often);
+* ``jax.nn.one_hot`` of a slot ``>= capacity`` is all zeros where
+  ``torch.nn.functional.one_hot`` raises, so the slots are built by
+  comparison with ``arange(capacity)``.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import Spec, gelu, rms_norm, silu
+
+MOE_GROUP_TOKENS = 512
+DECODE_CAPACITY_FACTOR = 4.0  # serving headroom (the reference's; not dropless for every arch)
 
 
 def dense_ffn_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict[str, Spec]:
@@ -33,3 +53,102 @@ def dense_ffn(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
     else:              # non-gated GELU (starcoder2)
         a = gelu(u)
     return x + a @ p["w_down"]
+
+
+def moe_ffn_specs(cfg: ModelConfig) -> Dict[str, Spec]:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    s = {
+        "ln": Spec((d,), ("norm",), "ones"),
+        "router": Spec((d, e), (None, "experts"), "small"),
+        "w_gate": Spec((e, d, f), ("experts", "expert_in", "expert_mlp")),
+        "w_up": Spec((e, d, f), ("experts", "expert_in", "expert_mlp")),
+        "w_down": Spec((e, f, d), ("experts", "expert_mlp", "expert_in")),
+    }
+    if cfg.n_shared_experts:
+        fs = cfg.n_shared_experts * f
+        s["shared"] = {
+            "w_gate": Spec((d, fs), ("mlp_in", "mlp")),
+            "w_up": Spec((d, fs), ("mlp_in", "mlp")),
+            "w_down": Spec((fs, d), ("mlp", "mlp_in")),
+        }
+    return s
+
+
+def _capacity(cfg: ModelConfig, group_tokens: int, cap_factor: float) -> int:
+    c = int(math.ceil(cfg.top_k * group_tokens * cap_factor / cfg.n_experts))
+    return max(c, cfg.top_k)
+
+
+class Routing(NamedTuple):
+    """One MoE layer's routing of ``G`` groups of ``T`` tokens."""
+    probs: torch.Tensor        # (G, T, E) f32 router softmax
+    expert_idx: torch.Tensor   # (G, T, K) the top-k experts, best first
+    expert_mask: torch.Tensor  # (G, T, E) f32 in {0, 1}
+    gate_e: torch.Tensor       # (G, T, E) f32 gate per (token, expert)
+    pos: torch.Tensor          # (G, T, E) f32 slot in the expert's buffer
+    capacity: int
+
+    def dropped(self) -> torch.Tensor:
+        """The (token, expert) claims past capacity: (G, T, E) bool."""
+        return (self.expert_mask > 0) & (self.pos >= self.capacity)
+
+
+def route(ht: torch.Tensor, router: torch.Tensor, cfg: ModelConfig, cap: int) -> Routing:
+    """The router over normed tokens ``ht`` (G, T, D): logits in the model
+    dtype, softmax in f32, top-k by a stable descending sort (lower expert
+    first on equal probabilities, as ``jax.lax.top_k``), the top-k gates
+    renormalised with a floor of 1e-9 and summed per expert, and each
+    claim's slot in token order."""
+    logits = (ht @ router).float()
+    probs = torch.softmax(logits, dim=-1)
+    order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals = order.values[..., :cfg.top_k]
+    expert_idx = order.indices[..., :cfg.top_k]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+    # Reduce the K claims to per-(token, expert) masks first (a token picks
+    # each expert at most once) so no (T, K, E, C) tensor ever exists.
+    onehot_k = F.one_hot(expert_idx, cfg.n_experts).float()          # (G, T, K, E)
+    expert_mask = onehot_k.sum(dim=2)
+    gate_e = (onehot_k * gate_vals[..., None]).sum(dim=2)
+    pos = torch.cumsum(expert_mask, dim=1) - expert_mask               # token order
+    return Routing(probs, expert_idx, expert_mask, gate_e, pos, cap)
+
+
+def moe_ffn(
+    x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
+    cap_factor: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x + output, aux load-balance loss)."""
+    b, s, d = x.shape
+    h = rms_norm(x, p["ln"])
+
+    t_total = b * s
+    g_tok = min(MOE_GROUP_TOKENS, t_total)
+    assert t_total % g_tok == 0, f"tokens {t_total} not divisible by group {g_tok}"
+    n_groups = t_total // g_tok
+    e = cfg.n_experts
+    cap = _capacity(cfg, g_tok, cap_factor or cfg.capacity_factor)
+
+    ht = h.reshape(n_groups, g_tok, d)
+    r = route(ht, p["router"], cfg, cap)
+    # A slot >= cap matches no column: overflow claims drop out.
+    slots = torch.arange(cap, device=x.device, dtype=r.pos.dtype)
+    slot = (r.pos[..., None] == slots).to(x.dtype)                     # (G, T, E, C)
+    dispatch = slot * r.expert_mask.to(x.dtype)[..., None]
+    combine = dispatch * r.gate_e.to(x.dtype)[..., None]
+
+    xe = torch.einsum("gtec,gtd->gecd", dispatch, ht)                  # (G, E, C, D)
+    gg = torch.einsum("gecd,edf->gecf", xe, p["w_gate"])
+    uu = torch.einsum("gecd,edf->gecf", xe, p["w_up"])
+    ye = torch.einsum("gecf,efd->gecd", silu(gg) * uu, p["w_down"])
+    y = torch.einsum("gtec,gecd->gtd", combine, ye).reshape(b, s, d)
+
+    if "shared" in p:
+        sh = p["shared"]
+        y = y + (silu(h @ sh["w_gate"]) * (h @ sh["w_up"])) @ sh["w_down"]
+
+    # Load-balance aux (Switch): E * sum_e f_e * p_e.
+    frac = r.expert_mask.mean(dim=(0, 1))                              # fraction routed
+    prob = r.probs.mean(dim=(0, 1))
+    aux = e * torch.sum(frac * prob)
+    return x + y, aux

@@ -1,13 +1,18 @@
 """Top-level model: embed -> stages -> norm -> head, plus step functions.
 
-Counterpart of ``repro.models.model`` for the dense and audio families:
+Counterpart of ``repro.models.model`` for every LM family:
 
   specs(cfg)                      parameter Spec tree
   init(cfg, gen, device)          materialized params (the port's own draws)
   forward(params, cfg, tokens)    logits (+ caches in prefill / decode)
-  loss_fn(params, cfg, batch)     forward + NLL (no backward: ROADMAP A.7c)
-  prefill_fn / decode_fn          serving steps with KV caches
+  loss_fn(params, cfg, batch)     forward + NLL + MoE aux (no backward: ROADMAP A.7c)
+  prefill_fn / decode_fn          serving steps with KV / SSM / RWKV caches
   make_cache_specs / init_cache   the decode cache
+  batch_specs(cfg, shape)         the input Spec tree of one (arch, shape) cell
+
+The vlm family takes ``vision_embeds`` (B, n_vision_tokens, d_vision) in
+the model dtype, as ``batch_specs`` declares them; its decode steps read
+the vision K/V that prefill wrote into the cache.
 
 The reference's ``remat`` argument is a training-memory knob of its
 compiled backward pass; it changes no number and is not taken here.
@@ -19,7 +24,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch import device as _device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import (
     Spec, cross_entropy, init_params, param_count, rms_norm, sinusoidal_pos_embed, torch_dtype,
@@ -97,16 +102,20 @@ def forward(
     positions: Optional[torch.Tensor] = None,
     cache_pos=None,
     caches=None,
+    vision_embeds: Optional[torch.Tensor] = None,
 ):
     """Returns (logits, caches, aux); ``caches`` are written in place."""
-    tf.check_ported(cfg)
     b, s = tokens.shape[0], tokens.shape[1]
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
     x = _embed(params, cfg, tokens, positions)
+    vision_proj = None
+    if cfg.family == "vlm" and vision_embeds is not None:
+        vision_proj = vision_embeds @ params["vision_proj"]
     x, new_caches, aux = tf.apply_stages(
         x, params["stages"], cfg,
-        mode=mode, positions=positions, cache_pos=cache_pos, caches=caches)
+        mode=mode, positions=positions, cache_pos=cache_pos, caches=caches,
+        vision_proj=vision_proj)
     return _head(params, cfg, x), new_caches, aux
 
 
@@ -115,7 +124,8 @@ def forward(
 
 def loss_fn(params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    logits, _, aux = forward(params, cfg, batch["inputs"], mode="train")
+    logits, _, aux = forward(params, cfg, batch["inputs"], mode="train",
+                             vision_embeds=batch.get("vision_embeds"))
     nll = cross_entropy(logits, batch["targets"])
     loss = nll + cfg.router_aux_weight * aux
     return loss, {"nll": nll, "router_aux": aux}
@@ -124,7 +134,7 @@ def loss_fn(params, cfg: ModelConfig,
 def prefill_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], caches):
     """Process a full prompt, fill caches; returns (last-token logits, caches)."""
     logits, new_caches, _ = forward(params, cfg, batch["inputs"], mode="prefill",
-                                    caches=caches)
+                                    caches=caches, vision_embeds=batch.get("vision_embeds"))
     return logits[:, -1], new_caches
 
 
@@ -147,6 +157,34 @@ def make_cache_specs(cfg: ModelConfig, batch: int, s_max: int):
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, device=None):
+    """Zeros in the model dtype, the f32 state leaves (mamba ``h``, rwkv
+    ``wkv``) in f32."""
     return zeros_params(make_cache_specs(cfg, batch, s_max), dtype_of(cfg),
                         _device.resolve(device))
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Spec]:
+    """Input Spec tree for one (arch, shape) cell."""
+    b, s = shape.global_batch, shape.seq_len
+    tok_axes = ("batch", "seq")
+    vision = {}
+    if cfg.family == "vlm":
+        vision["vision_embeds"] = Spec(
+            (b, cfg.n_vision_tokens, cfg.d_vision),
+            ("batch", "vision_seq", "vision_embed"), dtype=cfg.dtype)
+    audio = cfg.family == "audio"
+    tok = (b, s, cfg.n_codebooks) if audio else (b, s)
+    ax = tok_axes + (None,) if audio else tok_axes
+    if shape.kind == "train":
+        return {"inputs": Spec(tok, ax, dtype="int32"),
+                "targets": Spec(tok, ax, dtype="int32"), **vision}
+    if shape.kind == "prefill":
+        return {"inputs": Spec(tok, ax, dtype="int32"), **vision}
+    if shape.kind == "decode":
+        return {
+            "token": Spec((b, 1, cfg.n_codebooks) if audio else (b, 1),
+                          ("batch", "seq", None) if audio else ("batch", "seq"), dtype="int32"),
+            "pos": Spec((), (), dtype="int32"),
+        }
+    raise ValueError(shape.kind)
 

@@ -12,13 +12,11 @@ pattern of layers (mixer + FFN kind):
   vlm             1 stage of 20 groups x 5 layers (cross-attn at idx 0)
   rwkv6           1 stage, group = [time-mix + channel-mix]
 
-The plans are pure data and cover every family. The layers run for the
-``attn`` mixer and the ``dense`` FFN (the dense and audio families); any
-other mixer or FFN raises ``NotImplementedError`` naming ROADMAP A.7b.
-
 The reference's ``lax.scan`` over groups is a Python loop here that indexes
-the stacked leaves (views, not copies). KV caches are stacked the same way
-and written in place: the caches returned are the caches given.
+the stacked leaves (views, not copies). Caches (the KV caches, the cross
+layers' vision K/V, the mamba ``conv`` / ``h`` and the rwkv ``att_x`` /
+``ffn_x`` / ``wkv`` states) are stacked the same way and written in place:
+the caches returned are the caches given.
 """
 from __future__ import annotations
 
@@ -30,9 +28,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import Spec, stack_specs
-
-NEXT_SLICE = "ROADMAP A.7b (MoE / mamba / rwkv / cross-attention serving)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,29 +80,34 @@ def stage_plans(cfg: ModelConfig) -> List[StagePlan]:
     raise ValueError(f"unknown family {fam!r}")
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP A.7b unless every layer of
-    ``cfg`` is an ``attn`` mixer with a ``dense`` FFN (the dense and audio
-    families)."""
-    kinds = sorted({(lp.mixer, lp.ffn) for st in stage_plans(cfg) for lp in st.layers
-                    if (lp.mixer, lp.ffn) != ("attn", "dense")})
-    if kinds:
-        layers = ", ".join(f"{m!r} mixer + {f!r} FFN" for m, f in kinds)
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family's layers ({layers}) "
-                                  f"are not ported yet; they wait for {NEXT_SLICE}")
-
-
 # ---------------------------------------------------------------------------
 # specs
 
 
 def _layer_specs(cfg: ModelConfig, plan: LayerPlan) -> Dict[str, Any]:
-    return {"mixer": attn.attn_specs(cfg),
-            "ffn": ffn_mod.dense_ffn_specs(cfg, cfg.d_ff_dense or None)}
+    s: Dict[str, Any] = {}
+    if plan.mixer == "attn":
+        s["mixer"] = attn.attn_specs(cfg)
+    elif plan.mixer == "cross":
+        s["mixer"] = attn.attn_specs(cfg, cross=True)
+    elif plan.mixer == "mamba":
+        s["mixer"] = ssm_mod.mamba_specs(cfg)
+    elif plan.mixer == "rwkv":
+        s["mixer"] = rwkv_mod.rwkv_att_specs(cfg)
+    else:
+        raise ValueError(plan.mixer)
+    if plan.ffn == "dense":
+        s["ffn"] = ffn_mod.dense_ffn_specs(cfg, cfg.d_ff_dense or None)
+    elif plan.ffn == "moe":
+        s["ffn"] = ffn_mod.moe_ffn_specs(cfg)
+    elif plan.ffn == "rwkv":
+        s["ffn"] = rwkv_mod.rwkv_ffn_specs(cfg)
+    elif plan.ffn != "none":
+        raise ValueError(plan.ffn)
+    return s
 
 
 def stack_stage_specs(cfg: ModelConfig) -> List[Dict[str, Any]]:
-    check_ported(cfg)
     out = []
     for stage in stage_plans(cfg):
         layer_specs = {
@@ -117,22 +120,50 @@ def stack_stage_specs(cfg: ModelConfig) -> List[Dict[str, Any]]:
 # ---------------------------------------------------------------------------
 # caches
 
-def _layer_cache_specs(cfg: ModelConfig, batch: int, s_max: int) -> Dict[str, Any]:
+def _layer_cache_specs(
+    cfg: ModelConfig, plan: LayerPlan, batch: int, s_max: int
+) -> Optional[Dict[str, Any]]:
     dh, hkv = cfg.d_head, cfg.n_kv_heads
-    kv = {
-        "k": Spec((batch, s_max, hkv * dh), ("batch", "kv_seq", None), "zeros"),
-        "v": Spec((batch, s_max, hkv * dh), ("batch", "kv_seq", None), "zeros"),
-    }
-    return {"kv": kv}
+    if plan.mixer == "attn":
+        kv = {
+            "k": Spec((batch, s_max, hkv * dh), ("batch", "kv_seq", None), "zeros"),
+            "v": Spec((batch, s_max, hkv * dh), ("batch", "kv_seq", None), "zeros"),
+        }
+        return {"kv": kv}
+    if plan.mixer == "cross":
+        nv = cfg.n_vision_tokens
+        kv = {
+            "k": Spec((batch, nv, hkv * dh), ("batch", "vision_seq", None), "zeros"),
+            "v": Spec((batch, nv, hkv * dh), ("batch", "vision_seq", None), "zeros"),
+        }
+        return {"kv": kv}
+    if plan.mixer == "mamba":
+        return {
+            "conv": Spec((batch, cfg.d_conv - 1, cfg.d_inner), ("batch", None, "d_inner"),
+                         "zeros"),
+            "h": Spec((batch, cfg.d_inner, cfg.d_state), ("batch", "d_inner", "d_state"),
+                      "zeros", dtype="float32"),
+        }
+    if plan.mixer == "rwkv":
+        h_n, dk = rwkv_mod.rwkv_heads(cfg), cfg.rwkv_head_dim
+        return {
+            "att_x": Spec((batch, cfg.d_model), ("batch", "embed"), "zeros"),
+            "ffn_x": Spec((batch, cfg.d_model), ("batch", "embed"), "zeros"),
+            "wkv": Spec((batch, h_n, dk, dk), ("batch", "rwkv_heads", "rwkv_key", None),
+                        "zeros", dtype="float32"),
+        }
+    return None
 
 
 def cache_specs(cfg: ModelConfig, batch: int, s_max: int) -> List[Dict[str, Any]]:
     """Spec tree for the decode cache, one entry per stage (stacked)."""
-    check_ported(cfg)
     out = []
     for stage in stage_plans(cfg):
-        layer_caches = {f"layer{i}": _layer_cache_specs(cfg, batch, s_max)
-                        for i in range(len(stage.layers))}
+        layer_caches = {}
+        for i, lp in enumerate(stage.layers):
+            c = _layer_cache_specs(cfg, lp, batch, s_max)
+            if c is not None:
+                layer_caches[f"layer{i}"] = c
         out.append(stack_specs(layer_caches, stage.n_groups, "groups"))
     return out
 
@@ -149,6 +180,12 @@ def _group(tree, g: int):
     return tree[g]
 
 
+def _write(cache: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]) -> None:
+    """Copy each new state leaf into its cache view, in place."""
+    for k, v in new.items():
+        cache[k].copy_(v)
+
+
 def _apply_layer(
     x: torch.Tensor,
     p: Dict[str, Any],
@@ -159,25 +196,69 @@ def _apply_layer(
     positions: torch.Tensor,
     cache_pos,
     cache: Optional[Dict[str, Any]],
-) -> torch.Tensor:
-    """One layer (an ``attn`` mixer and a ``dense`` FFN); the cache (one
-    group's views) is written in place."""
-    if mode == "train":
-        x, _ = attn.self_attention(x, p["mixer"], cfg, positions=positions)
-    elif mode == "prefill":
-        x, kv = attn.self_attention(
-            x, p["mixer"], cfg, positions=positions, cache_pos="prefill")
-        # Write fresh K/V into the fixed-size cache buffer.
-        sq = kv.k.shape[1]
-        cache["kv"]["k"][:, :sq] = kv.k
-        cache["kv"]["v"][:, :sq] = kv.v
-    elif mode == "decode":
-        kvc = attn.KVCache(k=cache["kv"]["k"], v=cache["kv"]["v"])
-        x, _ = attn.self_attention(
-            x, p["mixer"], cfg, positions=positions, cache=kvc, cache_pos=cache_pos)
-    else:
+    vision_proj: Optional[torch.Tensor],
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One layer; returns (x, aux loss or None). The cache (one group's
+    views) is written in place: prefill writes the fresh K/V, the vision
+    K/V and the recurrent states; decode writes the step's K/V and states.
+    A cross layer's decode reads the vision K/V that prefill wrote."""
+    if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
-    return ffn_mod.dense_ffn(x, p["ffn"])
+    if plan.mixer == "attn":
+        if mode == "train":
+            x, _ = attn.self_attention(x, p["mixer"], cfg, positions=positions)
+        elif mode == "prefill":
+            x, kv = attn.self_attention(
+                x, p["mixer"], cfg, positions=positions, cache_pos="prefill")
+            # Write fresh K/V into the fixed-size cache buffer.
+            sq = kv.k.shape[1]
+            cache["kv"]["k"][:, :sq] = kv.k
+            cache["kv"]["v"][:, :sq] = kv.v
+        else:
+            kvc = attn.KVCache(k=cache["kv"]["k"], v=cache["kv"]["v"])
+            x, _ = attn.self_attention(
+                x, p["mixer"], cfg, positions=positions, cache=kvc, cache_pos=cache_pos)
+    elif plan.mixer == "cross":
+        if mode == "decode":
+            kv = attn.KVCache(k=cache["kv"]["k"], v=cache["kv"]["v"])
+        else:
+            kv = attn.project_vision_kv(vision_proj, p["mixer"], cfg)
+            if mode == "prefill":
+                _write(cache["kv"], kv._asdict())
+        x = attn.cross_attention(x, p["mixer"], cfg, kv_cache=kv)
+    elif plan.mixer == "mamba":
+        if mode == "train":
+            x, _ = ssm_mod.mamba_block(x, p["mixer"], cfg)
+        else:
+            st = None
+            if mode == "decode":
+                st = ssm_mod.MambaState(conv=cache["conv"], h=cache["h"])
+            x, new_st = ssm_mod.mamba_block(x, p["mixer"], cfg, state=st, return_state=True)
+            _write(cache, new_st._asdict())
+    elif plan.mixer == "rwkv":
+        st = None
+        if mode == "decode":
+            st = rwkv_mod.RWKVState(
+                att_x=cache["att_x"], ffn_x=cache["ffn_x"], wkv=cache["wkv"])
+        want_state = mode != "train"
+        x, new_att_x, new_wkv = rwkv_mod.rwkv_time_mix(
+            x, p["mixer"], cfg, state=st, return_state=want_state)
+        x, new_ffn_x = rwkv_mod.rwkv_channel_mix(
+            x, p["ffn"], cfg,
+            state_x=st.ffn_x if st is not None else None, return_state=want_state)
+        if want_state:
+            _write(cache, {"att_x": new_att_x, "ffn_x": new_ffn_x, "wkv": new_wkv})
+        return x, None
+
+    # FFN (rwkv handled above)
+    if plan.ffn == "dense":
+        return ffn_mod.dense_ffn(x, p["ffn"]), None
+    if plan.ffn == "moe":
+        # Decode steps get serving capacity headroom; train/prefill use the
+        # config's capacity factor.
+        cap = ffn_mod.DECODE_CAPACITY_FACTOR if mode == "decode" else None
+        return ffn_mod.moe_ffn(x, p["ffn"], cfg, cap_factor=cap)
+    return x, None
 
 
 def apply_stages(
@@ -189,21 +270,31 @@ def apply_stages(
     positions: torch.Tensor,
     cache_pos=None,
     caches: Optional[List[Dict[str, Any]]] = None,
+    vision_proj: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[List[Dict[str, Any]]], torch.Tensor]:
     """Run all stages; returns (x, caches, total_aux). ``caches`` (needed for
-    prefill and decode) are written in place and returned; the dense FFN
-    adds no auxiliary loss, so ``total_aux`` is 0. The layers are those
-    :func:`check_ported` admits (``model.forward`` checks)."""
+    prefill and decode) are written in place and returned.
+
+    ``total_aux`` sums, over the groups, the aux loss of each group's LAST
+    layer (0 when that layer has no MoE FFN): the reference's scan body
+    rebinds ``aux`` at every layer and adds only the last one's to its
+    carry, so a jamba group counts its layer 7 and drops layers 1, 3 and 5.
+    The port keeps that sum (ROADMAP, faults of the reference)."""
     plans = stage_plans(cfg)
     if mode != "train" and caches is None:
         raise ValueError(f"mode {mode!r} needs caches (model.init_cache)")
+    total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for s, (stage, params) in enumerate(zip(plans, stage_params)):
         for g in range(stage.n_groups):
             p_group = _group(params, g)
             c_group = _group(caches[s], g) if mode != "train" else None
+            aux = None
             for i, lp in enumerate(stage.layers):
                 name = f"layer{i}"
-                x = _apply_layer(x, p_group[name], cfg, lp, mode=mode, positions=positions,
-                                 cache_pos=cache_pos,
-                                 cache=c_group[name] if c_group is not None else None)
-    return x, caches, torch.zeros((), dtype=torch.float32, device=x.device)
+                x, aux = _apply_layer(
+                    x, p_group[name], cfg, lp, mode=mode, positions=positions,
+                    cache_pos=cache_pos, cache=c_group.get(name) if c_group is not None else None,
+                    vision_proj=vision_proj)
+            if aux is not None:
+                total_aux = total_aux + aux
+    return x, caches, total_aux

@@ -47,7 +47,8 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
             "repro_torch.analysis.programs", "repro_torch.analysis.check",
             "repro_torch.models", "repro_torch.models.common", "repro_torch.models.attention",
             "repro_torch.models.ffn", "repro_torch.models.transformer",
-            "repro_torch.models.model", "repro_torch.examples.serve_lm",
+            "repro_torch.models.model", "repro_torch.models.ssm", "repro_torch.models.rwkv",
+            "repro_torch.examples.serve_lm",
             "repro_torch.configs.smollm_135m", "repro_torch.configs.smollm_360m",
             "repro_torch.configs.qwen3_0_6b", "repro_torch.configs.starcoder2_15b",
             "repro_torch.configs.musicgen_large", "repro_torch.configs.llama4_scout_17b_a16e",

@@ -24,9 +24,9 @@ from repro_torch.launch import serve as t_serve
 from repro_torch.models import model as TM
 
 LM_ARCHS = ["smollm-135m", "smollm-360m", "qwen3-0.6b", "starcoder2-15b", "musicgen-large"]
-LATER = {"llama4-scout-17b-a16e": "moe", "moonshot-v1-16b-a3b": "moe",
-         "jamba-1.5-large-398b": "hybrid", "llama-3.2-vision-90b": "vlm",
-         "rwkv6-1.6b": "rwkv"}
+SERVED_FAMILY_ARCHS = ["llama4-scout-17b-a16e", "moonshot-v1-16b-a3b",
+                       "jamba-1.5-large-398b", "rwkv6-1.6b"]
+VLM = "llama-3.2-vision-90b"
 
 
 def _carry(cfg):
@@ -63,6 +63,10 @@ def test_request_and_result_fields_are_the_references_in_order():
     ("qwen3-0.6b", 3, 4, 9, 64),
     ("starcoder2-15b", 4, 4, 12, 16),   # max_len cuts the decode at position 15
     ("musicgen-large", 5, 3, 7, 48),    # per-codebook argmax; ``out`` takes codebook 0
+    ("llama4-scout-17b-a16e", 6, 4, 12, 64),
+    ("moonshot-v1-16b-a3b", 6, 4, 12, 64),
+    ("jamba-1.5-large-398b", 5, 2, 8, 32),
+    ("rwkv6-1.6b", 6, 4, 12, 64),       # the left-pad zeros run through the state
 ])
 def test_serve_outputs_equal_the_reference_token_for_token(arch, n, slots, max_new, max_len):
     cfg = j_get_bundle(arch).smoke
@@ -146,15 +150,51 @@ def test_example_serve_lm_smoke_runs(capsys):
     assert stats["n_requests"] == 6 and stats["new_tokens"] == 48
 
 
-@pytest.mark.parametrize("arch", sorted(LATER))
-def test_later_lm_families_are_refused_naming_the_roadmap_item(arch, capsys):
-    for argv in (["--arch", arch, "--smoke", "--device", "cpu"], ["--arch", arch]):
+@pytest.mark.parametrize("arch", SERVED_FAMILY_ARCHS)
+def test_cli_serves_the_moe_hybrid_and_rwkv_smokes_on_the_cpu(arch, capsys):
+    """``--arch <a> --smoke --device cpu``: the reference's param-count line
+    and the CLI's defaults (6 requests of 12 new tokens, 4 slots)."""
+    stats = t_serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    cfg = j_get_bundle(arch).smoke
+    assert out[0] == f"serving {cfg.name}: {JM.n_params(cfg):,} params, 4 slots, 6 requests"
+    assert (stats["n_requests"], stats["new_tokens"]) == (6, 72)
+    assert "new_tokens: 72" in out
+
+
+def test_vlm_is_refused_naming_the_references_fault(capsys):
+    """The reference's ``WaveServer`` prefills without ``vision_embeds``, so
+    its vlm serve fails; the port refuses the family in the CLI (before
+    drawing anything) and in ``serve()``, naming that fault."""
+    for argv in (["--arch", VLM, "--smoke", "--device", "cpu"], ["--arch", VLM]):
         with pytest.raises(SystemExit) as exc:
             t_serve.main(argv)
         msg = str(exc.value)
-        assert "ROADMAP A.7b" in msg and repr(LATER[arch]) in msg and arch in msg
-        assert "only the SNN server is ported" not in msg
+        assert msg.startswith(f"{VLM}: ") and "src/repro/launch/serve.py:174" in msg
+        assert "src/repro/models/attention.py:255" in msg and "ROADMAP A.7b" not in msg
     assert capsys.readouterr().out == ""
+    cfg = j_get_bundle(VLM).smoke
+    _, tp = _carry(cfg)
+    with pytest.raises(NotImplementedError, match="vision_proj None"):
+        t_serve.serve(cfg, tp, _requests(t_serve, cfg, 2, 2), device="cpu")
+
+
+def test_the_references_cli_fails_on_the_vlm_smoke(capsys):
+    """The record of the reference's fault: its CLI serves the vlm SMOKE
+    into ``AttributeError`` at ``project_vision_kv``."""
+    with pytest.raises(AttributeError, match="'NoneType' object has no attribute 'shape'") \
+            as exc:
+        j_serve.main(["--arch", VLM, "--smoke"])
+    assert any(f.name == "project_vision_kv" for f in exc.traceback)
+    capsys.readouterr()
+
+
+def test_example_serve_lm_takes_no_arch():
+    """``examples/serve_lm`` serves smollm-135m only: an ``--arch`` reaches
+    the CLI through ``serve_mod.main`` alone."""
+    with pytest.raises(SystemExit) as exc:
+        serve_lm.main(["--arch", "rwkv6-1.6b", "--smoke", "--device", "cpu"])
+    assert exc.value.code == 2
 
 
 def test_wave_server_runs_bf16_on_the_cpu():
