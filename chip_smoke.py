@@ -280,7 +280,28 @@ script on any mismatch:
    wall, device time and events, the busy share, the byte bound over every
    expert and over the experts routed to, the decode-time capacity drops,
    peak memory.
-17. a JSON line of the kernels (the six ported ones and the telemetry
+17. LM training: ``python -m repro_torch.examples.train_lm --full``
+   (smollm-135m FULL in bf16 through the train CLI: 60 steps of 8 x 64
+   tokens, checkpoints every 20, peak lr 1e-3): the loss decreases and the
+   checkpoints rotate to 3. Then, in a fresh directory, the CLI stopped
+   after 40 steps of the same schedule and run again to 60, which resumes
+   at 40 from the bf16 checkpoint: its 20 losses against the uninterrupted
+   run's (within 1e-3 relative; whether bitwise is printed) and its final
+   checkpoint against the uninterrupted one's, file by file. Two backward
+   passes of one batch at FULL, the gradient leaves that differ bitwise
+   named. Every family's SMOKE config in f32 from the same parameters on
+   the card and the CPU, 3 train steps (jamba also at 2 microbatches with
+   its bf16 optimizer state; the vlm with seeded ``vision_embeds``): loss,
+   grad_norm and lr within 1e-4. Then one train step timed at
+   smollm-135m FULL, rwkv6-1.6b FULL and moonshot FULL cut to its first 2
+   layers, at 8 x 64 tokens, under remat ``none`` and ``block``: wall,
+   device time and events, busy share, tokens/s and peak memory, against
+   the FLOP bound (8 x params x tokens with remat's second forward, 6 x
+   without, over the dense bf16 peak; moonshot's routed experts only) and
+   the byte bound (parameters read 3 times, gradients 4 times, ``m`` and
+   ``v`` read and written, parameters written). Every kernel count is 0
+   across the phase.
+18. a JSON line of the kernels (the six ported ones and the telemetry
    kernel), the card's name and power limit, and the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -4687,23 +4708,15 @@ def check_lm_smoke(dev, smi) -> None:
 
 
 def tree_to(tree, dev):
-    if isinstance(tree, dict):
-        return {k: tree_to(v, dev) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_to(v, dev) for v in tree]
-    return tree.to(dev)
+    from repro_torch.util import tree as tree_util
 
-
-def tree_leaves(tree):
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in tree_leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [t for v in tree for t in tree_leaves(v)]
-    return [tree]
+    return tree_util.map(lambda t: t.to(dev), tree)
 
 
 def tree_bytes(tree) -> int:
-    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+    from repro_torch.util import tree as tree_util
+
+    return sum(t.numel() * t.element_size() for t in tree_util.leaves(tree))
 
 
 def state_bytes(caches) -> int:
@@ -4714,6 +4727,23 @@ def state_bytes(caches) -> int:
     if isinstance(caches, (list, tuple)):
         return sum(state_bytes(v) for v in caches)
     return caches.numel() * caches.element_size()
+
+
+def kernel_rows(fn) -> list:
+    """``fn()`` under ``torch.profiler`` tracing the device alone (a train
+    step's hundreds of thousands of host ops take minutes to parse):
+    ``[(device us, count, kernel)]``, most device time first; kernels on one
+    stream do not overlap, so their sum is the busy time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CUDA if torch.cuda.is_available() else ProfilerActivity.CPU]
+    with profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
 
 
 def time_lm_decode(arch: str, dev, card, smi) -> dict:
@@ -4802,8 +4832,6 @@ def time_step(step, dev, label: str) -> dict:
     over ``LM_PROFILED`` calls (None when three traces came back empty)."""
     import torch
 
-    from repro_torch.launch.serve import device_profile
-
     for _ in range(3):
         out = step()
     torch.cuda.synchronize()
@@ -4817,10 +4845,9 @@ def time_step(step, dev, label: str) -> dict:
         walls.append(time.perf_counter() - t0)
     device, events = None, None
     for _ in range(3):   # the profiler has returned traces with no device activity
-        _, _, busy_s, rows, _ = device_profile(lambda: [step() for _ in range(LM_PROFILED)],
-                                               dev)
+        rows = kernel_rows(lambda: [step() for _ in range(LM_PROFILED)])
         if rows:
-            device = busy_s * 1e3 / LM_PROFILED
+            device = sum(r[0] for r in rows) / 1e3 / LM_PROFILED
             events = sum(r[1] for r in rows) / LM_PROFILED
             break
     return {"wall_ms": statistics.median(walls) * 1e3, "device_ms": device, "events": events}
@@ -5125,6 +5152,7 @@ def time_jamba_layers(dev, card, smi) -> None:
     from repro_torch.configs import get_bundle
     from repro_torch.models import transformer as tf
     from repro_torch.models.common import init_params, zeros_params
+    from repro_torch.util import tree as tree_util
 
     cfg = get_bundle("jamba-1.5-large-398b").model
     plan = tf.stage_plans(cfg)[0]
@@ -5149,7 +5177,7 @@ def time_jamba_layers(dev, card, smi) -> None:
                                    cache_pos=LM_PROMPT, cache=cache, vision_proj=None)[0]
 
         timed = time_step(step, dev, f"jamba layer {idx}")
-        n = sum(t.numel() for t in tree_leaves(p))
+        n = sum(t.numel() for t in tree_util.leaves(p))
         moved = tree_bytes(p) + tree_bytes(cache or {}) + state_bytes(cache or {})
         extra = ""
         if lp.ffn == "moe":
@@ -5239,6 +5267,375 @@ def run_family_phase(dev, card, smi) -> None:
                        n_layers=VLM_GROUPS * vlm.group_size)
     time_jamba_layers(dev, card, smi)
     log(f"lm families phase: {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 17: LM training (the train CLI at smollm-135m FULL, SMOKE steps on
+# the card against the CPU, one step timed at three FULL widths)
+# ---------------------------------------------------------------------------
+
+TRAIN_SMOKES = ("smollm-135m", "musicgen-large", "moonshot-v1-16b-a3b",
+                "llama4-scout-17b-a16e", "jamba-1.5-large-398b", "rwkv6-1.6b",
+                "llama-3.2-vision-90b")
+TRAIN_SMOKE_STEPS = 3
+TRAIN_SMOKE_SHAPE = (16, 2)   # (seq_len, global batch): the CPU tests' shape
+TRAIN_SMOKE_TOL = 1e-4        # loss, grad_norm and lr of a step, card against CPU, relative
+TRAIN_RESUME_AT = 40          # the interrupted run's last step before it resumes
+TRAIN_RESUME_TOL = 1e-3       # resumed losses against the uninterrupted run's, relative
+TRAIN_SHAPE = (64, 8)         # the CLI's --seq-len / --global-batch in examples/train_lm.py
+TRAIN_TIMED = ("smollm-135m", "rwkv6-1.6b", "moonshot-v1-16b-a3b")
+MOONSHOT_TRAIN_LAYERS = 2     # moonshot FULL cut to its dense layer and its first MoE layer
+TRAIN_TIMED_STEPS = 2         # timed steps per remat setting, after one warm-up step
+# Dense bf16 tensor-core peaks (NVIDIA's data sheets, no sparsity), by card name.
+BF16_PEAKS = {"H200": 989e12, "PCIe": 756e12, "NVL": 835e12}
+H100_SXM_BF16 = 989e12
+
+
+def bf16_peak(smi: str) -> float:
+    return next((v for k, v in BF16_PEAKS.items() if k in smi), H100_SXM_BF16)
+
+
+def leaf_max_diff(a_dir: Path, b_dir: Path) -> tuple:
+    """Two checkpoint directories' files: (byte-equal, the largest |a - b|
+    over every leaf read by its manifest dtype)."""
+    import numpy as np
+
+    from repro_torch.checkpoint import checkpointer
+
+    meta = json.loads((a_dir / checkpointer.META).read_text())["manifest"]
+    same, worst = True, 0.0
+    for entry in meta.values():
+        fa, fb = a_dir / entry["file"], b_dir / entry["file"]
+        same = same and fa.read_bytes() == fb.read_bytes()
+        ta = checkpointer._read_npy(str(fa), entry["dtype"]).float()
+        tb = checkpointer._read_npy(str(fb), entry["dtype"]).float()
+        worst = max(worst, float((ta - tb).abs().max()) if ta.numel() else 0.0)
+    return same, worst
+
+
+def loss_gap(a: list, b: list) -> float:
+    """The largest relative difference between two loss lists."""
+    return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
+
+
+def train_full_cli(work: Path, smi) -> dict:
+    """``python -m repro_torch.examples.train_lm --full`` (smollm-135m FULL,
+    bf16, 60 steps, checkpoints every 20 into its own temporary directory):
+    its loss decreases and its checkpoints rotate to 3; its step-60
+    checkpoint is kept under ``work``. Then the same CLI in a fresh
+    directory stopped after ``TRAIN_RESUME_AT`` steps (its loop given 40 of
+    the 60: a preempted job, the 60-step schedule) and run again to 60,
+    which resumes at 40 from the bf16 checkpoint; its losses and final
+    checkpoint against the uninterrupted run's."""
+    import contextlib
+    import io
+    import shutil
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.configs import get_bundle
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import model as M
+
+    seen = {}
+    real_main = train_mod.main
+
+    def spy(argv):
+        losses = real_main(argv)
+        d = Path(argv[argv.index("--ckpt-dir") + 1])
+        seen.update(argv=list(argv), steps=ckpt.all_steps(str(d)))
+        shutil.copytree(d / "step_00000060", work / "whole")
+        return losses
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    train_mod.main = spy
+    try:
+        with contextlib.redirect_stdout(buf):
+            whole = train_lm.main(["--full"])
+    finally:
+        train_mod.main = real_main
+    whole_s = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        if line.strip():
+            log(f"lm train | {line}")
+    if seen["steps"] != [20, 40, 60] or len(whole) != 60 or not whole[-1] < whole[0]:
+        raise AssertionError(f"lm train: checkpoints {seen['steps']}, {len(whole)} losses "
+                             f"{whole[0]} -> {whole[-1]}")
+    argv = seen["argv"]
+    argv[argv.index("--ckpt-dir") + 1] = str(work / "resumed")
+    real_loop = train_mod.ft.run_resilient_loop
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    train_mod.ft.run_resilient_loop = lambda **kw: real_loop(**{**kw, "n_steps": TRAIN_RESUME_AT})
+    try:
+        with contextlib.redirect_stdout(buf):
+            first = real_main(argv)
+    finally:
+        train_mod.ft.run_resilient_loop = real_loop
+    if ckpt.all_steps(str(work / "resumed")) != [20, 40]:
+        raise AssertionError(f"lm train: the interrupted run wrote "
+                             f"{ckpt.all_steps(str(work / 'resumed'))}")
+    with contextlib.redirect_stdout(buf):
+        rest = real_main(argv)
+    resumed_s = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines()[-2:]:
+        log(f"lm train (resumed) | {line}")
+    if len(first) != TRAIN_RESUME_AT or len(rest) != 60 - TRAIN_RESUME_AT:
+        raise AssertionError(f"lm train: {len(first)} + {len(rest)} losses")
+    same_files, param_err = leaf_max_diff(work / "whole", work / "resumed" / "step_00000060")
+    gap_first, gap_rest = loss_gap(first, whole[:TRAIN_RESUME_AT]), loss_gap(
+        rest, whole[TRAIN_RESUME_AT:])
+    if not gap_rest <= TRAIN_RESUME_TOL:
+        raise AssertionError(f"lm train: the resumed losses are {gap_rest} from the "
+                             f"uninterrupted run's (tolerance {TRAIN_RESUME_TOL})")
+    log(f"lm train (examples/train_lm --full: smollm-135m FULL, "
+        f"{M.n_params(get_bundle('smollm-135m').model):,} params, bf16, "
+        f"60 steps of {TRAIN_SHAPE[1]} x {TRAIN_SHAPE[0]} tokens, peak lr 1e-3) on {smi}: loss "
+        f"{whole[0]:.4f} -> {whole[-1]:.4f}, decreased; checkpoints rotated to "
+        f"{seen['steps']}; {whole_s:.1f} s with its checkpoints")
+    log(f"lm train resume (a fresh directory: 40 steps of the 60-step schedule, then the CLI "
+        f"to 60, resumed at 40 from the bf16 checkpoint; {resumed_s:.1f} s): the 20 resumed "
+        f"losses against the uninterrupted run's: max relative difference {gap_rest:.3g}, "
+        f"bitwise {rest == whole[TRAIN_RESUME_AT:]}; the first 40: {gap_first:.3g}, bitwise "
+        f"{first == whole[:TRAIN_RESUME_AT]}; final checkpoint files byte for byte "
+        f"{same_files}, largest leaf difference {param_err:.3g} (tolerance "
+        f"{TRAIN_RESUME_TOL} relative on the losses)")
+    return {"whole": whole, "bitwise": rest == whole[TRAIN_RESUME_AT:]}
+
+
+def grad_determinism(dev, smi) -> None:
+    """Two backward passes of smollm-135m FULL on the same state and batch:
+    the gradient leaves that differ bitwise name the nondeterministic
+    operation (an ``index_add_`` / ``index_put_`` backward with colliding
+    indices adds in another order)."""
+    import torch
+
+    from repro_torch.configs import get_bundle
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.util import tree
+
+    cfg = get_bundle("smollm-135m").model
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = M.init(cfg, gen, dev)
+    batch = pipeline.make_batch(cfg, ShapeConfig("t", "train", *TRAIN_SHAPE),
+                                pipeline.PipelineState(17, 0), device=dev)
+    runs = [steps._value_and_grad(params, cfg, batch, "block")[2] for _ in range(2)]
+    differ = ["/".join(map(str, p)) for (p, a), b in zip(tree.flatten_with_paths(runs[0]),
+                                                         tree.leaves(runs[1]))
+              if not torch.equal(a, b)]
+    log(f"lm train determinism (smollm-135m FULL, one batch, two backward passes) on {smi}: "
+        f"{len(differ)} of {len(tree.leaves(runs[0]))} gradient leaves differ bitwise"
+        + (f": {differ}" if differ else ""))
+
+
+def train_smokes(dev, smi) -> None:
+    """Every family's SMOKE config in f32 from the same parameters and
+    batches on the card and the CPU, ``TRAIN_SMOKE_STEPS`` train steps under
+    the CLI's knobs (jamba also at 2 microbatches, its bf16 optimizer state):
+    loss, grad_norm and lr within ``TRAIN_SMOKE_TOL``."""
+    import torch
+
+    from repro_torch.configs import get_bundle
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.models.common import torch_dtype
+    from repro_torch.optim import adamw
+
+    cpu = torch.device("cpu")
+    shape = ShapeConfig("smoke", "train", *TRAIN_SMOKE_SHAPE)
+    cases = [(a, 1) for a in TRAIN_SMOKES] + [("jamba-1.5-large-398b", 2)]
+    for arch, micro in cases:
+        bundle = get_bundle(arch)
+        cfg = bundle.smoke
+        pcfg = bundle.parallel_for("train_4k").replace(microbatches=micro)
+        host = M.init(cfg, torch.Generator().manual_seed(0), cpu)
+        worst = {"loss": 0.0, "grad_norm": 0.0, "lr": 0.0}
+        seen = []
+        for d in (cpu, dev):
+            params = tree_to(host, d)
+            state = steps.TrainState(params, adamw.init(params, torch_dtype(pcfg.opt_state_dtype)))
+            step = steps.make_train_step(cfg, pcfg, peak_lr=1e-3, warmup_steps=1,
+                                         total_steps=TRAIN_SMOKE_STEPS)
+            pipe, out = pipeline.PipelineState(17, 0), []
+            for _ in range(TRAIN_SMOKE_STEPS):
+                state, metrics = step(state, pipeline.make_batch(cfg, shape, pipe, device=d))
+                out.append({k: float(metrics[k]) for k in worst})
+                pipe = pipeline.advance(pipe)
+            seen.append(out)
+        for c, g in zip(*seen):
+            for k in worst:
+                worst[k] = max(worst[k], abs(g[k] - c[k]) / max(abs(c[k]), 1e-30)
+                               if c[k] else abs(g[k]))
+        if max(worst.values()) > TRAIN_SMOKE_TOL:
+            raise AssertionError(f"lm train smoke {arch} (micro {micro}): card against CPU "
+                                 f"{worst} (tolerance {TRAIN_SMOKE_TOL})")
+        log(f"lm train smoke {arch} ({cfg.name}, {cfg.family}, f32, {TRAIN_SMOKE_STEPS} steps "
+            f"of {shape.global_batch} x {shape.seq_len} tokens, remat {pcfg.remat}, "
+            f"microbatches {micro}, optimizer state {pcfg.opt_state_dtype}, grad accumulation "
+            f"{pcfg.grad_accum_dtype}"
+            + (", seeded vision_embeds" if cfg.family == "vlm" else "")
+            + f") on {smi}: losses {[round(m['loss'], 5) for m in seen[1]]}; largest "
+            f"relative |card - CPU|: loss {worst['loss']:.3g}, grad_norm "
+            f"{worst['grad_norm']:.3g}, lr {worst['lr']:.3g} (tolerance {TRAIN_SMOKE_TOL})")
+
+
+def train_flops_params(cfg) -> int:
+    """The parameters one token's forward multiplies by: every parameter but
+    the experts a token is not routed to."""
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tf
+
+    n = M.n_params(cfg)
+    if not cfg.n_experts:
+        return n
+    per_expert = 3 * cfg.d_model * cfg.d_ff
+    moe_layers = sum(st.n_groups * sum(lp.ffn == "moe" for lp in st.layers)
+                     for st in tf.stage_plans(cfg))
+    return n - moe_layers * (cfg.n_experts - cfg.top_k) * per_expert
+
+
+def time_train_step(arch: str, dev, card, smi) -> dict:
+    """One train step of ``arch`` FULL (bf16, the port's seeded draws; moonshot
+    cut to ``MOONSHOT_TRAIN_LAYERS`` layers) at the CLI's shape, under remat
+    ``none`` and ``block``: the wall a step (host clock around a synchronised
+    step, median of ``TRAIN_TIMED_STEPS``), its device time and events (the
+    profiler over one step), tokens/s and peak memory, against the FLOP bound
+    (``8 * params * tokens`` with remat's second forward, ``6 *`` without,
+    over the card's dense bf16 peak; a MoE counts the routed experts only)
+    and the byte bound (parameters read 3 times, gradients 4 times, ``m`` and
+    ``v`` read and written, parameters written, over the memory rate; for a
+    MoE also with the parameter reads of unrouted experts left out)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_bundle
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+
+    bundle = get_bundle(arch)
+    full = bundle.model
+    cfg = full if arch != "moonshot-v1-16b-a3b" else dataclasses.replace(
+        full, n_layers=MOONSHOT_TRAIN_LAYERS)
+    label = f"{arch} FULL" + (f" ({cfg.n_layers} of its {full.n_layers} layers)"
+                              if cfg.n_layers != full.n_layers else "")
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    pcfg0 = bundle.parallel_for("train_4k").replace(microbatches=1)
+    state = steps.init_train_state(cfg, pcfg0, gen, dev)
+    shape = ShapeConfig("timed", "train", *TRAIN_SHAPE)
+    batch = pipeline.make_batch(cfg, shape, pipeline.PipelineState(17, 0), device=dev)
+    tokens = shape.seq_len * shape.global_batch
+    n = M.n_params(cfg)
+    p_bytes = tree_bytes(state.params)
+    mv_bytes = tree_bytes(state.opt.m) + tree_bytes(state.opt.v)
+    moved = 3 * p_bytes + 4 * p_bytes + 2 * mv_bytes + p_bytes
+    byte_ms = moved / card[0] * 1e3
+    routed_text_ = ""
+    if cfg.n_experts:
+        routes = []
+        with moe_routes(routes), torch.no_grad():
+            M.loss_fn(state.params, cfg, batch, remat="none")
+        unrouted = sum((r["experts"] - r["routed"]) * r["expert_bytes"] for r in routes)
+        routed_ms = (moved - 3 * unrouted) / card[0] * 1e3
+        total = {k: sum(r[k] for r in routes) for k in ("routed", "experts", "dropped")}
+        routed_text_ = (f"; the step routed to {total['routed']} of {total['experts']} experts "
+                        f"({total['dropped']} claims dropped past capacity): byte bound over "
+                        f"the routed experts {routed_ms:.4f} ms")
+    out = {}
+    for remat in ("none", "block"):
+        step = steps.make_train_step(cfg, pcfg0.replace(remat=remat), peak_lr=1e-3,
+                                     warmup_steps=1, total_steps=10)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        s, metrics = step(state, batch)            # warm-up
+        torch.cuda.synchronize()
+        if not math.isfinite(float(metrics["loss"])):
+            raise AssertionError(f"lm train step {label}: non-finite loss")
+        walls = []
+        for _ in range(TRAIN_TIMED_STEPS):
+            t0 = time.perf_counter()
+            s, metrics = step(s, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated(dev)
+        device, events, rows = None, None, []
+        for _ in range(3):   # the profiler has returned traces with no device activity
+            rows = kernel_rows(lambda: step(s, batch))
+            if rows:
+                device, events = sum(r[0] for r in rows) / 1e3, sum(r[1] for r in rows)
+                break
+        del s, metrics
+        wall_ms = statistics.median(walls) * 1e3
+        flops = (8 if remat == "block" else 6) * train_flops_params(cfg) * tokens
+        flop_ms = flops / bf16_peak(smi) * 1e3
+        bound_ms = max(flop_ms, byte_ms)
+        dev_text = ("device time not measured (three traces without device activity)"
+                    if device is None else
+                    f"device {device:.4f} ms in {events} device events (busy "
+                    f"{device / wall_ms:.3f} of the wall; the bound is "
+                    f"{bound_ms / device:.1%} of the device time; most device time: "
+                    + ", ".join(f"{name[:48]} {us / 1e3:.2f} ms in {count}"
+                                for us, count, name in rows[:3]) + ")")
+        log(f"lm train step {label} ({n:,} params, bf16, f32 m/v, {shape.global_batch} x "
+            f"{shape.seq_len} tokens, remat {remat}) on {smi}: wall {wall_ms:.4f} ms (median of "
+            f"{TRAIN_TIMED_STEPS}), {tokens / wall_ms * 1e3:.1f} tokens/s, {dev_text}; FLOP "
+            f"bound {flop_ms:.4f} ms ({flops / 1e12:.3f} TFLOP over "
+            f"{bf16_peak(smi) / 1e12:.0f} TFLOP/s bf16), byte bound {byte_ms:.4f} ms "
+            f"({moved / 1e9:.3f} GB over {card[0] / 1e12:.2f} TB/s){routed_text_}; peak "
+            f"memory {peak / 2**30:.2f} GiB")
+        out[remat] = {"wall_ms": wall_ms, "device_ms": device, "peak": peak}
+    del state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_train_phase(dev, card, smi) -> None:
+    """LM training: the train CLI at smollm-135m FULL (60 steps, rotation, a
+    resumed run against the uninterrupted one), a determinism probe, every
+    family's SMOKE train steps against the CPU, and one train step timed at
+    smollm-135m, rwkv6-1.6b and moonshot (2 layers) FULL; no hand-written
+    kernel launches."""
+    import shutil
+
+    import torch
+
+    t0 = time.perf_counter()
+    parts = {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        fn(*args)
+        parts[name] = time.perf_counter() - t
+
+    torch.cuda.empty_cache()
+    zero_launches()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        part("the CLI and its resume", train_full_cli, work, smi)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    part("determinism", grad_determinism, dev, smi)
+    part("smokes", train_smokes, dev, smi)
+    for arch in TRAIN_TIMED:
+        part(arch, time_train_step, arch, dev, card, smi)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    if any(launches.values()):
+        raise AssertionError(f"lm train: a hand-written kernel launched: {launches}")
+    log(f"lm train phase: {time.perf_counter() - t0:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+        + f"); hand-written kernel launches {launches} (none lies on the training path)")
 
 
 def ptxas_kernels(text: str) -> list:
@@ -5355,6 +5752,7 @@ def main() -> int:
         launches[name] += count
     phase("lm", run_lm_phase, dev, card, smi)
     phase("lm families", run_family_phase, dev, card, smi)
+    phase("lm train", run_train_phase, dev, card, smi)
     if min(launches.values()) < 1 or min(learn_launches.values()) < 1 \
             or frozen_launches["tick_fused"] < 1 or min(event_learn.values()) < 1 \
             or min(cont_launches[k] for k in ("tick_fused", "stdp_update", "telemetry")) < 1 \

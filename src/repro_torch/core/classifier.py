@@ -7,11 +7,12 @@ bit-faithful integer LIF inference, what the FPGA executes.
 
 Every function that computes takes ``device=`` (None: the CUDA card, which
 raises without one; ``"cpu"`` runs on the host). ``train`` runs on that
-device with torch autograd and ``torch.optim.AdamW`` (the reference's
-``adamw.update`` defaults: ``betas=(0.9, 0.95)``, ``eps=1e-8``, no weight
-decay). Its initial parameters come from a ``torch.Generator`` on the CPU,
-moved to the device afterwards, so one seed names one model on either
-device (not the reference's: ``jax.random`` draws other numbers).
+device with torch autograd and the port's AdamW,
+:func:`repro_torch.optim.adamw.update` with ``weight_decay=0.0``, as the
+reference's ``_train_step`` calls its own. Its initial parameters come
+from a ``torch.Generator`` on the CPU, moved to the device afterwards, so
+one seed names one model on either device (not the reference's:
+``jax.random`` draws other numbers).
 
 ``predict_int`` computes the synaptic product on the device with kernel B6
 (:func:`repro_torch.kernels.ops.spike_matmul`, one launch per call): the
@@ -41,10 +42,9 @@ from repro_torch.core import connectivity, quant, uart
 from repro_torch.core.lif import LIFParams, LIFState, lif_step
 from repro_torch.core.registers import RegisterBank, WeightLayout
 from repro_torch.kernels import ops
+from repro_torch.optim import adamw
 
 EXACT_BOUND = 2 ** 24   # f32 holds every integer below this exactly
-
-ADAMW = dict(betas=(0.9, 0.95), eps=1e-8, weight_decay=0.0)
 
 
 @dataclasses.dataclass
@@ -101,15 +101,18 @@ def _fit(raw: Dict[str, torch.Tensor], x: torch.Tensor, y: torch.Tensor, epochs:
          lr: float) -> Dict[str, torch.Tensor]:
     """Full-batch AdamW on the drive's cross-entropy from ``raw`` (not
     written); returns the fitted unconstrained parameters."""
-    params = {k: v.detach().clone().requires_grad_(True) for k, v in raw.items()}
-    opt = torch.optim.AdamW(list(params.values()), lr=lr, **ADAMW)
-    for _ in range(int(epochs)):
-        opt.zero_grad(set_to_none=True)
+    def loss_fn(params):
         lp = torch.log_softmax(_drives(params, x), dim=-1)
-        loss = -lp.gather(-1, y[:, None]).mean()
-        loss.backward()
-        opt.step()
-    return {k: v.detach() for k, v in params.items()}
+        return -lp.gather(-1, y[:, None]).mean()
+
+    params = {k: v.detach() for k, v in raw.items()}
+    opt = adamw.init(params)
+    for _ in range(int(epochs)):
+        leaves = {k: v.requires_grad_(True) for k, v in params.items()}
+        grads = dict(zip(leaves, torch.autograd.grad(loss_fn(leaves), list(leaves.values()))))
+        with torch.no_grad():
+            params, opt = adamw.update(grads, opt, params, lr=lr, weight_decay=0.0)
+    return params
 
 
 def _upload(x: np.ndarray, y: Optional[np.ndarray], dev: torch.device):

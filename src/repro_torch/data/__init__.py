@@ -1,7 +1,6 @@
-"""Host-side datasets of the paper's two classifiers (copies of ``repro.data``).
+"""Host-side data (copies of ``repro.data``): the paper's two classifiers'
+datasets, and the LM's counter-based synthetic stream with its resumable
+pipeline."""
+from repro_torch.data import iris, mnist, pipeline, synthetic
 
-``synthetic`` and ``pipeline`` belong to the LM scaffold and arrive with it.
-"""
-from repro_torch.data import iris, mnist
-
-__all__ = ["iris", "mnist"]
+__all__ = ["synthetic", "iris", "mnist", "pipeline"]

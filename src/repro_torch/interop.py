@@ -29,7 +29,12 @@ numpy leaves. numpy has no bfloat16 and the port does not import
 ``ml_dtypes``: a bf16 array travels as float32 (``np.asarray(x,
 np.float32)``, exact), and the port casts each leaf back to its spec's
 dtype (the f32 state leaves, mamba ``h`` and rwkv ``wkv``, stay f32). The
-vlm's ``vision_embeds`` travel the same way.
+vlm's ``vision_embeds`` travel the same way. A train state travels as the
+reference's ``TrainState(params, opt)`` with ``opt`` an
+``AdamWState(step, m, v)`` or ``AdafactorState(step, vr, vc)`` (any
+NamedTuples with those fields) of numpy leaves, the moments cast to the
+config's ``opt_state_dtype``, the Adafactor factors float32 and ``step``
+int32.
 """
 from __future__ import annotations
 
@@ -257,8 +262,9 @@ def lm_cache_from_numpy(tree, cfg, device=None):
     cache without one, rwkv's, has no ``s_max``)."""
     from repro_torch.models import model
     from repro_torch.models import transformer as tf
+    from repro_torch.util import tree as tree_util
 
-    batch, s_max = np.shape(next(iter(_leaves(tree))))[1], 1
+    batch, s_max = np.shape(tree_util.leaves(tree)[0])[1], 1
     for stage, plan in zip(tree, tf.stage_plans(cfg)):
         attn = [i for i, lp in enumerate(plan.layers) if lp.mixer == "attn"]
         if attn:
@@ -266,17 +272,6 @@ def lm_cache_from_numpy(tree, cfg, device=None):
             break
     specs = model.make_cache_specs(cfg, batch, s_max)
     return _lm_tree_from_numpy(tree, specs, model.dtype_of(cfg), _device.resolve(device))
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def lm_cache_to_numpy(caches):
@@ -291,3 +286,36 @@ def lm_vision_from_numpy(vision_embeds, cfg, device=None) -> torch.Tensor:
 
     return torch.from_numpy(np.array(vision_embeds, np.float32)).to(
         _device.resolve(device), model.dtype_of(cfg))
+
+
+def train_state_from_numpy(state, cfg, pcfg, device=None):
+    """The port's :class:`~repro_torch.launch.steps.TrainState` from the
+    reference's (numpy leaves): parameters in their spec's dtype, AdamW's
+    ``m`` / ``v`` in ``pcfg.opt_state_dtype`` (Adafactor's ``vr`` / ``vc``
+    float32), ``step`` int32."""
+    from repro_torch.launch.steps import TrainState
+    from repro_torch.models import model
+    from repro_torch.models.common import torch_dtype
+    from repro_torch.optim import adafactor, adamw
+    from repro_torch.util import tree as tree_util
+
+    dev = _device.resolve(device)
+    params = lm_params_from_numpy(state.params, cfg, dev)
+    step = torch.from_numpy(np.array(state.opt.step, np.int32)).to(dev)
+    if pcfg.optimizer == "adamw":
+        mom = lambda t: _lm_tree_from_numpy(t, model.specs(cfg),
+                                            torch_dtype(pcfg.opt_state_dtype), dev)
+        opt = adamw.AdamWState(step=step, m=mom(state.opt.m), v=mom(state.opt.v))
+    else:
+        f32 = lambda t: tree_util.map(lambda a: _to_t(np.asarray(a, np.float32), dev), t)
+        opt = adafactor.AdafactorState(step=step, vr=f32(state.opt.vr), vc=f32(state.opt.vc))
+    return TrainState(params=params, opt=opt)
+
+
+def train_state_to_numpy(state):
+    """The port's train state as the same NamedTuples of numpy leaves (floats
+    as float32, ``step`` int32)."""
+    from repro_torch.launch.steps import TrainState
+
+    opt = type(state.opt)(*(_lm_tree_to_numpy(f) for f in state.opt))
+    return TrainState(params=_lm_tree_to_numpy(state.params), opt=opt)

@@ -5,7 +5,7 @@ Counterpart of ``repro.models.model`` for every LM family:
   specs(cfg)                      parameter Spec tree
   init(cfg, gen, device)          materialized params (the port's own draws)
   forward(params, cfg, tokens)    logits (+ caches in prefill / decode)
-  loss_fn(params, cfg, batch)     forward + NLL + MoE aux (no backward: ROADMAP A.7c)
+  loss_fn(params, cfg, batch)     train NLL (+ MoE aux), differentiable by autograd
   prefill_fn / decode_fn          serving steps with KV / SSM / RWKV caches
   make_cache_specs / init_cache   the decode cache
   batch_specs(cfg, shape)         the input Spec tree of one (arch, shape) cell
@@ -14,8 +14,11 @@ The vlm family takes ``vision_embeds`` (B, n_vision_tokens, d_vision) in
 the model dtype, as ``batch_specs`` declares them; its decode steps read
 the vision K/V that prefill wrote into the cache.
 
-The reference's ``remat`` argument is a training-memory knob of its
-compiled backward pass; it changes no number and is not taken here.
+``remat`` (``"block"`` by default, as the reference's; ``"dots"``,
+``"none"``) is the activation-checkpoint policy of train mode's group
+bodies (:func:`repro_torch.models.transformer.apply_stages`); it trades the
+backward's memory for a second forward and changes no number. Prefill and
+decode run without it.
 """
 from __future__ import annotations
 
@@ -103,6 +106,7 @@ def forward(
     cache_pos=None,
     caches=None,
     vision_embeds: Optional[torch.Tensor] = None,
+    remat: str = "block",
 ):
     """Returns (logits, caches, aux); ``caches`` are written in place."""
     b, s = tokens.shape[0], tokens.shape[1]
@@ -115,17 +119,17 @@ def forward(
     x, new_caches, aux = tf.apply_stages(
         x, params["stages"], cfg,
         mode=mode, positions=positions, cache_pos=cache_pos, caches=caches,
-        vision_proj=vision_proj)
+        vision_proj=vision_proj, remat=remat)
     return _head(params, cfg, x), new_caches, aux
 
 
 # ---------------------------------------------------------------------------
 # step functions
 
-def loss_fn(params, cfg: ModelConfig,
-            batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
+            remat: str = "block") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     logits, _, aux = forward(params, cfg, batch["inputs"], mode="train",
-                             vision_embeds=batch.get("vision_embeds"))
+                             vision_embeds=batch.get("vision_embeds"), remat=remat)
     nll = cross_entropy(logits, batch["targets"])
     loss = nll + cfg.router_aux_weight * aux
     return loss, {"nll": nll, "router_aux": aux}
@@ -134,7 +138,8 @@ def loss_fn(params, cfg: ModelConfig,
 def prefill_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], caches):
     """Process a full prompt, fill caches; returns (last-token logits, caches)."""
     logits, new_caches, _ = forward(params, cfg, batch["inputs"], mode="prefill",
-                                    caches=caches, vision_embeds=batch.get("vision_embeds"))
+                                    caches=caches, vision_embeds=batch.get("vision_embeds"),
+                                    remat="none")
     return logits[:, -1], new_caches
 
 
@@ -145,7 +150,8 @@ def decode_fn(params, cfg: ModelConfig, batch: Dict[str, Any], caches):
     b = batch["token"].shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int64, device=batch["token"].device)
     logits, new_caches, _ = forward(params, cfg, batch["token"], mode="decode",
-                                    positions=positions, cache_pos=pos, caches=caches)
+                                    positions=positions, cache_pos=pos, caches=caches,
+                                    remat="none")
     return logits[:, -1], new_caches
 
 

@@ -9,13 +9,16 @@ Follows arXiv:2404.05892 as the reference does: token-shift with LoRA
 data-dependent mixing for (r, k, v, w, g), LoRA decay, per-head bonus ``u``,
 group-norm over heads. The reference's chunked ``lax.scan`` over time is a
 plain Python loop over steps here (a deliberate difference, ROADMAP §C);
-it keeps the reference's chunk assert.
+it keeps the reference's chunk assert, and when a gradient is being
+recorded each chunk of ``WKV_CHUNK`` steps runs under
+``torch.utils.checkpoint``, as the reference checkpoints its chunk body.
 """
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import Spec, rms_norm, silu
@@ -85,21 +88,34 @@ def _shift(x: torch.Tensor, prev: Optional[torch.Tensor]) -> torch.Tensor:
     return torch.cat([first, x[:, :-1]], dim=1)
 
 
-def _wkv_scan(s0, r, k, v, w, u) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Time-major WKV recurrence; returns (ys (S,B,H,dv), s_T).
-
-    r,k,v,w: (S, B, H, dk) f32 (w already exp(-exp(.)) in (0,1));
-    u: (1, H, dk, 1).
-    """
-    s_len = r.shape[0]
-    chunk = min(WKV_CHUNK, s_len)
-    assert s_len % chunk == 0
-    s, ys = s0, []
-    for t in range(s_len):
+def _wkv_steps(s, r, k, v, w, u):
+    ys = []
+    for t in range(r.shape[0]):
         kv = k[t][..., None] * v[t][..., None, :]                     # (B,H,dk,dv)
         ys.append(torch.einsum("bhi,bhij->bhj", r[t], s + u * kv))
         s = w[t][..., None] * s + kv
     return torch.stack(ys), s
+
+
+def _wkv_scan(s0, r, k, v, w, u) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Time-major WKV recurrence; returns (ys (S,B,H,dv), s_T).
+
+    r,k,v,w: (S, B, H, dk) f32 (w already exp(-exp(.)) in (0,1));
+    u: (1, H, dk, 1). Under autograd each chunk of ``WKV_CHUNK`` steps is
+    checkpointed.
+    """
+    s_len = r.shape[0]
+    chunk = min(WKV_CHUNK, s_len)
+    assert s_len % chunk == 0
+    if not torch.is_grad_enabled():
+        return _wkv_steps(s0, r, k, v, w, u)
+    s, ys = s0, []
+    for c in range(0, s_len, chunk):
+        part = slice(c, c + chunk)
+        y, s = checkpoint(_wkv_steps, s, r[part], k[part], v[part], w[part], u,
+                          use_reentrant=False)
+        ys.append(y)
+    return torch.cat(ys), s
 
 
 def _group_norm(y: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, n_heads: int,

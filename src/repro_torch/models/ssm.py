@@ -5,11 +5,13 @@ Counterpart of ``repro.models.ssm``. The selective state update
 paper's LIF membrane update (input-conditioned decay + drive).
 
 The reference nests a ``lax.scan`` over chunks of ``SSM_CHUNK`` steps with
-the chunk body checkpointed; that bounds the memory of its compiled
-backward pass. Here the time loop is a plain Python loop over steps (a
-deliberate difference, ROADMAP §C) that keeps the reference's chunk
-assert; the checkpointing waits for training (ROADMAP A.7c). Decode carries
-``(conv, h)`` explicitly.
+the chunk body checkpointed; that bounds the memory of its backward pass.
+Here the time loop is a plain Python loop over steps (a deliberate
+difference, ROADMAP §C) that keeps the reference's chunk assert; when a
+gradient is being recorded, each chunk of ``SSM_CHUNK`` steps runs under
+``torch.utils.checkpoint``, so the backward keeps only the carry at each
+chunk boundary (whatever the group's ``remat``, as the reference's). Decode
+carries ``(conv, h)`` explicitly.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import Spec, rms_norm, silu
@@ -74,6 +77,15 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out + b
 
 
+def _scan_steps(h, dt, bmat, cmat, xc, a):
+    ys = []
+    for t in range(dt.shape[0]):
+        decay = torch.exp(dt[t][..., None] * a)
+        h = decay * h + (dt[t] * xc[t])[..., None] * bmat[t][:, None, :]
+        ys.append(torch.einsum("ben,bn->be", h, cmat[t]))
+    return torch.stack(ys), h
+
+
 def _selective_scan(
     h0: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
     xc: torch.Tensor, a: torch.Tensor,
@@ -82,17 +94,21 @@ def _selective_scan(
 
     Per step: ``h = exp(dt*A) h + (dt*x) B_t``; ``y = <h, C_t>``.
     Args (time-major f32): dt, xc: (S, B, di); bmat, cmat: (S, B, n);
-    a: (di, n); h0: (B, di, n). Returns (ys (S, B, di) f32, h_T).
+    a: (di, n); h0: (B, di, n). Returns (ys (S, B, di) f32, h_T). Under
+    autograd each chunk of ``SSM_CHUNK`` steps is checkpointed.
     """
     s = dt.shape[0]
     chunk = min(SSM_CHUNK, s)
     assert s % chunk == 0, f"seq {s} % chunk {chunk} != 0"
+    if not torch.is_grad_enabled():
+        return _scan_steps(h0, dt, bmat, cmat, xc, a)
     h, ys = h0, []
-    for t in range(s):
-        decay = torch.exp(dt[t][..., None] * a)
-        h = decay * h + (dt[t] * xc[t])[..., None] * bmat[t][:, None, :]
-        ys.append(torch.einsum("ben,bn->be", h, cmat[t]))
-    return torch.stack(ys), h
+    for c in range(0, s, chunk):
+        part = slice(c, c + chunk)
+        y, h = checkpoint(_scan_steps, h, dt[part], bmat[part], cmat[part], xc[part], a,
+                          use_reentrant=False)
+        ys.append(y)
+    return torch.cat(ys), h
 
 
 def mamba_block(

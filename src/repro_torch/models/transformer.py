@@ -12,18 +12,31 @@ pattern of layers (mixer + FFN kind):
   vlm             1 stage of 20 groups x 5 layers (cross-attn at idx 0)
   rwkv6           1 stage, group = [time-mix + channel-mix]
 
-The reference's ``lax.scan`` over groups is a Python loop here that indexes
-the stacked leaves (views, not copies). Caches (the KV caches, the cross
-layers' vision K/V, the mamba ``conv`` / ``h`` and the rwkv ``att_x`` /
-``ffn_x`` / ``wkv`` states) are stacked the same way and written in place:
-the caches returned are the caches given.
+The reference's ``lax.scan`` over groups is a Python loop here. Prefill
+and decode index the stacked leaves (views, not copies); caches (the KV
+caches, the cross layers' vision K/V, the mamba ``conv`` / ``h`` and the
+rwkv ``att_x`` / ``ffn_x`` / ``wkv`` states) are stacked the same way and
+written in place: the caches returned are the caches given. Train mode
+``unbind``s each stacked leaf once per forward instead, so its backward
+stacks one gradient a leaf (the backward of an index writes a zero tensor
+the size of the whole stacked leaf for every group).
+
+``remat`` is the reference's ``jax.checkpoint`` of each group body in train
+mode, here ``torch.utils.checkpoint`` (non-reentrant): ``"block"`` keeps
+only each group's input and recomputes the group in the backward,
+``"dots"`` also keeps the outputs of the products without batch
+dimensions (the 2-D matmuls, ``aten.mm``; the reference's
+``checkpoint_dots_with_no_batch_dims``), ``"none"`` keeps everything.
+Remat changes no number.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -180,6 +193,35 @@ def _group(tree, g: int):
     return tree[g]
 
 
+def _unbind(tree, n: int) -> List[Any]:
+    """The ``n`` groups of a stacked tree, each leaf ``unbind``-ed once (views
+    whose backward is one ``stack`` a leaf)."""
+    if isinstance(tree, dict):
+        per_key = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: per_key[k][g] for k in tree} for g in range(n)]
+    return list(tree.unbind(0))
+
+
+def _save_2d_products(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the outputs of the products without batch
+    dimensions, recompute the rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _rematted(body, remat: str):
+    """``body`` under the reference's ``remat`` policy (train mode)."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return body
+    if remat == "block":
+        return functools.partial(_ckpt.checkpoint, body, use_reentrant=False)
+    if remat == "dots":
+        ctx = functools.partial(_ckpt.create_selective_checkpoint_contexts, _save_2d_products)
+        return functools.partial(_ckpt.checkpoint, body, use_reentrant=False, context_fn=ctx)
+    raise ValueError(f"unknown remat {remat!r}")
+
+
 def _write(cache: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]) -> None:
     """Copy each new state leaf into its cache view, in place."""
     for k, v in new.items():
@@ -271,30 +313,42 @@ def apply_stages(
     cache_pos=None,
     caches: Optional[List[Dict[str, Any]]] = None,
     vision_proj: Optional[torch.Tensor] = None,
+    remat: str = "block",
 ) -> Tuple[torch.Tensor, Optional[List[Dict[str, Any]]], torch.Tensor]:
     """Run all stages; returns (x, caches, total_aux). ``caches`` (needed for
-    prefill and decode) are written in place and returned.
+    prefill and decode) are written in place and returned; ``remat`` applies
+    in train mode only.
 
     ``total_aux`` sums, over the groups, the aux loss of each group's LAST
     layer (0 when that layer has no MoE FFN): the reference's scan body
     rebinds ``aux`` at every layer and adds only the last one's to its
     carry, so a jamba group counts its layer 7 and drops layers 1, 3 and 5.
-    The port keeps that sum (ROADMAP, faults of the reference)."""
+    The port keeps that sum (ROADMAP, faults of the reference), and its
+    gradient follows it."""
     plans = stage_plans(cfg)
     if mode != "train" and caches is None:
         raise ValueError(f"mode {mode!r} needs caches (model.init_cache)")
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for s, (stage, params) in enumerate(zip(plans, stage_params)):
-        for g in range(stage.n_groups):
-            p_group = _group(params, g)
-            c_group = _group(caches[s], g) if mode != "train" else None
+        def group_body(h, p_group, c_group=None, _stage=stage):
             aux = None
-            for i, lp in enumerate(stage.layers):
+            for i, lp in enumerate(_stage.layers):
                 name = f"layer{i}"
-                x, aux = _apply_layer(
-                    x, p_group[name], cfg, lp, mode=mode, positions=positions,
+                h, aux = _apply_layer(
+                    h, p_group[name], cfg, lp, mode=mode, positions=positions,
                     cache_pos=cache_pos, cache=c_group.get(name) if c_group is not None else None,
                     vision_proj=vision_proj)
+            return h, aux
+
+        if mode == "train":
+            body = _rematted(group_body, remat)
+            for p_group in _unbind(params, stage.n_groups):
+                x, aux = body(x, p_group)
+                if aux is not None:
+                    total_aux = total_aux + aux
+            continue
+        for g in range(stage.n_groups):
+            x, aux = group_body(x, _group(params, g), _group(caches[s], g))
             if aux is not None:
                 total_aux = total_aux + aux
     return x, caches, total_aux

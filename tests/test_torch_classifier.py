@@ -5,11 +5,12 @@ integer and float inference, training, and the examples.
 Tolerances: the datasets, the u8 quantization, the register bytes and the
 integer inference are bitwise (integer arithmetic, or one correctly rounded
 f32 division); the float readout's logits within ``1e-5`` (the drive's
-matmul sums in another order). Training uses ``torch.optim.AdamW`` where the
-reference has its own AdamW (the same update, rounded in other places):
-started from the reference's ``jax.random`` init, the fitted weights and
-biases agree within ``rtol=1e-5, atol=2e-5`` after 100 epochs (measured: at
-most 1e-6 on Iris, 8e-6 on MNIST), and after the full 1500 epochs the test
+matmul sums in another order). Training uses the port's AdamW
+(``repro_torch.optim.adamw``, the reference's update) on autograd's
+gradients, whose sums run in another order than JAX's: started from the
+reference's ``jax.random`` init, the fitted weights and biases agree within
+``rtol=1e-5, atol=2e-5`` after 100 epochs (measured: at most 4.3e-6 on Iris,
+8.3e-6 on MNIST), and after the full 1500 epochs the test
 predictions are equal (MNIST's weights of rarely lit pixels drift apart by
 then: AdamW rescales their tiny gradients to full steps).
 """

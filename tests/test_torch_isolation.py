@@ -55,7 +55,15 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
             "repro_torch.configs.moonshot_v1_16b_a3b",
             "repro_torch.configs.jamba_1_5_large_398b",
             "repro_torch.configs.llama_3_2_vision_90b",
-            "repro_torch.configs.rwkv6_1_6b"} <= set(mods)
+            "repro_torch.configs.rwkv6_1_6b",
+            "repro_torch.optim", "repro_torch.optim.adamw", "repro_torch.optim.adafactor",
+            "repro_torch.optim.clip", "repro_torch.optim.schedule",
+            "repro_torch.optim.compression", "repro_torch.data.synthetic",
+            "repro_torch.data.pipeline", "repro_torch.checkpoint",
+            "repro_torch.checkpoint.checkpointer", "repro_torch.runtime",
+            "repro_torch.runtime.fault_tolerance", "repro_torch.runtime.straggler",
+            "repro_torch.launch.steps", "repro_torch.launch.train",
+            "repro_torch.examples.train_lm", "repro_torch.util.tree"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -114,6 +122,10 @@ def test_entry_points_default_to_the_card():
     from repro_torch.launch import serve_async
     from repro_torch.launch.serve import SNNServer, WaveServer
     from repro_torch.models import model as M
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import pipeline
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import steps, train
 
     lm = get_bundle("smollm-135m").smoke
     calls = [lambda: SNNServer(n_max=8), lambda: params_from_registers(RegisterBank(4)),
@@ -125,7 +137,13 @@ def test_entry_points_default_to_the_card():
              lambda: t_serve.main([]), lambda: serve_lm.main([]),
              lambda: M.init(lm, torch.Generator()), lambda: M.init_cache(lm, 1, 8),
              lambda: WaveServer(lm, {}, slots=1, max_len=8),
-             lambda: t_serve.serve(lm, {}, [t_serve.ServeRequest(rid=0)])]
+             lambda: t_serve.serve(lm, {}, [t_serve.ServeRequest(rid=0)]),
+             lambda: train.main(["--arch", "smollm-135m", "--smoke", "--steps", "1"]),
+             lambda: train_lm.main([]),
+             lambda: pipeline.make_batch(lm, ShapeConfig("t", "train", 4, 1),
+                                         pipeline.PipelineState(17, 0)),
+             lambda: steps.init_train_state(lm, get_bundle("smollm-135m").parallel["*"],
+                                            torch.Generator())]
     if torch.cuda.is_available():
         assert SNNState.zeros((1,), 4).tick.device.type == "cuda"
         assert SNNServer(n_max=8).device.index is not None
