@@ -229,7 +229,9 @@ script on any mismatch:
    rasters, potentials and telemetry bitwise the ``jnp`` run's, a sparse
    event tick (B3 gathering about 2048 rows of ``W``) bitwise ``jnp``'s and
    ``torch.matmul`` over the same ``W`` on its spikes timed (B3's library
-   call at that shape), the peak device memory of each, and ticks timed
+   call at that shape), that tick's B3 launch timed alone again (the
+   profiler's device time of the kernel, beside its bound: those rows of
+   ``W`` once and the LIF state), the peak device memory of each, and ticks timed
    by CUDA events beside their bounds (the bytes of ``W`` each reads over
    the card's memory rate) and ``torch.matmul(s, W)``. Then a world of two
    gloo ranks sharing the card
@@ -301,7 +303,24 @@ script on any mismatch:
    the byte bound (parameters read 3 times, gradients 4 times, ``m`` and
    ``v`` read and written, parameters written). Every kernel count is 0
    across the phase.
-18. a JSON line of the kernels (the six ported ones and the telemetry
+18. lm mesh: the LM stack on a ``DeviceMesh``. (a) smollm-135m FULL at 8 x
+   64 tokens (bf16, AdamW, remat ``block``), 3 train steps on a (1, 1)
+   ``("data", "model")`` mesh over a world of one rank on NCCL, the state
+   laid out by ``state_shardings``, the batches by ``batch_shardings``, the
+   rules active, against the same steps on one device (``--mesh none``):
+   losses and the gathered state compared bitwise (when they differ, the
+   first operation of a forward whose result differs is named), each
+   step's wall, device time and device events on both paths, peak memory.
+   (b) The production meshes, (16, 16) and (2, 16, 16), built on the fake
+   process group in a child process; ``param_shardings`` of every FULL arch
+   laid on them, every sharded dim dividing its mesh axis. (c) The mesh
+   state saved (each DTensor whole) and restored with ``shardings=`` onto
+   the mesh: every leaf bitwise, every placement as ``state_shardings``;
+   whether the files are those of the ``--mesh none`` state's save. (d)
+   ``sqrt_rn`` on the card against ``numpy.sqrt`` on 2^20 float32 draws at
+   scales 1e-6, 1 and 1e3: 0 misses. Every kernel count is 0 across the
+   phase.
+19. a JSON line of the kernels (the six ported ones and the telemetry
    kernel), the card's name and power limit, and the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -314,6 +333,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -4021,15 +4041,17 @@ def sharded_pair_rank(mesh) -> dict:
     return out
 
 
-def sparse_event_tick(mesh, eng, params, carry, x1):
+def sparse_event_tick(mesh, eng, params, carry, x1, card):
     """B3's row gather at snn-64k: ``carry`` with ``SHARD_SPARSE`` of the
     neurons spiking (under the spike budget, so the event arm runs), one
     tick of ``eng`` (``event``) against one of the ``jnp`` engine, bitwise.
-    Returns the sparse carry and the arriving spikes; raises unless B3
-    launched once."""
+    Returns the sparse carry, the arriving spikes and B3's launch timed
+    alone (its device time, its bound, the live rows, the launches timed);
+    raises unless B3 launched once."""
     import torch
 
     from repro_torch.core.engine import TickEngine
+    from repro_torch.kernels import event_dispatch
 
     gen = torch.Generator(device=mesh.device)
     gen.manual_seed(65)
@@ -4038,7 +4060,18 @@ def sparse_event_tick(mesh, eng, params, carry, x1):
     lif = dataclasses.replace(carry.state.lif, y=y)
     sparse = dataclasses.replace(carry, state=dataclasses.replace(carry.state, lif=lif))
     before = kernel_launches()["event_dispatch_db"]
-    ev, ev_y = eng.chunk(params, sparse, x1, 1)
+    calls = []
+    real = event_dispatch.event_lif_dispatch_db
+
+    def capture(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    event_dispatch.event_lif_dispatch_db = capture
+    try:
+        ev, ev_y = eng.chunk(params, sparse, x1, 1)
+    finally:
+        event_dispatch.event_lif_dispatch_db = real
     launched = kernel_launches()["event_dispatch_db"] - before
     plain = TickEngine(dataclasses.replace(eng.options, backend="jnp"))
     pj, pj_y = plain.chunk(params, sparse, x1, 1)
@@ -4047,7 +4080,19 @@ def sparse_event_tick(mesh, eng, params, carry, x1):
                              and torch.equal(ev.state.lif.r, pj.state.lif.r)):
         raise AssertionError(f"sharded 64k: the event tick on {arriving} arriving spikes "
                              f"(B3 launched {launched} times) differs from jnp's")
-    return sparse, arriving
+    # B3 alone: the captured launch again, its kernel's own device time from
+    # the profiler (the tick's host work and its other launches left out).
+    args, kwargs = calls[0]
+    rows = kernel_rows(lambda: [real(*args, **kwargs) for _ in range(SHARD_TIMED)])
+    b3 = [(us, count) for us, count, name in rows if "event_dispatch_db" in name]
+    b3_ms = b3[0][0] / b3[0][1] / 1e3 if b3 else None
+    w, v = args[1], args[2]
+    live = int(kwargs["counts"].sum().item())
+    # bytes: the live rows of W once, v and r read, v, r and y written, the
+    # drive read (when given) and the six per-neuron rows, in f32
+    per_neuron = 5 + (args[4] is not None) + 6
+    b3_bound = 4 * (live * w.shape[-1] + per_neuron * v.numel()) / card[0] * 1e3
+    return sparse, arriving, (b3_ms, b3_bound, live, len(b3) and b3[0][1])
 
 
 def sharded_64k_rank(mesh, card) -> dict:
@@ -4098,8 +4143,9 @@ def sharded_64k_rank(mesh, card) -> dict:
         # arm) and its w_in, once.
         carries = [carry, eng.chunk(params, carry, x1, 1)[0]]
         b3_library = None
+        b3_alone = None
         if backend == "event":
-            sparse, arriving = sparse_event_tick(mesh, eng, params, carry, x1)
+            sparse, arriving, b3_alone = sparse_event_tick(mesh, eng, params, carry, x1, card)
             carries.append(sparse)
             # B3's library call at this shape: the dense product over the
             # same W (B1's 64k cell's call), on the sparse tick's spikes.
@@ -4125,7 +4171,7 @@ def sharded_64k_rank(mesh, card) -> dict:
                                  for r in res["rasters"]]),
             "v": mesh.all_gather(carry.state.lif.v).cpu().numpy(),
             "telemetry": res["telemetry"], "ticks": ticks, "matmul_ms": matmul_ms,
-            "b3_library": b3_library}
+            "b3_library": b3_library, "b3_alone": b3_alone}
         del res, eng, params, carry, carries, c, s
         torch.cuda.empty_cache()
     return out
@@ -4195,6 +4241,15 @@ def check_64k_world(ranks, full, smi, card, add):
                 f"it reads and its w_in, over {card[0] / 1e12:.2f} TB/s), {bound / ms:.0%} of "
                 f"it; torch.matmul(s, W) over the rank's W alone {run['matmul_ms']:.4f} ms; "
                 f"card {smi}")
+        if run.get("b3_alone") is not None:
+            ms, bound, live, count = run["b3_alone"]
+            ms_text = "not measured (no B3 kernel in the trace)" if ms is None else f"{ms:.4f} ms"
+            log(f"time sharded 64k B3 alone ({name}, {d} rank(s), the sparse tick's launch "
+                f"again: {live} live rows of the rank's W; profiler device time of the "
+                f"event_dispatch_db kernel, mean of {count} launches): {ms_text}, bound "
+                f"{bound:.4f} ms (those rows of W once, the LIF state read and written, over "
+                f"{card[0] / 1e12:.2f} TB/s)"
+                + ("" if ms is None else f", {bound / ms:.0%} of it") + f"; card {smi}")
         if run["b3_library"] is not None:
             arriving, ms = run["b3_library"]
             log(f"time sharded 64k B3 library ({name}, {d} rank(s)): torch.matmul(s, W) over "
@@ -5638,6 +5693,425 @@ def run_train_phase(dev, card, smi) -> None:
         + f"); hand-written kernel launches {launches} (none lies on the training path)")
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the LM stack on a DeviceMesh (the sharding rules, the production
+# meshes, a sharded checkpoint, the correctly rounded square root)
+# ---------------------------------------------------------------------------
+
+MESH_AXES = ("data", "model")
+MESH_STEPS = 3                # train steps on each path
+SQRT_DRAWS = 1 << 20          # float32 draws a scale for sqrt_rn
+SQRT_SCALES = (1e-6, 1.0, 1e3)
+
+
+def fake_production_meshes(device: str) -> dict:
+    """The production meshes on the fake process group (run in a child
+    process; the group never leaves it): for the (16, 16) and (2, 16, 16)
+    meshes, their names, shape and, for every FULL arch, the placements of
+    ``param_shardings`` at train_4k: leaves sharded over each mesh axis and
+    every sharded dim that does not divide its axis."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.configs import ASSIGNED_ARCHS, get_bundle
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.launch import steps
+    from repro_torch.util import tree
+
+    out = {}
+    for multi, world in ((False, 256), (True, 512)):
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+        try:
+            t0 = time.perf_counter()
+            mesh = launch_mesh.make_production_mesh(multi_pod=multi, device=device)
+            sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+            archs = {}
+            for arch in ASSIGNED_ARCHS:
+                bundle = get_bundle(arch)
+                rules = launch_mesh.make_rules(mesh, bundle.model, SHAPES["train_4k"],
+                                               bundle.parallel_for("train_4k"), multi_pod=multi)
+                shard = tree.leaves(steps.param_shardings(bundle.model, rules))
+                shapes = [s.shape for s in tree.leaves(steps.params_structs(bundle.model))]
+                per_axis = {name: 0 for name in mesh.mesh_dim_names}
+                bad = []
+                for sh, shape in zip(shard, shapes):
+                    for name, p in zip(mesh.mesh_dim_names, sh.placements):
+                        if p.is_shard():
+                            per_axis[name] += 1
+                            if shape[p.dim] % sizes[name]:
+                                bad.append((arch, shape, p.dim, name))
+                archs[arch] = {"leaves": len(shard), "sharded": per_axis, "indivisible": bad}
+            out["multi" if multi else "single"] = {
+                "names": list(mesh.mesh_dim_names), "shape": list(mesh.mesh.shape),
+                "device": mesh.device_type, "seconds": time.perf_counter() - t0,
+                "archs": archs}
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+def start_production_meshes(device: str = "cuda"):
+    """(b), started: :func:`fake_production_meshes` in a child process on
+    the card's device type, running while the parent trains."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = ("import json, chip_smoke; "
+            f"print(json.dumps(chip_smoke.fake_production_meshes({device!r})))")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def check_production_meshes(child, smi) -> None:
+    """(b), finished: the child's meshes; every FULL arch's model- and
+    data-sharded dims divide."""
+    t0 = time.perf_counter()
+    try:
+        out, err = child.communicate(timeout=300)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if child.returncode != 0:
+        raise AssertionError(f"lm mesh: the production meshes' child failed: {err[-3000:]}")
+    got = json.loads(out.strip().splitlines()[-1])
+    for key, names, shape in (("single", ["data", "model"], [16, 16]),
+                              ("multi", ["pod", "data", "model"], [2, 16, 16])):
+        m = got[key]
+        bad = [b for a in m["archs"].values() for b in a["indivisible"]]
+        if m["names"] != names or m["shape"] != shape or bad:
+            raise AssertionError(f"lm mesh: production mesh {key}: {m['names']} {m['shape']}, "
+                                 f"indivisible {bad}")
+        log(f"lm mesh production mesh {tuple(shape)} {tuple(names)} on the fake group "
+            f"({math.prod(shape)} ranks, device type {m['device']}, a child process, "
+            f"{m['seconds']:.2f} s): param_shardings of every FULL arch at train_4k, every "
+            f"sharded dim divides its axis; leaves sharded by axis: "
+            + "; ".join(f"{arch} {a['sharded']} of {a['leaves']}"
+                        for arch, a in m["archs"].items()))
+    log(f"lm mesh production meshes: waited {time.perf_counter() - t0:.1f} s for the child "
+        f"process; card {smi}")
+
+
+def check_sqrt_rn(dev, smi) -> None:
+    """(d): ``sqrt_rn`` on the card against ``numpy.sqrt`` (correctly
+    rounded) on ``SQRT_DRAWS`` float32 draws a scale: 0 misses."""
+    import numpy as np
+    import torch
+
+    from repro_torch.util.numerics import sqrt_rn
+
+    counts = {}
+    for scale in SQRT_SCALES:
+        x = (np.random.default_rng(0).random(SQRT_DRAWS, dtype=np.float32)
+             * np.float32(scale)).astype(np.float32)
+        got = sqrt_rn(torch.from_numpy(x).to(dev)).cpu().numpy()
+        counts[scale] = int((got.view(np.int32) != np.sqrt(x).view(np.int32)).sum())
+    if any(counts.values()):
+        raise AssertionError(f"lm mesh: sqrt_rn on the card misses numpy.sqrt: {counts}")
+    log(f"lm mesh sqrt_rn on the card (torch.sqrt on CUDA) against numpy.sqrt, "
+        f"{SQRT_DRAWS} float32 draws a scale: misses {counts}; card {smi}")
+
+
+def record_ops(fn) -> list:
+    """``fn()`` under a torch-function recorder: ``(name, value)`` of every
+    floating-point tensor a torch function returns, in call order, a
+    DTensor's taken locally and the mesh's own calls left out."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    from repro_torch.parallel.sharding import is_dtensor
+
+    skip = {"redistribute", "from_local", "to_local", "full_tensor"}
+    out = []
+
+    class Recorder(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            res = func(*args, **(kwargs or {}))
+            name = getattr(func, "__name__", str(func))
+            if isinstance(res, torch.Tensor) and res.is_floating_point() and name not in skip:
+                local = res.to_local() if is_dtensor(res) else res
+                out.append((name, local.detach().clone()))
+            return res
+
+    with Recorder():
+        fn()
+    return out
+
+
+def first_differing_op(plain_fn, mesh_fn) -> str:
+    """The first operation whose result differs between a forward on one
+    device and the same forward on the mesh."""
+    import torch
+
+    a, b = record_ops(plain_fn), record_ops(mesh_fn)
+    for i, ((na, ta), (nb, tb)) in enumerate(zip(a, b)):
+        if na != nb or ta.shape != tb.shape:
+            return f"the op sequences part at call {i}: {na} {tuple(ta.shape)} against {nb}"
+        if not torch.equal(ta, tb):
+            return (f"call {i} ({na}, {tuple(ta.shape)}): max |difference| "
+                    f"{float((ta.float() - tb.float()).abs().max()):.3g}")
+    return f"none of {min(len(a), len(b))} recorded calls ({len(a)} / {len(b)})"
+
+
+def mesh_steps(step, state, batches, dev) -> dict:
+    """``len(batches)`` train steps: each step's wall (host clock around a
+    synchronised step), loss, and the final state; then the same steps again
+    from ``state``, each under the profiler tracing the device alone: its
+    device time and events; the unprofiled steps' peak memory above what was
+    allocated before them."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    walls, losses, s = [], [], state
+    for b in batches:
+        t0 = time.perf_counter()
+        s, m = step(s, b)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    device, events, top, p = [], [], [], state
+    for b in batches:
+        box = {}
+
+        def one():
+            box["out"] = step(p, b)
+
+        rows = kernel_rows(one)
+        p = box["out"][0]
+        device.append(sum(r[0] for r in rows) / 1e3 if rows else None)
+        events.append(sum(r[1] for r in rows) if rows else None)
+        top.append(rows[:3])
+    return {"state": s, "walls": walls, "losses": losses, "peak": peak, "device": device,
+            "events": events, "top": top, "profiled_state": p}
+
+
+def host_profile(step, state, batch) -> dict:
+    """One warm train step under ``cProfile``: the host seconds in all, and
+    those spent in DTensor's own Python (``torch/distributed/tensor``), in
+    autograd's and checkpoint's, and in the port's, with DTensor's five
+    costliest functions and who called each."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    step(state, batch)
+    torch.cuda.synchronize()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    areas = {"torch/distributed/tensor": 0.0, "torch/autograd": 0.0,
+             "torch/utils/checkpoint": 0.0, "repro_torch": 0.0}
+    total, top = 0.0, []
+    def short(path, name):
+        return "/".join(path.split("/")[-2:]) + f":{name}"
+
+    for (path, _, name), (_, calls, tt, cum, callers) in stats.items():
+        total += tt
+        for key in areas:
+            if key in path:
+                areas[key] += tt
+        if "torch/distributed/tensor" in path:
+            by = sorted(((c[3], short(p, n)) for (p, _, n), c in callers.items()), reverse=True)
+            top.append((cum, tt, calls, short(path, name),
+                        ", ".join(f"{who} {t:.3f} s" for t, who in by[:2])))
+    return {"total": total, "areas": areas, "top": sorted(top, reverse=True)[:5]}
+
+
+def mesh_train(dev, smi) -> dict:
+    """(a) and (c): smollm-135m FULL at 8 x 64 tokens (bf16, AdamW with f32
+    moments, remat ``block``), ``MESH_STEPS`` steps on one device (``--mesh
+    none``) and on a (1, 1) ``("data", "model")`` DeviceMesh over a world of
+    one rank on NCCL (state by ``state_shardings``, batches by
+    ``batch_shardings``, rules active); losses and gathered states compared
+    bitwise. Then the mesh state saved (``full_tensor()``) and restored with
+    ``shardings=`` onto the mesh."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.configs import get_bundle
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import pipeline
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.parallel.sharding import gather, is_dtensor, use_rules
+    from repro_torch.util import tree
+
+    bundle = get_bundle("smollm-135m")
+    cfg = bundle.model
+    pcfg = bundle.parallel_for("train_4k").replace(microbatches=1)
+    shape = ShapeConfig("mesh", "train", *TRAIN_SHAPE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    init = steps.init_train_state(cfg, pcfg, gen, dev)
+    step = steps.make_train_step(cfg, pcfg, peak_lr=1e-3, warmup_steps=1, total_steps=10)
+    plain_batches = [pipeline.make_batch(cfg, shape, pipeline.PipelineState(17, i), device=dev)
+                     for i in range(MESH_STEPS)]
+    plain = mesh_steps(step, init, plain_batches, dev)
+
+    mesh = launch_mesh.make_mesh((1, 1), MESH_AXES, device=dev)
+    backend = dist.get_backend()
+    rules = launch_mesh.make_rules(mesh, cfg, shape, pcfg)
+    state_sh = steps.state_shardings(cfg, rules, pcfg)
+    t0 = time.perf_counter()
+    placed = steps.place_state(init, state_sh)
+    torch.cuda.synchronize()
+    place_ms = (time.perf_counter() - t0) * 1e3
+    bsh = steps.batch_shardings(cfg, shape, rules)
+    mesh_batches = [pipeline.make_batch(cfg, shape, pipeline.PipelineState(17, i), device=dev,
+                                        shardings=bsh) for i in range(MESH_STEPS)]
+    with use_rules(rules):
+        meshed = mesh_steps(step, placed, mesh_batches, dev)
+        host_mesh = host_profile(step, meshed["state"], mesh_batches[-1])
+    host_plain = host_profile(step, plain["state"], plain_batches[-1])
+    if not all(is_dtensor(x) for x in tree.leaves(meshed["state"])):
+        raise AssertionError("lm mesh: a leaf of the mesh state is not a DTensor")
+    placements = {str(tuple(x.placements)) for x in tree.leaves(meshed["state"])}
+    full = tree.map(gather, meshed["state"])
+    leaves = list(zip(tree.leaves(full), tree.leaves(plain["state"])))
+    differ = sum(not torch.equal(a, b) for a, b in zip(*(
+        tree.leaves(x) for x in (full, plain["state"]))))
+    loss_bits = [a == b for a, b in zip(meshed["losses"], plain["losses"])]
+    bitwise = all(loss_bits) and differ == 0
+    profiled_same = all(torch.equal(gather(a), b) for a, b in zip(
+        tree.leaves(meshed["profiled_state"]), tree.leaves(plain["profiled_state"])))
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in leaves)
+    first = "not looked for (bitwise)"
+    if not bitwise:
+        with torch.no_grad():
+            first = first_differing_op(
+                lambda: M.loss_fn(init.params, cfg, plain_batches[0], remat="none"),
+                lambda: _under(rules, lambda: M.loss_fn(placed.params, cfg, mesh_batches[0],
+                                                        remat="none")))
+    if not all(math.isfinite(x) for x in meshed["losses"]) or err > 0.05:
+        raise AssertionError(f"lm mesh: losses {meshed['losses']} against {plain['losses']}, "
+                             f"largest state difference {err}")
+    n = M.n_params(cfg)
+    tokens = shape.seq_len * shape.global_batch
+    log(f"lm mesh (a) smollm-135m FULL ({n:,} params, bf16, AdamW f32 m/v, remat block, "
+        f"{shape.global_batch} x {shape.seq_len} tokens, {MESH_STEPS} steps) on a (1, 1) "
+        f"{MESH_AXES} DeviceMesh over a world of one rank on {backend}, state by "
+        f"state_shardings ({len(placements)} placement kinds {sorted(placements)}), batches "
+        f"by batch_shardings, rules active, against --mesh none: losses "
+        f"{meshed['losses']} / {plain['losses']}, bitwise {loss_bits}; {differ} of "
+        f"{len(leaves)} state leaves differ (largest |difference| {err:.3g}); bitwise "
+        f"{bitwise}; first differing op: {first}; the profiled repeat bitwise "
+        f"{profiled_same}; placing the state {place_ms:.1f} ms; card {smi}")
+    for i in range(MESH_STEPS):
+        def dev_text(r):
+            if r["device"][i] is None:
+                return "device time not measured (no device activity in the trace)"
+            return (f"device {r['device'][i]:.4f} ms in {r['events'][i]} events (busy "
+                    f"{r['device'][i] / r['walls'][i]:.3f})")
+        log(f"lm mesh step {i} (smollm-135m FULL, {tokens} tokens, remat block): mesh wall "
+            f"{meshed['walls'][i]:.1f} ms, {dev_text(meshed)}; --mesh none wall "
+            f"{plain['walls'][i]:.1f} ms, {dev_text(plain)}; wall ratio "
+            f"{meshed['walls'][i] / plain['walls'][i]:.2f}; card {smi}")
+    log(f"lm mesh peak memory of the 3 steps above what they were given: mesh "
+        f"{meshed['peak'] / 2**30:.2f} GiB, --mesh none {plain['peak'] / 2**30:.2f} GiB; most "
+        f"device time on the mesh's last step: "
+        + ", ".join(f"{name[:48]} {us / 1e3:.2f} ms in {count}"
+                    for us, count, name in meshed["top"][-1]))
+    log(f"lm mesh host profile (cProfile, one warm step; the profiler's own cost included): "
+        f"mesh {host_mesh['total']:.3f} s of host Python and C calls, of which "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in host_mesh["areas"].items())
+        + f"; --mesh none {host_plain['total']:.3f} s ("
+        + ", ".join(f"{k} {v:.3f} s" for k, v in host_plain["areas"].items())
+        + "); DTensor's costliest (time inside, and in itself): "
+        + "; ".join(f"{name} {cum:.3f} s ({tt:.3f} s) in {calls} calls from {by}"
+                    for cum, tt, calls, name, by in host_mesh["top"]))
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    try:
+        t0 = time.perf_counter()
+        ckpt.save(str(work / "mesh"), MESH_STEPS, meshed["state"])
+        save_s = time.perf_counter() - t0
+        ckpt.save(str(work / "plain"), MESH_STEPS, plain["state"])
+        t0 = time.perf_counter()
+        restored, meta = ckpt.restore(str(work / "mesh"), meshed["state"], shardings=state_sh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same_place = all(is_dtensor(r) and tuple(r.placements) == tuple(sh.placements)
+                         for r, sh in zip(tree.leaves(restored), tree.leaves(state_sh)))
+        same = all(torch.equal(gather(r), a) for r, a in zip(tree.leaves(restored),
+                                                             tree.leaves(full)))
+        names = sorted(os.listdir(work / "mesh" / f"step_{MESH_STEPS:08d}"))
+        files_same = names == sorted(os.listdir(work / "plain" / f"step_{MESH_STEPS:08d}")) and all(
+            (work / "mesh" / f"step_{MESH_STEPS:08d}" / f).read_bytes()
+            == (work / "plain" / f"step_{MESH_STEPS:08d}" / f).read_bytes() for f in names)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if not (same and same_place and meta["step"] == MESH_STEPS):
+        raise AssertionError(f"lm mesh (c): the restored state equal {same}, placements "
+                             f"{same_place}")
+    log(f"lm mesh (c) checkpoint of the mesh state ({len(names) - 1} leaves, saved whole by "
+        f"full_tensor() in {save_s:.2f} s) restored with shardings= onto the (1, 1) mesh in "
+        f"{restore_s:.2f} s: every leaf bitwise {same}, placements as state_shardings "
+        f"{same_place}; files byte for byte the --mesh none state's save {files_same}")
+    del init, placed, plain, meshed, full, restored
+    torch.cuda.empty_cache()
+    return {"bitwise": bitwise}
+
+
+def _under(rules, fn):
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.parallel.sharding import use_rules
+
+    with use_rules(rules), implicit_replication():
+        return fn()
+
+
+def run_mesh_phase(dev, card, smi) -> None:
+    """The LM stack on a DeviceMesh: (a) smollm-135m FULL trained on a
+    (1, 1) mesh against --mesh none, (b) the production meshes on the fake
+    process group, (c) a checkpoint of (a) restored with ``shardings=``,
+    (d) ``sqrt_rn`` on the card. No hand-written kernel launches."""
+    import torch
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    parts = {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        parts[name] = time.perf_counter() - t
+        return out
+
+    torch.cuda.empty_cache()
+    zero_launches()
+    child = start_production_meshes()
+    try:
+        part("train on the mesh", mesh_train, dev, smi)
+    except BaseException:
+        child.kill()
+        child.wait()
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    part("production meshes", check_production_meshes, child, smi)
+    part("sqrt_rn", check_sqrt_rn, dev, smi)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    if any(launches.values()):
+        raise AssertionError(f"lm mesh: a hand-written kernel launched: {launches}")
+    log(f"lm mesh phase: {time.perf_counter() - t0:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+        + f"); hand-written kernel launches {launches} (none lies on this path); NCCL across "
+        f"cards untried (one card); torch {torch.__version__}")
+
+
 def ptxas_kernels(text: str) -> list:
     """``(kernel, registers, spill store bytes)`` for each entry function in
     the compiler's ``-Xptxas=-v`` report."""
@@ -5753,6 +6227,7 @@ def main() -> int:
     phase("lm", run_lm_phase, dev, card, smi)
     phase("lm families", run_family_phase, dev, card, smi)
     phase("lm train", run_train_phase, dev, card, smi)
+    phase("lm mesh", run_mesh_phase, dev, card, smi)
     if min(launches.values()) < 1 or min(learn_launches.values()) < 1 \
             or frozen_launches["tick_fused"] < 1 or min(event_learn.values()) < 1 \
             or min(cont_launches[k] for k in ("tick_fused", "stdp_update", "telemetry")) < 1 \

@@ -5,13 +5,16 @@ counter (the generator is counter-based, :mod:`repro_torch.data.synthetic`),
 saved with every checkpoint; after a restart the pipeline resumes bit for
 bit. ``make_batch`` draws the reference's numpy batch and places it on one
 explicit device: the tokens as int32, the vlm's ``vision_embeds`` in the
-model dtype (``model.batch_specs``'). Placing each host's shard of a mesh
-(the reference's ``shardings=``) waits for the fleet scaffold.
+model dtype (``model.batch_specs``'). With ``shardings`` (a dict of
+:class:`~repro_torch.parallel.sharding.NamedSharding`, as
+``launch.steps.batch_shardings`` gives) each named entry is laid over its
+mesh as a DTensor: every rank draws the same global batch and keeps its own
+slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -19,6 +22,7 @@ from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.data import synthetic
 from repro_torch.models.common import torch_dtype
+from repro_torch.parallel.sharding import place
 
 
 @dataclasses.dataclass
@@ -35,9 +39,10 @@ class PipelineState:
 
 
 def make_batch(cfg: ModelConfig, shape: ShapeConfig, state: PipelineState, *,
-               device=None) -> Dict[str, torch.Tensor]:
-    """Next global batch for (cfg, shape) on ``device`` (None: the card);
-    advances no state (pure)."""
+               device=None, shardings: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+    """Next global batch for (cfg, shape) on ``device`` (None: the card), an
+    entry named in ``shardings`` laid over its mesh; advances no state
+    (pure)."""
     dev = _device.resolve(device)
     out = synthetic.token_batch(
         state.seed, state.step,
@@ -52,6 +57,8 @@ def make_batch(cfg: ModelConfig, shape: ShapeConfig, state: PipelineState, *,
             global_batch=shape.global_batch,
             n_tokens=cfg.n_vision_tokens, d_vision=cfg.d_vision)
         batch["vision_embeds"] = torch.from_numpy(ve).to(dev, torch_dtype(cfg.dtype))
+    if shardings:
+        batch = {k: place(v, shardings.get(k)) for k, v in batch.items()}
     return batch
 
 

@@ -10,28 +10,121 @@ reference's scan does. Then ``clip_by_global_norm``, the ``warmup_cosine``
 rate at the optimizer's step, and AdamW or Adafactor; the step returns a
 new :class:`TrainState` and writes none of the old one.
 
-The reference's sharding and struct builders (``param_shardings``,
-``opt_shardings``, ``state_shardings``, ``batch_shardings``,
-``cache_shardings``, ``state_structs``, ``params_structs``,
-``batch_structs``, ``cache_structs``) need the logical-axis rules of
-``parallel/sharding.py`` and wait for the fleet scaffold (ROADMAP A.7d).
+The sharding trees (``param_shardings`` ... ``cache_shardings``) map every
+leaf to its :class:`~repro_torch.parallel.sharding.NamedSharding` under a
+rules table (None without a mesh), and the struct builders
+(``state_structs`` ... ``cache_structs``) describe the trees with
+:class:`~repro_torch.models.common.ShapeDtypeStruct`s, allocating nothing.
+Where the reference hands its shardings to ``jax.jit(in_shardings=)`` and
+GSPMD lays the step out, :func:`place_state` lays a train state over its
+mesh as DTensors (``distribute_tensor`` of each leaf) and the same step
+runs on them, DTensor propagating the layouts op by op (ROADMAP §C).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.configs.base import ModelConfig, ParallelConfig, ShapeConfig
 from repro_torch.models import model as M
-from repro_torch.models.common import torch_dtype
+from repro_torch.models.common import ShapeDtypeStruct, map_specs, shape_structs, torch_dtype
 from repro_torch.optim import adafactor, adamw, clip, schedule
+from repro_torch.parallel.sharding import AxisRules, gather, is_dtensor, place
 from repro_torch.util import tree
 
 
 class TrainState(NamedTuple):
     params: Any
     opt: Any  # AdamWState | AdafactorState
+
+
+# ---------------------------------------------------------------------------
+# sharding trees
+
+
+def param_shardings(cfg: ModelConfig, rules: AxisRules):
+    return map_specs(lambda s: rules.sharding(s.axes), M.specs(cfg))
+
+
+def opt_shardings(cfg: ModelConfig, rules: AxisRules, optimizer: str):
+    specs = M.specs(cfg)
+    rep = rules.sharding(())
+    if optimizer == "adamw":
+        mom = param_shardings(cfg, rules)
+        return adamw.AdamWState(step=rep, m=mom, v=mom)
+    if optimizer == "adafactor":
+        vr = map_specs(lambda s: rules.sharding(s.axes[:-1]), specs)
+        vc = map_specs(lambda s: rules.sharding(s.axes[:-2] + s.axes[-1:])
+                       if len(s.axes) >= 2 else rep, specs)
+        return adafactor.AdafactorState(step=rep, vr=vr, vc=vc)
+    raise ValueError(optimizer)
+
+
+def state_shardings(cfg: ModelConfig, rules: AxisRules, pcfg: ParallelConfig):
+    return TrainState(
+        params=param_shardings(cfg, rules),
+        opt=opt_shardings(cfg, rules, pcfg.optimizer),
+    )
+
+
+def batch_shardings(cfg: ModelConfig, shape: ShapeConfig, rules: AxisRules):
+    return map_specs(lambda s: rules.sharding(s.axes), M.batch_specs(cfg, shape))
+
+
+def cache_shardings(cfg: ModelConfig, shape: ShapeConfig, rules: AxisRules):
+    specs = M.make_cache_specs(cfg, shape.global_batch, shape.seq_len)
+    return map_specs(lambda s: rules.sharding(s.axes), specs)
+
+
+def place_state(state, shardings):
+    """``state`` (a train state, or any tree) with each leaf laid over its
+    sharding's mesh as a DTensor (:func:`repro_torch.parallel.sharding.place`);
+    a ``None`` sharding leaves its leaf as it is. Every rank passes the same
+    global state; ``shardings=None`` returns ``state``. This stands in for the
+    reference's ``jax.jit(in_shardings=)``."""
+    return state if shardings is None else tree.map(place, state, shardings)
+
+
+# ---------------------------------------------------------------------------
+# struct builders (stand-ins that allocate nothing)
+
+
+def state_structs(cfg: ModelConfig, pcfg: ParallelConfig, rules: Optional[AxisRules]):
+    specs = M.specs(cfg)
+    p = shape_structs(specs, M.dtype_of(cfg), rules)
+    shard = (lambda axes: rules.sharding(axes)) if rules else (lambda axes: None)
+    step = ShapeDtypeStruct((), torch.int32, shard(()))
+    if pcfg.optimizer == "adamw":
+        sd = torch_dtype(pcfg.opt_state_dtype)
+        m = map_specs(lambda s: ShapeDtypeStruct(tuple(s.shape), sd, shard(s.axes)), specs)
+        return TrainState(params=p, opt=adamw.AdamWState(step=step, m=m, v=m))
+
+    def vr_struct(s):
+        return ShapeDtypeStruct(tuple(s.shape[:-1]), torch.float32, shard(s.axes[:-1]))
+
+    def vc_struct(s):
+        if len(s.shape) >= 2:
+            return ShapeDtypeStruct(tuple(s.shape[:-2] + s.shape[-1:]), torch.float32,
+                                    shard(s.axes[:-2] + s.axes[-1:]))
+        return ShapeDtypeStruct((), torch.float32, shard(()))
+
+    return TrainState(params=p, opt=adafactor.AdafactorState(
+        step=step, vr=map_specs(vr_struct, specs), vc=map_specs(vc_struct, specs)))
+
+
+def params_structs(cfg: ModelConfig, rules: Optional[AxisRules] = None):
+    return shape_structs(M.specs(cfg), M.dtype_of(cfg), rules)
+
+
+def batch_structs(cfg: ModelConfig, shape: ShapeConfig, rules: Optional[AxisRules]):
+    return shape_structs(M.batch_specs(cfg, shape), M.dtype_of(cfg), rules)
+
+
+def cache_structs(cfg: ModelConfig, shape: ShapeConfig, rules: Optional[AxisRules]):
+    return shape_structs(
+        M.make_cache_specs(cfg, shape.global_batch, shape.seq_len),
+        M.dtype_of(cfg), rules)
 
 
 def _value_and_grad(params, cfg: ModelConfig, batch, remat: str):
@@ -41,8 +134,13 @@ def _value_and_grad(params, cfg: ModelConfig, batch, remat: str):
     with torch.enable_grad():
         loss, metrics = M.loss_fn(tree.unflatten(params, leaves), cfg, batch, remat=remat)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    # A DTensor parameter's gradient may come back partial or laid out
+    # otherwise; it is reduced onto the parameter's own placements, so the
+    # optimizer works shard by shard and the new state keeps its layout.
+    grads = [g.redistribute(p.device_mesh, p.placements) if is_dtensor(p) else g
+             for p, g in zip(leaves, grads)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-            tree.unflatten(params, list(grads)))
+            tree.unflatten(params, grads))
 
 
 def make_train_step(
@@ -61,6 +159,16 @@ def make_train_step(
     accum_dtype = torch_dtype(pcfg.grad_accum_dtype)
 
     def train_step(state: TrainState, batch):
+        if not is_dtensor(tree.leaves(state.params)[0]):
+            return step(state, batch)
+        # On a mesh: the plain tensors the step makes (positions, masks,
+        # constants) are taken as replicated, and the metrics come back whole.
+        from torch.distributed.tensor.experimental import implicit_replication
+        with implicit_replication():
+            new, metrics = step(state, batch)
+        return new, {k: gather(v) for k, v in metrics.items()}
+
+    def step(state: TrainState, batch):
         if micro == 1:
             loss, metrics, grads = _value_and_grad(state.params, cfg, batch, pcfg.remat)
         else:

@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import Spec, apply_rope, rms_norm
+from repro_torch.parallel.sharding import constrain
 
 Q_CHUNK = 512
 NEG_INF = -1e30
@@ -86,10 +87,13 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
-def _project_q(x, p, cfg: ModelConfig, positions):
+def _project_q(x, p, cfg: ModelConfig, positions, *, shard_heads: bool):
     b, sq = x.shape[0], x.shape[1]
     hqp, dh = padded_q_heads(cfg), cfg.d_head
-    q = (x @ p["wq"]).reshape(b, sq, hqp, dh)
+    q = x @ p["wq"]
+    if shard_heads:
+        q = constrain(q, "batch", None, "act_heads")
+    q = q.reshape(b, sq, hqp, dh)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
     if cfg.pos_embed == "rope" and positions is not None:
@@ -110,10 +114,32 @@ def _project_kv(x, p, cfg: ModelConfig, kv_positions):
     return k, v
 
 
+@functools.lru_cache(maxsize=None)
+def _kv_runs(cfg: ModelConfig) -> Tuple[Tuple[int, int, int], ...]:
+    """``head_maps``' index map as runs ``(first kv head, kv heads, copies
+    of each)``: the map is non-decreasing, so each kv head's q heads are
+    contiguous."""
+    counts = np.bincount(head_maps(cfg)[0], minlength=cfg.n_kv_heads)
+    runs = []
+    for i, c in enumerate(counts.tolist()):
+        if runs and runs[-1][2] == c and runs[-1][0] + runs[-1][1] == i:
+            runs[-1] = (runs[-1][0], runs[-1][1] + 1, c)
+        elif c:
+            runs.append((i, 1, c))
+    return tuple(runs)
+
+
 def _expand_kv(k: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Gather each (padded) q head's kv head: (B,T,Hkv,Dh) -> (B,T,Hqp,Dh)."""
-    to_kv, _ = _head_tensors(cfg, k.device)
-    return k.index_select(2, to_kv)
+    """Gather each (padded) q head's kv head: (B,T,Hkv,Dh) -> (B,T,Hqp,Dh).
+
+    Copies by ``expand`` over runs of kv heads, the values of
+    ``index_select(2, to_kv)``: ``index_select``'s backward adds into a zero
+    tensor in place, which DTensor's dispatch gets wrong on a sharded
+    gradient (ROADMAP §C)."""
+    b, t, _, dh = k.shape
+    parts = [k[:, :, i:i + n, None].expand(b, t, n, c, dh).reshape(b, t, n * c, dh)
+             for i, n, c in _kv_runs(cfg)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=2)
 
 
 def _mask_heads(out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -183,10 +209,10 @@ def self_attention(
     b = x.shape[0]
     hkv, dh = cfg.n_kv_heads, cfg.d_head
     hqp = padded_q_heads(cfg)
-    h = rms_norm(x, p["ln"])
+    h = constrain(rms_norm(x, p["ln"]), "batch", "seq", "embed")
 
     if cache is None or cache_pos == "prefill":
-        q = _project_q(h, p, cfg, positions)
+        q = _project_q(h, p, cfg, positions, shard_heads=True)
         k, v = _project_kv(h, p, cfg, positions)
         ke, ve = _expand_kv(k, cfg), _expand_kv(v, cfg)
         sq = q.shape[1]
@@ -196,17 +222,21 @@ def self_attention(
             out = _sdpa(q, ke, ve, causal=True, q_offset=0)
         new_cache = None
         if cache_pos == "prefill":
-            new_cache = KVCache(k=k.reshape(b, sq, hkv * dh), v=v.reshape(b, sq, hkv * dh))
+            new_cache = KVCache(k=constrain(k.reshape(b, sq, hkv * dh), "batch", "kv_seq", None),
+                                v=constrain(v.reshape(b, sq, hkv * dh), "batch", "kv_seq", None))
     else:
-        q = _project_q(h, p, cfg, positions)
+        # Decode: q is tiny -> replicated over model; the cache is kv_seq-sharded.
+        q = _project_q(h, p, cfg, positions, shard_heads=False)
         k_new, v_new = _project_kv(h, p, cfg, positions)
         q_len, t = q.shape[1], cache.k.shape[1]
         pos = int(cache_pos)
         start = min(max(pos, 0), t - q_len)   # dynamic_update_slice clamps the start
         cache.k[:, start:start + q_len] = k_new.reshape(b, q_len, hkv * dh)
         cache.v[:, start:start + q_len] = v_new.reshape(b, q_len, hkv * dh)
-        ke = _expand_kv(cache.k.reshape(b, t, hkv, dh), cfg)
-        ve = _expand_kv(cache.v.reshape(b, t, hkv, dh), cfg)
+        k_flat = constrain(cache.k, "batch", "kv_seq", None)
+        v_flat = constrain(cache.v, "batch", "kv_seq", None)
+        ke = _expand_kv(k_flat.reshape(b, t, hkv, dh), cfg)
+        ve = _expand_kv(v_flat.reshape(b, t, hkv, dh), cfg)
         kpos = torch.arange(t, device=x.device)
         valid = (kpos[None, :] <= pos + q_len - 1).expand(b, t)
         out = _decode_sdpa(q, ke, ve, valid)
@@ -214,7 +244,10 @@ def self_attention(
 
     out = _mask_heads(out, cfg)
     out = out.reshape(b, -1, hqp * dh)
-    return x + out @ p["wo"], new_cache
+    if cache is None or cache_pos == "prefill":
+        out = constrain(out, "batch", None, "act_heads")
+    y = constrain(out @ p["wo"], "batch", "seq", "embed")
+    return x + y, new_cache
 
 
 def cross_attention(
@@ -230,7 +263,7 @@ def cross_attention(
     hkv, dh = cfg.n_kv_heads, cfg.d_head
     hqp = padded_q_heads(cfg)
     h = rms_norm(x, p["ln"])
-    q = _project_q(h, p, cfg, None)
+    q = _project_q(h, p, cfg, None, shard_heads=True)
     t = kv_cache.k.shape[1]
     ke = _expand_kv(kv_cache.k.reshape(b, t, hkv, dh), cfg)
     ve = _expand_kv(kv_cache.v.reshape(b, t, hkv, dh), cfg)

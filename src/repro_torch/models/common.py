@@ -3,7 +3,9 @@
 Counterpart of ``repro.models.common``. Parameters are plain trees (nested
 dicts and lists of tensors). Each leaf is described once by a :class:`Spec`
 carrying shape, logical axes and init style; ``init_params``,
-``zeros_params`` and ``param_count`` all derive from the same spec tree.
+``zeros_params``, ``param_count``, ``logical_axes`` and ``shape_structs``
+all derive from the same spec tree, so sharding annotations can never drift
+from the parameter structure.
 
 The draws are the port's own, from a ``torch.Generator`` (a deliberate
 difference, ROADMAP §C): the shapes, dtypes and std rule are the
@@ -21,7 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch import device as _device
 
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "int32": torch.int32}
 
 
 def torch_dtype(name) -> torch.dtype:
@@ -94,6 +96,33 @@ def stack_specs(specs, n: int, axis_name: Optional[str] = "groups"):
     """Prepend a stacking dim (the loop over groups) to every leaf spec."""
     return map_specs(
         lambda s: Spec((n,) + s.shape, (axis_name,) + s.axes, s.init, s.scale, s.dtype), specs)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeDtypeStruct:
+    """A leaf's shape, dtype and sharding, allocating nothing: the
+    reference's ``jax.ShapeDtypeStruct``. A frozen record, not a NamedTuple,
+    so that trees of them (``repro_torch.util.tree``) keep it as a leaf."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    sharding: Optional[object] = None   # parallel.sharding.NamedSharding
+
+
+def shape_structs(specs, dtype="bfloat16", rules=None):
+    """ShapeDtypeStructs (+ shardings if rules given) of a spec tree."""
+    def mk(s: Spec):
+        sharding = rules.sharding(s.axes) if rules is not None else None
+        return ShapeDtypeStruct(tuple(s.shape), torch_dtype(s.dtype or dtype), sharding)
+    return map_specs(mk, specs)
+
+
+def logical_axes(specs):
+    return map_specs(lambda s: s.axes, specs)
+
+
+def shapes_of(specs):
+    return map_specs(lambda s: s.shape, specs)
 
 
 def param_count(specs) -> int:

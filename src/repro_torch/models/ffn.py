@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import Spec, gelu, rms_norm, silu
+from repro_torch.parallel.sharding import constrain
 
 MOE_GROUP_TOKENS = 512
 DECODE_CAPACITY_FACTOR = 4.0  # serving headroom (the reference's; not dropless for every arch)
@@ -46,13 +47,14 @@ def dense_ffn_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict[str, S
 
 
 def dense_ffn(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
-    h = rms_norm(x, p["ln"])
+    h = constrain(rms_norm(x, p["ln"]), "batch", "seq", "embed")
     u = h @ p["w_up"]
     if "w_gate" in p:  # SwiGLU
         a = silu(h @ p["w_gate"]) * u
     else:              # non-gated GELU (starcoder2)
         a = gelu(u)
-    return x + a @ p["w_down"]
+    a = constrain(a, "batch", None, "act_mlp")
+    return x + constrain(a @ p["w_down"], "batch", "seq", "embed")
 
 
 def moe_ffn_specs(cfg: ModelConfig) -> Dict[str, Spec]:
@@ -129,7 +131,7 @@ def moe_ffn(
     e = cfg.n_experts
     cap = _capacity(cfg, g_tok, cap_factor or cfg.capacity_factor)
 
-    ht = h.reshape(n_groups, g_tok, d)
+    ht = constrain(h.reshape(n_groups, g_tok, d), "batch", None, "embed")
     r = route(ht, p["router"], cfg, cap)
     # A slot >= cap matches no column: overflow claims drop out.
     slots = torch.arange(cap, device=x.device, dtype=r.pos.dtype)
@@ -138,9 +140,11 @@ def moe_ffn(
     combine = dispatch * r.gate_e.to(x.dtype)[..., None]
 
     xe = torch.einsum("gtec,gtd->gecd", dispatch, ht)                  # (G, E, C, D)
+    xe = constrain(xe, "batch", "experts", None, "embed")
     gg = torch.einsum("gecd,edf->gecf", xe, p["w_gate"])
     uu = torch.einsum("gecd,edf->gecf", xe, p["w_up"])
     ye = torch.einsum("gecf,efd->gecd", silu(gg) * uu, p["w_down"])
+    ye = constrain(ye, "batch", "experts", None, "embed")
     y = torch.einsum("gtec,gecd->gtd", combine, ye).reshape(b, s, d)
 
     if "shared" in p:
@@ -151,4 +155,4 @@ def moe_ffn(
     frac = r.expert_mask.mean(dim=(0, 1))                              # fraction routed
     prob = r.probs.mean(dim=(0, 1))
     aux = e * torch.sum(frac * prob)
-    return x + y, aux
+    return x + constrain(y, "batch", "seq", "embed"), aux

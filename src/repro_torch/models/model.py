@@ -33,6 +33,7 @@ from repro_torch.models.common import (
     Spec, cross_entropy, init_params, param_count, rms_norm, sinusoidal_pos_embed, torch_dtype,
     zeros_params,
 )
+from repro_torch.parallel.sharding import constrain
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -83,17 +84,17 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
         x = params["embed"][tokens]
     if cfg.pos_embed == "sinusoidal":
         x = x + sinusoidal_pos_embed(positions, cfg.d_model).to(x.dtype)
-    return x
+    return constrain(x, "batch", "seq", "embed")
 
 
 def _head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final_ln"])
     if cfg.family == "audio":
         d, k, v = params["lm_head"].shape
-        return (x @ params["lm_head"].reshape(d, k * v)).reshape(*x.shape[:-1], k, v)
-    if cfg.tie_embeddings:
-        return x @ params["embed"].T
-    return x @ params["lm_head"]
+        logits = (x @ params["lm_head"].reshape(d, k * v)).reshape(*x.shape[:-1], k, v)
+        return constrain(logits, "batch", "seq", None, "act_vocab")
+    logits = x @ (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    return constrain(logits, "batch", "seq", "act_vocab")
 
 
 def forward(
@@ -115,7 +116,8 @@ def forward(
     x = _embed(params, cfg, tokens, positions)
     vision_proj = None
     if cfg.family == "vlm" and vision_embeds is not None:
-        vision_proj = vision_embeds @ params["vision_proj"]
+        vision_proj = constrain(vision_embeds @ params["vision_proj"],
+                                "batch", "vision_seq", "embed")
     x, new_caches, aux = tf.apply_stages(
         x, params["stages"], cfg,
         mode=mode, positions=positions, cache_pos=cache_pos, caches=caches,

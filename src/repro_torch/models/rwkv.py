@@ -22,6 +22,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import Spec, rms_norm, silu
+from repro_torch.parallel.sharding import constrain
 
 WKV_CHUNK = 256
 N_MIX = 5  # r, k, v, w, g
@@ -141,7 +142,7 @@ def rwkv_time_mix(
     """Returns (x + out, new_att_x, new_wkv)."""
     b, s, d = x.shape
     h_n, dk = rwkv_heads(cfg), cfg.rwkv_head_dim
-    xn = rms_norm(x, p["ln"])
+    xn = constrain(rms_norm(x, p["ln"]), "batch", "seq", "embed")
 
     xx = _shift(xn, state.att_x if state is not None else None)
     dx = xx - xn
@@ -177,7 +178,7 @@ def rwkv_time_mix(
 
     y = _group_norm(ys.reshape(b, s, d), p["gn_gamma"], p["gn_beta"], h_n)
     y = (y * g.float()).to(x.dtype)
-    out = y @ p["wo"]
+    out = constrain(y @ p["wo"], "batch", "seq", "embed")
 
     new_att_x = xn[:, -1] if return_state else None
     new_wkv = sT if return_state else None

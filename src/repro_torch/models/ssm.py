@@ -24,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import Spec, rms_norm, silu
+from repro_torch.parallel.sharding import constrain
 
 SSM_CHUNK = 256
 
@@ -125,9 +126,10 @@ def mamba_block(
     Decode: x is (B, 1, D) and ``state`` carries (conv, h).
     """
     bsz, s, d = x.shape
-    h_in = rms_norm(x, p["ln"])
+    h_in = constrain(rms_norm(x, p["ln"]), "batch", "seq", "embed")
     xi = h_in @ p["in_proj_x"]
     z = h_in @ p["in_proj_z"]
+    xi = constrain(xi, "batch", None, "d_inner")
 
     prepend = state.conv if state is not None else None
     xc = silu(_causal_conv(xi, p["conv_w"], p["conv_b"], prepend))
@@ -157,7 +159,7 @@ def mamba_block(
         y = ys.transpose(0, 1)                                         # (B,S,di)
     y = y.to(x.dtype) + p["d_skip"] * xc
     y = y * silu(z)
-    out = y @ p["out_proj"]
+    out = constrain(y @ p["out_proj"], "batch", "seq", "embed")
 
     new_state = None
     if return_state:

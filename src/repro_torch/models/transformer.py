@@ -44,6 +44,7 @@ from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import Spec, stack_specs
+from repro_torch.parallel.sharding import constrain
 
 
 @dataclasses.dataclass(frozen=True)
@@ -338,7 +339,7 @@ def apply_stages(
                     h, p_group[name], cfg, lp, mode=mode, positions=positions,
                     cache_pos=cache_pos, cache=c_group.get(name) if c_group is not None else None,
                     vision_proj=vision_proj)
-            return h, aux
+            return constrain(h, "batch", "seq", "embed"), aux
 
         if mode == "train":
             body = _rematted(group_body, remat)

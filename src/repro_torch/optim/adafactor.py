@@ -13,6 +13,7 @@ from typing import Any, NamedTuple, Tuple
 import torch
 
 from repro_torch.util import tree
+from repro_torch.util.numerics import sqrt_rn
 
 
 class AdafactorState(NamedTuple):
@@ -52,13 +53,13 @@ def update(grads, state: AdafactorState, params, *, lr, decay: float = 0.99,
             new_vr = decay * vr + (1 - decay) * g2.mean(dim=-1)
             new_vc = decay * vc + (1 - decay) * g2.mean(dim=-2)
             denom_r = new_vr / torch.clamp(new_vr.mean(dim=-1, keepdim=True), min=eps)
-            u = gf / (torch.sqrt(denom_r)[..., None] * torch.sqrt(new_vc)[..., None, :] + eps)
+            u = gf / (sqrt_rn(denom_r)[..., None] * sqrt_rn(new_vc)[..., None, :] + eps)
         else:
             new_vr = decay * vr + (1 - decay) * g2
             new_vc = vc
-            u = gf / (torch.sqrt(new_vr) + eps)
+            u = gf / (sqrt_rn(new_vr) + eps)
         # update clipping by RMS
-        rms = torch.sqrt(torch.mean(u * u) + eps)
+        rms = sqrt_rn(torch.mean(u * u) + eps)
         u = u / torch.clamp(rms / rms.new_full((), clip_threshold), min=1.0)
         newp = p.float() - lr * (u + weight_decay * p.float())
         return newp.to(p.dtype), new_vr, new_vc

@@ -15,6 +15,7 @@ from typing import Any, NamedTuple, Tuple
 import torch
 
 from repro_torch.util import tree
+from repro_torch.util.numerics import sqrt_rn
 
 
 class AdamWState(NamedTuple):
@@ -47,7 +48,7 @@ def update(grads, state: AdamWState, params, *, lr, b1: float = 0.9, b2: float =
         vf = b2 * v.float() + (1 - b2) * gf * gf
         mhat = mf / bc1
         vhat = vf / bc2
-        delta = mhat / (torch.sqrt(vhat) + eps) + weight_decay * p.float()
+        delta = mhat / (sqrt_rn(vhat) + eps) + weight_decay * p.float()
         newp = (p.float() - lr * delta).to(p.dtype)
         return newp, mf.to(m.dtype), vf.to(v.dtype)
 

@@ -11,10 +11,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.util import tree
+from repro_torch.util.numerics import sqrt_rn
 
 
 def global_norm(grads) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(x.float() ** 2) for x in tree.leaves(grads)))
+    return sqrt_rn(sum(torch.sum(x.float() ** 2) for x in tree.leaves(grads)))
 
 
 def clip_by_global_norm(grads, max_norm: float):

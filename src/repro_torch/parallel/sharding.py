@@ -1,0 +1,269 @@
+"""Logical-axis sharding rules (MaxText-style), on ``torch.distributed`` meshes.
+
+Counterpart of ``repro.parallel.sharding``. Every parameter and activation
+in the model code is annotated with *logical* axis names ("embed", "mlp",
+"q_heads", ...). A rules table maps logical names to mesh axes; changing the
+table lays the same model over a mesh differently, and sharding choices never
+leak into model code.
+
+A spec is what the reference's ``PartitionSpec`` holds: one entry per tensor
+dim, each ``None``, a mesh-axis name or a tuple of them. On a
+``torch.distributed.device_mesh.DeviceMesh`` (named dims) a spec becomes
+DTensor placements, one per mesh dim: ``Shard(d)`` where tensor dim ``d``'s
+entry names that mesh dim, ``Replicate()`` elsewhere and on a mesh dim of
+size 1 (which splits nothing, as in JAX; it also spares older DTensor
+releases the reshapes of a "sharded" dim they refuse). A tensor dim over
+several mesh dims, as ``("pod", "data")`` for ``batch``, is split over them
+in mesh-dim order (major first), so the rank at mesh coordinate ``(p, d)``
+holds chunk ``p * |data| + d``: the slice JAX gives the device at the same
+place of a row-major ``jax.make_mesh``. An entry that names mesh dims out of
+the mesh's order would need DTensor's strided shards and is refused.
+
+Where the reference has ``jax.lax.with_sharding_constraint`` and GSPMD
+propagates layouts through ``jit``, the port has DTensor: :func:`constrain`
+redistributes a DTensor, and :func:`place` lays a global tensor over a mesh
+(``distribute_tensor``), which the step's state and batch builders use.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
+
+import torch
+
+MeshAxes = Union[None, str, Tuple[str, ...]]
+PartitionSpec = Tuple[MeshAxes, ...]   # one entry per tensor dim
+
+
+# Baseline logical->mesh mapping for a (data, model) mesh; make_rules swaps
+# "batch" to ("pod","data") on the multi-pod mesh and per-arch/per-shape
+# overrides are applied on top (see configs + launch/mesh.make_rules).
+BASE_RULES: Dict[str, MeshAxes] = {
+    # activations
+    "batch": "data",
+    "seq": None,
+    "kv_seq": None,
+    "embed": None,
+    "act_mlp": "model",
+    "act_heads": "model",
+    "act_vocab": "model",
+    # params -- dense
+    "embed_param": None,      # fsdp: "data"
+    "vocab": "model",
+    "mlp": "model",
+    "q_heads": "model",
+    "kv_heads": "model",
+    "head_dim": None,
+    "qkv_in": None,           # fsdp: "data"
+    "mlp_in": None,           # fsdp: "data"
+    "norm": None,
+    # params -- moe
+    "experts": "model",
+    "expert_in": None,        # fsdp: "data"
+    "expert_mlp": None,
+    # params -- ssm / rwkv
+    "d_inner": "model",
+    "d_state": None,
+    "d_conv": None,
+    "rwkv_heads": "model",
+    "rwkv_key": None,
+    "rwkv_value": None,
+    "rwkv_lora": None,
+    # vlm / audio
+    "vision_seq": None,
+    "vision_embed": None,
+    "codebooks": None,
+    # stacking
+    "layers": None,
+    "groups": None,
+    # snn -- destination (fan-in/column) sharding: postsynaptic columns
+    # shard, the presynaptic axis replicates, so every output column is
+    # reduced over its full fan-in on one rank (bit-exact; see
+    # repro_torch.parallel.snn_sharding and DESIGN.md §15).
+    "neurons_pre": None,
+    "neurons_post": "model",
+    "inputs": None,
+    "time": None,
+    "delay": None,
+}
+
+
+def _flat(entry: MeshAxes) -> Tuple[str, ...]:
+    return (entry,) if isinstance(entry, str) else tuple(entry or ())
+
+
+def placements_of(mesh, spec: Sequence[MeshAxes]) -> tuple:
+    """DTensor placements of ``spec`` on ``mesh``: for each mesh dim,
+    ``Shard(d)`` if tensor dim ``d``'s entry names it and the mesh dim has
+    more than one rank, else ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(mesh.mesh_dim_names or ())
+    sizes = tuple(mesh.mesh.shape)
+    out = [Replicate() for _ in names]
+    for d, entry in enumerate(spec):
+        axes = _flat(entry)
+        idx = []
+        for a in axes:
+            if a not in names:
+                raise ValueError(f"spec entry {entry!r} names mesh axis {a!r}; "
+                                 f"the mesh has {names}")
+            idx.append(names.index(a))
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {entry!r} names mesh axes out of the mesh's order "
+                             f"{names}: DTensor would split it minor-first")
+        for i in idx:
+            if sizes[i] > 1:
+                out[i] = Shard(d)
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh: the reference's ``jax.sharding.NamedSharding``."""
+
+    mesh: object   # torch.distributed.device_mesh.DeviceMesh
+    spec: PartitionSpec
+
+    @property
+    def placements(self) -> tuple:
+        return placements_of(self.mesh, self.spec)
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisRules:
+    mapping: Mapping[str, MeshAxes]
+    mesh: Optional[object] = None   # torch.distributed.device_mesh.DeviceMesh
+
+    def spec(self, axes: Sequence[Optional[str]]) -> PartitionSpec:
+        entries = []
+        used = set()
+        for a in axes:
+            if a is None:
+                entries.append(None)
+                continue
+            if a not in self.mapping:
+                raise KeyError(f"unknown logical axis {a!r}")
+            e = self.mapping[a]
+            # A mesh axis may appear at most once per spec; when rule
+            # overrides collide (e.g. Megatron-SP seq="model" meeting an
+            # interior heads="model" constraint), earlier dims win.
+            flat = _flat(e)
+            if any(f in used for f in flat):
+                entries.append(None)
+                continue
+            used.update(flat)
+            entries.append(e)
+        return tuple(entries)
+
+    def sharding(self, axes: Sequence[Optional[str]]) -> Optional[NamedSharding]:
+        """None without a mesh; else the spec of ``axes`` on the mesh, whose
+        ``placements`` are the DTensor placements."""
+        if self.mesh is None:
+            return None
+        return NamedSharding(self.mesh, self.spec(axes))
+
+    def placements(self, axes: Sequence[Optional[str]]) -> Optional[tuple]:
+        s = self.sharding(axes)
+        return None if s is None else s.placements
+
+    def with_overrides(self, overrides: Mapping[str, MeshAxes]) -> "AxisRules":
+        m = dict(self.mapping)
+        m.update(overrides)
+        return AxisRules(mapping=m, mesh=self.mesh)
+
+    def with_mesh(self, mesh) -> "AxisRules":
+        return AxisRules(mapping=self.mapping, mesh=mesh)
+
+
+_ctx = threading.local()
+
+
+def current_rules() -> Optional[AxisRules]:
+    return getattr(_ctx, "rules", None)
+
+
+@contextlib.contextmanager
+def use_rules(rules: Optional[AxisRules]):
+    prev = current_rules()
+    _ctx.rules = rules
+    try:
+        yield rules
+    finally:
+        _ctx.rules = prev
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def place(x: torch.Tensor, sharding: Optional[NamedSharding]) -> torch.Tensor:
+    """``x``, a global tensor that every rank holds alike, laid over
+    ``sharding``'s mesh: each rank keeps its own slice (``distribute_tensor``
+    with no source rank, so nothing is sent). A DTensor is redistributed.
+    ``None`` returns ``x``. The reference's ``jax.device_put(x, sharding)``."""
+    if sharding is None:
+        return x
+    from torch.distributed.tensor import distribute_tensor
+
+    if is_dtensor(x):
+        return x.redistribute(sharding.mesh, sharding.placements)
+    return distribute_tensor(x.detach(), sharding.mesh, sharding.placements,
+                             src_data_rank=None)
+
+
+def gather(x):
+    """A DTensor's full value on every rank (``full_tensor()``); any other
+    value as it is."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def constrain(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
+    """Apply a sharding constraint if rules with a mesh are active; else
+    return ``x`` itself.
+
+    Under a mesh a DTensor is redistributed to the spec's placements, which
+    moves data and changes no number (a ``Partial`` sum is reduced). A plain
+    tensor under a mesh is taken as replicated on every rank
+    (``DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim)``: every rank
+    must hold the same value, as the reference's trace-time constants are)
+    and then redistributed, so it leaves as a DTensor.
+    """
+    rules = current_rules()
+    if rules is None or rules.mesh is None:
+        return x
+    if len(axes) != x.ndim:
+        raise ValueError(f"rank mismatch: {len(axes)} axes for shape {tuple(x.shape)}")
+    from torch.distributed.tensor import DTensor, Replicate
+
+    placements = rules.placements(axes)
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, rules.mesh, [Replicate()] * rules.mesh.ndim,
+                               run_check=False)
+    if tuple(x.placements) == placements:
+        return x
+    return x.redistribute(rules.mesh, placements)
+
+
+def fsdp_overrides() -> Dict[str, MeshAxes]:
+    """ZeRO-3-style parameter sharding for >=15B archs: the non-"model"
+    major axis of every large matrix also shards over "data"."""
+    return {
+        "embed_param": "data",
+        "qkv_in": "data",
+        "mlp_in": "data",
+        "expert_in": "data",
+    }
+
+
+def multipod_overrides() -> Dict[str, MeshAxes]:
+    """Batch additionally shards over the pod axis (pure-DP across pods)."""
+    return {"batch": ("pod", "data")}
+
+
+def seq_shard_overrides(data_axes: MeshAxes = "data") -> Dict[str, MeshAxes]:
+    """long_500k (global_batch=1): shard sequence instead of batch."""
+    return {"batch": None, "seq": data_axes, "kv_seq": data_axes}

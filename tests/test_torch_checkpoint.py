@@ -124,8 +124,10 @@ def test_restore_casts_to_tree_likes_dtype_and_round_trips_bf16(tmp_path):
         ckpt.restore(str(tmp_path), {"w": torch.zeros(5, 3), "step": t["step"]})
     with pytest.raises(KeyError, match="missing leaf"):
         ckpt.restore(str(tmp_path), {"v": torch.zeros(3, 5)})
-    with pytest.raises(NotImplementedError, match="A.7d"):
+    with pytest.raises(TypeError, match="not a NamedSharding"):
         ckpt.restore(str(tmp_path), t, shardings=t)
+    unsharded, _ = ckpt.restore(str(tmp_path), t, shardings={"w": None, "step": None})
+    assert all(torch.equal(unsharded[k], back[k]) for k in t)
 
 
 # ---------------------------------------------------------------------------

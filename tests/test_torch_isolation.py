@@ -63,7 +63,9 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
             "repro_torch.checkpoint.checkpointer", "repro_torch.runtime",
             "repro_torch.runtime.fault_tolerance", "repro_torch.runtime.straggler",
             "repro_torch.launch.steps", "repro_torch.launch.train",
-            "repro_torch.examples.train_lm", "repro_torch.util.tree"} <= set(mods)
+            "repro_torch.examples.train_lm", "repro_torch.util.tree",
+            "repro_torch.parallel.sharding", "repro_torch.runtime.elastic",
+            "repro_torch.util.numerics"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

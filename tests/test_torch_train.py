@@ -427,12 +427,15 @@ def test_an_injected_step_failure_is_recovered(tmp_path, monkeypatch):
 
 
 def test_cli_refusals_and_the_references_snn_error():
-    """``--mesh single|multi`` exits naming A.7d; an SNN arch fails in
+    """``--mesh single|multi`` in a world of one rank exits naming the 256 /
+    512 ranks the production mesh needs; an SNN arch fails in
     ``stage_plans`` as the reference's CLI does; without ``--device`` and
     without a card the CLI raises, it does not train on the CPU."""
-    for mesh in ("single", "multi"):
-        with pytest.raises(SystemExit, match="A.7d"):
-            train_mod.main(["--arch", "smollm-135m", "--smoke", "--mesh", mesh])
+    for mesh, ranks in (("single", 256), ("multi", 512)):
+        with pytest.raises(SystemExit, match=f"--mesh {mesh}: .* needs {ranks} ranks; "
+                                             f"this world has 1"):
+            train_mod.main(["--arch", "smollm-135m", "--smoke", "--mesh", mesh,
+                            "--device", "cpu"])
     with pytest.raises(ValueError, match="unknown family 'snn'") as want:
         j_train.main(["--arch", "snn-fused", "--smoke", "--steps", "1"])
     with pytest.raises(ValueError) as got:
@@ -441,6 +444,20 @@ def test_cli_refusals_and_the_references_snn_error():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="NVIDIA GPU"):
             train_mod.main(["--arch", "smollm-135m", "--smoke", "--steps", "1"])
+
+
+def test_rerunning_a_finished_run_raises_as_the_reference(tmp_path):
+    """The reference's fault, which the port keeps (ROADMAP §C): a second
+    run on a ``--ckpt-dir`` whose newest checkpoint is the last step
+    resumes there, takes no step, and fails reading ``losses[0]``."""
+    argv = ["--arch", "smollm-135m", "--smoke", "--steps", "2", "--seq-len", "16",
+            "--global-batch", "2", "--ckpt-every", "2", "--log-every", "100"]
+    for main, extra, d in ((j_train.main, [], tmp_path / "reference"),
+                           (train_mod.main, ["--device", "cpu"], tmp_path / "port")):
+        assert len(main([*argv, "--ckpt-dir", str(d), *extra])) == 2
+        assert ckpt.all_steps(str(d)) == [2]
+        with pytest.raises(IndexError, match="list index out of range"):
+            main([*argv, "--ckpt-dir", str(d), *extra])
 
 
 def test_cli_defaults_equal_the_references():

@@ -1,0 +1,167 @@
+"""Rank bodies of ``tests/test_torch_mesh_train.py``: what each rank of a gloo
+world runs on a ``DeviceMesh`` of the LM stack.
+
+Each function is started on every rank by ``repro_torch.launch.mesh.run_world``
+(which passes the world's ``SNNMesh`` first; these bodies build their own
+``DeviceMesh``) and returns host values that the test asserts on. Every rank
+starts from the same global values, passed in as numpy trees, so nothing here
+imports the reference.
+"""
+import os
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch import checkpoint as ckpt
+from repro_torch import interop
+from repro_torch.configs import get_bundle
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.data import pipeline
+from repro_torch.launch import mesh as launch_mesh
+from repro_torch.launch import steps
+from repro_torch.optim import adamw
+from repro_torch.parallel.sharding import gather, use_rules
+from repro_torch.util import tree
+
+AXES = ("data", "model")
+STEP_KW = dict(peak_lr=1e-3, warmup_steps=2, total_steps=3)
+
+
+def shape_of(dims):
+    return ShapeConfig("test", "train", dims[0], dims[1])
+
+
+def port_state(arch, params_np):
+    """The SMOKE train state (AdamW, the CLI's knobs) from numpy parameters."""
+    cfg = get_bundle(arch).smoke
+    pcfg = get_bundle(arch).parallel_for("train_4k").replace(microbatches=1)
+    params = interop.lm_params_from_numpy(params_np, cfg, "cpu")
+    return cfg, pcfg, steps.TrainState(params=params, opt=adamw.init(
+        params, getattr(torch, pcfg.opt_state_dtype)))
+
+
+def slices(x):
+    """A DTensor's local shard with its global offset and shape."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    local_shape, offset = compute_local_shape_and_global_offset(
+        x.shape, x.device_mesh, x.placements)
+    return {"local": x.to_local().clone(), "offset": tuple(offset),
+            "local_shape": tuple(local_shape), "placements": [str(p) for p in x.placements]}
+
+
+def _run_steps(arch, params_np, dims, mesh_shape, n_steps):
+    """``n_steps`` of the sharded train step on a ``mesh_shape`` mesh, the
+    state placed by ``state_shardings``, each batch by ``batch_shardings``,
+    the rules active."""
+    cfg, pcfg, state = port_state(arch, params_np)
+    shape = shape_of(dims)
+    mesh = launch_mesh.make_mesh(mesh_shape, AXES, device="cpu")
+    rules = launch_mesh.make_rules(mesh, cfg, shape, pcfg)
+    state = steps.place_state(state, steps.state_shardings(cfg, rules, pcfg))
+    bsh = steps.batch_shardings(cfg, shape, rules)
+    step = steps.make_train_step(cfg, pcfg, **STEP_KW)
+    metrics = []
+    with use_rules(rules):
+        for i in range(n_steps):
+            batch = pipeline.make_batch(cfg, shape, pipeline.PipelineState(17, i),
+                                        device="cpu", shardings=bsh)
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+    return state, metrics
+
+
+def _train(out, train_cases, mesh_shape):
+    """``train_cases``: ``(arch, params_np, dims)`` -> 3 sharded steps; the
+    metrics, the placements, and on rank 0 the gathered state."""
+    for arch, params_np, dims in train_cases:
+        state, metrics = _run_steps(arch, params_np, dims, mesh_shape, 3)
+        full = tree.map(gather, state)
+        out["train"][arch] = {
+            "metrics": metrics,
+            "placements": [str(tuple(p.placements)) for p in tree.leaves(state.params)],
+            "state": interop.train_state_to_numpy(full) if dist.get_rank() == 0 else None,
+        }
+
+
+def world4(_snn_mesh, ckpt_case, batch_case, train_cases, refusals, out_dir):
+    """Everything the 4-rank (2, 2) world runs, in one world:
+
+    * ``ckpt_case``: ``(arch, params_np)`` -> a train state placed by
+      ``state_shardings`` and saved to ``out_dir/sharded`` (every rank
+      takes part, rank 0 writes); each leaf's local slice;
+    * ``batch_case``: ``(arch, dims)`` -> ``make_batch(shardings=)``, local
+      slices and gathered;
+    * ``train_cases``: as :func:`_train`;
+    * ``refusals``: ``(arch, params_np, dims)`` -> the error a sharded step
+      raises, or None.
+    """
+    torch.set_num_threads(1)
+    out = {"rank": dist.get_rank(), "train": {}, "refusals": {}}
+    arch, params_np = ckpt_case
+    cfg, pcfg, state = port_state(arch, params_np)
+    mesh = launch_mesh.make_mesh((2, 2), AXES, device="cpu")
+    rules = launch_mesh.make_rules(mesh, cfg, shape_of((16, 4)), pcfg)
+    placed = steps.place_state(state, steps.state_shardings(cfg, rules, pcfg))
+    ckpt.save(os.path.join(out_dir, "sharded"), 3, placed, extra_meta={"world": 4})
+    out["ckpt_slices"] = [slices(x) for x in tree.leaves(placed)]
+
+    arch, dims = batch_case
+    cfg = get_bundle(arch).smoke
+    shape = shape_of(dims)
+    rules = launch_mesh.make_rules(mesh, cfg, shape,
+                                   get_bundle(arch).parallel_for("train_4k"))
+    batch = pipeline.make_batch(cfg, shape, pipeline.PipelineState(17, 5), device="cpu",
+                                shardings=steps.batch_shardings(cfg, shape, rules))
+    out["batch"] = {k: {"slice": slices(v), "full": gather(v).numpy()} for k, v in batch.items()}
+
+    _train(out, train_cases, (2, 2))
+    for arch, params_np, dims in refusals:
+        try:
+            _run_steps(arch, params_np, dims, (2, 2), 1)
+            out["refusals"][arch] = None
+        except RuntimeError as e:
+            out["refusals"][arch] = str(e)
+    return out
+
+
+def world2(_snn_mesh, train_cases, arch, params_np, ckpt_dir, timeout=240.0):
+    """The 2-rank (1, 2) world, run beside the 4-rank one: ``train_cases``
+    as :func:`_train`, then the 4-rank checkpoint restored onto the mesh
+    once it is written: each leaf's local slice, and the gathered state."""
+    torch.set_num_threads(1)
+    out = {"rank": dist.get_rank(), "train": {}}
+    _train(out, train_cases, (1, 2))
+    deadline = time.monotonic() + timeout
+    while ckpt.latest_step(ckpt_dir) is None:
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no checkpoint under {ckpt_dir} after {timeout:.0f} s")
+        time.sleep(0.1)
+    cfg, pcfg, like = port_state(arch, params_np)
+    mesh = launch_mesh.make_mesh((1, 2), AXES, device="cpu")
+    rules = launch_mesh.make_rules(mesh, cfg, shape_of((16, 4)), pcfg)
+    restored, meta = ckpt.restore(ckpt_dir, like,
+                                  shardings=steps.state_shardings(cfg, rules, pcfg))
+    out.update(slices=[slices(x) for x in tree.leaves(restored)],
+               state=interop.train_state_to_numpy(tree.map(gather, restored)), meta=meta)
+    return out
+
+
+def one_device_steps(arch, params_np, dims, n_steps=3):
+    """The same steps on one device, no mesh, no rules (in the test's own
+    process)."""
+    cfg, pcfg, state = port_state(arch, params_np)
+    shape = shape_of(dims)
+    step = steps.make_train_step(cfg, pcfg, **STEP_KW)
+    metrics = []
+    for i in range(n_steps):
+        batch = pipeline.make_batch(cfg, shape, pipeline.PipelineState(17, i), device="cpu")
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return state, metrics
+
+
+def numpy_tree(t):
+    return tree.map(lambda a: np.asarray(a), t)
