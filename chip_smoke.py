@@ -320,7 +320,20 @@ script on any mismatch:
    ``sqrt_rn`` on the card against ``numpy.sqrt`` on 2^20 float32 draws at
    scales 1e-6, 1 and 1e3: 0 misses. Every kernel count is 0 across the
    phase.
-19. a JSON line of the kernels (the six ported ones and the telemetry
+19. dry run: (a) ``python -m repro_torch.launch.dryrun`` on the card's
+   device type, each cell in a child process of its own with its own
+   timeout, all started together: qwen3-0.6b decode_32k on the (16, 16)
+   and (2, 16, 16) meshes, smollm-135m train_4k and moonshot-v1-16b-a3b
+   decode_32k on (16, 16), and snn-64k; each artifact's status, per-device
+   FLOPs, argument and temp bytes and trace seconds are printed, and a cell
+   that fails fails the phase. (b) The cost model against a step the card
+   runs: smollm-135m FULL at 8 x 64 tokens, remat ``block``, one device;
+   the step traced on fake tensors (the recorder's peak: arguments plus
+   the traced temp) against ``torch.cuda.max_memory_allocated`` of the
+   real step (within 10 %), and the traced FLOPs against the FLOPs of the
+   real step's own ops, counted by the same rules (equal). Every kernel
+   count is 0 across the phase.
+20. a JSON line of the kernels (the six ported ones and the telemetry
    kernel), the card's name and power limit, and the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -431,14 +444,33 @@ def device_ms(fn, runs: int = RUNS) -> float:
                  if e.device_type == DeviceType.CUDA)
         if us > 0:
             if attempt < 2 and not hold_trace(prof, seen):
-                TRACES["retry"].append(fn)   # profiled once more by the analysis phase
+                TRACES["retry"].append(frozen(fn))   # profiled once more by the analysis phase
             return us / runs / 1e3
         if attempt == 1 and seen:
-            TRACES["retry"].append(fn)   # profiled once more by the analysis phase
+            TRACES["retry"].append(frozen(fn))   # profiled once more by the analysis phase
     ms = events_ms(fn, runs)
     log(f"device_ms: torch.profiler recorded no device time in 3 traces; timed by CUDA "
         f"events behind a device sleep instead: {ms:.4f} ms")
     return ms
+
+def frozen(fn):
+    """``fn`` bound to the values its closure holds now: a lambda made in a
+    loop reads the loop's variables when it is called, and a call kept for
+    a later phase must run with this iteration's."""
+    import types
+
+    def copy(cell):
+        try:
+            return types.CellType(cell.cell_contents)
+        except ValueError:        # not bound yet: the enclosing scope's own cell
+            return cell
+
+    cells = getattr(fn, "__closure__", None)
+    if not cells:
+        return fn
+    return types.FunctionType(fn.__code__, fn.__globals__, fn.__name__, fn.__defaults__,
+                              tuple(copy(c) for c in cells))
+
 
 # The profiled kernel launches held to their descriptors (the analysis
 # phase): keys checked, launches checked, mismatches, and the calls whose
@@ -6112,6 +6144,200 @@ def run_mesh_phase(dev, card, smi) -> None:
         f"cards untried (one card); torch {torch.__version__}")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the dry run and its cost model
+
+DRYRUN_CELLS = (("qwen3-0.6b", "decode_32k", False), ("qwen3-0.6b", "decode_32k", True),
+                ("smollm-135m", "train_4k", False), ("moonshot-v1-16b-a3b", "decode_32k", False),
+                ("snn-64k", None, False))
+DRYRUN_TWICE = ("smollm-135m", "train_4k", False)   # traced again: the counts must repeat
+DRYRUN_TIMEOUT = 240          # seconds a dry-run child may take
+MEMORY_TOLERANCE = 0.10       # the traced peak against max_memory_allocated
+CHUNKED_SEQ = 4096            # tokens of the trip-count check: 8 query chunks of attention
+
+
+def start_dryrun_cells(out_dir: str) -> list:
+    """(a), started: one dry-run child per cell, all at once, on the card's
+    device type (the CLI's default)."""
+    from repro_torch.launch.dryrun import cell_name
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    children = []
+    for arch, shape, multi, tag in [c + ("",) for c in DRYRUN_CELLS] + [DRYRUN_TWICE + ("again",)]:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+               "--out", out_dir]
+        cmd += ["--shape", shape] if shape else []
+        cmd += ["--multi-pod"] if multi else []
+        cmd += ["--tag", tag] if tag else []
+        name = cell_name(arch, shape or "tick_rollout_b256_t8", multi) + (f".{tag}" if tag else "")
+        proc = subprocess.Popen(cmd, cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        children.append((name, proc, time.perf_counter()))
+    return children
+
+
+def check_dryrun_cells(children, out_dir: str, smi) -> None:
+    """(a), finished: every child's artifact ``ok``; a child that fails or
+    outlasts ``DRYRUN_TIMEOUT`` fails the phase, naming its cell. The cell
+    traced twice must give the same counts and peak both times."""
+    from repro_torch.launch.dryrun import cell_name
+
+    failed, done = [], {}
+    for name, proc, t0 in children:
+        try:
+            out, err = proc.communicate(timeout=max(1.0, DRYRUN_TIMEOUT - (
+                time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+            failed.append(f"{name}: no end within {DRYRUN_TIMEOUT} s")
+            continue
+        wall = time.perf_counter() - t0
+        path = Path(out_dir) / f"{name}.json"
+        if proc.returncode != 0 or not path.exists():
+            failed.append(f"{name}: rc {proc.returncode}: {err[-2500:]}")
+            continue
+        rec = json.loads(path.read_text())
+        hc, mem = rec["hlo_cost"], rec["memory_analysis"]
+        if rec["status"] != "ok":
+            failed.append(f"{name}: status {rec['status']}")
+            continue
+        done[name] = (hc, mem["temp_size_in_bytes"])
+        log(f"dry run {name} (device {rec['device']}, {rec['n_chips']} fake ranks, torch "
+            f"{_torch_version()}): status {rec['status']}; per device {hc['flops_per_device']:,.0f}"
+            f" FLOPs, {hc['dot_bytes_per_device']:,.0f} dot bytes, collectives "
+            f"{ {k: int(v) for k, v in hc['collective_bytes_per_device'].items()} }; argument "
+            f"{mem['argument_size_in_bytes']:,} B, temp {mem['temp_size_in_bytes']:,} B; trace "
+            f"{rec['timings']['trace_s']:.1f} s, child wall {wall:.1f} s; card {smi}")
+    twice = cell_name(*DRYRUN_TWICE)
+    if twice in done and twice + ".again" in done:
+        same = done[twice] == done[twice + ".again"]
+        log(f"dry run {twice} traced twice in two processes: FLOPs, dot bytes, collective "
+            f"bytes and temp {'the same' if same else 'DIFFER'}")
+        if not same:
+            failed.append(f"{twice}: two traces differ: {done[twice]} against "
+                          f"{done[twice + '.again']}")
+    if failed:
+        raise AssertionError("dry run: " + "; ".join(failed))
+
+
+def _torch_version() -> str:
+    import torch
+
+    return torch.__version__
+
+
+def check_cost_model(dev, smi) -> None:
+    """(b): smollm-135m FULL's train step at ``TRAIN_SHAPE`` (remat
+    ``block``, one device) traced on fake tensors against the same step run
+    on the card: the recorder's peak (arguments + traced temp) within
+    ``MEMORY_TOLERANCE`` of ``max_memory_allocated`` less the bytes resident
+    before the step that are not its arguments, and the traced FLOPs equal
+    to those of the real step's ops (the recorder pushed as a dispatch mode
+    over the real tensors). Then the trip counts on the card's torch: the
+    step at ``CHUNKED_SEQ`` tokens traced with the shortcut and with every
+    loop step, the same FLOPs."""
+    import torch
+
+    from repro_torch.configs import get_bundle
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import pipeline
+    from repro_torch.launch import dryrun, hlo_cost, steps
+
+    bundle = get_bundle("smollm-135m")
+    cfg = bundle.model
+    pcfg = bundle.parallel_for("train_4k").replace(microbatches=1, remat="block")
+    shape = ShapeConfig("timed", "train", *TRAIN_SHAPE)
+    step = steps.make_train_step(cfg, pcfg, peak_lr=1e-3, warmup_steps=1, total_steps=10)
+    t0 = time.perf_counter()
+    structs = (steps.state_structs(cfg, pcfg, None), steps.batch_structs(cfg, shape, None))
+    _, traced, fake_args = dryrun.trace(step, structs, dev)
+    arg_bytes = sum(t.numel() * t.element_size() for t in hlo_cost.tensors(fake_args))
+    traced_peak = arg_bytes + traced.peak_bytes
+    traced_flops = hlo_cost.analyze(traced).flops
+    trace_s = time.perf_counter() - t0
+
+    # The trip counts on this torch: the step at 8 query chunks a layer
+    # (remat's recomputation on autograd's device thread), the shortcut
+    # against every chunk traced.
+    t1 = time.perf_counter()
+    chunked = ShapeConfig("chunked", "train", CHUNKED_SEQ, 1)
+    mode = hlo_cost.FakeRecorder()
+    cargs = tuple(dryrun._fake_tree(st, mode, dev) for st in (
+        steps.state_structs(cfg, pcfg, None), steps.batch_structs(cfg, chunked, None)))
+    chunk_flops = [hlo_cost.analyze(hlo_cost.record(step, *cargs, fake_mode=mode,
+                                                    shortcut=shortcut)[1]).flops
+                   for shortcut in (True, False)]
+    log(f"dry run trip counts (smollm-135m FULL, 1 x {CHUNKED_SEQ} tokens, remat block, one "
+        f"device, fake tensors on {dev.type}, torch {torch.__version__}): FLOPs with the "
+        f"shortcut {chunk_flops[0]:,.0f}, every step traced {chunk_flops[1]:,.0f}: "
+        f"{'equal' if chunk_flops[0] == chunk_flops[1] else 'DIFFERENT'} "
+        f"({time.perf_counter() - t1:.1f} s)")
+    if chunk_flops[0] != chunk_flops[1]:
+        raise AssertionError(f"dry run trip counts: {chunk_flops[0]} with the shortcut "
+                             f"against {chunk_flops[1]} for every step")
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    state = steps.init_train_state(cfg, pcfg, gen, dev)
+    batch = pipeline.make_batch(cfg, shape, pipeline.PipelineState(17, 0), device=dev)
+    real_args = sum(t.numel() * t.element_size() for t in hlo_cost.tensors((state, batch)))
+    step(state, batch)                       # warm-up: the libraries' workspaces
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    del out
+    real_peak = peak - (before - real_args)
+    _, real = hlo_cost.record(step, state, batch)
+    torch.cuda.synchronize()
+    real_flops = hlo_cost.analyze(real).flops
+    ratio = traced_peak / real_peak
+    log(f"dry run cost model (smollm-135m FULL, {shape.global_batch} x {shape.seq_len} tokens, "
+        f"bf16, AdamW, remat block, one device, {smi}): traced peak {traced_peak:,} B "
+        f"(arguments {arg_bytes:,} + traced temp {traced.peak_bytes:,}; traced in "
+        f"{trace_s:.1f} s) against max_memory_allocated {peak:,} B less {before - real_args:,} B "
+        f"resident beside the arguments ({real_args:,} B) = {real_peak:,} B: ratio {ratio:.4f} "
+        f"(tolerance {MEMORY_TOLERANCE:.0%}); the recorder over the real step's ops: peak "
+        f"{real_args + real.peak_bytes:,} B; FLOPs traced {traced_flops:,.0f}, the real step's "
+        f"{real_flops:,.0f} ({len(real.records)} products, {sum(real.op_counts.values())} ops)")
+    if traced_flops != real_flops or abs(ratio - 1) > MEMORY_TOLERANCE:
+        raise AssertionError(f"dry run cost model: FLOPs {traced_flops} against {real_flops}, "
+                             f"peak ratio {ratio:.4f}")
+    del state, batch
+    torch.cuda.empty_cache()
+
+
+def run_dryrun_phase(dev, card, smi) -> None:
+    """The dry run on the card's torch: (a) five cells in child processes,
+    (b) the cost model against a real step. No hand-written kernel
+    launches."""
+    import torch
+
+    t0 = time.perf_counter()
+    zero_launches()
+    with tempfile.TemporaryDirectory(prefix="dryrun_") as out_dir:
+        children = start_dryrun_cells(out_dir)
+        try:
+            check_cost_model(dev, smi)
+            t_model = time.perf_counter() - t0
+            check_dryrun_cells(children, out_dir, smi)
+        finally:
+            for _, proc, _ in children:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    if any(launches.values()):
+        raise AssertionError(f"dry run: a hand-written kernel launched: {launches}")
+    log(f"dry run phase: {time.perf_counter() - t0:.1f} s (cost model {t_model:.1f} s, the "
+        f"children ran beside it); hand-written kernel launches {launches}; card {smi}")
+
+
 def ptxas_kernels(text: str) -> list:
     """``(kernel, registers, spill store bytes)`` for each entry function in
     the compiler's ``-Xptxas=-v`` report."""
@@ -6228,6 +6454,7 @@ def main() -> int:
     phase("lm families", run_family_phase, dev, card, smi)
     phase("lm train", run_train_phase, dev, card, smi)
     phase("lm mesh", run_mesh_phase, dev, card, smi)
+    phase("dry run", run_dryrun_phase, dev, card, smi)
     if min(launches.values()) < 1 or min(learn_launches.values()) < 1 \
             or frozen_launches["tick_fused"] < 1 or min(event_learn.values()) < 1 \
             or min(cont_launches[k] for k in ("tick_fused", "stdp_update", "telemetry")) < 1 \

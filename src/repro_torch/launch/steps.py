@@ -30,8 +30,10 @@ from repro_torch.configs.base import ModelConfig, ParallelConfig, ShapeConfig
 from repro_torch.models import model as M
 from repro_torch.models.common import ShapeDtypeStruct, map_specs, shape_structs, torch_dtype
 from repro_torch.optim import adafactor, adamw, clip, schedule
-from repro_torch.parallel.sharding import AxisRules, gather, is_dtensor, place
-from repro_torch.util import tree
+from repro_torch.parallel.sharding import (
+    AxisRules, even_placements, gather, is_dtensor, place,
+)
+from repro_torch.util import tree, trips
 
 
 class TrainState(NamedTuple):
@@ -143,6 +145,28 @@ def _value_and_grad(params, cfg: ModelConfig, batch, remat: str):
             tree.unflatten(params, grads))
 
 
+def _split_rows(v: torch.Tensor, micro: int):
+    """``v``'s rows split batch-major into ``micro`` microbatches: microbatch
+    ``i`` holds rows ``[i*n, (i+1)*n)``, ``n = rows / micro``, the
+    reference's ``reshape((micro, n) + ...)``. A DTensor's row dim is
+    gathered once and each microbatch laid out again as ``v`` was (its rows
+    split over the mesh dims that divide them): the reshape would unflatten
+    the sharded row dim, which DTensor refuses."""
+    n = v.shape[0] // micro
+    if not is_dtensor(v):
+        return v.reshape((micro, n) + v.shape[1:])
+    from torch.distributed.tensor import Replicate
+
+    whole = v.redistribute(v.device_mesh, [Replicate() if p.is_shard(0) else p
+                                           for p in v.placements])
+    out = []
+    for i in range(micro):
+        part = whole[i * n:(i + 1) * n]
+        out.append(part.redistribute(v.device_mesh, even_placements(
+            v.device_mesh, v.placements, part.shape)))
+    return out
+
+
 def make_train_step(
     cfg: ModelConfig,
     pcfg: ParallelConfig,
@@ -172,18 +196,22 @@ def make_train_step(
         if micro == 1:
             loss, metrics, grads = _value_and_grad(state.params, cfg, batch, pcfg.remat)
         else:
-            split = {k: v.reshape((micro, v.shape[0] // micro) + v.shape[1:])
-                     for k, v in batch.items()}
-            gsum = tree.map(lambda p: torch.zeros(p.shape, dtype=accum_dtype, device=p.device),
-                            state.params)
+            split = {k: _split_rows(v, micro) for k, v in batch.items()}
+            # zeros laid out as each parameter (a DTensor's shard, not its global shape)
+            gsum = tree.map(lambda p: torch.zeros_like(p, dtype=accum_dtype), state.params)
             dev = tree.leaves(state.params)[0].device
             lsum = torch.zeros((), dtype=torch.float32, device=dev)
             aux_sum = torch.zeros((), dtype=torch.float32, device=dev)
-            for i in range(micro):
+
+            def accumulate(carry, i):
+                gsum, lsum, aux_sum = carry
                 loss, metrics, g = _value_and_grad(
                     state.params, cfg, {k: v[i] for k, v in split.items()}, pcfg.remat)
                 gsum = tree.map(lambda a, b: a + b.to(accum_dtype), gsum, g)
-                lsum, aux_sum = lsum + loss, aux_sum + metrics["router_aux"]
+                return (gsum, lsum + loss, aux_sum + metrics["router_aux"]), None
+
+            # the reference's scan over microbatches (a cost recording runs three)
+            (gsum, lsum, aux_sum), _ = trips.scan(accumulate, (gsum, lsum, aux_sum), micro)
             grads = tree.map(lambda g: g / g.new_full((), micro), gsum)
             loss = lsum / lsum.new_full((), micro)
             metrics = {"nll": loss, "router_aux": aux_sum / aux_sum.new_full((), micro)}

@@ -122,6 +122,8 @@ def main(argv=None):
                                     extra_meta={"pipeline": pipe.as_dict()})
 
     def restore_fn():
+        if checkpointer is not None:
+            checkpointer.wait()     # the write in flight is the newest checkpoint
         restored, meta = ckpt.restore(args.ckpt_dir, state, shardings=state_sh)
         p = pipeline.PipelineState.from_dict(meta["extra"]["pipeline"])
         return meta["step"], (restored, p)

@@ -33,7 +33,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import Spec, apply_rope, rms_norm
-from repro_torch.parallel.sharding import constrain
+from repro_torch.parallel.sharding import batched_matmul, constrain, dot
+from repro_torch.util import trips
 
 Q_CHUNK = 512
 NEG_INF = -1e30
@@ -90,7 +91,7 @@ class KVCache(NamedTuple):
 def _project_q(x, p, cfg: ModelConfig, positions, *, shard_heads: bool):
     b, sq = x.shape[0], x.shape[1]
     hqp, dh = padded_q_heads(cfg), cfg.d_head
-    q = x @ p["wq"]
+    q = dot(x, p["wq"])
     if shard_heads:
         q = constrain(q, "batch", None, "act_heads")
     q = q.reshape(b, sq, hqp, dh)
@@ -101,12 +102,18 @@ def _project_q(x, p, cfg: ModelConfig, positions, *, shard_heads: bool):
     return q
 
 
-def _project_kv(x, p, cfg: ModelConfig, kv_positions):
-    """K/V projection; (B, T, Hkv, Dh)."""
+def _project_kv(x, p, cfg: ModelConfig, kv_positions, seq_axis: str = "seq"):
+    """K/V projection; (B, T, Hkv, Dh). The flat weights and products keep
+    every kv head on each rank (``wk`` / ``wv`` split no head), and so do
+    their gradients: on a mesh DTensor may lay the columns over ``model``
+    otherwise, and then refuse to unflatten fewer kv heads than ranks."""
     b, t, d = x.shape
     hkv, dh = cfg.n_kv_heads, cfg.d_head
-    k = (x @ p["wk"].reshape(d, hkv * dh)).reshape(b, t, hkv, dh)
-    v = (x @ p["wv"].reshape(d, hkv * dh)).reshape(b, t, hkv, dh)
+    wk = constrain(p["wk"].reshape(d, hkv * dh), "qkv_in", None)
+    wv = constrain(p["wv"].reshape(d, hkv * dh), "qkv_in", None)
+    k = constrain(dot(x, wk), "batch", seq_axis, None)
+    v = constrain(dot(x, wv), "batch", seq_axis, None)
+    k, v = k.reshape(b, t, hkv, dh), v.reshape(b, t, hkv, dh)
     if cfg.qk_norm:
         k = rms_norm(k, p["k_norm"])
     if cfg.pos_embed == "rope" and kv_positions is not None:
@@ -153,13 +160,13 @@ def _scores(q, ke) -> torch.Tensor:
     """``einsum("bshd,bthd->bhst")`` in the operands' dtype, then f32 and the
     ``1/sqrt(Dh)`` scale: (B, Hqp, Sq, T)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    return (q.transpose(1, 2) @ ke.permute(0, 2, 3, 1)).float() * scale
+    return batched_matmul(q.transpose(1, 2), ke.permute(0, 2, 3, 1)).float() * scale
 
 
 def _pv(scores, ve) -> torch.Tensor:
     """f32 softmax, cast to the values' dtype, then ``einsum("bhst,bthd->bshd")``."""
     w = torch.softmax(scores, dim=-1).to(ve.dtype)
-    return (w @ ve.transpose(1, 2)).transpose(1, 2)
+    return batched_matmul(w, ve.transpose(1, 2)).transpose(1, 2)
 
 
 def _sdpa(q, ke, ve, *, causal: bool, q_offset: int) -> torch.Tensor:
@@ -175,12 +182,18 @@ def _sdpa(q, ke, ve, *, causal: bool, q_offset: int) -> torch.Tensor:
 
 
 def _sdpa_chunked(q, ke, ve, *, causal: bool) -> torch.Tensor:
-    """A loop over query chunks; transient score memory = chunk x T."""
+    """A loop over query chunks; transient score memory = chunk x T. Every
+    chunk costs the same (the whole T, masked), so a cost recording runs
+    three (:func:`repro_torch.util.trips.scan`)."""
     sq = q.shape[1]
     if sq % Q_CHUNK:
         raise ValueError(f"seq {sq} not divisible by q-chunk {Q_CHUNK}")
-    return torch.cat([_sdpa(q[:, i:i + Q_CHUNK], ke, ve, causal=causal, q_offset=i)
-                      for i in range(0, sq, Q_CHUNK)], dim=1)
+
+    def chunk(_, c):
+        i = c * Q_CHUNK
+        return None, _sdpa(q[:, i:i + Q_CHUNK], ke, ve, causal=causal, q_offset=i)
+
+    return trips.scan(chunk, None, sq // Q_CHUNK, dim=1)[1]
 
 
 def _decode_sdpa(q, ke, ve, valid) -> torch.Tensor:
@@ -246,7 +259,7 @@ def self_attention(
     out = out.reshape(b, -1, hqp * dh)
     if cache is None or cache_pos == "prefill":
         out = constrain(out, "batch", None, "act_heads")
-    y = constrain(out @ p["wo"], "batch", "seq", "embed")
+    y = constrain(dot(out, p["wo"]), "batch", "seq", "embed")
     return x + y, new_cache
 
 
@@ -268,7 +281,7 @@ def cross_attention(
     ke = _expand_kv(kv_cache.k.reshape(b, t, hkv, dh), cfg)
     ve = _expand_kv(kv_cache.v.reshape(b, t, hkv, dh), cfg)
     out = _mask_heads(_sdpa(q, ke, ve, causal=False, q_offset=0), cfg)
-    return x + out.reshape(b, sq, hqp * dh) @ p["wo"]
+    return x + dot(out.reshape(b, sq, hqp * dh), p["wo"])
 
 
 def project_vision_kv(vision_proj: torch.Tensor, p: Dict[str, torch.Tensor],
@@ -277,5 +290,5 @@ def project_vision_kv(vision_proj: torch.Tensor, p: Dict[str, torch.Tensor],
     rope: positions None)."""
     b, t = vision_proj.shape[0], vision_proj.shape[1]
     hkv, dh = cfg.n_kv_heads, cfg.d_head
-    k, v = _project_kv(vision_proj, p, cfg, None)
+    k, v = _project_kv(vision_proj, p, cfg, None, seq_axis="vision_seq")
     return KVCache(k=k.reshape(b, t, hkv * dh), v=v.reshape(b, t, hkv * dh))

@@ -28,7 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import Spec, gelu, rms_norm, silu
-from repro_torch.parallel.sharding import constrain
+from repro_torch.parallel.sharding import constrain, dot, fit_rows
 
 MOE_GROUP_TOKENS = 512
 DECODE_CAPACITY_FACTOR = 4.0  # serving headroom (the reference's; not dropless for every arch)
@@ -48,13 +48,13 @@ def dense_ffn_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict[str, S
 
 def dense_ffn(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
     h = constrain(rms_norm(x, p["ln"]), "batch", "seq", "embed")
-    u = h @ p["w_up"]
+    u = dot(h, p["w_up"])
     if "w_gate" in p:  # SwiGLU
-        a = silu(h @ p["w_gate"]) * u
+        a = silu(dot(h, p["w_gate"])) * u
     else:              # non-gated GELU (starcoder2)
         a = gelu(u)
     a = constrain(a, "batch", None, "act_mlp")
-    return x + constrain(a @ p["w_down"], "batch", "seq", "embed")
+    return x + constrain(dot(a, p["w_down"]), "batch", "seq", "embed")
 
 
 def moe_ffn_specs(cfg: ModelConfig) -> Dict[str, Spec]:
@@ -101,7 +101,7 @@ def route(ht: torch.Tensor, router: torch.Tensor, cfg: ModelConfig, cap: int) ->
     first on equal probabilities, as ``jax.lax.top_k``), the top-k gates
     renormalised with a floor of 1e-9 and summed per expert, and each
     claim's slot in token order."""
-    logits = (ht @ router).float()
+    logits = dot(ht, router).float()
     probs = torch.softmax(logits, dim=-1)
     order = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals = order.values[..., :cfg.top_k]
@@ -114,6 +114,15 @@ def route(ht: torch.Tensor, router: torch.Tensor, cfg: ModelConfig, cap: int) ->
     gate_e = (onehot_k * gate_vals[..., None]).sum(dim=2)
     pos = torch.cumsum(expert_mask, dim=1) - expert_mask               # token order
     return Routing(probs, expert_idx, expert_mask, gate_e, pos, cap)
+
+
+def _combine(combine: torch.Tensor, ye: torch.Tensor) -> torch.Tensor:
+    """``einsum("gtec,gecd->gtd", combine, ye)`` as a product batched over
+    the groups with ``(E, C)`` folded experts first: einsum folds them
+    capacity first, and DTensor refuses to fold the split expert dim behind
+    another (the card's torch; newer ones make a strided shard)."""
+    g, t, e, c = combine.shape
+    return torch.bmm(combine.reshape(g, t, e * c), ye.reshape(g, e * c, ye.shape[-1]))
 
 
 def moe_ffn(
@@ -141,15 +150,21 @@ def moe_ffn(
 
     xe = torch.einsum("gtec,gtd->gecd", dispatch, ht)                  # (G, E, C, D)
     xe = constrain(xe, "batch", "experts", None, "embed")
-    gg = torch.einsum("gecd,edf->gecf", xe, p["w_gate"])
-    uu = torch.einsum("gecd,edf->gecf", xe, p["w_up"])
-    ye = torch.einsum("gecf,efd->gecd", silu(gg) * uu, p["w_down"])
+    # The expert FFN as products batched over the experts, each expert's
+    # (G*C, D) tokens in one matrix: the products einsum("gecd,edf->gecf")
+    # and einsum("gecf,efd->gecd") make. Written out, the activations stay
+    # expert-major between them (DTensor mislays the strides of einsum's
+    # own permuted views in the backward).
+    g_n, _, c_n, _ = xe.shape
+    xm = xe.transpose(0, 1).reshape(e, g_n * c_n, d)                   # (E, G*C, D)
+    a = silu(torch.bmm(xm, p["w_gate"])) * torch.bmm(xm, p["w_up"])    # (E, G*C, F)
+    ye = torch.bmm(a, p["w_down"]).reshape(e, g_n, c_n, d).transpose(0, 1)
     ye = constrain(ye, "batch", "experts", None, "embed")
-    y = torch.einsum("gtec,gecd->gtd", combine, ye).reshape(b, s, d)
+    y = fit_rows(_combine(combine, ye), b).reshape(b, s, d)
 
     if "shared" in p:
         sh = p["shared"]
-        y = y + (silu(h @ sh["w_gate"]) * (h @ sh["w_up"])) @ sh["w_down"]
+        y = y + dot(silu(dot(h, sh["w_gate"])) * dot(h, sh["w_up"]), sh["w_down"])
 
     # Load-balance aux (Switch): E * sum_e f_e * p_e.
     frac = r.expert_mask.mean(dim=(0, 1))                              # fraction routed

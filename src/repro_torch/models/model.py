@@ -33,7 +33,7 @@ from repro_torch.models.common import (
     Spec, cross_entropy, init_params, param_count, rms_norm, sinusoidal_pos_embed, torch_dtype,
     zeros_params,
 )
-from repro_torch.parallel.sharding import constrain
+from repro_torch.parallel.sharding import constrain, dot, is_dtensor
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -73,15 +73,28 @@ def n_params(cfg: ModelConfig) -> int:
 # ---------------------------------------------------------------------------
 # forward
 
+def _lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``; for ids split over more than one mesh axis (the
+    multi-pod batch over ``("pod", "data")``, or the sequence over
+    ``"model"`` beside the batch under Megatron-SP) as ``F.embedding``,
+    whose DTensor rules take them where indexing's (or its backward's)
+    refuse them on the card's torch."""
+    if is_dtensor(ids) and sum(p.is_shard() for p in ids.placements) > 1:
+        return torch.nn.functional.embedding(ids, table)
+    return table[ids]
+
+
 def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
            positions: torch.Tensor) -> torch.Tensor:
     if cfg.family == "audio":
         # tokens: (B, S, K); sum the K codebook embeddings (MusicGen).
+        # Indexed, not through _lookup: F.embedding's DTensor rule compares
+        # the codebook views' vocab masks by value, which fake tensors cannot.
         x = params["embed"][0][tokens[..., 0]]
         for kb in range(1, cfg.n_codebooks):
             x = x + params["embed"][kb][tokens[..., kb]]
     else:
-        x = params["embed"][tokens]
+        x = _lookup(params["embed"], tokens)
     if cfg.pos_embed == "sinusoidal":
         x = x + sinusoidal_pos_embed(positions, cfg.d_model).to(x.dtype)
     return constrain(x, "batch", "seq", "embed")
@@ -91,9 +104,9 @@ def _head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final_ln"])
     if cfg.family == "audio":
         d, k, v = params["lm_head"].shape
-        logits = (x @ params["lm_head"].reshape(d, k * v)).reshape(*x.shape[:-1], k, v)
+        logits = dot(x, params["lm_head"].reshape(d, k * v)).reshape(*x.shape[:-1], k, v)
         return constrain(logits, "batch", "seq", None, "act_vocab")
-    logits = x @ (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    logits = dot(x, params["embed"].T if cfg.tie_embeddings else params["lm_head"])
     return constrain(logits, "batch", "seq", "act_vocab")
 
 
@@ -116,7 +129,7 @@ def forward(
     x = _embed(params, cfg, tokens, positions)
     vision_proj = None
     if cfg.family == "vlm" and vision_embeds is not None:
-        vision_proj = constrain(vision_embeds @ params["vision_proj"],
+        vision_proj = constrain(dot(vision_embeds, params["vision_proj"]),
                                 "batch", "vision_seq", "embed")
     x, new_caches, aux = tf.apply_stages(
         x, params["stages"], cfg,

@@ -18,11 +18,12 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import Spec, rms_norm, silu
-from repro_torch.parallel.sharding import constrain
+from repro_torch.parallel.sharding import constrain, dot
+from repro_torch.util import trips
+from repro_torch.util.trips import checkpoint
 
 WKV_CHUNK = 256
 N_MIX = 5  # r, k, v, w, g
@@ -90,12 +91,13 @@ def _shift(x: torch.Tensor, prev: Optional[torch.Tensor]) -> torch.Tensor:
 
 
 def _wkv_steps(s, r, k, v, w, u):
-    ys = []
-    for t in range(r.shape[0]):
+    def step(s, t):
         kv = k[t][..., None] * v[t][..., None, :]                     # (B,H,dk,dv)
-        ys.append(torch.einsum("bhi,bhij->bhj", r[t], s + u * kv))
-        s = w[t][..., None] * s + kv
-    return torch.stack(ys), s
+        y = torch.einsum("bhi,bhij->bhj", r[t], s + u * kv)
+        return w[t][..., None] * s + kv, y
+
+    s, ys = trips.scan(step, s, r.shape[0])
+    return ys, s
 
 
 def _wkv_scan(s0, r, k, v, w, u) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -110,13 +112,15 @@ def _wkv_scan(s0, r, k, v, w, u) -> Tuple[torch.Tensor, torch.Tensor]:
     assert s_len % chunk == 0
     if not torch.is_grad_enabled():
         return _wkv_steps(s0, r, k, v, w, u)
-    s, ys = s0, []
-    for c in range(0, s_len, chunk):
-        part = slice(c, c + chunk)
+
+    def chunk_step(s, c):
+        part = slice(c * chunk, (c + 1) * chunk)
         y, s = checkpoint(_wkv_steps, s, r[part], k[part], v[part], w[part], u,
                           use_reentrant=False)
-        ys.append(y)
-    return torch.cat(ys), s
+        return s, y
+
+    s, ys = trips.scan(chunk_step, s0, s_len // chunk)
+    return ys.reshape((s_len,) + tuple(ys.shape[2:])), s
 
 
 def _group_norm(y: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, n_heads: int,
@@ -147,17 +151,17 @@ def rwkv_time_mix(
     xx = _shift(xn, state.att_x if state is not None else None)
     dx = xx - xn
     # Data-dependent mixing (ddlerp): 5 interpolation targets via LoRA.
-    lora = torch.tanh((xn + dx * p["mu_x"]) @ p["w1"]).reshape(b, s, N_MIX, -1)
+    lora = torch.tanh(dot(xn + dx * p["mu_x"], p["w1"])).reshape(b, s, N_MIX, -1)
     deltas = torch.einsum("bsfm,fmd->bsfd", lora, p["w2"])
     m = xn[:, :, None, :] + dx[:, :, None, :] * (p["mu_base"] + deltas)
     m_r, m_k, m_v, m_w, m_g = [m[:, :, i, :] for i in range(N_MIX)]
 
-    r = m_r @ p["wr"]
-    k = m_k @ p["wk"]
-    v = m_v @ p["wv"]
-    g = silu(m_g @ p["wg"])
+    r = dot(m_r, p["wr"])
+    k = dot(m_k, p["wk"])
+    v = dot(m_v, p["wv"])
+    g = silu(dot(m_g, p["wg"]))
     # Data-dependent decay (the learned leak): w in (0,1).
-    w_raw = p["w0_decay"] + torch.tanh(m_w @ p["wd1"]) @ p["wd2"]
+    w_raw = p["w0_decay"] + dot(torch.tanh(dot(m_w, p["wd1"])), p["wd2"])
     w = torch.exp(-torch.exp(w_raw.float()))
 
     hd = lambda t: t.reshape(b, s, h_n, dk)
@@ -178,7 +182,7 @@ def rwkv_time_mix(
 
     y = _group_norm(ys.reshape(b, s, d), p["gn_gamma"], p["gn_beta"], h_n)
     y = (y * g.float()).to(x.dtype)
-    out = constrain(y @ p["wo"], "batch", "seq", "embed")
+    out = constrain(dot(y, p["wo"]), "batch", "seq", "embed")
 
     new_att_x = xn[:, -1] if return_state else None
     new_wkv = sT if return_state else None
@@ -197,8 +201,8 @@ def rwkv_channel_mix(
     dx = _shift(xn, state_x) - xn
     k_in = xn + dx * p["mu_k"]
     r_in = xn + dx * p["mu_r"]
-    k = torch.square(torch.relu(k_in @ p["wk"]))
-    kv = k @ p["wv"]
-    out = torch.sigmoid(r_in @ p["wr"]) * kv
+    k = torch.square(torch.relu(dot(k_in, p["wk"])))
+    kv = dot(k, p["wv"])
+    out = torch.sigmoid(dot(r_in, p["wr"])) * kv
     new_x = xn[:, -1] if return_state else None
     return x + out, new_x

@@ -20,11 +20,12 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import Spec, rms_norm, silu
-from repro_torch.parallel.sharding import constrain
+from repro_torch.parallel.sharding import constrain, dot
+from repro_torch.util import trips
+from repro_torch.util.trips import checkpoint
 
 SSM_CHUNK = 256
 
@@ -79,12 +80,13 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def _scan_steps(h, dt, bmat, cmat, xc, a):
-    ys = []
-    for t in range(dt.shape[0]):
+    def step(h, t):
         decay = torch.exp(dt[t][..., None] * a)
         h = decay * h + (dt[t] * xc[t])[..., None] * bmat[t][:, None, :]
-        ys.append(torch.einsum("ben,bn->be", h, cmat[t]))
-    return torch.stack(ys), h
+        return h, torch.einsum("ben,bn->be", h, cmat[t])
+
+    h, ys = trips.scan(step, h, dt.shape[0])
+    return ys, h
 
 
 def _selective_scan(
@@ -103,13 +105,15 @@ def _selective_scan(
     assert s % chunk == 0, f"seq {s} % chunk {chunk} != 0"
     if not torch.is_grad_enabled():
         return _scan_steps(h0, dt, bmat, cmat, xc, a)
-    h, ys = h0, []
-    for c in range(0, s, chunk):
-        part = slice(c, c + chunk)
+
+    def chunk_step(h, c):
+        part = slice(c * chunk, (c + 1) * chunk)
         y, h = checkpoint(_scan_steps, h, dt[part], bmat[part], cmat[part], xc[part], a,
                           use_reentrant=False)
-        ys.append(y)
-    return torch.cat(ys), h
+        return h, y
+
+    h, ys = trips.scan(chunk_step, h0, s // chunk)
+    return ys.reshape((s,) + tuple(ys.shape[2:])), h
 
 
 def mamba_block(
@@ -127,8 +131,8 @@ def mamba_block(
     """
     bsz, s, d = x.shape
     h_in = constrain(rms_norm(x, p["ln"]), "batch", "seq", "embed")
-    xi = h_in @ p["in_proj_x"]
-    z = h_in @ p["in_proj_z"]
+    xi = dot(h_in, p["in_proj_x"])
+    z = dot(h_in, p["in_proj_z"])
     xi = constrain(xi, "batch", None, "d_inner")
 
     prepend = state.conv if state is not None else None
@@ -137,9 +141,9 @@ def mamba_block(
     # softplus in the model dtype, as the reference's. torch returns x above
     # its threshold of 20 where JAX takes logaddexp(x, 0): they agree to the
     # f32 ulp there.
-    dt = F.softplus((xc @ p["x_proj_dt"]) @ p["dt_proj"] + p["dt_bias"])
-    bmat = (xc @ p["x_proj_b"]).float()
-    cmat = (xc @ p["x_proj_c"]).float()
+    dt = F.softplus(dot(dot(xc, p["x_proj_dt"]), p["dt_proj"]) + p["dt_bias"])
+    bmat = dot(xc, p["x_proj_b"]).float()
+    cmat = dot(xc, p["x_proj_c"]).float()
     a = -torch.exp(p["a_log"].float())                                 # (di, n)
 
     dtf = dt.float()
@@ -159,7 +163,7 @@ def mamba_block(
         y = ys.transpose(0, 1)                                         # (B,S,di)
     y = y.to(x.dtype) + p["d_skip"] * xc
     y = y * silu(z)
-    out = constrain(y @ p["out_proj"], "batch", "seq", "embed")
+    out = constrain(dot(y, p["out_proj"]), "batch", "seq", "embed")
 
     new_state = None
     if return_state:

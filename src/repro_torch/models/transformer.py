@@ -45,6 +45,7 @@ from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import Spec, stack_specs
 from repro_torch.parallel.sharding import constrain
+from repro_torch.util import trips
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,10 +217,10 @@ def _rematted(body, remat: str):
     if remat == "none" or not torch.is_grad_enabled():
         return body
     if remat == "block":
-        return functools.partial(_ckpt.checkpoint, body, use_reentrant=False)
+        return functools.partial(trips.checkpoint, body, use_reentrant=False)
     if remat == "dots":
         ctx = functools.partial(_ckpt.create_selective_checkpoint_contexts, _save_2d_products)
-        return functools.partial(_ckpt.checkpoint, body, use_reentrant=False, context_fn=ctx)
+        return functools.partial(trips.checkpoint, body, use_reentrant=False, context_fn=ctx)
     raise ValueError(f"unknown remat {remat!r}")
 
 

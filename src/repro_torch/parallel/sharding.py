@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import threading
 from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 
@@ -226,7 +227,10 @@ def constrain(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
     return ``x`` itself.
 
     Under a mesh a DTensor is redistributed to the spec's placements, which
-    moves data and changes no number (a ``Partial`` sum is reduced). A plain
+    moves data and changes no number (a ``Partial`` sum is reduced); a dim
+    that the spec's mesh axes would split unevenly is split only over those
+    that divide it (:func:`even_placements`). Its gradient is laid out as
+    the value is, as JAX lays out a constraint's cotangent. A plain
     tensor under a mesh is taken as replicated on every rank
     (``DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim)``: every rank
     must hold the same value, as the reference's trace-time constants are)
@@ -239,13 +243,154 @@ def constrain(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
         raise ValueError(f"rank mismatch: {len(axes)} axes for shape {tuple(x.shape)}")
     from torch.distributed.tensor import DTensor, Replicate
 
-    placements = rules.placements(axes)
+    placements = even_placements(rules.mesh, rules.placements(axes), x.shape)
     if not isinstance(x, DTensor):
         x = DTensor.from_local(x, rules.mesh, [Replicate()] * rules.mesh.ndim,
                                run_check=False)
-    if tuple(x.placements) == placements:
+    if tuple(x.placements) != placements:
+        if not any(p.is_partial() for p in x.placements):   # a pending sum is left as it is
+            x = _GradLayout.apply(x, False)
+        x = x.redistribute(rules.mesh, placements)
+    return _GradLayout.apply(x, True)
+
+
+class _GradLayout(torch.autograd.Function):
+    """The identity on a DTensor; its backward gives the gradient a
+    contiguous local shard and contiguous strides, and with ``relayout``
+    lays it out as the value is laid out (the cotangent of
+    ``with_sharding_constraint`` takes the same sharding in JAX). Without
+    it a gradient keeps whatever layout the backward's ops chose (a
+    weight's columns over ``model``, say) and a later view of it may be
+    refused; and a redistribution's backward can hand back a local shard
+    laid out otherwise than the strides its DTensor claims, which a later
+    view of the gradient fails on."""
+
+    @staticmethod
+    def forward(ctx, x, relayout: bool):
+        from torch.distributed.tensor import Replicate
+
+        # a pending sum's gradient is whole on every rank
+        ctx.layout = (x.device_mesh, tuple(Replicate() if p.is_partial() else p
+                                           for p in x.placements)) if relayout else None
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not is_dtensor(g):
+            return g, None
+        from torch.distributed.tensor import DTensor
+
+        if ctx.layout is not None and tuple(g.placements) != ctx.layout[1]:
+            g = g.redistribute(*ctx.layout)
+        stride = torch.empty(g.shape, device="meta").stride()
+        local = g.to_local()
+        if local.is_contiguous() and tuple(g.stride()) == tuple(stride):
+            return g, None
+        return DTensor.from_local(local.contiguous(), g.device_mesh, g.placements,
+                                  run_check=False, shape=g.shape, stride=stride), None
+
+
+def _ways(x) -> list:
+    """How many ways each dim of the DTensor ``x`` is split."""
+    sizes = x.device_mesh.mesh.shape
+    ways = [1] * x.ndim
+    for i, p in enumerate(x.placements):
+        if p.is_shard():
+            ways[p.dim] *= sizes[i]
+    return ways
+
+
+def even_placements(mesh, placements: Sequence, shape: Sequence[int]) -> tuple:
+    """``placements`` with each tensor dim split only over mesh dims whose
+    ranks divide it: of the mesh dims that shard the dim, the subset with
+    the most ranks that divides it (the major ones on a tie) keeps its
+    ``Shard``, the others replicate. DTensor refuses every view that moves
+    an uneven shard, where the reference's GSPMD pads: one MoE token group
+    of a decode step over 16 ``data`` ranks, or a microbatch of 16 rows over
+    32 ``("pod", "data")`` ranks."""
+    import itertools
+
+    from torch.distributed.tensor import Replicate
+
+    sizes = tuple(mesh.mesh.shape)
+    out = list(placements)
+    for d, n in enumerate(shape):
+        idx = [i for i, p in enumerate(placements) if p.is_shard(d)]
+        if not idx or n % math.prod(sizes[i] for i in idx) == 0:
+            continue
+        keep = max((c for k in range(len(idx) + 1) for c in itertools.combinations(idx, k)
+                    if n % math.prod(sizes[i] for i in c) == 0),
+                   key=lambda c: (math.prod(sizes[i] for i in c), [-i for i in c]))
+        for i in idx:
+            if i not in keep:
+                out[i] = Replicate()
+    return tuple(out)
+
+
+def fit_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """``x``, whose first dim is about to be reshaped into ``rows`` rows
+    (the MoE's token groups back into the batch), with that dim split only
+    over the mesh axes that also divide ``rows``: a microbatch of 16 rows
+    splits over ``data`` alone on the multi-pod mesh, its 128 groups over
+    ``("pod", "data")``, and DTensor mislays the shards of a reshape
+    between the two. Plain tensors pass as they are."""
+    if not is_dtensor(x):
         return x
-    return x.redistribute(rules.mesh, placements)
+    want = even_placements(x.device_mesh, x.placements, (rows,) + tuple(x.shape[1:]))
+    if tuple(want) == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def _flatten_refused(x) -> bool:
+    """Whether flattening ``x``'s leading dims (all but the last) would move
+    a shard: a leading dim past the first is sharded, or the first is split
+    unevenly. DTensor refuses that view (``aten.view``; the torch of the
+    card also for a dim past the first that splits evenly)."""
+    ways = _ways(x)
+    return any(w > 1 for w in ways[1:-1]) or x.shape[0] % ways[0] != 0
+
+
+def _foldable(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` laid out so that its first ``n`` dims can be folded into one:
+    of them only the first stays split (over the mesh axes that divide it),
+    the others are gathered."""
+    from torch.distributed.tensor import Replicate
+
+    want = [Replicate() if p.is_shard() and 0 < p.dim < n else p for p in x.placements]
+    want = even_placements(x.device_mesh, want, x.shape)
+    if tuple(want) == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def batched_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for 4-D operands (batch and heads, then the matrices).
+
+    ``@`` folds the two batch dims into one, and DTensor refuses to fold a
+    split dim past the first (the card's torch always; newer ones make a
+    strided shard, whose backward then mislays the local shapes on the
+    multi-pod mesh). On a mesh the operands are gathered past their first
+    dim first, and the product's gradient is laid out as the product, so
+    the backward folds the same way. Plain tensors give ``a @ b`` itself."""
+    if not is_dtensor(a):
+        return a @ b
+    return _GradLayout.apply(_foldable(a, 2) @ _foldable(b, 2), True)
+
+
+def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a 3-D ``x`` (..., K) and a 2-D ``w``.
+
+    ``@`` flattens ``x``'s leading dims into one, a view that DTensor
+    refuses when it would move a shard (a sequence sharded over ``model``
+    by the Megatron-SP rule, on the card's torch). On such a
+    DTensor the product is a ``bmm`` over the first dim against ``w``
+    broadcast to it (an ``expand``, which copies nothing), and each row's
+    sum is the same dot product. Elsewhere, plain tensors included, it is
+    ``x @ w`` itself."""
+    if x.ndim == 3 and is_dtensor(x) and _flatten_refused(x):
+        return torch.bmm(x, w.expand((x.shape[0],) + tuple(w.shape)))
+    return x @ w
 
 
 def fsdp_overrides() -> Dict[str, MeshAxes]:

@@ -1,0 +1,158 @@
+"""The port's dry run (``repro_torch.launch.dryrun``) against the reference's.
+
+Counterparts of ``tests/test_dryrun_integration.py`` and
+``tests/test_system.py::test_dryrun_matrix_has_32_baseline_cells``: the
+32-cell matrix and its names equal the reference's; ``n_active_params``
+equals the reference's for the ten archs; in child processes (each makes
+its own fake world of 256 or 512 ranks, which must not outlive it),
+qwen3-0.6b decode_32k traces on both meshes with an ``ok`` artifact whose
+argument and temp bytes fit an H100's 80 GB (the reference asserts v5e's
+16 GB), rule overrides reach the artifact, and smollm-135m decode_32k
+agrees exactly with the reference's own artifact on both meshes in
+``n_chips``, ``n_params``, ``n_active_params``, ``argument_size_in_bytes``
+and ``flops_per_device``. The children run at once, three at a time.
+"""
+import concurrent.futures
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+from repro_torch.configs import ASSIGNED_ARCHS, get_bundle
+from repro_torch.launch import dryrun
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+H100_HBM = 80 * 10 ** 9
+MESHES = [False, True]
+
+
+def _reference_dryrun():
+    """The reference's module, imported with the environment it sets at
+    import (512 placeholder devices for its own children) put back."""
+    saved = os.environ.get("XLA_FLAGS")
+    try:
+        from repro.launch import dryrun as j_dryrun
+    finally:
+        if saved is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = saved
+    return j_dryrun
+
+
+def test_matrix_has_the_references_32_cells():
+    j_dryrun = _reference_dryrun()
+    cells = dryrun.all_cells()
+    assert cells == j_dryrun.all_cells()
+    assert len(cells) == 64 and len({(a, s) for a, s, _ in cells}) == 32
+    assert [dryrun.cell_name(*c) for c in cells] == [j_dryrun.cell_name(*c) for c in cells]
+
+
+@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+def test_n_active_params_equal_the_references(arch):
+    from repro import configs as j_configs
+
+    j_dryrun = _reference_dryrun()
+    assert dryrun.n_active_params(get_bundle(arch).model) == j_dryrun.n_active_params(
+        j_configs.get_bundle(arch).model)
+
+
+# ---------------------------------------------------------------------------
+# cells in child processes
+
+_PORT = {
+    "qwen3/16x16": ["--arch", "qwen3-0.6b", "--shape", "decode_32k"],
+    "qwen3/2x16x16": ["--arch", "qwen3-0.6b", "--shape", "decode_32k", "--multi-pod"],
+    "smollm/16x16": ["--arch", "smollm-135m", "--shape", "decode_32k"],
+    "smollm/2x16x16": ["--arch", "smollm-135m", "--shape", "decode_32k", "--multi-pod"],
+    "overrides": ["--arch", "smollm-135m", "--shape", "decode_32k",
+                  "--rule-overrides", '{"kv_seq": "data"}', "--tag", "t1"],
+}
+_REFERENCE = {
+    "ref/16x16": ["--arch", "smollm-135m", "--shape", "decode_32k"],
+    "ref/2x16x16": ["--arch", "smollm-135m", "--shape", "decode_32k", "--multi-pod"],
+}
+
+
+def _run(key, tmp):
+    port = key in _PORT
+    out = os.path.join(tmp, key.replace("/", "_"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
+    if port:
+        cmd = ["-m", "repro_torch.launch.dryrun", *_PORT[key], "--device", "cpu"]
+    else:
+        env["JAX_PLATFORMS"] = "cpu"
+        cmd = ["-m", "repro.launch.dryrun", *_REFERENCE[key]]
+    r = subprocess.run([sys.executable, *cmd, "--out", out], capture_output=True, text=True,
+                       env=env, cwd=ROOT, timeout=900)
+    return key, r, out
+
+
+@pytest.fixture(scope="module")
+def cells(tmp_path_factory):
+    tmp = str(tmp_path_factory.mktemp("dryrun"))
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        runs = list(pool.map(lambda k: _run(k, tmp), [*_PORT, *_REFERENCE]))
+    return {key: (r, out) for key, r, out in runs}
+
+
+def _artifact(cells, key, name):
+    r, out = cells[key]
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
+    with open(os.path.join(out, name)) as f:
+        return json.load(f)
+
+
+@pytest.mark.parametrize("multi_pod", MESHES, ids=["16x16", "2x16x16"])
+def test_decode_cell_traces(cells, multi_pod):
+    mesh = "2x16x16" if multi_pod else "16x16"
+    rec = _artifact(cells, f"qwen3/{mesh}", dryrun.cell_name("qwen3-0.6b", "decode_32k",
+                                                              multi_pod) + ".json")
+    assert rec["status"] == "ok" and rec["device"] == "cpu"
+    assert rec["n_chips"] == (512 if multi_pod else 256)
+    assert rec["hlo_cost"]["flops_per_device"] > 0
+    mem = (rec["memory_analysis"]["temp_size_in_bytes"]
+           + rec["memory_analysis"]["argument_size_in_bytes"])
+    assert mem < H100_HBM, f"decode cell uses {mem / 1e9:.1f} GB"
+    assert set(rec) >= {"arch", "shape", "mesh", "kind", "n_chips", "seq_len",
+                        "global_batch", "n_params", "n_active_params", "parallel", "tag",
+                        "timings", "memory_analysis", "cost_analysis_raw", "hlo_cost"}
+
+
+def test_rule_overrides_flow_through(cells):
+    """Hillclimb overrides reach the layout (the artifact records them)."""
+    rec = _artifact(cells, "overrides", "smollm-135m__decode_32k__singlepod.t1.json")
+    assert rec["parallel"]["rule_overrides"] == {"kv_seq": "data"}
+    assert rec["tag"] == "t1"
+    plain = _artifact(cells, "smollm/16x16", "smollm-135m__decode_32k__singlepod.json")
+    assert rec["hlo_cost"] != plain["hlo_cost"]
+
+
+@pytest.mark.parametrize("multi_pod", MESHES, ids=["16x16", "2x16x16"])
+def test_smollm_decode_equals_the_references_artifact(cells, multi_pod):
+    mesh = "2x16x16" if multi_pod else "16x16"
+    name = dryrun.cell_name("smollm-135m", "decode_32k", multi_pod) + ".json"
+    port = _artifact(cells, f"smollm/{mesh}", name)
+    ref = _artifact(cells, f"ref/{mesh}", name)
+    for key in ("n_chips", "n_params", "n_active_params", "arch", "shape", "mesh", "kind",
+                "seq_len", "global_batch", "parallel"):
+        assert port[key] == ref[key], key
+    assert port["memory_analysis"]["argument_size_in_bytes"] \
+        == ref["memory_analysis"]["argument_size_in_bytes"]
+    assert port["hlo_cost"]["flops_per_device"] == ref["hlo_cost"]["flops_per_device"]
+
+
+def test_the_cli_refuses_a_second_world():
+    """A process already in a world cannot make the fake one: the dry run
+    says so rather than trace on the wrong world."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="already up"):
+            with dryrun.fake_world(256):
+                pass
+    finally:
+        dist.destroy_process_group()

@@ -127,7 +127,7 @@ def test_entry_points_default_to_the_card():
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import pipeline
     from repro_torch.examples import train_lm
-    from repro_torch.launch import steps, train
+    from repro_torch.launch import dryrun, steps, train
 
     lm = get_bundle("smollm-135m").smoke
     calls = [lambda: SNNServer(n_max=8), lambda: params_from_registers(RegisterBank(4)),
@@ -145,7 +145,8 @@ def test_entry_points_default_to_the_card():
              lambda: pipeline.make_batch(lm, ShapeConfig("t", "train", 4, 1),
                                          pipeline.PipelineState(17, 0)),
              lambda: steps.init_train_state(lm, get_bundle("smollm-135m").parallel["*"],
-                                            torch.Generator())]
+                                            torch.Generator()),
+             lambda: dryrun.main(["--arch", "qwen3-0.6b", "--shape", "decode_32k"])]
     if torch.cuda.is_available():
         assert SNNState.zeros((1,), 4).tick.device.type == "cuda"
         assert SNNServer(n_max=8).device.index is not None

@@ -4,7 +4,7 @@ checkpoints and sharded batches, on gloo worlds of CPU ranks.
 Two worlds run side by side, once (module scoped), and each case is
 asserted here on its own: 4 ranks on a (2, 2) ``("data", "model")`` mesh
 (``tests/torch_mesh_ranks.world4``: a checkpoint, batches, smollm-135m and
-moonshot-v1-16b-a3b, the refusal) and 2 ranks on a (1, 2) mesh
+moonshot-v1-16b-a3b, a one-group MoE) and 2 ranks on a (1, 2) mesh
 (``world2``: rwkv6-1.6b, then the 4-rank checkpoint restored). Every run
 starts from the port's SMOKE draws (seed 0), the reference's too.
 Tolerances:
@@ -28,9 +28,12 @@ Tolerances:
 
 The MoE groups its tokens into groups of 512 and shards the group axis over
 ``"data"``: the moonshot cases take 8 x 128 tokens, 2 groups. At 64 tokens
-(one group over a 2-way data axis) DTensor refuses the router product,
-pinned in :func:`test_dtensor_refusal_is_pinned`. jamba-1.5-large-398b's
-backward fails on DTensor too (ROADMAP §C) and is not run here.
+(one group over a 2-way data axis) the group stays whole on each rank
+(``constrain`` splits a dim only over the mesh axes that divide it), one
+step against the one-device port to the same tolerances:
+:func:`test_one_group_moe_runs_and_matches_one_device`.
+jamba-1.5-large-398b's backward fails on DTensor (ROADMAP §C) and is not
+run here.
 """
 import concurrent.futures
 import functools
@@ -59,7 +62,7 @@ jax.config.update("jax_platform_name", "cpu")
 TRAIN = {"smollm-135m": (16, 4), "moonshot-v1-16b-a3b": (128, 8), "rwkv6-1.6b": (16, 4)}
 FOUR = ("smollm-135m", "moonshot-v1-16b-a3b")   # on the (2, 2) mesh
 TWO = ("rwkv6-1.6b",)                            # on the (1, 2) mesh
-REFUSED = {"moonshot-v1-16b-a3b": (16, 4)}
+ONE_GROUP = {"moonshot-v1-16b-a3b": (16, 4)}   # 64 tokens: one MoE group
 RTOL = 1e-4
 ATOL = 1e-6
 
@@ -85,7 +88,7 @@ def worlds(tmp_path_factory):
                            ("smollm-135m", _params("smollm-135m")),
                            ("llama-3.2-vision-90b", (16, 4)),
                            [cases[a] for a in FOUR], [(a, _params(a), d) for a, d in
-                                                      REFUSED.items()], out_dir, **kw)
+                                                      ONE_GROUP.items()], out_dir, **kw)
         two = pool.submit(run_world, "torch_mesh_ranks:world2", 2, [cases[a] for a in TWO],
                           "smollm-135m", _params("smollm-135m"),
                           os.path.join(out_dir, "sharded"), **kw)
@@ -168,12 +171,23 @@ def test_the_state_keeps_its_placements(worlds):
         assert any("Shard" in p for p in first) and all("Partial" not in p for p in first)
 
 
-def test_dtensor_refusal_is_pinned(worlds):
-    """An op DTensor does not lay out in this torch (ROADMAP §C), pinned so
-    a torch that runs it shows here: a MoE of one token group over a 2-way
-    data axis, whose router product flattens the sharded group dim."""
+def test_one_group_moe_runs_and_matches_one_device(worlds):
+    """A MoE of one token group over a 2-way data axis (moonshot SMOKE at
+    4 x 16 tokens), which DTensor refused until ``constrain`` split a dim
+    only over the mesh axes that divide it: the group stays whole on each
+    rank, and one sharded step matches the one-device port."""
+    arch = "moonshot-v1-16b-a3b"
+    dims = ONE_GROUP[arch]
+    state, metrics = ranks.one_device_steps(arch, _params(arch), dims, n_steps=1)
     for w in worlds["four"]:
-        assert "requires redistribution" in w["refusals"]["moonshot-v1-16b-a3b"]
+        for k in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(w["one_group"][arch]["metrics"][0][k], metrics[0][k],
+                                       rtol=RTOL, err_msg=k)
+    want = tree.leaves(ranks.numpy_tree(tree.map(lambda t: t.float(), state)))
+    got = tree.leaves(worlds["four"][0]["one_group"][arch]["state"])
+    assert len(got) == len(want)
+    for i, (g, s) in enumerate(zip(got, want)):
+        _close(g, s, f"leaf {i}")
 
 
 # ---------------------------------------------------------------------------

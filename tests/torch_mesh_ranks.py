@@ -86,7 +86,7 @@ def _train(out, train_cases, mesh_shape):
         }
 
 
-def world4(_snn_mesh, ckpt_case, batch_case, train_cases, refusals, out_dir):
+def world4(_snn_mesh, ckpt_case, batch_case, train_cases, one_group, out_dir):
     """Everything the 4-rank (2, 2) world runs, in one world:
 
     * ``ckpt_case``: ``(arch, params_np)`` -> a train state placed by
@@ -95,11 +95,12 @@ def world4(_snn_mesh, ckpt_case, batch_case, train_cases, refusals, out_dir):
     * ``batch_case``: ``(arch, dims)`` -> ``make_batch(shardings=)``, local
       slices and gathered;
     * ``train_cases``: as :func:`_train`;
-    * ``refusals``: ``(arch, params_np, dims)`` -> the error a sharded step
-      raises, or None.
+    * ``one_group``: ``(arch, params_np, dims)`` -> one sharded step of a
+      MoE whose tokens make one group (split over fewer rows than ranks):
+      its metrics, and on rank 0 the gathered state.
     """
     torch.set_num_threads(1)
-    out = {"rank": dist.get_rank(), "train": {}, "refusals": {}}
+    out = {"rank": dist.get_rank(), "train": {}, "one_group": {}}
     arch, params_np = ckpt_case
     cfg, pcfg, state = port_state(arch, params_np)
     mesh = launch_mesh.make_mesh((2, 2), AXES, device="cpu")
@@ -118,12 +119,13 @@ def world4(_snn_mesh, ckpt_case, batch_case, train_cases, refusals, out_dir):
     out["batch"] = {k: {"slice": slices(v), "full": gather(v).numpy()} for k, v in batch.items()}
 
     _train(out, train_cases, (2, 2))
-    for arch, params_np, dims in refusals:
-        try:
-            _run_steps(arch, params_np, dims, (2, 2), 1)
-            out["refusals"][arch] = None
-        except RuntimeError as e:
-            out["refusals"][arch] = str(e)
+    for arch, params_np, dims in one_group:
+        state, metrics = _run_steps(arch, params_np, dims, (2, 2), 1)
+        full = tree.map(gather, state)
+        out["one_group"][arch] = {
+            "metrics": metrics,
+            "state": interop.train_state_to_numpy(full) if dist.get_rank() == 0 else None,
+        }
     return out
 
 
