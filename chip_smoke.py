@@ -5920,6 +5920,30 @@ def mesh_steps(step, state, batches, dev) -> dict:
             "events": events, "top": top, "profiled_state": p}
 
 
+def dtensor_results(step, state, batch) -> int:
+    """One warm train step under a dispatch mode above DTensor: how many
+    DTensors the ops it dispatched returned (each one of DTensor's own
+    dispatches, whose host cost sets a mesh step's wall)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    count = [0]
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            count[0] += sum(isinstance(t, DTensor) for t in tree_flatten(out)[0])
+            return out
+
+    torch.cuda.synchronize()
+    with Count():
+        step(state, batch)
+    torch.cuda.synchronize()
+    return count[0]
+
+
 def host_profile(step, state, batch) -> dict:
     """One warm train step under ``cProfile``: the host seconds in all, and
     those spent in DTensor's own Python (``torch/distributed/tensor``), in
@@ -6004,6 +6028,7 @@ def mesh_train(dev, smi) -> dict:
     with use_rules(rules):
         meshed = mesh_steps(step, placed, mesh_batches, dev)
         host_mesh = host_profile(step, meshed["state"], mesh_batches[-1])
+        results = dtensor_results(step, meshed["state"], mesh_batches[-1])
     host_plain = host_profile(step, plain["state"], plain_batches[-1])
     if not all(is_dtensor(x) for x in tree.leaves(meshed["state"])):
         raise AssertionError("lm mesh: a leaf of the mesh state is not a DTensor")
@@ -6053,6 +6078,9 @@ def mesh_train(dev, smi) -> dict:
         f"device time on the mesh's last step: "
         + ", ".join(f"{name[:48]} {us / 1e3:.2f} ms in {count}"
                     for us, count, name in meshed["top"][-1]))
+    log(f"lm mesh DTensor results of one warm step on the (1, 1) mesh (ops dispatched to "
+        f"DTensor, counted above it): {results:,} (DTensor wrapped 15,329 results a "
+        f"step while attention gathered its heads)")
     log(f"lm mesh host profile (cProfile, one warm step; the profiler's own cost included): "
         f"mesh {host_mesh['total']:.3f} s of host Python and C calls, of which "
         + ", ".join(f"{k} {v:.3f} s" for k, v in host_mesh["areas"].items())
@@ -6149,7 +6177,12 @@ def run_mesh_phase(dev, card, smi) -> None:
 
 DRYRUN_CELLS = (("qwen3-0.6b", "decode_32k", False), ("qwen3-0.6b", "decode_32k", True),
                 ("smollm-135m", "train_4k", False), ("moonshot-v1-16b-a3b", "decode_32k", False),
-                ("snn-64k", None, False))
+                ("qwen3-0.6b", "prefill_32k", False), ("snn-64k", None, False))
+# The reference's per-device FLOPs of smollm-135m train_4k on (16, 16) (its
+# dry run on the CPU; the port's one-device step at 1 x 4096 tokens traces
+# the same), and how far the port's may lie above it.
+REF_SMOLLM_TRAIN_FLOPS = 12_710_955_712_512
+FLOPS_SLACK = 1.25
 DRYRUN_TWICE = ("smollm-135m", "train_4k", False)   # traced again: the counts must repeat
 DRYRUN_TIMEOUT = 240          # seconds a dry-run child may take
 MEMORY_TOLERANCE = 0.10       # the traced peak against max_memory_allocated
@@ -6203,12 +6236,16 @@ def check_dryrun_cells(children, out_dir: str, smi) -> None:
             failed.append(f"{name}: status {rec['status']}")
             continue
         done[name] = (hc, mem["temp_size_in_bytes"])
+        layout = rec.get("layout", {}).get("departures", {})
         log(f"dry run {name} (device {rec['device']}, {rec['n_chips']} fake ranks, torch "
             f"{_torch_version()}): status {rec['status']}; per device {hc['flops_per_device']:,.0f}"
             f" FLOPs, {hc['dot_bytes_per_device']:,.0f} dot bytes, collectives "
-            f"{ {k: int(v) for k, v in hc['collective_bytes_per_device'].items()} }; argument "
-            f"{mem['argument_size_in_bytes']:,} B, temp {mem['temp_size_in_bytes']:,} B; trace "
+            f"{ {k: int(v) for k, v in hc['collective_bytes_per_device'].items()} } (summed "
+            f"{hc['total_collective_bytes_per_device']:,.0f} B); argument "
+            f"{mem['argument_size_in_bytes']:,} B, temp {mem['temp_size_in_bytes']:,} B; first "
+            f"product over its share: {departure_text(layout)}; trace "
             f"{rec['timings']['trace_s']:.1f} s, child wall {wall:.1f} s; card {smi}")
+        failed += layout_faults(name, rec)
     twice = cell_name(*DRYRUN_TWICE)
     if twice in done and twice + ".again" in done:
         same = done[twice] == done[twice + ".again"]
@@ -6219,6 +6256,52 @@ def check_dryrun_cells(children, out_dir: str, smi) -> None:
                           f"{done[twice + '.again']}")
     if failed:
         raise AssertionError("dry run: " + "; ".join(failed))
+
+
+def departure_text(departures: dict) -> str:
+    """``layout.departures`` in a line: the first product over its even
+    share (op, its innermost model frame, times its share), or none."""
+    if not departures:
+        return "not recorded (snn cell)"
+    if not departures.get("matched"):
+        return (f"unmatched ({departures['local_products']} local products against "
+                f"{departures['global_products']} global)")
+    first = departures.get("first")
+    if first is None:
+        return f"none of {departures['products']} products"
+    return (f"{first['op']} at {model_frame(first['stack'])} x{first['times_share']:.3g} "
+            f"({departures['over_share']} of {departures['products']} products over)")
+
+
+def model_frame(stack) -> str:
+    """The innermost frame of a recorded stack that lies in ``models/``."""
+    frames = [f for f in stack if "/models/" in f]
+    return frames[-1] if frames else (stack[-1] if stack else "?")
+
+
+def layout_faults(name: str, rec: dict) -> list:
+    """The attention layout's checks on one artifact: in a train or prefill
+    cell no first departure in ``models/attention.py``; in a decode cell
+    none there but the one row's K/V projection (``_project_kv``), which
+    the reference computes on every ``model`` rank as well (its FLOPs a
+    device equal the reference's); smollm-135m train_4k's FLOPs a device
+    within ``FLOPS_SLACK`` of the reference's."""
+    faults = []
+    dep = rec.get("layout", {}).get("departures", {})
+    if dep and not dep.get("matched"):
+        faults.append(f"{name}: departures unmatched {dep}")
+    first = dep.get("first") if dep else None
+    if first is not None and "models/attention.py" in model_frame(first["stack"]):
+        if rec["kind"] != "decode" or not model_frame(first["stack"]).endswith("_project_kv"):
+            faults.append(f"{name}: the first product over its share lies in attention: "
+                          f"{departure_text(dep)}")
+    if (rec["arch"], rec["shape"], rec["mesh"]) == ("smollm-135m", "train_4k", "16x16"):
+        ratio = rec["hlo_cost"]["flops_per_device"] / REF_SMOLLM_TRAIN_FLOPS
+        log(f"dry run {name}: FLOPs a device {ratio:.4f}x the reference's "
+            f"{REF_SMOLLM_TRAIN_FLOPS:,}")
+        if not 1 / FLOPS_SLACK <= ratio <= FLOPS_SLACK:
+            faults.append(f"{name}: FLOPs a device {ratio:.4f}x the reference's")
+    return faults
 
 
 def _torch_version() -> str:
@@ -6312,7 +6395,7 @@ def check_cost_model(dev, smi) -> None:
 
 
 def run_dryrun_phase(dev, card, smi) -> None:
-    """The dry run on the card's torch: (a) five cells in child processes,
+    """The dry run on the card's torch: (a) six cells in child processes,
     (b) the cost model against a real step. No hand-written kernel
     launches."""
     import torch

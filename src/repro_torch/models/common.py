@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import device as _device
+from repro_torch.parallel.sharding import is_dtensor, local_offsets
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "int32": torch.int32}
 
@@ -172,8 +173,28 @@ def sinusoidal_pos_embed(positions: torch.Tensor, d_model: int) -> torch.Tensor:
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean token NLL; logits in any float dtype (softmax in f32)."""
     lp = torch.log_softmax(logits.float(), dim=-1)
+    if is_dtensor(lp):
+        return (-_picked(lp, labels)).mean()
     nll = -torch.gather(lp, -1, labels[..., None].long())[..., 0]
     return nll.mean()
+
+
+def _picked(lp: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``lp[..., labels]`` of a DTensor ``lp`` (the vocab whole on every
+    rank, as DTensor's softmax leaves it), each rank picking from its own
+    rows with their labels. ``torch.gather`` on the DTensor would do the
+    same in the forward, but its backward makes its zeros (``new_zeros``)
+    at the global shape of ``lp`` on every rank: the whole (B, T, V) f32
+    gradient of the logits."""
+    from torch.distributed.tensor import DTensor
+
+    if is_dtensor(labels):
+        labels = labels.redistribute(lp.device_mesh, lp.placements).to_local()
+    else:
+        shape, off = local_offsets(lp)
+        labels = labels[tuple(slice(o, o + n) for o, n in zip(off[:-1], shape[:-1]))]
+    out = torch.gather(lp.to_local(), -1, labels[..., None].long())[..., 0]
+    return DTensor.from_local(out, lp.device_mesh, lp.placements, run_check=False)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -255,9 +255,8 @@ def _apply_layer(
             x, kv = attn.self_attention(
                 x, p["mixer"], cfg, positions=positions, cache_pos="prefill")
             # Write fresh K/V into the fixed-size cache buffer.
-            sq = kv.k.shape[1]
-            cache["kv"]["k"][:, :sq] = kv.k
-            cache["kv"]["v"][:, :sq] = kv.v
+            attn.write_rows(cache["kv"]["k"], kv.k, 0)
+            attn.write_rows(cache["kv"]["v"], kv.v, 0)
         else:
             kvc = attn.KVCache(k=cache["kv"]["k"], v=cache["kv"]["v"])
             x, _ = attn.self_attention(

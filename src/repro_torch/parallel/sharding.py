@@ -247,10 +247,17 @@ def constrain(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
     if not isinstance(x, DTensor):
         x = DTensor.from_local(x, rules.mesh, [Replicate()] * rules.mesh.ndim,
                                run_check=False)
+    return relayout(x, placements)
+
+
+def relayout(x, placements: Sequence) -> torch.Tensor:
+    """The DTensor ``x`` redistributed to ``placements`` (one per mesh dim),
+    its gradient laid out as the value is (:class:`_GradLayout`)."""
+    placements = tuple(placements)
     if tuple(x.placements) != placements:
         if not any(p.is_partial() for p in x.placements):   # a pending sum is left as it is
             x = _GradLayout.apply(x, False)
-        x = x.redistribute(rules.mesh, placements)
+        x = x.redistribute(x.device_mesh, placements)
     return _GradLayout.apply(x, True)
 
 
@@ -351,31 +358,36 @@ def _flatten_refused(x) -> bool:
     return any(w > 1 for w in ways[1:-1]) or x.shape[0] % ways[0] != 0
 
 
-def _foldable(x: torch.Tensor, n: int) -> torch.Tensor:
-    """``x`` laid out so that its first ``n`` dims can be folded into one:
-    of them only the first stays split (over the mesh axes that divide it),
-    the others are gathered."""
-    from torch.distributed.tensor import Replicate
+def local_offsets(x) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """``(local shape, global offset)`` of this rank's shard of the DTensor ``x``."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
-    want = [Replicate() if p.is_shard() and 0 < p.dim < n else p for p in x.placements]
-    want = even_placements(x.device_mesh, want, x.shape)
-    if tuple(want) == tuple(x.placements):
-        return x
-    return x.redistribute(x.device_mesh, want)
+    shape, offset = compute_local_shape_and_global_offset(x.shape, x.device_mesh, x.placements)
+    return tuple(shape), tuple(offset)
 
 
-def batched_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` for 4-D operands (batch and heads, then the matrices).
+def folded_bmm(a: torch.Tensor, b: torch.Tensor, mesh, pa: Sequence,
+               pb: Sequence) -> torch.Tensor:
+    """``a @ b`` of two local 4-D blocks (a rank's batch rows and heads,
+    then the matrices), dispatched as one DTensor ``bmm``: the two leading
+    dims are folded locally, as ``@`` folds them, and each operand becomes
+    the shard of a global ``(groups, m, k)`` tensor laid out by ``pa`` /
+    ``pb`` (``Shard(0)`` on each mesh dim that splits the rank's groups;
+    ``Shard(1)`` / ``Shard(2)`` where a mesh dim splits a matrix dim). The
+    product is the DTensor ``(groups, m, n)``; a ``Partial`` sum where the
+    split dim is contracted. Nothing is gathered, and the cost recording
+    sees the product at its global shapes, as a sharded einsum's.
 
-    ``@`` folds the two batch dims into one, and DTensor refuses to fold a
-    split dim past the first (the card's torch always; newer ones make a
-    strided shard, whose backward then mislays the local shapes on the
-    multi-pod mesh). On a mesh the operands are gathered past their first
-    dim first, and the product's gradient is laid out as the product, so
-    the backward folds the same way. Plain tensors give ``a @ b`` itself."""
-    if not is_dtensor(a):
-        return a @ b
-    return _GradLayout.apply(_foldable(a, 2) @ _foldable(b, 2), True)
+    The folded order of the groups is the ranks' order, not a row-major
+    fold of (batch, heads): only row-wise ops may touch the product before
+    :meth:`to_local` unfolds it on the rank that made it."""
+    from torch.distributed.tensor import DTensor
+
+    fa = DTensor.from_local(a.reshape((-1,) + tuple(a.shape[2:])), mesh, tuple(pa),
+                            run_check=False)
+    fb = DTensor.from_local(b.reshape((-1,) + tuple(b.shape[2:])), mesh, tuple(pb),
+                            run_check=False)
+    return torch.bmm(fa, fb)
 
 
 def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -144,19 +144,28 @@ def scan(body: Callable, carry, n: int, dim: Optional[int] = None):
 
 
 def checkpoint(fn: Callable, *args, **kwargs):
-    """``torch.utils.checkpoint.checkpoint(fn, *args, **kwargs)``; under a
-    recording, the ops of its recomputation in the backward count as they
-    did in the forward."""
-    if _recorder is None:
+    """``torch.utils.checkpoint.checkpoint(fn, *args, **kwargs)``; the
+    recomputation in the backward runs under the sharding rules the forward
+    ran under (they are per thread, and autograd recomputes a CUDA graph on
+    a thread of its own: without them a recomputed layer is laid out
+    otherwise than the forward's), and under a recording its ops count as
+    they did in the forward."""
+    from repro_torch.parallel.sharding import current_rules, use_rules
+
+    rules = current_rules()
+    base = None if _recorder is None else multiplier()
+    if rules is None and base is None:
         return _ckpt.checkpoint(fn, *args, **kwargs)
-    base = multiplier()
 
     def body(*a, **k):
-        frames = _frames()
-        frames.append(("base", base))
-        try:
-            return fn(*a, **k)
-        finally:
-            frames.pop()
+        with use_rules(rules):
+            if base is None:
+                return fn(*a, **k)
+            frames = _frames()
+            frames.append(("base", base))
+            try:
+                return fn(*a, **k)
+            finally:
+                frames.pop()
 
     return _ckpt.checkpoint(body, *args, **kwargs)

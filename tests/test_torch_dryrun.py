@@ -10,7 +10,12 @@ argument and temp bytes fit an H100's 80 GB (the reference asserts v5e's
 16 GB), rule overrides reach the artifact, and smollm-135m decode_32k
 agrees exactly with the reference's own artifact on both meshes in
 ``n_chips``, ``n_params``, ``n_active_params``, ``argument_size_in_bytes``
-and ``flops_per_device``. The children run at once, three at a time.
+and ``flops_per_device``. Attention is laid out as the reference lays it
+out: qwen3-0.6b prefill_32k on (16, 16) computes within 1.25x of the
+reference's FLOPs a device and its first product over its even share (if
+any) is not attention's, and smollm-135m decode_32k's collective bytes a
+device are within 4x of the reference's on both meshes. The children run at
+once, three at a time.
 """
 import concurrent.futures
 import json
@@ -69,11 +74,15 @@ _PORT = {
     "smollm/2x16x16": ["--arch", "smollm-135m", "--shape", "decode_32k", "--multi-pod"],
     "overrides": ["--arch", "smollm-135m", "--shape", "decode_32k",
                   "--rule-overrides", '{"kv_seq": "data"}', "--tag", "t1"],
+    "qwen3-prefill/16x16": ["--arch", "qwen3-0.6b", "--shape", "prefill_32k"],
 }
 _REFERENCE = {
     "ref/16x16": ["--arch", "smollm-135m", "--shape", "decode_32k"],
     "ref/2x16x16": ["--arch", "smollm-135m", "--shape", "decode_32k", "--multi-pod"],
+    "ref/qwen3-prefill/16x16": ["--arch", "qwen3-0.6b", "--shape", "prefill_32k"],
 }
+FLOPS_SLACK = 1.25        # train and prefill FLOPs a device against the reference's
+COLLECTIVE_SLACK = 4.0    # decode's collective bytes a device against the reference's
 
 
 def _run(key, tmp):
@@ -142,6 +151,39 @@ def test_smollm_decode_equals_the_references_artifact(cells, multi_pod):
     assert port["memory_analysis"]["argument_size_in_bytes"] \
         == ref["memory_analysis"]["argument_size_in_bytes"]
     assert port["hlo_cost"]["flops_per_device"] == ref["hlo_cost"]["flops_per_device"]
+
+
+def test_prefill_flops_are_the_references_and_attention_keeps_its_share(cells):
+    """qwen3-0.6b prefill_32k on (16, 16): the score and value products run
+    on each rank's own (batch, heads) block and K/V are projected over
+    ``kv_seq``, so the FLOPs a device come within ``FLOPS_SLACK`` of the
+    reference's (15x above them while the heads were gathered) and no
+    product of attention computes more than its even share."""
+    name = dryrun.cell_name("qwen3-0.6b", "prefill_32k", False) + ".json"
+    port = _artifact(cells, "qwen3-prefill/16x16", name)
+    ref = _artifact(cells, "ref/qwen3-prefill/16x16", name)
+    ratio = port["hlo_cost"]["flops_per_device"] / ref["hlo_cost"]["flops_per_device"]
+    assert 1 / FLOPS_SLACK <= ratio <= FLOPS_SLACK, ratio
+    dep = port["layout"]["departures"]
+    assert dep["matched"], dep
+    first = dep["first"]
+    assert first is None or not any("models/attention.py" in f for f in first["stack"]), first
+
+
+@pytest.mark.parametrize("multi_pod", MESHES, ids=["16x16", "2x16x16"])
+def test_smollm_decode_collectives_are_near_the_references(cells, multi_pod):
+    """smollm-135m decode_32k: each rank writes the step's K/V row into its
+    own ``kv_seq`` shard and combines the softmax by all-reduces, so its
+    collective bytes a device come within ``COLLECTIVE_SLACK`` of the
+    reference's (they were 190x while DTensor gathered the cache to write
+    the row)."""
+    mesh = "2x16x16" if multi_pod else "16x16"
+    name = dryrun.cell_name("smollm-135m", "decode_32k", multi_pod) + ".json"
+    port = _artifact(cells, f"smollm/{mesh}", name)["hlo_cost"]
+    ref = _artifact(cells, f"ref/{mesh}", name)["hlo_cost"]
+    got, want = port["total_collective_bytes_per_device"], ref["total_collective_bytes_per_device"]
+    assert 0 < got <= COLLECTIVE_SLACK * want, (port["collective_bytes_per_device"],
+                                                ref["collective_bytes_per_device"])
 
 
 def test_the_cli_refuses_a_second_world():

@@ -144,6 +144,31 @@ class TestKnownCounts:
         assert run(True) == run(False) >= 17 * 2 * D ** 3
 
 
+def test_a_recomputation_runs_under_the_forwards_rules():
+    """A checkpointed body recomputed in a backward on another thread (as
+    autograd recomputes CUDA graphs) sees the sharding rules the forward
+    saw: the rules are per thread, and a recomputation without them lays a
+    layer out otherwise on a mesh (the card's trace of smollm-135m train_4k
+    then recomputed every head's scores where the forward kept one)."""
+    import threading
+
+    from repro_torch.parallel.sharding import BASE_RULES, AxisRules, current_rules, use_rules
+
+    rules, seen = AxisRules(BASE_RULES), []
+
+    def body(x):
+        seen.append(current_rules())
+        return (x * x).sin()
+
+    x = torch.ones(3, requires_grad=True)
+    with use_rules(rules):
+        y = trips.checkpoint(body, x, use_reentrant=False)
+    other = threading.Thread(target=lambda: torch.autograd.grad(y.sum(), x))
+    other.start()
+    other.join()
+    assert seen == [rules, rules]
+
+
 def test_cost_dict_normalises_its_inputs():
     from torch.utils.flop_counter import FlopCounterMode
 

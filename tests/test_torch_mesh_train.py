@@ -3,15 +3,16 @@ checkpoints and sharded batches, on gloo worlds of CPU ranks.
 
 Two worlds run side by side, once (module scoped), and each case is
 asserted here on its own: 4 ranks on a (2, 2) ``("data", "model")`` mesh
-(``tests/torch_mesh_ranks.world4``: a checkpoint, batches, smollm-135m and
-moonshot-v1-16b-a3b, a one-group MoE) and 2 ranks on a (1, 2) mesh
-(``world2``: rwkv6-1.6b, then the 4-rank checkpoint restored). Every run
-starts from the port's SMOKE draws (seed 0), the reference's too.
-Tolerances:
+(``tests/torch_mesh_ranks.world4``: a checkpoint, batches, smollm-135m,
+qwen3-0.6b and moonshot-v1-16b-a3b, a one-group MoE, smollm-135m's prefill
+and decode) and 2 ranks on a (1, 2) mesh (``world2``: rwkv6-1.6b, then the
+4-rank checkpoint restored). Every run starts from the port's SMOKE draws
+(seed 0), the reference's too. Tolerances:
 
 * the sharded train step (state by ``state_shardings``, batch by
-  ``batch_shardings``, rules active), 3 steps of smollm-135m, moonshot-v1-16b-a3b
-  (its ``experts`` on ``"model"``, the FSDP rules) and rwkv6-1.6b SMOKE
+  ``batch_shardings``, rules active), 3 steps of smollm-135m, qwen3-0.6b,
+  moonshot-v1-16b-a3b (its ``experts`` on ``"model"``, the FSDP rules) and
+  rwkv6-1.6b SMOKE
   against the one-device port and the reference's jitted step from the
   same parameters (rwkv6 at 4 x 16 tokens: at 4 x 8 from these draws its
   time mix amplifies the one-device port's rounding to 1.7e-4 of the
@@ -22,6 +23,13 @@ Tolerances:
   at the rate of 1e-3: a leaf that starts at zero, rwkv6's ``gn_beta``,
   holds only its three updates): the model axis splits the sums of the
   products;
+* prefill and decode on the mesh (parameters by ``param_shardings``, caches
+  by ``cache_shardings``, ``kv_seq`` over ``model``): smollm-135m SMOKE, a
+  prompt of 6 tokens and 3 decode steps at positions 6, 7 and 8 on 16 cache
+  rows (so the last step's row lies in the second ``model`` shard), logits
+  and caches against one device and the reference within the LM tests'
+  f32 tolerance, ``rtol = atol = 1e-5`` (the ranks split the softmax's sums
+  over ``kv_seq``);
 * checkpoints and batches: bitwise. A checkpoint written on 4 ranks has the
   files of the same values saved unsharded, byte for byte, and restores onto
   2 ranks and onto one device bitwise, each rank holding its own slice.
@@ -50,21 +58,26 @@ from repro import configs as j_configs
 from repro.configs.base import ShapeConfig as JShapeConfig
 from repro.data import pipeline as j_pipeline
 from repro.launch import steps as j_steps
+from repro.models import model as JM
 from repro_torch import checkpoint as ckpt
 from repro_torch import interop
 from repro_torch.configs import get_bundle
 from repro_torch.launch.mesh import run_world
+from repro_torch.models import attention as TM_attn
 from repro_torch.models import model as TM
 from repro_torch.util import tree
 
 jax.config.update("jax_platform_name", "cpu")
 
-TRAIN = {"smollm-135m": (16, 4), "moonshot-v1-16b-a3b": (128, 8), "rwkv6-1.6b": (16, 4)}
-FOUR = ("smollm-135m", "moonshot-v1-16b-a3b")   # on the (2, 2) mesh
+TRAIN = {"smollm-135m": (16, 4), "qwen3-0.6b": (16, 4), "moonshot-v1-16b-a3b": (128, 8),
+         "rwkv6-1.6b": (16, 4)}
+FOUR = ("smollm-135m", "qwen3-0.6b", "moonshot-v1-16b-a3b")   # on the (2, 2) mesh
 TWO = ("rwkv6-1.6b",)                            # on the (1, 2) mesh
 ONE_GROUP = {"moonshot-v1-16b-a3b": (16, 4)}   # 64 tokens: one MoE group
 RTOL = 1e-4
 ATOL = 1e-6
+SERVE = ("smollm-135m", 4, 9, 16)    # arch, batch, prompt + 3 decode tokens, cache rows
+F32 = dict(rtol=1e-5, atol=1e-5)     # the LM tests' f32 tolerance
 
 
 @functools.lru_cache(maxsize=None)
@@ -83,18 +96,26 @@ def worlds(tmp_path_factory):
     out_dir = str(tmp_path_factory.mktemp("mesh"))
     kw = dict(device="cpu", backend="gloo", threads=1, timeout=300)
     cases = {arch: (arch, _params(arch), dims) for arch, dims in TRAIN.items()}
+    arch, _, _, s_max = SERVE
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         four = pool.submit(run_world, "torch_mesh_ranks:world4", 4,
                            ("smollm-135m", _params("smollm-135m")),
                            ("llama-3.2-vision-90b", (16, 4)),
                            [cases[a] for a in FOUR], [(a, _params(a), d) for a, d in
-                                                      ONE_GROUP.items()], out_dir, **kw)
+                                                      ONE_GROUP.items()], out_dir,
+                           (arch, _params(arch), _serve_tokens(), s_max), **kw)
         two = pool.submit(run_world, "torch_mesh_ranks:world2", 2, [cases[a] for a in TWO],
                           "smollm-135m", _params("smollm-135m"),
                           os.path.join(out_dir, "sharded"), **kw)
         four, two = four.result(), two.result()
     return {"four": four, "two": two, "dir": out_dir,
             "train": {a: (four if a in FOUR else two) for a in TRAIN}}
+
+
+def _serve_tokens():
+    arch, batch, cols, _ = SERVE
+    cfg = get_bundle(arch).smoke
+    return np.random.default_rng(7).integers(0, cfg.vocab_size, (batch, cols)).astype(np.int64)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -257,3 +278,101 @@ def test_make_batch_with_shardings_is_the_references(worlds):
                                           np.asarray(v, np.float64))
             _check_slice(got["slice"], v)
             assert got["slice"]["placements"][0] == "S(0)"   # batch over "data"
+
+
+# ---------------------------------------------------------------------------
+# attention laid out as the reference lays it out
+
+
+def test_the_score_product_is_each_ranks_own_block(worlds):
+    """In a train step each rank's score product is its own (batch, heads)
+    block, batch over the 2 ``data`` ranks and heads over the 2 ``model``
+    ranks, and the product is one DTensor ``bmm`` at the global shapes: no
+    rank gathers the heads. smollm-135m (3 heads padded to 4 on 1 kv head)
+    and qwen3-0.6b (4 heads on 2 kv heads) are GQA; moonshot has a kv head
+    per head."""
+    for arch in FOUR:
+        cfg = get_bundle(arch).smoke
+        seq, batch = TRAIN[arch]
+        hqp, dh = TM_attn.padded_q_heads(cfg), cfg.d_head
+        for w in worlds["four"]:
+            products = w["train"][arch]["products"]
+            assert products, arch
+            first = products[0]          # the scores of the first layer's first block
+            assert first["a"] == (batch // 2, hqp // 2, seq, dh), (arch, first)
+            assert first["b"] == (batch // 2, hqp // 2, dh, seq), (arch, first)
+            assert first["global"] == (batch * hqp, seq, seq), (arch, first)
+            assert first["local"] == (batch * hqp // 4, seq, seq), (arch, first)
+            assert all(p["local"][0] * 4 == p["global"][0] for p in products), arch
+
+
+def _one_device_serve():
+    arch, _, _, s_max = SERVE
+    return ranks.serve_steps(arch, _params(arch), _serve_tokens(), s_max)
+
+
+def _reference_serve():
+    arch, _, _, s_max = SERVE
+    cfg = j_configs.get_bundle(arch).smoke
+    params = jax.tree.map(jnp.asarray, _params(arch))
+    toks = jnp.asarray(_serve_tokens().astype(np.int32))
+    n = toks.shape[1] - 3
+    caches = JM.init_cache(cfg, toks.shape[0], s_max)
+    logits, cached = [], []
+    out, caches = JM.prefill_fn(params, cfg, {"inputs": toks[:, :n]}, caches)
+    logits.append(np.asarray(out, np.float32))
+    cached.append([np.asarray(x, np.float32) for x in jax.tree.leaves(caches)])
+    for i in range(3):
+        out, caches = JM.decode_fn(params, cfg, {"token": toks[:, n + i:n + i + 1],
+                                                 "pos": jnp.asarray(n + i, jnp.int32)}, caches)
+        logits.append(np.asarray(out, np.float32))
+        cached.append([np.asarray(x, np.float32) for x in jax.tree.leaves(caches)])
+    return logits, cached
+
+
+def _hold_serve(got, logits, cached, what):
+    names = ["prefill"] + [f"decode {i}" for i in range(3)]
+    for name, g, want in zip(names, got["logits"], logits):
+        np.testing.assert_allclose(g, want, err_msg=f"{what}: {name} logits", **F32)
+    for name, g, want in zip(names, got["caches"], cached):
+        g = tree.leaves(g) if not isinstance(g, list) or not isinstance(g[0], np.ndarray) else g
+        assert len(g) == len(want)
+        for a, b in zip(g, want):
+            np.testing.assert_allclose(a, b, err_msg=f"{what}: {name} cache", **F32)
+
+
+def test_mesh_prefill_and_decode_match_one_device(worlds):
+    one = _one_device_serve()
+    cached = [tree.leaves(c) for c in one["caches"]]
+    for w in worlds["four"]:
+        # (layers, B, S, Hkv*Dh): batch over "data", kv_seq over "model"
+        assert w["serve"]["cache_placements"] == ["S(1)", "S(2)"]
+        _hold_serve(w["serve"], one["logits"], cached, f"rank {w['rank']}")
+
+
+def test_mesh_prefill_and_decode_match_the_reference(worlds):
+    logits, cached = _reference_serve()
+    for w in worlds["four"]:
+        _hold_serve(w["serve"], logits, cached, f"rank {w['rank']}")
+
+
+def test_a_decode_step_moves_no_cache(worlds):
+    """The second decode step (row 7, the first ``model`` shard's last) under
+    ``CommDebugMode``: inside the self-attention sublayers the softmax's max
+    and sum and the weighted values are all-reduced (beside the output
+    projection's partial sums), and no all-gather
+    reaches one layer's K cache (the one gathered there is q's heads).
+    Before the row was written into its own shard, DTensor gathered every
+    layer's K and V caches for the write."""
+    arch, batch, _, s_max = SERVE
+    cfg = get_bundle(arch).smoke
+    k_cache = batch * s_max * cfg.n_kv_heads * cfg.d_head * 4     # f32 bytes, one layer
+    for w in worlds["four"]:
+        records = [r for r in w["serve"]["comm"]["records"] if r[3]]
+        gathers = [r for r in records if "gather" in r[0]]
+        reduces = [r for r in records if "all_reduce" in r[0]]
+        bl, hqp = batch // 2, TM_attn.padded_q_heads(cfg)
+        shapes = [r[2] for r in reduces]
+        assert shapes.count((bl, hqp, 1, 1)) == 2 * cfg.n_layers, shapes   # max, sum
+        assert shapes.count((bl * hqp, 1, cfg.d_head)) == cfg.n_layers, shapes   # the values
+        assert all(nbytes * 2 < k_cache for _, nbytes, _, _ in gathers), gathers

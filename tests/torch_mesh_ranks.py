@@ -7,6 +7,7 @@ Each function is started on every rank by ``repro_torch.launch.mesh.run_world``
 starts from the same global values, passed in as numpy trees, so nothing here
 imports the reference.
 """
+import contextlib
 import os
 import time
 
@@ -21,6 +22,8 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.data import pipeline
 from repro_torch.launch import mesh as launch_mesh
 from repro_torch.launch import steps
+from repro_torch.models import attention
+from repro_torch.models import model as M
 from repro_torch.optim import adamw
 from repro_torch.parallel.sharding import gather, use_rules
 from repro_torch.util import tree
@@ -52,10 +55,32 @@ def slices(x):
             "local_shape": tuple(local_shape), "placements": [str(p) for p in x.placements]}
 
 
-def _run_steps(arch, params_np, dims, mesh_shape, n_steps):
+@contextlib.contextmanager
+def products_seen(seen):
+    """Each product of the attention core on a mesh (``folded_bmm``) while
+    active: the local blocks' shapes, the product's global and local shapes
+    and its placements, appended to ``seen``."""
+    real = attention.folded_bmm
+
+    def recording(a, b, mesh, pa, pb):
+        out = real(a, b, mesh, pa, pb)
+        seen.append({"a": tuple(a.shape), "b": tuple(b.shape), "global": tuple(out.shape),
+                     "local": tuple(out.to_local().shape),
+                     "placements": [str(p) for p in out.placements]})
+        return out
+
+    attention.folded_bmm = recording
+    try:
+        yield seen
+    finally:
+        attention.folded_bmm = real
+
+
+def _run_steps(arch, params_np, dims, mesh_shape, n_steps, seen=None):
     """``n_steps`` of the sharded train step on a ``mesh_shape`` mesh, the
     state placed by ``state_shardings``, each batch by ``batch_shardings``,
-    the rules active."""
+    the rules active. ``seen`` collects the attention core's products of
+    the first step (:func:`products_seen`)."""
     cfg, pcfg, state = port_state(arch, params_np)
     shape = shape_of(dims)
     mesh = launch_mesh.make_mesh(mesh_shape, AXES, device="cpu")
@@ -68,25 +93,121 @@ def _run_steps(arch, params_np, dims, mesh_shape, n_steps):
         for i in range(n_steps):
             batch = pipeline.make_batch(cfg, shape, pipeline.PipelineState(17, i),
                                         device="cpu", shardings=bsh)
-            state, m = step(state, batch)
+            with (products_seen(seen) if seen is not None and i == 0
+                  else contextlib.nullcontext()):
+                state, m = step(state, batch)
             metrics.append({k: float(v) for k, v in m.items()})
     return state, metrics
 
 
 def _train(out, train_cases, mesh_shape):
     """``train_cases``: ``(arch, params_np, dims)`` -> 3 sharded steps; the
-    metrics, the placements, and on rank 0 the gathered state."""
+    metrics, the placements, the attention core's products of the first
+    step, and on rank 0 the gathered state."""
     for arch, params_np, dims in train_cases:
-        state, metrics = _run_steps(arch, params_np, dims, mesh_shape, 3)
+        seen = []
+        state, metrics = _run_steps(arch, params_np, dims, mesh_shape, 3, seen)
         full = tree.map(gather, state)
         out["train"][arch] = {
             "metrics": metrics,
             "placements": [str(tuple(p.placements)) for p in tree.leaves(state.params)],
+            "products": seen,
             "state": interop.train_state_to_numpy(full) if dist.get_rank() == 0 else None,
         }
 
 
-def world4(_snn_mesh, ckpt_case, batch_case, train_cases, one_group, out_dir):
+class CommBytes:
+    """``CommDebugMode`` that also keeps each collective's name, operand
+    bytes and shape, and whether it ran inside the self-attention sublayer
+    (``records``), the rank's own tensors beneath DTensor."""
+
+    def __enter__(self):
+        from torch.distributed.tensor.debug import CommDebugMode
+
+        records = self.records = []
+        inside = [False]
+
+        class Mode(CommDebugMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = super().__torch_dispatch__(func, types, args, kwargs)
+                name = getattr(getattr(func, "_schema", None), "name", "")
+                if out is not NotImplemented and "c10d" in name:
+                    first = next((a for a in args if isinstance(a, torch.Tensor)), None)
+                    nbytes = first.numel() * first.element_size() if first is not None else 0
+                    records.append((name, nbytes, tuple(getattr(first, "shape", ())),
+                                    inside[0]))
+                return out
+
+        real = self.real = attention.self_attention
+
+        def tagged(*a, **kw):
+            inside[0] = True
+            try:
+                return real(*a, **kw)
+            finally:
+                inside[0] = False
+
+        attention.self_attention = tagged
+        self.mode = Mode()
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+        attention.self_attention = self.real
+        self.counts = {str(k): v for k, v in self.mode.get_comm_counts().items()}
+        return False
+
+
+def serve_steps(arch, params_np, tokens, s_max, mesh_shape=None):
+    """Prefill over ``tokens[:, :-3]`` then three decode steps of its last
+    three columns, teacher-forced, on ``s_max`` rows of cache: the last
+    logits of each call and the caches after each, gathered (numpy). On a
+    ``mesh_shape`` mesh the parameters lie by ``param_shardings`` and the
+    caches by ``cache_shardings`` under a decode cell's rules (``kv_seq``
+    over ``model``), the steps under ``implicit_replication``; the second
+    decode step's collectives are kept (:class:`CommBytes`)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    cfg = get_bundle(arch).smoke
+    params = interop.lm_params_from_numpy(params_np, cfg, "cpu")
+    caches = M.init_cache(cfg, tokens.shape[0], s_max, "cpu")
+    ctx, rules, comm = contextlib.nullcontext(), None, None
+    if mesh_shape is not None:
+        mesh = launch_mesh.make_mesh(mesh_shape, AXES, device="cpu")
+        shape = ShapeConfig("serve", "decode", s_max, tokens.shape[0])
+        rules = launch_mesh.make_rules(mesh, cfg, shape, get_bundle(arch).parallel_for(
+            "decode_32k"))
+        params = steps.place_state(params, steps.param_shardings(cfg, rules))
+        caches = steps.place_state(caches, steps.cache_shardings(cfg, shape, rules))
+        ctx = implicit_replication()
+    toks = torch.from_numpy(tokens)
+    n = tokens.shape[1] - 3
+    logits, cached = [], []
+
+    def keep(out, c):
+        logits.append(gather(out).float().numpy())
+        cached.append(interop.lm_cache_to_numpy(tree.map(gather, c)))
+
+    with use_rules(rules), ctx:
+        out, caches = M.prefill_fn(params, cfg, {"inputs": toks[:, :n]}, caches)
+        keep(out, caches)
+        for i in range(3):
+            step_comm = CommBytes() if (mesh_shape is not None and i == 1) else None
+            with step_comm or contextlib.nullcontext():
+                out, caches = M.decode_fn(params, cfg, {"token": toks[:, n + i:n + i + 1],
+                                                        "pos": n + i}, caches)
+            comm = step_comm or comm
+            keep(out, caches)
+    placements = None
+    if mesh_shape is not None:
+        k = caches[0]["layer0"]["kv"]["k"]
+        placements = [str(p) for p in k.placements]
+    return {"logits": logits, "caches": cached, "cache_placements": placements,
+            "comm": None if comm is None else {"counts": comm.counts, "records": comm.records}}
+
+
+def world4(_snn_mesh, ckpt_case, batch_case, train_cases, one_group, out_dir, serve_case):
     """Everything the 4-rank (2, 2) world runs, in one world:
 
     * ``ckpt_case``: ``(arch, params_np)`` -> a train state placed by
@@ -97,10 +218,14 @@ def world4(_snn_mesh, ckpt_case, batch_case, train_cases, one_group, out_dir):
     * ``train_cases``: as :func:`_train`;
     * ``one_group``: ``(arch, params_np, dims)`` -> one sharded step of a
       MoE whose tokens make one group (split over fewer rows than ranks):
-      its metrics, and on rank 0 the gathered state.
+      its metrics, and on rank 0 the gathered state;
+    * ``serve_case``: ``(arch, params_np, tokens, s_max)`` -> prefill and
+      three decode steps (:func:`serve_steps`).
     """
     torch.set_num_threads(1)
     out = {"rank": dist.get_rank(), "train": {}, "one_group": {}}
+    arch, params_np, tokens, s_max = serve_case
+    out["serve"] = serve_steps(arch, params_np, tokens, s_max, (2, 2))
     arch, params_np = ckpt_case
     cfg, pcfg, state = port_state(arch, params_np)
     mesh = launch_mesh.make_mesh((2, 2), AXES, device="cpu")
