@@ -323,10 +323,15 @@ script on any mismatch:
 19. dry run: (a) ``python -m repro_torch.launch.dryrun`` on the card's
    device type, each cell in a child process of its own with its own
    timeout, all started together: qwen3-0.6b decode_32k on the (16, 16)
-   and (2, 16, 16) meshes, smollm-135m train_4k and moonshot-v1-16b-a3b
-   decode_32k on (16, 16), and snn-64k; each artifact's status, per-device
-   FLOPs, argument and temp bytes and trace seconds are printed, and a cell
-   that fails fails the phase. (b) The cost model against a step the card
+   and (2, 16, 16) meshes, smollm-135m train_4k, moonshot-v1-16b-a3b
+   decode_32k, qwen3-0.6b, moonshot-v1-16b-a3b and jamba-1.5-large-398b
+   prefill_32k on (16, 16), and snn-64k; each artifact's status, per-device
+   FLOPs, argument and temp bytes, trace seconds and every site of products
+   over their even share are printed, and a cell that fails, a site the
+   reference's layout does not have (all but decode's ``_project_kv`` and
+   rwkv6's replicated LoRA products) or FLOPs a device outside their slack
+   of the reference's (smollm train, moonshot and jamba prefill) fails the
+   phase. (b) The cost model against a step the card
    runs: smollm-135m FULL at 8 x 64 tokens, remat ``block``, one device;
    the step traced on fake tensors (the recorder's peak: arguments plus
    the traced temp) against ``torch.cuda.max_memory_allocated`` of the
@@ -6177,12 +6182,15 @@ def run_mesh_phase(dev, card, smi) -> None:
 
 DRYRUN_CELLS = (("qwen3-0.6b", "decode_32k", False), ("qwen3-0.6b", "decode_32k", True),
                 ("smollm-135m", "train_4k", False), ("moonshot-v1-16b-a3b", "decode_32k", False),
-                ("qwen3-0.6b", "prefill_32k", False), ("snn-64k", None, False))
-# The reference's per-device FLOPs of smollm-135m train_4k on (16, 16) (its
-# dry run on the CPU; the port's one-device step at 1 x 4096 tokens traces
-# the same), and how far the port's may lie above it.
-REF_SMOLLM_TRAIN_FLOPS = 12_710_955_712_512
-FLOPS_SLACK = 1.25
+                ("qwen3-0.6b", "prefill_32k", False), ("snn-64k", None, False),
+                ("moonshot-v1-16b-a3b", "prefill_32k", False),
+                ("jamba-1.5-large-398b", "prefill_32k", False))
+# The reference's per-device FLOPs of three cells on (16, 16) (its dry run on
+# the CPU; the port's one-device step at 1 x 4096 tokens traces smollm's
+# the same), and how far the port's may lie from each.
+REF_FLOPS = {("smollm-135m", "train_4k", "16x16"): (12_710_955_712_512, 1.25),
+             ("moonshot-v1-16b-a3b", "prefill_32k", "16x16"): (100_437_810_216_960, 1.10),
+             ("jamba-1.5-large-398b", "prefill_32k", "16x16"): (901_631_747_031_040, 1.10)}
 DRYRUN_TWICE = ("smollm-135m", "train_4k", False)   # traced again: the counts must repeat
 DRYRUN_TIMEOUT = 240          # seconds a dry-run child may take
 MEMORY_TOLERANCE = 0.10       # the traced peak against max_memory_allocated
@@ -6260,46 +6268,58 @@ def check_dryrun_cells(children, out_dir: str, smi) -> None:
 
 def departure_text(departures: dict) -> str:
     """``layout.departures`` in a line: the first product over its even
-    share (op, its innermost model frame, times its share), or none."""
+    share (op, its innermost model frame, times its share), or none, then
+    every site over its share."""
     if not departures:
         return "not recorded (snn cell)"
     if not departures.get("matched"):
         return (f"unmatched ({departures['local_products']} local products against "
                 f"{departures['global_products']} global)")
+    from repro_torch.launch.hlo_cost import model_frame
+
     first = departures.get("first")
     if first is None:
         return f"none of {departures['products']} products"
     return (f"{first['op']} at {model_frame(first['stack'])} x{first['times_share']:.3g} "
-            f"({departures['over_share']} of {departures['products']} products over)")
+            f"({departures['over_share']} of {departures['products']} products over); sites "
+            + "; ".join(site_text(s) for s in departures.get("sites", [])))
 
 
-def model_frame(stack) -> str:
-    """The innermost frame of a recorded stack that lies in ``models/``."""
-    frames = [f for f in stack if "/models/" in f]
-    return frames[-1] if frames else (stack[-1] if stack else "?")
+def site_text(site: dict) -> str:
+    return (f"{site['op']} at {site['frame']} x{site['times_share']:.3g} "
+            f"({site['products']} products, {site['excess_flops']:.3g} FLOPs above)")
+
+
+def allowed_site(rec: dict, site: dict) -> bool:
+    """The products over their even share that the reference's own layout
+    computes as well (ROADMAP §C): a decode step's one row of K/V projected
+    on every ``model`` rank (C.13), and rwkv6's LoRA and receptance
+    products against weights the rules replicate (C.16)."""
+    frame = site["frame"]
+    if rec["kind"] == "decode" and "models/attention.py" in frame and frame.endswith(
+            "_project_kv"):
+        return True
+    return "models/rwkv.py" in frame and frame.endswith(("rwkv_time_mix", "rwkv_channel_mix"))
 
 
 def layout_faults(name: str, rec: dict) -> list:
-    """The attention layout's checks on one artifact: in a train or prefill
-    cell no first departure in ``models/attention.py``; in a decode cell
-    none there but the one row's K/V projection (``_project_kv``), which
-    the reference computes on every ``model`` rank as well (its FLOPs a
-    device equal the reference's); smollm-135m train_4k's FLOPs a device
-    within ``FLOPS_SLACK`` of the reference's."""
+    """The layout's checks on one artifact: every site whose products
+    compute more than their even share (``layout.departures.sites``) is one
+    the reference's layout has too (:func:`allowed_site`), and the FLOPs a
+    device of the cells in ``REF_FLOPS`` lie within their slack of the
+    reference's."""
     faults = []
     dep = rec.get("layout", {}).get("departures", {})
     if dep and not dep.get("matched"):
         faults.append(f"{name}: departures unmatched {dep}")
-    first = dep.get("first") if dep else None
-    if first is not None and "models/attention.py" in model_frame(first["stack"]):
-        if rec["kind"] != "decode" or not model_frame(first["stack"]).endswith("_project_kv"):
-            faults.append(f"{name}: the first product over its share lies in attention: "
-                          f"{departure_text(dep)}")
-    if (rec["arch"], rec["shape"], rec["mesh"]) == ("smollm-135m", "train_4k", "16x16"):
-        ratio = rec["hlo_cost"]["flops_per_device"] / REF_SMOLLM_TRAIN_FLOPS
-        log(f"dry run {name}: FLOPs a device {ratio:.4f}x the reference's "
-            f"{REF_SMOLLM_TRAIN_FLOPS:,}")
-        if not 1 / FLOPS_SLACK <= ratio <= FLOPS_SLACK:
+    for site in (dep or {}).get("sites", []):
+        if not allowed_site(rec, site):
+            faults.append(f"{name}: a product over its share: {site_text(site)}")
+    ref = REF_FLOPS.get((rec["arch"], rec["shape"], rec["mesh"]))
+    if ref is not None:
+        ratio = rec["hlo_cost"]["flops_per_device"] / ref[0]
+        log(f"dry run {name}: FLOPs a device {ratio:.4f}x the reference's {ref[0]:,}")
+        if not 1 / ref[1] <= ratio <= ref[1]:
             faults.append(f"{name}: FLOPs a device {ratio:.4f}x the reference's")
     return faults
 
@@ -6395,7 +6415,7 @@ def check_cost_model(dev, smi) -> None:
 
 
 def run_dryrun_phase(dev, card, smi) -> None:
-    """The dry run on the card's torch: (a) six cells in child processes,
+    """The dry run on the card's torch: (a) eight cells in child processes,
     (b) the cost model against a real step. No hand-written kernel
     launches."""
     import torch

@@ -42,8 +42,11 @@ with the reference's keys. On the port they mean:
   layout               the port's own: ``departures``, each local product
                        against its even share (1 / n_chips) of the same
                        product at its global shapes (how many exceed it, by
-                       how many FLOPs, and the first that does, with its
-                       stack), and the three ``largest_products`` by FLOPs
+                       how many FLOPs, the first that does, with its
+                       stack, and every ``sites`` where one does: op and
+                       innermost ``models/`` frame, count, largest times
+                       its share, FLOPs above the shares), and the three
+                       ``largest_products`` by FLOPs
 
 Every cell runs in a process of its own (``--all`` starts one child per
 cell, as the reference's does), and :func:`run_cell` tears its fake world

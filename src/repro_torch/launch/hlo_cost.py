@@ -409,12 +409,22 @@ class GlobalDots(TorchDispatchMode):
         return out
 
 
+def model_frame(stack) -> str:
+    """The innermost frame of a recorded stack that lies in ``models/``
+    (else the innermost frame)."""
+    frames = [f for f in stack if "/models/" in f]
+    return frames[-1] if frames else (stack[-1] if stack else "?")
+
+
 def departures(records, products: List[Tuple[float, str]], n_chips: int) -> Dict:
     """Each local product of ``records`` against its even share (1 /
     ``n_chips``) of the same product at its global shapes (``products``, a
     :class:`GlobalDots`' list): how many compute more than their share, the
-    FLOPs above the shares, and the first that does, with its stack (the op
-    where the layout departs from an even split)."""
+    FLOPs above the shares, the first that does, with its stack (the op
+    where the layout departs from an even split), and every ``sites`` where
+    one does: keyed by op and innermost ``models/`` frame, each with its
+    count of products over their share, the largest times its share and the
+    FLOPs above the shares, the most such FLOPs first."""
     if isinstance(records, Recording):
         records = records.records
     dots = [r for r in records if r.kind == "dot"]
@@ -422,16 +432,25 @@ def departures(records, products: List[Tuple[float, str]], n_chips: int) -> Dict
         return {"matched": False, "local_products": len(dots),
                 "global_products": len(products)}
     over, excess, first = 0, 0.0, None
+    sites: Dict[Tuple[str, str], Dict] = {}
     for r, (flops, shapes) in zip(dots, products):
         local = r.trips * r.flops
         if local * n_chips > flops * (1 + 1e-9):
             over += 1
             excess += local - flops / n_chips
+            times = local * n_chips / flops
             if first is None:
                 first = {"op": r.op, "local_shapes": r.shapes, "global_shapes": shapes,
-                         "times_share": local * n_chips / flops, "stack": list(r.stack)}
+                         "times_share": times, "stack": list(r.stack)}
+            key = (r.op, model_frame(r.stack))
+            site = sites.setdefault(key, {"op": key[0], "frame": key[1], "products": 0,
+                                          "times_share": 0.0, "excess_flops": 0.0})
+            site["products"] += 1
+            site["times_share"] = max(site["times_share"], times)
+            site["excess_flops"] += local - flops / n_chips
     return {"matched": True, "products": len(dots), "over_share": over,
-            "excess_flops": excess, "first": first}
+            "excess_flops": excess, "first": first,
+            "sites": sorted(sites.values(), key=lambda s: -s["excess_flops"])}
 
 
 def largest(records, kind: str = "dot", n: int = 5) -> List[Tuple[float, OpRecord]]:

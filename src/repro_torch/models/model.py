@@ -33,7 +33,8 @@ from repro_torch.models.common import (
     Spec, cross_entropy, init_params, param_count, rms_norm, sinusoidal_pos_embed, torch_dtype,
     zeros_params,
 )
-from repro_torch.parallel.sharding import constrain, dot, is_dtensor, local_offsets, relayout
+from repro_torch.parallel.sharding import (constrain, dot, even_placements, is_dtensor,
+                                           local_offsets, relayout, split_over)
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -134,6 +135,23 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
     return constrain(x, "batch", "seq", "embed")
 
 
+def _project_vision(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for the vision tokens ``x`` (B, N, d_vision). On a mesh each
+    rank multiplies its own rows (batch and ``vision_seq`` as the rules lay
+    them out, ``d_vision`` whole) by the weight whole over its FSDP split,
+    and the mesh dims that split no row split the output's model width, so
+    no rank computes another's share (the multi-pod microbatch's rows split
+    over ``data`` alone, the 1601 tokens of an image over nothing) and the
+    weight's gradient is a partial sum of each rank's own rows."""
+    x = constrain(x, "batch", "vision_seq", None)
+    if not is_dtensor(x):
+        return dot(x, w)
+    mesh = x.device_mesh
+    rows = {i for i, p in enumerate(x.placements) if p.is_shard()}
+    spare = [i for i, n in enumerate(mesh.mesh.shape) if n > 1 and i not in rows]
+    return dot(x, relayout(w, even_placements(mesh, split_over(mesh, {1: spare}), w.shape)))
+
+
 def _head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final_ln"])
     if cfg.family == "audio":
@@ -163,7 +181,7 @@ def forward(
     x = _embed(params, cfg, tokens, positions)
     vision_proj = None
     if cfg.family == "vlm" and vision_embeds is not None:
-        vision_proj = constrain(dot(vision_embeds, params["vision_proj"]),
+        vision_proj = constrain(_project_vision(vision_embeds, params["vision_proj"]),
                                 "batch", "vision_seq", "embed")
     x, new_caches, aux = tf.apply_stages(
         x, params["stages"], cfg,

@@ -160,10 +160,16 @@ def rwkv_time_mix(
     k = dot(m_k, p["wk"])
     v = dot(m_v, p["wv"])
     g = silu(dot(m_g, p["wg"]))
-    # Data-dependent decay (the learned leak): w in (0,1).
-    w_raw = p["w0_decay"] + dot(torch.tanh(dot(m_w, p["wd1"])), p["wd2"])
+    # Data-dependent decay (the learned leak): w in (0,1). On a mesh the
+    # LoRA's up-projection computes each rank's own d_inner columns (its
+    # heads), as the reference's does.
+    wd2 = constrain(p["wd2"], "rwkv_lora", "d_inner")
+    w_raw = p["w0_decay"] + dot(torch.tanh(dot(m_w, p["wd1"])), wd2)
     w = torch.exp(-torch.exp(w_raw.float()))
 
+    # The recurrence runs on each rank's own heads over the whole sequence,
+    # as the reference's: a Megatron-SP step's sequence split ends here.
+    r, k, v, w = (constrain(t, "batch", None, "d_inner") for t in (r, k, v, w))
     hd = lambda t: t.reshape(b, s, h_n, dk)
     rf, kf, vf, wf = hd(r).float(), hd(k).float(), hd(v).float(), hd(w)
     u = p["u"].float()                                                 # (H, dk)

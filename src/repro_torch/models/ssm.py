@@ -138,12 +138,18 @@ def mamba_block(
     prepend = state.conv if state is not None else None
     xc = silu(_causal_conv(xi, p["conv_w"], p["conv_b"], prepend))
 
+    # dt's rank and B / C's d_state columns contract the split d_inner: on a
+    # mesh their partial sums are reduced first (the reference's all-reduce)
+    # and dt_proj multiplies by each rank's own d_inner columns, laid out as
+    # xi so that its gradient, which takes the time-major scan's strides,
+    # comes back with the contiguous local shard the product's view needs.
     # softplus in the model dtype, as the reference's. torch returns x above
     # its threshold of 20 where JAX takes logaddexp(x, 0): they agree to the
     # f32 ulp there.
-    dt = F.softplus(dot(dot(xc, p["x_proj_dt"]), p["dt_proj"]) + p["dt_bias"])
-    bmat = dot(xc, p["x_proj_b"]).float()
-    cmat = dot(xc, p["x_proj_c"]).float()
+    dt = constrain(dot(xc, p["x_proj_dt"]), "batch", None, None)
+    dt = F.softplus(constrain(dot(dt, p["dt_proj"]), "batch", None, "d_inner") + p["dt_bias"])
+    bmat = constrain(dot(xc, p["x_proj_b"]), "batch", None, "d_state").float()
+    cmat = constrain(dot(xc, p["x_proj_c"]), "batch", None, "d_state").float()
     a = -torch.exp(p["a_log"].float())                                 # (di, n)
 
     dtf = dt.float()

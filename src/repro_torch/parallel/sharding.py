@@ -297,6 +297,18 @@ class _GradLayout(torch.autograd.Function):
                                   run_check=False, shape=g.shape, stride=stride), None
 
 
+def split_over(mesh, dims: Mapping[int, Sequence[int]]) -> tuple:
+    """Placements on ``mesh``, one per mesh dim: ``Shard(d)`` on the mesh
+    dims ``dims[d]`` (in mesh order), ``Replicate()`` elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = [Replicate() for _ in range(mesh.ndim)]
+    for d, idx in dims.items():
+        for i in idx:
+            out[i] = Shard(d)
+    return tuple(out)
+
+
 def _ways(x) -> list:
     """How many ways each dim of the DTensor ``x`` is split."""
     sizes = x.device_mesh.mesh.shape

@@ -14,8 +14,15 @@ and ``flops_per_device``. Attention is laid out as the reference lays it
 out: qwen3-0.6b prefill_32k on (16, 16) computes within 1.25x of the
 reference's FLOPs a device and its first product over its even share (if
 any) is not attention's, and smollm-135m decode_32k's collective bytes a
-device are within 4x of the reference's on both meshes. The children run at
-once, three at a time.
+device are within 4x of the reference's on both meshes. The MoE FFN, the
+router and the mamba block are laid out as the reference lays them out:
+moonshot-v1-16b-a3b and jamba-1.5-large-398b prefill_32k on (16, 16) compute
+within 1.10x of the reference's FLOPs a device, with no product of
+``models/ffn.py``, ``models/ssm.py`` or ``models/model.py`` over its share;
+rwkv6-1.6b prefill_32k computes the reference's FLOPs a device within 2 %,
+its products over their share those the reference replicates too, and its
+train_4k runs the WKV recurrence on each rank's own heads. The children run
+at once, three at a time.
 """
 import concurrent.futures
 import json
@@ -75,13 +82,25 @@ _PORT = {
     "overrides": ["--arch", "smollm-135m", "--shape", "decode_32k",
                   "--rule-overrides", '{"kv_seq": "data"}', "--tag", "t1"],
     "qwen3-prefill/16x16": ["--arch", "qwen3-0.6b", "--shape", "prefill_32k"],
+    "moonshot-prefill/16x16": ["--arch", "moonshot-v1-16b-a3b", "--shape", "prefill_32k"],
+    "jamba-prefill/16x16": ["--arch", "jamba-1.5-large-398b", "--shape", "prefill_32k"],
+    "rwkv6-prefill/16x16": ["--arch", "rwkv6-1.6b", "--shape", "prefill_32k"],
+    "rwkv6-train/16x16": ["--arch", "rwkv6-1.6b", "--shape", "train_4k"],
 }
 _REFERENCE = {
     "ref/16x16": ["--arch", "smollm-135m", "--shape", "decode_32k"],
     "ref/2x16x16": ["--arch", "smollm-135m", "--shape", "decode_32k", "--multi-pod"],
     "ref/qwen3-prefill/16x16": ["--arch", "qwen3-0.6b", "--shape", "prefill_32k"],
+    "ref/moonshot-prefill/16x16": ["--arch", "moonshot-v1-16b-a3b", "--shape", "prefill_32k"],
+    "ref/jamba-prefill/16x16": ["--arch", "jamba-1.5-large-398b", "--shape", "prefill_32k"],
+    "ref/rwkv6-prefill/16x16": ["--arch", "rwkv6-1.6b", "--shape", "prefill_32k"],
 }
 FLOPS_SLACK = 1.25        # train and prefill FLOPs a device against the reference's
+MOE_FLOPS_SLACK = 1.10    # the MoE and hybrid cells' FLOPs a device against the reference's
+# The frames whose products must keep their even share: the MoE FFN and its
+# router, the mamba block, the vision projection.
+LAID_OUT = ("models/ffn.py", "models/ssm.py", "models/model.py")
+RWKV_FLOPS_SLACK = 1.02   # rwkv6's FLOPs a device against the reference's
 COLLECTIVE_SLACK = 4.0    # decode's collective bytes a device against the reference's
 
 
@@ -168,6 +187,59 @@ def test_prefill_flops_are_the_references_and_attention_keeps_its_share(cells):
     assert dep["matched"], dep
     first = dep["first"]
     assert first is None or not any("models/attention.py" in f for f in first["stack"]), first
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "jamba-1.5-large-398b"],
+                         ids=["moonshot", "jamba"])
+def test_moe_and_mamba_keep_their_share(cells, arch):
+    """moonshot-v1-16b-a3b (MoE) and jamba-1.5-large-398b (mamba + MoE)
+    prefill_32k on (16, 16): the router, the dispatch, the expert products
+    and the combine run on each rank's own (groups, experts) block, and the
+    mamba block reduces ``dt`` before ``dt_proj`` multiplies it by the rank's
+    own ``d_inner`` columns. The FLOPs a device come within
+    ``MOE_FLOPS_SLACK`` of the reference's (1.46x and 1.12x while the groups
+    were gathered) and no product of ``models/ffn.py``, ``models/ssm.py`` or
+    ``models/model.py`` computes more than its even share (``sites``)."""
+    key = {"moonshot-v1-16b-a3b": "moonshot-prefill", "jamba-1.5-large-398b": "jamba-prefill"}[arch]
+    name = dryrun.cell_name(arch, "prefill_32k", False) + ".json"
+    port = _artifact(cells, f"{key}/16x16", name)
+    ref = _artifact(cells, f"ref/{key}/16x16", name)
+    ratio = port["hlo_cost"]["flops_per_device"] / ref["hlo_cost"]["flops_per_device"]
+    assert 1 / MOE_FLOPS_SLACK <= ratio <= MOE_FLOPS_SLACK, ratio
+    dep = port["layout"]["departures"]
+    assert dep["matched"], dep
+    assert "sites" in dep
+    laid = [s for s in dep["sites"] if any(f in s["frame"] for f in LAID_OUT)]
+    assert not laid, laid
+
+
+def test_rwkv6_time_mix_replicates_what_the_reference_replicates(cells):
+    """rwkv6-1.6b prefill_32k on (16, 16): the decay's LoRA up-projection
+    computes each rank's own ``d_inner`` columns, as the reference's does,
+    and the products left over their even share are those whose weights
+    the rules replicate on every ``model`` rank in the reference as well
+    (the mix and decay LoRAs' ``w1`` / ``w2`` / ``wd1`` and the channel
+    mix's ``wr``): the FLOPs a device are the reference's within 2 %, and
+    every site over its share lies in the time mix or the channel mix."""
+    name = dryrun.cell_name("rwkv6-1.6b", "prefill_32k", False) + ".json"
+    port = _artifact(cells, "rwkv6-prefill/16x16", name)
+    ref = _artifact(cells, "ref/rwkv6-prefill/16x16", name)
+    ratio = port["hlo_cost"]["flops_per_device"] / ref["hlo_cost"]["flops_per_device"]
+    assert 1 / RWKV_FLOPS_SLACK <= ratio <= RWKV_FLOPS_SLACK, ratio
+    sites = port["layout"]["departures"]["sites"]
+    assert sites and all(s["frame"].endswith(("rwkv_time_mix", "rwkv_channel_mix"))
+                         for s in sites), sites
+
+
+def test_rwkv6_train_runs_the_recurrence_on_each_ranks_heads(cells):
+    """rwkv6-1.6b train_4k on (16, 16), whose activations split the
+    sequence over ``model`` (Megatron-SP): the WKV recurrence runs on each
+    rank's own heads over the whole sequence, as the reference's does, so
+    no product computes more than its even share (its per-step product ran
+    on every head of every ``model`` rank, x16)."""
+    name = dryrun.cell_name("rwkv6-1.6b", "train_4k", False) + ".json"
+    dep = _artifact(cells, "rwkv6-train/16x16", name)["layout"]["departures"]
+    assert dep["matched"] and dep["sites"] == [], dep
 
 
 @pytest.mark.parametrize("multi_pod", MESHES, ids=["16x16", "2x16x16"])

@@ -179,6 +179,41 @@ def test_cost_dict_normalises_its_inputs():
     assert hlo_cost.cost_dict([{"flops": 1.0}]) == {"flops": 1.0}
 
 
+def test_departures_name_every_site_over_its_share():
+    """On a recording of four products on 4 ranks, two sites compute more
+    than their even share: a ``bmm`` of the MoE FFN twice (x2, and x3 in a
+    loop of 2) and a ``mm`` of the mamba block once (x2). ``sites`` keys
+    them by op and innermost ``models/`` frame, the most FLOPs above the
+    shares first; ``first`` stays the first product over its share, and a
+    product at its share or a collective is in no site."""
+    ffn = ("repro_torch/launch/steps.py:90 step", "repro_torch/models/ffn.py:160 moe_ffn",
+           "repro_torch/parallel/sharding.py:390 folded_bmm")
+    ssm = ("repro_torch/models/ssm.py:144 mamba_block", "repro_torch/parallel/sharding.py:420 dot")
+
+    def dot(op, flops, stack, n=1):
+        return hlo_cost.OpRecord(op, "dot", flops, 0.0, n, "(1,) x (1,)", stack)
+
+    records = [dot("aten::mm", 100.0, ffn),                      # its share: 400 / 4
+               dot("aten::bmm", 200.0, ffn),                     # x2, 100 above
+               hlo_cost.OpRecord("_c10d_functional::all_reduce", "all-reduce", 0.0, 8.0, 1,
+                                 "(2,)", ffn),
+               dot("aten::bmm", 150.0, ffn, n=2),                # x3, 200 above
+               dot("aten::mm", 400.0, ssm)]                      # x2, 200 above
+    products = [(400.0, "a"), (400.0, "b"), (400.0, "c"), (800.0, "d")]
+    dep = hlo_cost.departures(records, products, 4)
+    assert dep["matched"] and dep["products"] == 4 and dep["over_share"] == 3
+    assert dep["excess_flops"] == 500.0
+    assert dep["first"]["op"] == "aten::bmm" and dep["first"]["times_share"] == 2.0
+    assert dep["first"]["global_shapes"] == "b" and dep["first"]["stack"] == list(ffn)
+    assert dep["sites"] == [
+        {"op": "aten::bmm", "frame": ffn[1], "products": 2, "times_share": 3.0,
+         "excess_flops": 300.0},
+        {"op": "aten::mm", "frame": ssm[0], "products": 1, "times_share": 2.0,
+         "excess_flops": 200.0}]
+    assert hlo_cost.departures(records[:2], products, 4)["matched"] is False
+    assert hlo_cost.departures(records[:1], products[:1], 4)["sites"] == []
+
+
 _COLLECTIVE_CHILD = r"""
 import json
 import torch

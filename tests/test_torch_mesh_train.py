@@ -4,15 +4,16 @@ checkpoints and sharded batches, on gloo worlds of CPU ranks.
 Two worlds run side by side, once (module scoped), and each case is
 asserted here on its own: 4 ranks on a (2, 2) ``("data", "model")`` mesh
 (``tests/torch_mesh_ranks.world4``: a checkpoint, batches, smollm-135m,
-qwen3-0.6b and moonshot-v1-16b-a3b, a one-group MoE, smollm-135m's prefill
-and decode) and 2 ranks on a (1, 2) mesh (``world2``: rwkv6-1.6b, then the
+qwen3-0.6b, moonshot-v1-16b-a3b, jamba-1.5-large-398b and
+llama-3.2-vision-90b, a one-group MoE, smollm-135m's prefill and decode) and 2 ranks on a (1, 2) mesh (``world2``: rwkv6-1.6b, then the
 4-rank checkpoint restored). Every run starts from the port's SMOKE draws
 (seed 0), the reference's too. Tolerances:
 
 * the sharded train step (state by ``state_shardings``, batch by
   ``batch_shardings``, rules active), 3 steps of smollm-135m, qwen3-0.6b,
-  moonshot-v1-16b-a3b (its ``experts`` on ``"model"``, the FSDP rules) and
-  rwkv6-1.6b SMOKE
+  moonshot-v1-16b-a3b (its ``experts`` on ``"model"``, the FSDP rules),
+  jamba-1.5-large-398b (mamba + MoE, 16 x 64 tokens), llama-3.2-vision-90b
+  and rwkv6-1.6b SMOKE
   against the one-device port and the reference's jitted step from the
   same parameters (rwkv6 at 4 x 16 tokens: at 4 x 8 from these draws its
   time mix amplifies the one-device port's rounding to 1.7e-4 of the
@@ -22,7 +23,11 @@ and decode) and 2 ranks on a (1, 2) mesh (``world2``: rwkv6-1.6b, then the
   magnitude, with a floor of ``1e-6`` absolute (a thousandth of one update
   at the rate of 1e-3: a leaf that starts at zero, rwkv6's ``gn_beta``,
   holds only its three updates): the model axis splits the sums of the
-  products;
+  products. AdamW keeps its state in float32 for every arch (jamba's
+  config keeps it in bfloat16, where a moment rounded the other way moves
+  a leaf that starts at zero, its ``dt_bias``, by more than the floor; the
+  bfloat16 AdamW is held to the reference bitwise in
+  ``tests/test_torch_optim.py``);
 * prefill and decode on the mesh (parameters by ``param_shardings``, caches
   by ``cache_shardings``, ``kv_seq`` over ``model``): smollm-135m SMOKE, a
   prompt of 6 tokens and 3 decode steps at positions 6, 7 and 8 on 16 cache
@@ -37,11 +42,12 @@ and decode) and 2 ranks on a (1, 2) mesh (``world2``: rwkv6-1.6b, then the
 The MoE groups its tokens into groups of 512 and shards the group axis over
 ``"data"``: the moonshot cases take 8 x 128 tokens, 2 groups. At 64 tokens
 (one group over a 2-way data axis) the group stays whole on each rank
-(``constrain`` splits a dim only over the mesh axes that divide it), one
+(``constrain`` splits a dim only over the mesh axes that divide it) and
+the ``data`` ranks split the model width of its expert block instead, one
 step against the one-device port to the same tolerances:
-:func:`test_one_group_moe_runs_and_matches_one_device`.
-jamba-1.5-large-398b's backward fails on DTensor (ROADMAP §C) and is not
-run here.
+:func:`test_one_group_moe_runs_and_matches_one_device`. The MoE FFN, the
+mamba block's ``dt`` and the vision projection run on each rank's own block:
+their products' local shapes are pinned.
 """
 import concurrent.futures
 import functools
@@ -64,14 +70,19 @@ from repro_torch import interop
 from repro_torch.configs import get_bundle
 from repro_torch.launch.mesh import run_world
 from repro_torch.models import attention as TM_attn
+from repro_torch.models import ffn as t_ffn
 from repro_torch.models import model as TM
+from repro_torch.models import ssm as t_ssm
 from repro_torch.util import tree
 
 jax.config.update("jax_platform_name", "cpu")
 
 TRAIN = {"smollm-135m": (16, 4), "qwen3-0.6b": (16, 4), "moonshot-v1-16b-a3b": (128, 8),
-         "rwkv6-1.6b": (16, 4)}
-FOUR = ("smollm-135m", "qwen3-0.6b", "moonshot-v1-16b-a3b")   # on the (2, 2) mesh
+         "rwkv6-1.6b": (16, 4), "jamba-1.5-large-398b": (64, 16),
+         "llama-3.2-vision-90b": (16, 4)}
+FOUR = ("smollm-135m", "qwen3-0.6b", "moonshot-v1-16b-a3b", "jamba-1.5-large-398b",
+        "llama-3.2-vision-90b")                  # on the (2, 2) mesh
+MOE = ("moonshot-v1-16b-a3b", "jamba-1.5-large-398b")
 TWO = ("rwkv6-1.6b",)                            # on the (1, 2) mesh
 ONE_GROUP = {"moonshot-v1-16b-a3b": (16, 4)}   # 64 tokens: one MoE group
 RTOL = 1e-4
@@ -163,7 +174,8 @@ def test_sharded_train_step_matches_one_device(worlds, arch):
 @pytest.mark.parametrize("arch", sorted(TRAIN))
 def test_sharded_train_step_matches_the_reference(worlds, arch):
     cfg = j_configs.get_bundle(arch).smoke
-    jpc = j_configs.get_bundle(arch).parallel_for("train_4k").replace(microbatches=1)
+    jpc = j_configs.get_bundle(arch).parallel_for("train_4k").replace(
+        microbatches=1, opt_state_dtype="float32")
     params = jax.tree.map(jnp.asarray, _params(arch))
     state = j_steps.TrainState(params=params, opt=j_steps.adamw.init(
         params, jnp.dtype(jpc.opt_state_dtype)))
@@ -304,6 +316,68 @@ def test_the_score_product_is_each_ranks_own_block(worlds):
             assert first["global"] == (batch * hqp, seq, seq), (arch, first)
             assert first["local"] == (batch * hqp // 4, seq, seq), (arch, first)
             assert all(p["local"][0] * 4 == p["global"][0] for p in products), arch
+
+
+def test_the_expert_products_are_each_ranks_own_block(worlds):
+    """In a train step each rank runs the MoE FFN on its own block of (G/2
+    groups, E/2 experts), the groups over the 2 ``data`` ranks and the
+    experts over the 2 ``model`` ranks: the router's own expert columns, the
+    dispatch, the three expert products and the combine (a partial sum over
+    ``model``), each one DTensor product at its global shapes. moonshot and
+    jamba take 1024 tokens, 2 groups of 512; the first MoE layer's six
+    forward products."""
+    for arch in MOE:
+        cfg = get_bundle(arch).smoke
+        seq, batch = TRAIN[arch]
+        t = t_ffn.MOE_GROUP_TOKENS
+        g, e, d, f = seq * batch // t, cfg.n_experts, cfg.d_model, cfg.d_ff
+        c = t_ffn._capacity(cfg, t, cfg.capacity_factor)
+        gl, el = g // 2, e // 2
+        want = [("_logits", (gl * t, d), (d, el), (g * t, e), (gl * t, el)),
+                ("_on_block", (gl, el * c, t), (gl, t, d), (g, e * c, d), (gl, el * c, d)),
+                ("_on_block", (el, gl * c, d), (el, d, f), (e, g * c, f), (el, gl * c, f)),
+                ("_on_block", (el, gl * c, d), (el, d, f), (e, g * c, f), (el, gl * c, f)),
+                ("_on_block", (el, gl * c, f), (el, f, d), (e, g * c, d), (el, gl * c, d)),
+                ("_on_block", (gl, t, el * c), (gl, el * c, d), (g, t, d), (gl, t, d))]
+        for w in worlds["four"]:
+            moe = [p for p in w["train"][arch]["layers"] if p["fn"] in ("_logits", "_on_block")]
+            got = [(p["fn"], p["a"], p["b"], p["global"], p["local"]) for p in moe[:6]]
+            assert got == want, (arch, w["rank"], got)
+            assert moe[5]["placements"] == ["S(0)", "P(sum)"], moe[5]   # the combine
+
+
+def test_the_dt_product_is_each_ranks_own_columns(worlds):
+    """jamba's mamba block reduces ``dt`` (B, S, dt_rank) over the split
+    ``d_inner`` first, then multiplies it by each rank's own ``d_inner / 2``
+    columns of ``dt_proj``: no rank computes another's columns."""
+    arch = "jamba-1.5-large-398b"
+    cfg = get_bundle(arch).smoke
+    seq, batch = TRAIN[arch]
+    r, di = t_ssm.dt_rank(cfg), cfg.d_inner
+    for w in worlds["four"]:
+        dts = [p for p in w["train"][arch]["layers"] if p["fn"] == "mamba_block dt"]
+        assert dts, w["rank"]
+        for p in dts:
+            assert (p["a"], p["b"]) == ((batch // 2, seq, r), (r, di // 2)), p
+            assert (p["global"], p["local"]) == ((batch, seq, di),
+                                                 (batch // 2, seq, di // 2)), p
+
+
+def test_the_vision_projection_is_each_ranks_own_rows(worlds):
+    """llama-vision's projection of the vision tokens: each rank multiplies
+    its own batch rows (over ``data``) by the weight's own model columns
+    (over ``model``, the mesh dim that splits no row), forward; its weight
+    gradient is then a partial sum of the rank's rows."""
+    arch = "llama-3.2-vision-90b"
+    cfg = get_bundle(arch).smoke
+    _, batch = TRAIN[arch]
+    n, dv, d = cfg.n_vision_tokens, cfg.d_vision, cfg.d_model
+    for w in worlds["four"]:
+        got = [p for p in w["train"][arch]["layers"] if p["fn"] == "_project_vision"]
+        assert got, w["rank"]
+        for p in got:
+            assert (p["a"], p["b"]) == ((batch // 2, n, dv), (dv, d // 2)), p
+            assert (p["global"], p["local"]) == ((batch, n, d), (batch // 2, n, d // 2)), p
 
 
 def _one_device_serve():

@@ -9,6 +9,7 @@ imports the reference.
 """
 import contextlib
 import os
+import sys
 import time
 
 import numpy as np
@@ -24,8 +25,9 @@ from repro_torch.launch import mesh as launch_mesh
 from repro_torch.launch import steps
 from repro_torch.models import attention
 from repro_torch.models import model as M
+from repro_torch.models import ssm
 from repro_torch.optim import adamw
-from repro_torch.parallel.sharding import gather, use_rules
+from repro_torch.parallel.sharding import gather, is_dtensor, use_rules
 from repro_torch.util import tree
 
 AXES = ("data", "model")
@@ -37,9 +39,11 @@ def shape_of(dims):
 
 
 def port_state(arch, params_np):
-    """The SMOKE train state (AdamW, the CLI's knobs) from numpy parameters."""
+    """The SMOKE train state (AdamW, the CLI's knobs, its state in float32)
+    from numpy parameters."""
     cfg = get_bundle(arch).smoke
-    pcfg = get_bundle(arch).parallel_for("train_4k").replace(microbatches=1)
+    pcfg = get_bundle(arch).parallel_for("train_4k").replace(microbatches=1,
+                                                            opt_state_dtype="float32")
     params = interop.lm_params_from_numpy(params_np, cfg, "cpu")
     return cfg, pcfg, steps.TrainState(params=params, opt=adamw.init(
         params, getattr(torch, pcfg.opt_state_dtype)))
@@ -76,11 +80,56 @@ def products_seen(seen):
         attention.folded_bmm = real
 
 
-def _run_steps(arch, params_np, dims, mesh_shape, n_steps, seen=None):
+def _product(fn, a, b, out):
+    return {"fn": fn, "a": tuple(a.to_local().shape) if is_dtensor(a) else tuple(a.shape),
+            "b": tuple(b.to_local().shape) if is_dtensor(b) else tuple(b.shape),
+            "global": tuple(out.shape), "local": tuple(out.to_local().shape),
+            "placements": [str(p) for p in out.placements]}
+
+
+@contextlib.contextmanager
+def layer_products_seen(seen, cfg):
+    """Each forward product on DTensors of the MoE FFN (``torch.mm`` /
+    ``torch.bmm`` called from ``models/ffn.py``: the router, the dispatch,
+    the three expert products and the combine), of the mamba block's ``dt``
+    (``ssm.dot`` against ``dt_proj``) and of the vision projection
+    (``model.dot`` against ``vision_proj``) while active: the function that
+    made it, the operands' local shapes, the product's global and local
+    shapes and its placements, appended to ``seen``."""
+    real = {"mm": torch.mm, "bmm": torch.bmm, "ssm": ssm.dot, "model": M.dot}
+
+    def moe(name):
+        def product(a, b):
+            out = real[name](a, b)
+            caller = sys._getframe(1).f_code
+            if is_dtensor(out) and caller.co_filename.endswith(os.path.join("models", "ffn.py")):
+                seen.append(_product(caller.co_name, a, b, out))
+            return out
+        return product
+
+    def dot(module, fn, rows):
+        def product(x, w):
+            out = real[module](x, w)
+            if is_dtensor(out) and w.shape[0] == rows:
+                seen.append(_product(fn, x, w, out))
+            return out
+        return product
+
+    torch.mm, torch.bmm = moe("mm"), moe("bmm")
+    ssm.dot = dot("ssm", "mamba_block dt", ssm.dt_rank(cfg))
+    M.dot = dot("model", "_project_vision", cfg.d_vision or -1)
+    try:
+        yield seen
+    finally:
+        torch.mm, torch.bmm, ssm.dot, M.dot = real["mm"], real["bmm"], real["ssm"], real["model"]
+
+
+def _run_steps(arch, params_np, dims, mesh_shape, n_steps, seen=None, layers=None):
     """``n_steps`` of the sharded train step on a ``mesh_shape`` mesh, the
     state placed by ``state_shardings``, each batch by ``batch_shardings``,
     the rules active. ``seen`` collects the attention core's products of
-    the first step (:func:`products_seen`)."""
+    the first step (:func:`products_seen`), ``layers`` the MoE FFN's and the
+    mamba block's (:func:`layer_products_seen`)."""
     cfg, pcfg, state = port_state(arch, params_np)
     shape = shape_of(dims)
     mesh = launch_mesh.make_mesh(mesh_shape, AXES, device="cpu")
@@ -93,8 +142,11 @@ def _run_steps(arch, params_np, dims, mesh_shape, n_steps, seen=None):
         for i in range(n_steps):
             batch = pipeline.make_batch(cfg, shape, pipeline.PipelineState(17, i),
                                         device="cpu", shardings=bsh)
-            with (products_seen(seen) if seen is not None and i == 0
-                  else contextlib.nullcontext()):
+            with contextlib.ExitStack() as stack:
+                if seen is not None and i == 0:
+                    stack.enter_context(products_seen(seen))
+                if layers is not None and i == 0:
+                    stack.enter_context(layer_products_seen(layers, cfg))
                 state, m = step(state, batch)
             metrics.append({k: float(v) for k, v in m.items()})
     return state, metrics
@@ -103,15 +155,17 @@ def _run_steps(arch, params_np, dims, mesh_shape, n_steps, seen=None):
 def _train(out, train_cases, mesh_shape):
     """``train_cases``: ``(arch, params_np, dims)`` -> 3 sharded steps; the
     metrics, the placements, the attention core's products of the first
-    step, and on rank 0 the gathered state."""
+    step and the MoE FFN's and mamba block's, and on rank 0 the gathered
+    state."""
     for arch, params_np, dims in train_cases:
-        seen = []
-        state, metrics = _run_steps(arch, params_np, dims, mesh_shape, 3, seen)
+        seen, layers = [], []
+        state, metrics = _run_steps(arch, params_np, dims, mesh_shape, 3, seen, layers)
         full = tree.map(gather, state)
         out["train"][arch] = {
             "metrics": metrics,
             "placements": [str(tuple(p.placements)) for p in tree.leaves(state.params)],
             "products": seen,
+            "layers": layers,
             "state": interop.train_state_to_numpy(full) if dist.get_rank() == 0 else None,
         }
 
