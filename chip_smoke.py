@@ -323,18 +323,22 @@ script on any mismatch:
 19. dry run: (a) ``python -m repro_torch.launch.dryrun`` on the card's
    device type, each cell in a child process of its own with its own
    timeout, all started together: qwen3-0.6b decode_32k on the (16, 16)
-   and (2, 16, 16) meshes, smollm-135m train_4k, moonshot-v1-16b-a3b
-   decode_32k, qwen3-0.6b, moonshot-v1-16b-a3b and jamba-1.5-large-398b
-   prefill_32k on (16, 16), and snn-64k; each artifact's status, per-device
-   FLOPs, argument and temp bytes, trace seconds and every site of products
-   over their even share are printed, and a cell that fails, a site the
+   and (2, 16, 16) meshes, smollm-135m and qwen3-0.6b train_4k,
+   moonshot-v1-16b-a3b decode_32k, qwen3-0.6b, moonshot-v1-16b-a3b and
+   jamba-1.5-large-398b prefill_32k on (16, 16), and snn-64k; each
+   artifact's status, per-device FLOPs, argument, temp (outputs left out,
+   as XLA's) and full traced peak bytes, trace seconds and every site of
+   products over their even share are printed, and for the train cells the
+   storages alive at the temp's peak; a cell that fails, a site the
    reference's layout does not have (all but decode's ``_project_kv`` and
-   rwkv6's replicated LoRA products) or FLOPs a device outside their slack
-   of the reference's (smollm train, moonshot and jamba prefill) fails the
-   phase. (b) The cost model against a step the card
+   rwkv6's replicated LoRA products), FLOPs a device outside their slack
+   of the reference's (smollm and qwen3 train, moonshot and jamba
+   prefill) or a train temp above 1.5x the reference's (smollm and qwen3)
+   fails the phase. (b) The cost model against a step the card
    runs: smollm-135m FULL at 8 x 64 tokens, remat ``block``, one device;
-   the step traced on fake tensors (the recorder's peak: arguments plus
-   the traced temp) against ``torch.cuda.max_memory_allocated`` of the
+   the step traced on fake tensors (the recorder's full peak: arguments
+   plus every storage the step allocated, its outputs included) against
+   ``torch.cuda.max_memory_allocated`` of the
    real step (within 10 %), and the traced FLOPs against the FLOPs of the
    real step's own ops, counted by the same rules (equal). Every kernel
    count is 0 across the phase.
@@ -6184,15 +6188,23 @@ DRYRUN_CELLS = (("qwen3-0.6b", "decode_32k", False), ("qwen3-0.6b", "decode_32k"
                 ("smollm-135m", "train_4k", False), ("moonshot-v1-16b-a3b", "decode_32k", False),
                 ("qwen3-0.6b", "prefill_32k", False), ("snn-64k", None, False),
                 ("moonshot-v1-16b-a3b", "prefill_32k", False),
-                ("jamba-1.5-large-398b", "prefill_32k", False))
-# The reference's per-device FLOPs of three cells on (16, 16) (its dry run on
+                ("jamba-1.5-large-398b", "prefill_32k", False),
+                ("qwen3-0.6b", "train_4k", False))
+# The reference's per-device FLOPs of four cells on (16, 16) (its dry run on
 # the CPU; the port's one-device step at 1 x 4096 tokens traces smollm's
 # the same), and how far the port's may lie from each.
 REF_FLOPS = {("smollm-135m", "train_4k", "16x16"): (12_710_955_712_512, 1.25),
+             ("qwen3-0.6b", "train_4k", "16x16"): (32_926_293_032_960, 1.25),
              ("moonshot-v1-16b-a3b", "prefill_32k", "16x16"): (100_437_810_216_960, 1.10),
              ("jamba-1.5-large-398b", "prefill_32k", "16x16"): (901_631_747_031_040, 1.10)}
+# The reference's temp_size_in_bytes of the traced train cells (its dry run on
+# the CPU, jax 0.9.0), and how far above it the port's temp (the step's
+# outputs left out, as XLA's) may lie.
+REF_TEMP = {("smollm-135m", "train_4k", "16x16"): 4_028_648_352,
+            ("qwen3-0.6b", "train_4k", "16x16"): 11_673_815_856}
+TEMP_SLACK = 1.5
 DRYRUN_TWICE = ("smollm-135m", "train_4k", False)   # traced again: the counts must repeat
-DRYRUN_TIMEOUT = 240          # seconds a dry-run child may take
+DRYRUN_TIMEOUT = 360          # seconds a dry-run child may take
 MEMORY_TOLERANCE = 0.10       # the traced peak against max_memory_allocated
 CHUNKED_SEQ = 4096            # tokens of the trip-count check: 8 query chunks of attention
 
@@ -6250,9 +6262,14 @@ def check_dryrun_cells(children, out_dir: str, smi) -> None:
             f" FLOPs, {hc['dot_bytes_per_device']:,.0f} dot bytes, collectives "
             f"{ {k: int(v) for k, v in hc['collective_bytes_per_device'].items()} } (summed "
             f"{hc['total_collective_bytes_per_device']:,.0f} B); argument "
-            f"{mem['argument_size_in_bytes']:,} B, temp {mem['temp_size_in_bytes']:,} B; first "
+            f"{mem['argument_size_in_bytes']:,} B, temp {mem['temp_size_in_bytes']:,} B (traced "
+            f"peak with the outputs {mem['traced_peak_in_bytes']:,} B); first "
             f"product over its share: {departure_text(layout)}; trace "
             f"{rec['timings']['trace_s']:.1f} s, child wall {wall:.1f} s; card {smi}")
+        if rec["kind"] == "train":
+            log(f"dry run {name}: alive at the temp's peak: " + "; ".join(
+                f"{a['nbytes']:,} B {a['dtype']}{a['shape']} {a['op']} at {a['frame']}"
+                for a in rec["layout"]["temp_at_peak"]))
         failed += layout_faults(name, rec)
     twice = cell_name(*DRYRUN_TWICE)
     if twice in done and twice + ".again" in done:
@@ -6321,6 +6338,13 @@ def layout_faults(name: str, rec: dict) -> list:
         log(f"dry run {name}: FLOPs a device {ratio:.4f}x the reference's {ref[0]:,}")
         if not 1 / ref[1] <= ratio <= ref[1]:
             faults.append(f"{name}: FLOPs a device {ratio:.4f}x the reference's")
+    ref_temp = REF_TEMP.get((rec["arch"], rec["shape"], rec["mesh"]))
+    if ref_temp is not None:
+        ratio = rec["memory_analysis"]["temp_size_in_bytes"] / ref_temp
+        log(f"dry run {name}: temp {ratio:.4f}x the reference's {ref_temp:,} B "
+            f"(tolerance {TEMP_SLACK}x)")
+        if not 0 < ratio <= TEMP_SLACK:
+            faults.append(f"{name}: temp {ratio:.4f}x the reference's")
     return faults
 
 
@@ -6333,7 +6357,8 @@ def _torch_version() -> str:
 def check_cost_model(dev, smi) -> None:
     """(b): smollm-135m FULL's train step at ``TRAIN_SHAPE`` (remat
     ``block``, one device) traced on fake tensors against the same step run
-    on the card: the recorder's peak (arguments + traced temp) within
+    on the card: the recorder's full peak (arguments + every storage the
+    step allocated, its outputs included: ``peak_bytes``) within
     ``MEMORY_TOLERANCE`` of ``max_memory_allocated`` less the bytes resident
     before the step that are not its arguments, and the traced FLOPs equal
     to those of the real step's ops (the recorder pushed as a dispatch mode
@@ -6401,7 +6426,8 @@ def check_cost_model(dev, smi) -> None:
     ratio = traced_peak / real_peak
     log(f"dry run cost model (smollm-135m FULL, {shape.global_batch} x {shape.seq_len} tokens, "
         f"bf16, AdamW, remat block, one device, {smi}): traced peak {traced_peak:,} B "
-        f"(arguments {arg_bytes:,} + traced temp {traced.peak_bytes:,}; traced in "
+        f"(arguments {arg_bytes:,} + traced peak {traced.peak_bytes:,}, of which temp without "
+        f"the outputs {traced.temp_bytes:,}; traced in "
         f"{trace_s:.1f} s) against max_memory_allocated {peak:,} B less {before - real_args:,} B "
         f"resident beside the arguments ({real_args:,} B) = {real_peak:,} B: ratio {ratio:.4f} "
         f"(tolerance {MEMORY_TOLERANCE:.0%}); the recorder over the real step's ops: peak "
@@ -6415,7 +6441,7 @@ def check_cost_model(dev, smi) -> None:
 
 
 def run_dryrun_phase(dev, card, smi) -> None:
-    """The dry run on the card's torch: (a) eight cells in child processes,
+    """The dry run on the card's torch: (a) nine cells in child processes,
     (b) the cost model against a real step. No hand-written kernel
     launches."""
     import torch

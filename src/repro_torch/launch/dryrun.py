@@ -22,12 +22,18 @@ with the reference's keys. On the port they mean:
   n_active_params      parameters a token touches (MoE at top_k / E)
   memory_analysis      argument_size_in_bytes / output_size_in_bytes: the
                        bytes of rank 0's local shards of the step's
-                       arguments / outputs, exact; temp_size_in_bytes: the
-                       traced peak of the storages the step allocated
-                       (above the arguments); alias_size_in_bytes: the
-                       bytes of outputs that are arguments (the caches,
-                       written in place); generated_code_size_in_bytes: 0
-                       (eager PyTorch generates no code)
+                       arguments / outputs, exact; temp_size_in_bytes: as
+                       XLA's, the traced peak of the storages the step
+                       allocated that are neither arguments nor outputs
+                       (a train step's new parameters and moments are
+                       outputs); alias_size_in_bytes: the bytes of outputs
+                       that are arguments (the caches, written in place);
+                       generated_code_size_in_bytes: 0 (eager PyTorch
+                       generates no code); and the port's own
+                       traced_peak_in_bytes: the traced peak of every
+                       storage the step allocated, outputs included (what
+                       the card's ``max_memory_allocated`` sees above the
+                       arguments)
   timings              mesh_s (fake world, mesh and rules), trace_s (the
                        recorded step), analysis_s (the summing)
   cost_analysis_raw    flops: ``torch.utils.flop_counter.FlopCounterMode``'s
@@ -45,8 +51,11 @@ with the reference's keys. On the port they mean:
                        how many FLOPs, the first that does, with its
                        stack, and every ``sites`` where one does: op and
                        innermost ``models/`` frame, count, largest times
-                       its share, FLOPs above the shares), and the three
-                       ``largest_products`` by FLOPs
+                       its share, FLOPs above the shares), the three
+                       ``largest_products`` by FLOPs, and ``temp_at_peak``:
+                       the largest storages alive at the temp's peak, each
+                       with its bytes, shape, dtype, op and innermost
+                       ``models/``, ``optim/`` or ``launch/`` frame
 
 Every cell runs in a process of its own (``--all`` starts one child per
 cell, as the reference's does), and :func:`run_cell` tears its fake world
@@ -275,9 +284,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
         mem = {
             "argument_size_in_bytes": arg_bytes,
             "output_size_in_bytes": _tree_bytes(out),
-            "temp_size_in_bytes": rec.peak_bytes,
+            "temp_size_in_bytes": rec.temp_bytes,
             "alias_size_in_bytes": _alias_bytes(out, args),
             "generated_code_size_in_bytes": 0,
+            "traced_peak_in_bytes": rec.peak_bytes,
         }
         print("memory_analysis:", mem)
         ca = hlo_cost.cost_dict(counter)
@@ -299,7 +309,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
         "memory_analysis": mem,
         "cost_analysis_raw": {"flops": float(ca.get("flops", 0.0)), "bytes_accessed": None},
         "hlo_cost": summary,
-        "layout": {"departures": layout, "largest_products": top},
+        "layout": {"departures": layout, "largest_products": top,
+                   "temp_at_peak": [a._asdict() for a in rec.at_peak]},
         "status": "ok",
     })
     path = _write(result, out_dir, name + (f".{tag}" if tag else ""))
@@ -360,7 +371,8 @@ def run_snn_cell(arch: str, multi_pod: bool, out_dir: str,
             lambda p, c, x: sharded_scan(engine, p, c, x, n_ticks), *args, fake_mode=mode)
         t_trace = time.time() - t1
         summary = _summary(rec)
-        mem = {"argument_size_in_bytes": arg_bytes, "temp_size_in_bytes": rec.peak_bytes}
+        mem = {"argument_size_in_bytes": arg_bytes, "temp_size_in_bytes": rec.temp_bytes,
+               "traced_peak_in_bytes": rec.peak_bytes}
     shape = f"tick_rollout_b{batch}_t{n_ticks}"
     result = {
         "arch": arch, "shape": shape,

@@ -23,13 +23,20 @@ for a step on real tensors. The counting rules:
   collective_bytes   operand bytes by kind: ``_c10d_functional``'s
                      ``all_gather_into_tensor`` (all-gather), ``all_reduce``,
                      ``reduce_scatter_tensor``, ``all_to_all_single`` and
-                     their ``_coalesced`` forms, and the ``c10d`` ops of the
+                     their ``_coalesced`` forms, DTensor's
+                     ``shard_dim_alltoall`` (all-to-all), and the ``c10d`` ops of the
                      SNN fabric's mesh (``_allgather_base_``, ``allreduce_``,
                      ...) by their kinds
   peak_bytes         the largest sum of the bytes of the storages the
                      recorded ops allocated and that were still alive (each
                      tracked until its last tensor is freed); the arguments'
-                     storages are not in it
+                     storages are not in it, the outputs' are
+  temp_bytes         the same peak over the storages that are neither
+                     arguments nor outputs (XLA's ``temp_size``), with the
+                     largest storages alive at it (``at_peak``: bytes,
+                     shape, dtype, op and the innermost frame of the port's
+                     ``models/``, ``optim/`` or ``launch/``); set when
+                     :func:`record` returns, from the outputs it returned
 
 **Trip counts.** The reference multiplies ``while`` bodies by their trip
 counts. The port's loops that are ``lax.scan``s in the reference (the
@@ -46,6 +53,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import sys
 import threading
 import traceback
 import weakref
@@ -77,6 +85,7 @@ _COLLECTIVES = {
     "_c10d_functional::reduce_scatter_tensor": ("reduce-scatter", ("input",)),
     "_c10d_functional::reduce_scatter_tensor_coalesced": ("reduce-scatter", ("inputs",)),
     "_c10d_functional::all_to_all_single": ("all-to-all", ("input",)),
+    "_dtensor::shard_dim_alltoall": ("all-to-all", ("input",)),   # DTensor's on the card
     "c10d::allreduce_": ("all-reduce", ("tensors",)),
     "c10d::allreduce_coalesced_": ("all-reduce", ("tensors",)),
     "c10d::allgather_": ("all-gather", ("input_tensors",)),
@@ -93,6 +102,9 @@ _COLLECTIVES = {
 
 _HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))  # the package
 _STACK_DEPTH = 6
+AT_PEAK = 8                       # storages named at the temp's peak
+_FRAME_DIRS = tuple(os.path.join(_HERE, d) + os.sep for d in ("models", "optim", "launch"))
+_frames: Dict[Any, Optional[str]] = {}    # code object -> its "file" or None
 
 
 def cost_dict(cost_analysis) -> Dict[str, float]:
@@ -134,6 +146,33 @@ def _stack() -> Tuple[str, ...]:
                  for f in frames[-_STACK_DEPTH:])
 
 
+def _frame() -> str:
+    """The innermost frame of the calling stack in the port's ``models/``,
+    ``optim/`` or ``launch/`` (this module aside), as "file:line fn"; "?"
+    where there is none (a backward on autograd's device thread)."""
+    f = sys._getframe(1)
+    while f is not None:
+        code = f.f_code
+        if code not in _frames:
+            name = code.co_filename
+            _frames[code] = (os.path.relpath(name, os.path.dirname(_HERE))
+                             if name.startswith(_FRAME_DIRS)
+                             and not name.endswith("hlo_cost.py") else None)
+        if _frames[code] is not None:
+            return f"{_frames[code]}:{f.f_lineno} {code.co_name}"
+        f = f.f_back
+    return "?"
+
+
+class Allocation(NamedTuple):
+    """A storage the recorded ops allocated."""
+    nbytes: int
+    shape: Tuple[int, ...]     # of the tensor that made it
+    dtype: str
+    op: str                    # "aten::mm", ...
+    frame: str                 # :func:`_frame` at the op
+
+
 def _distinct_bytes(t: torch.Tensor) -> int:
     """The bytes of ``t``'s distinct elements: a dim broadcast by a zero
     stride (a weight expanded over a batch) is read once."""
@@ -167,8 +206,9 @@ def _operand_bytes(func, args, kwargs, names) -> Tuple[float, str]:
 
 class Recording:
     """What a recorder saw: the counted ops, every op's name, and the
-    storages the ops allocated (their live and peak bytes). Two threads
-    may note ops at once (a backward's CPU and CUDA nodes)."""
+    storages the ops allocated (their live and peak bytes, and the order in
+    which they were made and freed). Two threads may note ops at once (a
+    backward's CPU and CUDA nodes)."""
 
     def __init__(self):
         self._lock = threading.RLock()
@@ -176,8 +216,12 @@ class Recording:
         self.op_counts: Counter = Counter()
         self.live_bytes = 0
         self.peak_bytes = 0
+        self.temp_bytes: Optional[int] = None      # set by close()
+        self.at_peak: List[Allocation] = []        # set by close()
+        self.allocations: List[Allocation] = []
+        self._events: List[int] = []          # allocation i made: i; freed: ~i
         self._refs: Dict[int, int] = {}       # storage -> tensors that hold it
-        self._sizes: Dict[int, int] = {}      # storage -> bytes
+        self._live: Dict[int, int] = {}       # storage -> its allocation
         self._known: set = set()              # storages that were there before
         from torch.utils.weak import WeakIdKeyDictionary
         self._tracked = WeakIdKeyDictionary()
@@ -202,7 +246,9 @@ class Recording:
             self._refs[key] = n - 1
             return
         del self._refs[key]
-        self.live_bytes -= self._sizes.pop(key)
+        i = self._live.pop(key)
+        self._events.append(~i)
+        self.live_bytes -= self.allocations[i].nbytes
 
     def _hold(self, t: torch.Tensor, key: int) -> None:
         if t in self._tracked:
@@ -230,10 +276,41 @@ class Recording:
             size = t.untyped_storage().nbytes()
             if size == 0:
                 continue
-            self._sizes[key] = size
+            self._live[key] = len(self.allocations)
+            self._events.append(len(self.allocations))
+            self.allocations.append(Allocation(size, tuple(t.shape), str(t.dtype).replace(
+                "torch.", ""), func._schema.name, _frame()))
             self.live_bytes += size
             self.peak_bytes = max(self.peak_bytes, self.live_bytes)
             self._hold(t, key)
+
+    def close(self, outputs) -> None:
+        """Set :attr:`temp_bytes`, the peak of the live bytes of the
+        allocated storages that ``outputs`` (the recorded function's
+        result) do not hold, and :attr:`at_peak`, the largest of them alive
+        at that peak, from the order in which they were made and freed."""
+        with self._lock:
+            keep = {self._live[k] for k in (_storage_key(t) for t in tensors(outputs))
+                    if k in self._live}
+            events = list(self._events)
+        live = peak = 0
+        at = -1
+        for n, e in enumerate(events):
+            i = e if e >= 0 else ~e
+            if i in keep:
+                continue
+            live += self.allocations[i].nbytes if e >= 0 else -self.allocations[i].nbytes
+            if live > peak:
+                peak, at = live, n
+        alive = set()
+        for e in events[:at + 1]:
+            if e >= 0:
+                alive.add(e)
+            else:
+                alive.discard(~e)
+        self.temp_bytes = peak
+        self.at_peak = sorted((self.allocations[i] for i in alive - keep),
+                              key=lambda a: -a.nbytes)[:AT_PEAK]
 
     # -- counts ---------------------------------------------------------------
 
@@ -262,6 +339,11 @@ class Recording:
                  f"bytes {r.nbytes:.6g} {r.shapes} | {' < '.join(reversed(r.stack))}"
                  for r in self.records]
         lines.append(f"# peak bytes {self.peak_bytes}")
+        if self.temp_bytes is not None:
+            lines.append(f"# temp bytes {self.temp_bytes} (the outputs left out); alive at "
+                         "its peak:")
+            lines += [f"#   {a.nbytes} B {a.dtype}{list(a.shape)} {a.op} at {a.frame}"
+                      for a in self.at_peak]
         lines += [f"# {n} {c}" for n, c in sorted(self.op_counts.items())]
         return "\n".join(lines) + "\n"
 
@@ -318,7 +400,8 @@ def record(fn: Callable, *args, fake_mode=None, shortcut: bool = True,
     stack; without, a :class:`Recorder` is pushed for real tensors. The
     arguments' storages are not counted as allocations. Loops through
     :func:`repro_torch.util.trips.scan` run their body once and count it
-    their trip count times (every step runs with ``shortcut=False``)."""
+    their trip count times (every step runs with ``shortcut=False``). The
+    recording is closed on the result (:meth:`Recording.close`)."""
     rec = Recording()
     rec.exclude(tensors((args, kwargs)))
     prev = trips.activate(rec if shortcut else None)
@@ -334,6 +417,7 @@ def record(fn: Callable, *args, fake_mode=None, shortcut: bool = True,
                 out = fn(*args, **kwargs)
     finally:
         trips.activate(prev)
+    rec.close(out)
     return out, rec
 
 

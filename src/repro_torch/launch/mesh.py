@@ -41,7 +41,7 @@ from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig, ParallelConfig, ShapeConfig
 from repro_torch.parallel.mesh import AXIS, SNNMesh, make_snn_mesh
 from repro_torch.parallel.sharding import (
-    AxisRules, BASE_RULES, fsdp_overrides, multipod_overrides,
+    AxisRules, BASE_RULES, all_to_all_on_cpu, fsdp_overrides, multipod_overrides,
 )
 
 __all__ = ["AXIS", "SNNMesh", "default_backend", "init_world", "make_mesh",
@@ -138,7 +138,9 @@ def make_mesh(shape: Tuple[int, ...], axis_names: Tuple[str, ...], *, device=Non
     ``r`` in ``numpy.unravel_index(r, shape)``), on ``device``'s type (None:
     the card). The world must have exactly ``prod(shape)`` ranks. A process
     in no world is a world of one: a group of that one rank is started for it
-    (NCCL on a card, gloo on the CPU)."""
+    (NCCL on a card, gloo on the CPU). On the CPU, DTensor moves a split
+    between tensor dims by an all-to-all
+    (:func:`repro_torch.parallel.sharding.all_to_all_on_cpu`)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     shape, axis_names = tuple(int(s) for s in shape), tuple(axis_names)
@@ -153,6 +155,8 @@ def make_mesh(shape: Tuple[int, ...], axis_names: Tuple[str, ...], *, device=Non
     if not dist.is_initialized():
         dist.init_process_group(default_backend(dev, 1), store=dist.HashStore(),
                                 rank=0, world_size=1)
+    if dev.type == "cpu":
+        all_to_all_on_cpu()
     return init_device_mesh(dev.type, shape, mesh_dim_names=axis_names)
 
 

@@ -171,7 +171,11 @@ def sinusoidal_pos_embed(positions: torch.Tensor, d_model: int) -> torch.Tensor:
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean token NLL; logits in any float dtype (softmax in f32)."""
+    """Mean token NLL; logits in any float dtype (softmax in f32). On a mesh
+    whose ranks split the vocab, each rank's own vocab shard
+    (:func:`_split_nll`)."""
+    if is_dtensor(logits) and any(p.is_shard(logits.ndim - 1) for p in logits.placements):
+        return _split_nll(logits, labels).mean()
     lp = torch.log_softmax(logits.float(), dim=-1)
     if is_dtensor(lp):
         return (-_picked(lp, labels)).mean()
@@ -195,6 +199,66 @@ def _picked(lp: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         labels = labels[tuple(slice(o, o + n) for o, n in zip(off[:-1], shape[:-1]))]
     out = torch.gather(lp.to_local(), -1, labels[..., None].long())[..., 0]
     return DTensor.from_local(out, lp.device_mesh, lp.placements, run_check=False)
+
+
+def _split_nll(logits, labels):
+    """The NLL of each token of the DTensor ``logits``, whose vocab (last
+    dim) some mesh dims split, as the reference's partitioned
+    ``log_softmax`` computes it: each rank's max of its own vocab shard,
+    then the max all-reduced over those mesh dims; its sum of
+    ``exp(x - max)``, then that sum all-reduced; the label's logit from the
+    rank that holds it, summed over them. The backward is each rank's own
+    ``softmax - onehot`` shard. No rank holds a row of the whole vocab. The
+    NLL lies as the logits' rows do, whole over the vocab's mesh dims."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh, v = logits.device_mesh, logits.ndim - 1
+    split = tuple(i for i, p in enumerate(logits.placements) if p.is_shard(v))
+    rows = tuple(Replicate() if p.is_shard(v) else p for p in logits.placements)
+    shape, off = local_offsets(logits)
+    if is_dtensor(labels):
+        labels = labels.redistribute(mesh, rows).to_local()
+    else:
+        labels = labels[tuple(slice(o, o + n) for o, n in zip(off[:-1], shape[:-1]))]
+    nll = _VocabNLL.apply(logits.to_local(), labels, off[-1], mesh, split)
+    return DTensor.from_local(nll, mesh, rows, run_check=False, shape=logits.shape[:-1],
+                              stride=torch.empty(logits.shape[:-1], device="meta").stride())
+
+
+class _VocabNLL(torch.autograd.Function):
+    """``-log_softmax(x)[label]`` of each row of a local vocab shard ``x``
+    (its first column ``v0`` of the vocab), the softmax's max and sum and
+    the picked logit all-reduced over the mesh dims ``split``; in float32,
+    with one float32 temporary of ``x``'s size each way."""
+
+    @staticmethod
+    def forward(ctx, x, labels, v0: int, mesh, split):
+        from torch.distributed import _functional_collectives as funcol
+
+        def reduce(t, op):
+            for i in split:
+                t = funcol.all_reduce(t, op, (mesh, i))
+            return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
+
+        m = reduce(x.amax(dim=-1, keepdim=True).float(), "max")
+        e = x - m
+        s = reduce(e.exp_().sum(dim=-1, keepdim=True), "sum")
+        del e
+        at = labels.long()[..., None] - v0
+        hit = (at >= 0) & (at < x.shape[-1])
+        at = at.clamp(0, x.shape[-1] - 1)
+        picked = reduce(torch.where(hit, torch.gather(x, -1, at).float(), 0.0), "sum")
+        ctx.save_for_backward(x, m, s, at, hit)
+        return -((picked - m) - torch.log(s))[..., 0]
+
+    @staticmethod
+    def backward(ctx, g):
+        x, m, s, at, hit = ctx.saved_tensors
+        p = x - m
+        p.exp_().div_(s)
+        p.scatter_add_(-1, at, -hit.to(p.dtype))
+        p.mul_(g[..., None])
+        return p.to(x.dtype), None, None, None, None
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -44,8 +44,9 @@ from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import Spec, stack_specs
-from repro_torch.parallel.sharding import constrain
+from repro_torch.parallel.sharding import constrain, grad_laid_out
 from repro_torch.util import trips
+from repro_torch.util import tree as tree_util
 
 
 @dataclasses.dataclass(frozen=True)
@@ -344,7 +345,7 @@ def apply_stages(
         if mode == "train":
             body = _rematted(group_body, remat)
             for p_group in _unbind(params, stage.n_groups):
-                x, aux = body(x, p_group)
+                x, aux = body(x, tree_util.map(grad_laid_out, p_group))
                 if aux is not None:
                     total_aux = total_aux + aux
             continue

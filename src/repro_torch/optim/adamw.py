@@ -6,7 +6,9 @@ moments in float32 and stored in ``m`` / ``v``'s own dtype
 (``state_dtype=torch.bfloat16`` halves them, jamba's setting), and the
 parameter updated as ``(p.f32 - lr * delta)`` rounded to its own dtype:
 there is no float32 master copy, as in the reference. ``update`` returns
-new tensors and writes none of its inputs.
+new tensors and writes none of its inputs; each leaf is computed into its
+new tensors by operations in place (:func:`_leaf`), and a DTensor leaf on
+its local shards.
 """
 from __future__ import annotations
 
@@ -14,8 +16,9 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.parallel.sharding import is_dtensor
 from repro_torch.util import tree
-from repro_torch.util.numerics import sqrt_rn
+from repro_torch.util.numerics import sqrt_rn_
 
 
 class AdamWState(NamedTuple):
@@ -39,20 +42,51 @@ def update(grads, state: AdamWState, params, *, lr, b1: float = 0.9, b2: float =
     tensor (the schedule's)."""
     step = state.step + 1
     sf = step.float()
-    bc1 = 1.0 - sf.new_full((), b1) ** sf
-    bc2 = 1.0 - sf.new_full((), b2) ** sf
+    bc1 = _local(1.0 - sf.new_full((), b1) ** sf)
+    bc2 = _local(1.0 - sf.new_full((), b2) ** sf)
+    lr = _local(lr)
 
     def upd(p, g, m, v):
-        gf = g.float()
-        mf = b1 * m.float() + (1 - b1) * gf
-        vf = b2 * v.float() + (1 - b2) * gf * gf
-        mhat = mf / bc1
-        vhat = vf / bc2
-        delta = mhat / (sqrt_rn(vhat) + eps) + weight_decay * p.float()
-        newp = (p.float() - lr * delta).to(p.dtype)
-        return newp, mf.to(m.dtype), vf.to(v.dtype)
+        if not is_dtensor(p):
+            return _leaf(p, g, m, v, lr, bc1, bc2, b1, b2, eps, weight_decay)
+        from torch.distributed.tensor import DTensor
+
+        # shard by shard: the gradient and the moments lie as the parameter
+        out = _leaf(*(x.to_local() for x in (p, g, m, v)), lr, bc1, bc2, b1, b2, eps,
+                    weight_decay)
+        return tuple(DTensor.from_local(o, p.device_mesh, p.placements, run_check=False,
+                                        shape=p.shape, stride=p.stride()) for o in out)
 
     out = [upd(*t) for t in zip(*(tree.leaves(x) for x in (params, grads, state.m, state.v)))]
     return (tree.unflatten(params, [o[0] for o in out]),
             AdamWState(step=step, m=tree.unflatten(state.m, [o[1] for o in out]),
                        v=tree.unflatten(state.v, [o[2] for o in out])))
+
+
+def _local(x):
+    return x.to_local() if is_dtensor(x) else x
+
+
+def _leaf(p, g, m, v, lr, bc1, bc2, b1, b2, eps, weight_decay):
+    """One leaf's ``(p, m, v)``, computed into the new tensors in place: the
+    reference's float32 expression, operation for operation and in its
+    order, with one float32 temporary of the leaf's size (``t``) beside the
+    new tensors; ``u`` becomes the new parameter where it is float32 and is
+    a second temporary where it is rounded to bfloat16::
+
+        m' = b1 * m + (1 - b1) * g
+        v' = b2 * v + (1 - b2) * g * g
+        p' = p - lr * ((m' / bc1) / (sqrt(v' / bc2) + eps) + weight_decay * p)
+    """
+    f32 = torch.float32
+    mf = m.to(f32, copy=True).mul_(b1)
+    t = g.to(f32, copy=True).mul_(1 - b1)
+    mf.add_(t)
+    vf = v.to(f32, copy=True).mul_(b2)
+    vf.add_(t.copy_(g).mul_(1 - b2).mul_(g))
+    sqrt_rn_(torch.div(vf, bc2, out=t)).add_(eps)
+    u = torch.div(mf, bc1).div_(t)
+    u.add_(t.copy_(p).mul_(weight_decay))
+    del t
+    torch.sub(p, u.mul_(lr), out=u)
+    return u.to(p.dtype), mf.to(m.dtype), vf.to(v.dtype)

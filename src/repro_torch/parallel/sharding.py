@@ -261,6 +261,62 @@ def relayout(x, placements: Sequence) -> torch.Tensor:
     return _GradLayout.apply(x, True)
 
 
+def all_to_all_on_cpu() -> None:
+    """Have DTensor move a split from one tensor dim to another over a mesh
+    dim of CPU ranks (``Shard(a)`` to ``Shard(b)``: the head's logits from
+    the vocab to the sequence, say) by one all-to-all of the local shards
+    (:func:`_shard_dim_all_to_all`), as it does over NCCL on the card.
+    DTensor's own CPU path gathers the whole tensor on every rank and keeps
+    a chunk ("Gloo does not support alltoall"), though gloo and the fake
+    process group of the dry run run ``all_to_all_single``: so the gloo
+    worlds and the dry run's fake world held the whole tensor where the
+    card holds its shards. Every mesh of :func:`repro_torch.launch.mesh.make_mesh`
+    on the CPU installs it; a mesh of another device keeps DTensor's own
+    path. Idempotent."""
+    from torch.distributed.tensor import placement_types
+
+    real = getattr(placement_types, "shard_dim_alltoall", None)
+    if real is None or getattr(real, "all_to_all_on_cpu", False):
+        return
+
+    def shard_dim_alltoall(local, gather_dim, shard_dim, mesh, mesh_dim):
+        if mesh.device_type != "cpu":
+            return real(local, gather_dim, shard_dim, mesh, mesh_dim)
+        return _shard_dim_all_to_all(local, gather_dim, shard_dim, mesh, mesh_dim)
+
+    shard_dim_alltoall.all_to_all_on_cpu = True
+    placement_types.shard_dim_alltoall = shard_dim_alltoall
+
+
+def _shard_dim_all_to_all(local, a: int, b: int, mesh, i: int) -> torch.Tensor:
+    """This rank's shard split along ``b`` over mesh dim ``i`` from its
+    shard split along ``a`` (``local``, which DTensor has padded so that
+    ``b`` splits evenly): the ``b`` chunk of each rank of the mesh dim sent
+    to it, and the ``a`` chunks received laid side by side in rank order,
+    in one ``all_to_all_single``. DTensor's redistribution wraps it for
+    autograd (its backward is the move back) and unpads."""
+    from torch.distributed import _functional_collectives as funcol
+
+    k = mesh.size(i)
+    got = funcol.all_to_all_single(local.movedim(b, 0).contiguous(), None, None, (mesh, i))
+    if isinstance(got, funcol.AsyncCollectiveTensor):
+        got = got.wait()
+    return torch.cat([piece.movedim(0, b) for piece in got.split(local.shape[b] // k)],
+                     dim=a)
+
+
+def grad_laid_out(x):
+    """``x`` itself; where it is a DTensor, its gradient is reduced onto
+    ``x``'s own placements as soon as autograd makes it (a partial sum
+    reduce-scattered), rather than when the gradient of what ``x`` was cut
+    from is. A stacked parameter's groups go through it one by one, so each
+    group's weight gradient is reduced as its layer's backward ends, as the
+    reference's scan reduces it, and no rank holds the partial gradients of
+    every group at once (16 times a group's sharded gradient on a mesh whose
+    ``data`` ranks split it)."""
+    return _GradLayout.apply(x, True) if is_dtensor(x) else x
+
+
 class _GradLayout(torch.autograd.Function):
     """The identity on a DTensor; its backward gives the gradient a
     contiguous local shard and contiguous strides, and with ``relayout``

@@ -24,3 +24,11 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.float32 and x.device.type == "cpu":
         return torch.sqrt(x.double()).float()
     return torch.sqrt(x)
+
+
+def sqrt_rn_(x: torch.Tensor) -> torch.Tensor:
+    """:func:`sqrt_rn` written into ``x`` (on the CPU through one float64
+    copy of it); returns ``x``."""
+    if x.dtype == torch.float32 and x.device.type == "cpu":
+        return x.copy_(x.double().sqrt_())
+    return x.sqrt_()

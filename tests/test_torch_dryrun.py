@@ -21,8 +21,13 @@ within 1.10x of the reference's FLOPs a device, with no product of
 ``models/ffn.py``, ``models/ssm.py`` or ``models/model.py`` over its share;
 rwkv6-1.6b prefill_32k computes the reference's FLOPs a device within 2 %,
 its products over their share those the reference replicates too, and its
-train_4k runs the WKV recurrence on each rank's own heads. The children run
-at once, three at a time.
+train_4k runs the WKV recurrence on each rank's own heads. A train step's
+memory is laid out as the reference's: smollm-135m and qwen3-0.6b train_4k
+on (16, 16) move their logits by an all-to-all, their temp (outputs left
+out, as XLA's) lies within 1.5x of the reference's, their FLOPs a device
+are the reference's exactly, and no storage alive at the temp's peak holds
+the vocab whole over the whole sequence. The children run at once, three
+at a time.
 """
 import concurrent.futures
 import json
@@ -86,6 +91,8 @@ _PORT = {
     "jamba-prefill/16x16": ["--arch", "jamba-1.5-large-398b", "--shape", "prefill_32k"],
     "rwkv6-prefill/16x16": ["--arch", "rwkv6-1.6b", "--shape", "prefill_32k"],
     "rwkv6-train/16x16": ["--arch", "rwkv6-1.6b", "--shape", "train_4k"],
+    "smollm-train/16x16": ["--arch", "smollm-135m", "--shape", "train_4k"],
+    "qwen3-train/16x16": ["--arch", "qwen3-0.6b", "--shape", "train_4k"],
 }
 _REFERENCE = {
     "ref/16x16": ["--arch", "smollm-135m", "--shape", "decode_32k"],
@@ -94,6 +101,8 @@ _REFERENCE = {
     "ref/moonshot-prefill/16x16": ["--arch", "moonshot-v1-16b-a3b", "--shape", "prefill_32k"],
     "ref/jamba-prefill/16x16": ["--arch", "jamba-1.5-large-398b", "--shape", "prefill_32k"],
     "ref/rwkv6-prefill/16x16": ["--arch", "rwkv6-1.6b", "--shape", "prefill_32k"],
+    "ref/smollm-train/16x16": ["--arch", "smollm-135m", "--shape", "train_4k"],
+    "ref/qwen3-train/16x16": ["--arch", "qwen3-0.6b", "--shape", "train_4k"],
 }
 FLOPS_SLACK = 1.25        # train and prefill FLOPs a device against the reference's
 MOE_FLOPS_SLACK = 1.10    # the MoE and hybrid cells' FLOPs a device against the reference's
@@ -102,6 +111,7 @@ MOE_FLOPS_SLACK = 1.10    # the MoE and hybrid cells' FLOPs a device against the
 LAID_OUT = ("models/ffn.py", "models/ssm.py", "models/model.py")
 RWKV_FLOPS_SLACK = 1.02   # rwkv6's FLOPs a device against the reference's
 COLLECTIVE_SLACK = 4.0    # decode's collective bytes a device against the reference's
+TEMP_SLACK = 1.5          # a train step's temp a device against the reference's
 
 
 def _run(key, tmp):
@@ -270,3 +280,30 @@ def test_the_cli_refuses_a_second_world():
                 pass
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-0.6b"], ids=["smollm", "qwen3"])
+def test_train_memory_is_laid_out_as_the_references(cells, arch):
+    """smollm-135m and qwen3-0.6b train_4k on (16, 16), whose head moves
+    the logits from the vocab split to the sequence split (Megatron-SP):
+    the move is one all-to-all of each rank's shards (DTensor gathered the
+    whole vocab for it on a mesh of CPU ranks, three (16, 4096, vocab)
+    buffers a device), so the temp, which leaves the step's outputs out as
+    XLA's does, lies within ``TEMP_SLACK`` of the reference's (4.94x and
+    5.24x before); the FLOPs a device are the reference's, exactly; and
+    no storage alive at the temp's peak holds a rank's rows over the whole
+    sequence with the vocab whole."""
+    key = {"smollm-135m": "smollm-train", "qwen3-0.6b": "qwen3-train"}[arch]
+    name = dryrun.cell_name(arch, "train_4k", False) + ".json"
+    port = _artifact(cells, f"{key}/16x16", name)
+    ref = _artifact(cells, f"ref/{key}/16x16", name)
+    temp = port["memory_analysis"]["temp_size_in_bytes"]
+    want = ref["memory_analysis"]["temp_size_in_bytes"]
+    assert 0 < temp <= TEMP_SLACK * want, (temp, want, port["layout"]["temp_at_peak"])
+    assert temp <= port["memory_analysis"]["traced_peak_in_bytes"]
+    assert port["hlo_cost"]["flops_per_device"] == ref["hlo_cost"]["flops_per_device"]
+    assert port["hlo_cost"]["collective_bytes_per_device"].get("all-to-all", 0) > 0
+    vocab, seq = get_bundle(arch).model.vocab_size, port["seq_len"]
+    at_peak = port["layout"]["temp_at_peak"]
+    assert at_peak and not [a for a in at_peak if a["shape"][-1:] == [vocab]
+                            and seq in a["shape"][:-1]], at_peak

@@ -388,3 +388,62 @@ def test_peak_follows_allocations_and_frees():
     _, rec = hlo_cost.record(fn, torch.ones(n))
     assert rec.peak_bytes == 2 * n * 4 + 4
     assert rec.live_bytes == 4       # the 0-d result
+
+
+def test_temp_leaves_out_the_outputs():
+    """The temp is XLA's: the peak of the storages that are neither
+    arguments nor outputs; the full peak keeps the outputs. The storages
+    alive at the temp's peak are named, largest first, with their op."""
+    n = 1000
+
+    def fn(x):
+        out = x + 1          # an output: n floats
+        t = out * 2          # a temporary beside it
+        u = t[: n // 2] * 3  # and a smaller one
+        return out, (t.sum() + u.sum())
+
+    (out, _), rec = hlo_cost.record(fn, torch.ones(n))
+    # out, t, u, and the two 0-d sums beside their sum (an output)
+    assert rec.peak_bytes == 2 * n * 4 + n // 2 * 4 + 3 * 4
+    assert rec.temp_bytes == n * 4 + n // 2 * 4 + 2 * 4
+    assert [(a.nbytes, a.shape, a.op) for a in rec.at_peak[:2]] == [
+        (n * 4, (n,), "aten::mul"), (n // 2 * 4, (n // 2,), "aten::mul")]
+    assert "# temp bytes" in rec.text()
+
+
+def test_temp_of_a_step_names_its_frames():
+    """A smollm-135m SMOKE train step: its new parameters and moments are
+    outputs, so the temp lies below the full peak by at least the bytes
+    that outlive the step; the storages alive at the temp's peak carry the
+    port's frames."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps
+
+    bundle = get_bundle("smollm-135m")
+    cfg = bundle.smoke
+    pcfg = bundle.parallel_for("train_4k").replace(microbatches=1)
+    state = steps.init_train_state(cfg, pcfg, torch.Generator().manual_seed(0), "cpu")
+    batch = pipeline.make_batch(cfg, ShapeConfig("t", "train", 16, 4),
+                                pipeline.PipelineState(17, 0), device="cpu")
+    out, rec = hlo_cost.record(steps.make_train_step(cfg, pcfg), state, batch)
+    outputs = sum(t.numel() * t.element_size() for t in hlo_cost.tensors(out))
+    assert rec.temp_bytes + outputs >= rec.peak_bytes > rec.temp_bytes > 0
+    assert rec.at_peak and all(a.frame.startswith("repro_torch/") for a in rec.at_peak)
+
+
+def test_adamw_computes_each_leaf_in_place():
+    """The update of one leaf of n float32 elements allocates its new
+    parameter and moments and, beside them, at most 12 bytes an element:
+    one float32 temporary of its size and, on the CPU, the correctly
+    rounded root's float64 copy (the expression on new tensors peaked at
+    24 bytes an element here)."""
+    from repro_torch.optim import adamw
+
+    n = 1 << 16
+    p, g = _x(n), _x(n)
+    st = adamw.init({"w": p})
+    _, rec = hlo_cost.record(lambda g, st, p: adamw.update(g, st, p, lr=1e-3),
+                             {"w": g}, st, {"w": p})
+    assert rec.temp_bytes <= 4 * n + 8 * n + 64, rec.temp_bytes
+    assert rec.peak_bytes >= rec.temp_bytes + 2 * 4 * n      # the new moments beside them

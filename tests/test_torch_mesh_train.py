@@ -88,6 +88,15 @@ ONE_GROUP = {"moonshot-v1-16b-a3b": (16, 4)}   # 64 tokens: one MoE group
 RTOL = 1e-4
 ATOL = 1e-6
 SERVE = ("smollm-135m", 4, 9, 16)    # arch, batch, prompt + 3 decode tokens, cache rows
+# The split loss: logits shape (rows, seq[, codebooks], vocab) and dtype; 37
+# splits unevenly over the 2 model ranks.
+LOSSES = (((4, 6, 48), "float32"), ((4, 6, 37), "float32"), ((4, 5, 2, 24), "bfloat16"))
+# Relayouts on the (2, 2) mesh: shape, then the tensor dim each mesh dim
+# splits before and after (None: whole). The first is the head's logits
+# moved from the vocab to the sequence (Megatron-SP); 7 and 5 split unevenly.
+RELAYOUTS = (((4, 8, 12), (0, 2), (0, 1)), ((4, 7, 5), (0, 2), (0, 1)),
+             ((4, 8, 12), (0, 1), (0, 2)), ((6, 5, 7, 3), (1, 0), (3, 2)),
+             ((4, 6, 12), (1, 2), (1, 0)), ((4, 8, 12), (0, 2), (None, 1)))
 F32 = dict(rtol=1e-5, atol=1e-5)     # the LM tests' f32 tolerance
 
 
@@ -114,13 +123,20 @@ def worlds(tmp_path_factory):
                            ("llama-3.2-vision-90b", (16, 4)),
                            [cases[a] for a in FOUR], [(a, _params(a), d) for a, d in
                                                       ONE_GROUP.items()], out_dir,
-                           (arch, _params(arch), _serve_tokens(), s_max), **kw)
+                           (arch, _params(arch), _serve_tokens(), s_max),
+                           [_loss_case(*c) for c in LOSSES], RELAYOUTS, **kw)
         two = pool.submit(run_world, "torch_mesh_ranks:world2", 2, [cases[a] for a in TWO],
                           "smollm-135m", _params("smollm-135m"),
                           os.path.join(out_dir, "sharded"), **kw)
         four, two = four.result(), two.result()
     return {"four": four, "two": two, "dir": out_dir,
             "train": {a: (four if a in FOUR else two) for a in TRAIN}}
+
+
+def _loss_case(shape, dtype):
+    rng = np.random.default_rng(11)
+    logits = (rng.standard_normal(shape) * 3).astype(np.float32)
+    return logits, rng.integers(0, shape[-1], shape[:-1]).astype(np.int64), dtype
 
 
 def _serve_tokens():
@@ -450,3 +466,69 @@ def test_a_decode_step_moves_no_cache(worlds):
         assert shapes.count((bl, hqp, 1, 1)) == 2 * cfg.n_layers, shapes   # max, sum
         assert shapes.count((bl * hqp, 1, cfg.d_head)) == cfg.n_layers, shapes   # the values
         assert all(nbytes * 2 < k_cache for _, nbytes, _, _ in gathers), gathers
+
+
+# ---------------------------------------------------------------------------
+# the loss on each rank's vocab shard, relayouts as one all-to-all
+
+
+@pytest.mark.parametrize("case", range(len(LOSSES)), ids=[f"{s}-{d}" for s, d in LOSSES])
+def test_the_split_loss_matches_one_device_and_the_reference(worlds, case):
+    """The NLL of logits whose vocab the 2 ``model`` ranks split (each
+    rank's max, sum of exponentials and picked logit all-reduced): the loss
+    and its gradient against the one-device port's ``log_softmax`` and the
+    reference's ``cross_entropy`` under ``jax.value_and_grad``, within the
+    train step's tolerances; the gradient keeps the logits' split."""
+    from repro.models import common as j_common
+    from repro_torch.models.common import cross_entropy
+
+    logits, labels, dtype = _loss_case(*LOSSES[case])
+    x = torch.from_numpy(logits).to(getattr(torch, dtype)).requires_grad_(True)
+    want = cross_entropy(x, torch.from_numpy(labels))
+    (want_grad,) = torch.autograd.grad(want, x)
+    j_loss, j_grad = jax.value_and_grad(j_common.cross_entropy)(
+        jnp.asarray(logits, getattr(jnp, dtype)), jnp.asarray(labels.astype(np.int32)))
+    for w in worlds["four"]:
+        got = w["losses"][case]
+        assert got["placements"] == ["S(0)", f"S({logits.ndim - 1})"]
+        np.testing.assert_allclose(got["loss"], float(want.detach()), rtol=RTOL)
+        np.testing.assert_allclose(got["loss"], float(j_loss), rtol=RTOL)
+    grad = worlds["four"][0]["losses"][case]["grad"]
+    _close(grad, want_grad.float().numpy(), "gradient against one device")
+    _close(grad, np.asarray(j_grad, np.float32), "gradient against the reference")
+
+
+@pytest.mark.parametrize("case", range(len(RELAYOUTS)),
+                         ids=[f"{s}-{a}-{b}" for s, a, b in RELAYOUTS])
+def test_a_moved_split_is_one_all_to_all(worlds, case):
+    """A split that moves from one tensor dim to another over a mesh dim
+    is one all-to-all of the local shards, forward and backward, with no
+    all-gather (DTensor gathered the whole tensor on gloo); the value and
+    the gradient are DTensor's own layouts bitwise, uneven splits too. The
+    last case also gathers the ``data`` split, which stays DTensor's
+    all-gather."""
+    _, src, dst = RELAYOUTS[case]
+    for w in worlds["four"]:
+        got = w["relayouts"][case]
+        assert got["value"] and got["grad"], got
+        assert "_c10d_functional::all_to_all_single" in got["collectives"], got
+        gathers = [c for c in got["collectives"] if "gather" in c]
+        assert bool(gathers) == (None in dst and None not in src), got
+
+
+@pytest.mark.parametrize("arch", FOUR)
+def test_no_rank_holds_a_whole_vocab_slab(worlds, arch):
+    """In the first sharded train step no rank holds a block of a (rows,
+    seq, vocab) slab with the vocab whole over the whole sequence: where
+    the rules split the vocab (the FSDP archs) none with the vocab whole at
+    all; where they split the sequence over ``model`` (Megatron-SP, the
+    reference's layout: the vocab whole, as its rules leave it) only the
+    rank's own rows and half of the sequence."""
+    cfg = get_bundle(arch).smoke
+    seq, batch = TRAIN[arch]
+    seq_split = get_bundle(arch).parallel_for("train_4k").seq_shard_activations
+    for w in worlds["four"]:
+        slabs = w["train"][arch]["vocab_slabs"]
+        if not seq_split:
+            assert slabs == [], (arch, slabs)
+        assert all(int(np.prod(s[:-1])) <= batch // 2 * seq // 2 for s in slabs), (arch, slabs)

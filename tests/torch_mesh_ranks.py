@@ -16,6 +16,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
+
 from repro_torch import checkpoint as ckpt
 from repro_torch import interop
 from repro_torch.configs import get_bundle
@@ -26,6 +29,7 @@ from repro_torch.launch import steps
 from repro_torch.models import attention
 from repro_torch.models import model as M
 from repro_torch.models import ssm
+from repro_torch.models.common import cross_entropy
 from repro_torch.optim import adamw
 from repro_torch.parallel.sharding import gather, is_dtensor, use_rules
 from repro_torch.util import tree
@@ -124,12 +128,38 @@ def layer_products_seen(seen, cfg):
         torch.mm, torch.bmm, ssm.dot, M.dot = real["mm"], real["bmm"], real["ssm"], real["model"]
 
 
-def _run_steps(arch, params_np, dims, mesh_shape, n_steps, seen=None, layers=None):
+class VocabSlabs(TorchDispatchMode):
+    """While active (a mode above DTensor), the local shape of every op's
+    output, a DTensor's own shard, that has three dims or more and the
+    whole vocab ``vocab`` as its last: each block of a (rows, seq, vocab)
+    slab that a rank holds, in ``shapes``. The local ops of a
+    redistribution are seen too (DTensor's gather of a split that moves);
+    the meta tensors of DTensor's sharding propagation, at global shapes,
+    hold nothing and are passed over."""
+
+    def __init__(self, vocab: int):
+        super().__init__()
+        self.vocab = vocab
+        self.shapes = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_flatten(out)[0]:
+            local = getattr(t, "_local_tensor", t)
+            if isinstance(local, torch.Tensor) and local.device.type != "meta" \
+                    and local.dim() >= 3 and local.shape[-1] == self.vocab:
+                self.shapes.add(tuple(local.shape))
+        return out
+
+
+def _run_steps(arch, params_np, dims, mesh_shape, n_steps, seen=None, layers=None,
+               slabs=None):
     """``n_steps`` of the sharded train step on a ``mesh_shape`` mesh, the
     state placed by ``state_shardings``, each batch by ``batch_shardings``,
     the rules active. ``seen`` collects the attention core's products of
     the first step (:func:`products_seen`), ``layers`` the MoE FFN's and the
-    mamba block's (:func:`layer_products_seen`)."""
+    mamba block's (:func:`layer_products_seen`), ``slabs`` the blocks of a
+    whole-vocab slab it held (:class:`VocabSlabs`)."""
     cfg, pcfg, state = port_state(arch, params_np)
     shape = shape_of(dims)
     mesh = launch_mesh.make_mesh(mesh_shape, AXES, device="cpu")
@@ -147,6 +177,8 @@ def _run_steps(arch, params_np, dims, mesh_shape, n_steps, seen=None, layers=Non
                     stack.enter_context(products_seen(seen))
                 if layers is not None and i == 0:
                     stack.enter_context(layer_products_seen(layers, cfg))
+                if slabs is not None and i == 0:
+                    slabs.append(stack.enter_context(VocabSlabs(cfg.vocab_size)))
                 state, m = step(state, batch)
             metrics.append({k: float(v) for k, v in m.items()})
     return state, metrics
@@ -158,14 +190,15 @@ def _train(out, train_cases, mesh_shape):
     step and the MoE FFN's and mamba block's, and on rank 0 the gathered
     state."""
     for arch, params_np, dims in train_cases:
-        seen, layers = [], []
-        state, metrics = _run_steps(arch, params_np, dims, mesh_shape, 3, seen, layers)
+        seen, layers, slabs = [], [], []
+        state, metrics = _run_steps(arch, params_np, dims, mesh_shape, 3, seen, layers, slabs)
         full = tree.map(gather, state)
         out["train"][arch] = {
             "metrics": metrics,
             "placements": [str(tuple(p.placements)) for p in tree.leaves(state.params)],
             "products": seen,
             "layers": layers,
+            "vocab_slabs": sorted(slabs[0].shapes),
             "state": interop.train_state_to_numpy(full) if dist.get_rank() == 0 else None,
         }
 
@@ -261,7 +294,62 @@ def serve_steps(arch, params_np, tokens, s_max, mesh_shape=None):
             "comm": None if comm is None else {"counts": comm.counts, "records": comm.records}}
 
 
-def world4(_snn_mesh, ckpt_case, batch_case, train_cases, one_group, out_dir, serve_case):
+def split_losses(cases):
+    """``cases``: ``(logits, labels, dtype)``, numpy float32 logits and
+    int64 labels -> for each, the NLL of the logits in ``dtype`` laid over a
+    (2, 2) mesh with their rows over ``data`` and their vocab over
+    ``model`` (the split loss), the gradient's placements, and on rank 0
+    the gradient gathered (float32 numpy)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    mesh = launch_mesh.make_mesh((2, 2), AXES, device="cpu")
+    out = []
+    for logits, labels, dtype in cases:
+        x = distribute_tensor(torch.from_numpy(logits).to(getattr(torch, dtype)), mesh,
+                              (Shard(0), Shard(logits.ndim - 1)), src_data_rank=None)
+        x.requires_grad_(True)
+        lab = distribute_tensor(torch.from_numpy(labels), mesh, (Shard(0), Replicate()),
+                                src_data_rank=None)
+        loss = cross_entropy(x, lab)
+        (grad,) = torch.autograd.grad(loss, x)
+        full = gather(grad).float().numpy()
+        out.append({"loss": float(gather(loss.detach())),
+                    "placements": [str(p) for p in grad.placements],
+                    "grad": full if dist.get_rank() == 0 else None})
+    return out
+
+
+def relayouts(cases):
+    """``cases``: ``(shape, src, dst)``, each placement a tensor dim or None
+    per mesh dim of the (2, 2) mesh -> for each, whether DTensor's
+    redistribution of a seeded tensor laid out by ``src`` gives ``dst``'s
+    shard and placements and its gradient ``src``'s, against the shards
+    that ``distribute_tensor`` cuts, and the collectives it ran
+    (:class:`CommBytes`), both ways."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    mesh = launch_mesh.make_mesh((2, 2), AXES, device="cpu")
+    place = lambda dims: tuple(Replicate() if d is None else Shard(d) for d in dims)  # noqa: E731
+    out = []
+    for shape, src, dst in cases:
+        gen = torch.Generator().manual_seed(len(out))
+        full, dy = torch.randn(shape, generator=gen), torch.randn(shape, generator=gen)
+        x = distribute_tensor(full, mesh, place(src), src_data_rank=None).requires_grad_(True)
+        with CommBytes() as comm:
+            y = x.redistribute(mesh, place(dst))
+            (gx,) = torch.autograd.grad(y, x, distribute_tensor(dy, mesh, place(dst),
+                                                                 src_data_rank=None))
+        want = distribute_tensor(full, mesh, place(dst), src_data_rank=None)
+        out.append({"value": torch.equal(y.to_local(), want.to_local())
+                    and tuple(y.placements) == place(dst),
+                    "grad": torch.equal(gx.full_tensor(), dy)
+                    and tuple(gx.placements) == place(src),
+                    "collectives": sorted({r[0] for r in comm.records})})
+    return out
+
+
+def world4(_snn_mesh, ckpt_case, batch_case, train_cases, one_group, out_dir, serve_case,
+           loss_cases=(), relayout_cases=()):
     """Everything the 4-rank (2, 2) world runs, in one world:
 
     * ``ckpt_case``: ``(arch, params_np)`` -> a train state placed by
@@ -274,10 +362,13 @@ def world4(_snn_mesh, ckpt_case, batch_case, train_cases, one_group, out_dir, se
       MoE whose tokens make one group (split over fewer rows than ranks):
       its metrics, and on rank 0 the gathered state;
     * ``serve_case``: ``(arch, params_np, tokens, s_max)`` -> prefill and
-      three decode steps (:func:`serve_steps`).
+      three decode steps (:func:`serve_steps`);
+    * ``loss_cases``: as :func:`split_losses`; ``relayout_cases``: as
+      :func:`relayouts`.
     """
     torch.set_num_threads(1)
-    out = {"rank": dist.get_rank(), "train": {}, "one_group": {}}
+    out = {"rank": dist.get_rank(), "train": {}, "one_group": {},
+           "losses": split_losses(loss_cases), "relayouts": relayouts(relayout_cases)}
     arch, params_np, tokens, s_max = serve_case
     out["serve"] = serve_steps(arch, params_np, tokens, s_max, (2, 2))
     arch, params_np = ckpt_case
