@@ -230,7 +230,6 @@ def _serve_chunk_program(device) -> Program:
     offset = np.zeros((S,), np.int64)
     budget = np.full((S,), server.max_ticks, np.int32)
     until = np.zeros((S,), np.int32)
-    server.host_time = {k: [0.0, 0] for k in ("fill", "assemble", "dispatch", "retire")}
 
     def run():
         server._run_chunk(res, server._engine_for("jnp"), "jnp", chunk, reqs, offset,

@@ -85,7 +85,7 @@ from repro_torch.core.network_types import SNNParams, SNNState, masked_weights
 from repro_torch.kernels import event_dispatch, lif_step, stdp_update, telemetry, tick_fused
 from repro_torch.kernels.ops import EventFanIn, fan_in_edges
 from repro_torch.models import model as M
-from repro_torch.obs import MetricsRegistry, log_event, span
+from repro_torch.obs import MetricsRegistry, log_event, span, tracing
 from repro_torch.obs.telemetry import TickTelemetry
 from repro_torch.plasticity import PlasticityParams, PlasticityState
 
@@ -400,7 +400,7 @@ class SNNServer:
         self.tenants: Dict[str, Tenant] = {}
         self._compiles: Dict[str, int] = {}   # programs in use, under the reference's keys
         self._chunk_sizes: Dict[str, set] = {}
-        self.host_time: Dict[str, List[float]] = {}   # see serve_continuous
+        self._reset_stages()
         self.requests_rejected = 0
         self._tenant_obs: Dict[str, Dict] = {}   # accumulated telemetry
         self.registry = registry if registry is not None else MetricsRegistry()
@@ -454,6 +454,25 @@ class SNNServer:
     def compiles(self) -> int:
         """Programs in use, summed over the reference's trace keys."""
         return sum(self._compiles.values())
+
+    # Running ``[seconds, count]`` of the continuous loop's timed stage spans.
+    _STAGES = ("fill", "assemble", "dispatch", "readback", "retire")
+
+    def _reset_stages(self) -> None:
+        self._stages: Dict[str, List[float]] = {k: [0.0, 0] for k in self._STAGES}
+
+    @property
+    def host_time(self) -> Dict[str, List[float]]:
+        """Host seconds and counts per stage of the last
+        :meth:`serve_continuous` call, summed from its stage spans: ``fill``
+        (``snn/fill``, per refill), ``assemble`` (``snn/assemble``, the
+        ``snn/upload`` inside it; per chunk), ``dispatch``
+        (``snn/chunk/<backend>``, per chunk) and ``retire`` (``snn/readback``
+        and the ``snn/retire`` spans of its round; per retire round)."""
+        st = self._stages
+        return {"fill": list(st["fill"]), "assemble": list(st["assemble"]),
+                "dispatch": list(st["dispatch"]),
+                "retire": [st["readback"][0] + st["retire"][0], st["readback"][1]]}
 
     def _check_chunk(self, chunk) -> int:
         chunk = int(chunk)
@@ -826,54 +845,59 @@ class SNNServer:
         chunk accounting. ``host_time`` then holds this call's host seconds
         and counts per stage: ``fill`` (per refill), ``assemble`` and
         ``dispatch`` (per chunk), ``retire`` (per retire round).
+
+        Each stage is a :class:`~repro_torch.obs.tracing.span`, recorded
+        while a profiler runs (asked once per chunk): ``snn/serve`` around
+        the call, and inside it ``snn/feed`` (a feeder poll and its
+        routing), ``snn/fill`` (``rid``, ``slot``), ``snn/assemble`` (with
+        ``snn/upload``), ``snn/chunk/<backend>`` (the dispatch),
+        ``snn/readback`` (the round's one wait for the device) and
+        ``snn/retire`` (``rid``; ``on_complete`` inside it).
         """
         chunk = self._check_chunk(self.chunk_ticks if chunk_ticks is None else chunk_ticks)
-        t_start = time.time()
-        self.host_time = {k: [0.0, 0] for k in ("fill", "assemble", "dispatch", "retire")}
-        requests, rejected = self._reject_unknown(list(requests or []))
-        for r in requests:
-            if not r.t_submit:
-                r.t_submit = t_start
-        pending_map: Dict[str, Deque[ServeRequest]] = {}
-        for r in requests:
-            pending_map.setdefault(self.tenants[r.tenant].backend, deque()).append(r)
-        done: List[ServeRequest] = []
-        chunks = 0
-        while True:
-            live = [b for b, q in pending_map.items() if q]
-            if not live:
-                if feeder is None:
-                    break
-                # One more poll: a request may have arrived since the last chunk.
-                n_before, got = len(rejected), False
-                while (r := feeder()) is not None:
-                    self._route(r, pending_map, rejected)
-                    got = True
-                if not got and len(rejected) == n_before:
-                    break
-                continue
-            # FIFO across programs: the oldest waiting request's program runs.
-            backend = min(live, key=lambda b: pending_map[b][0].t_submit)
-            chunks += self._continuous_group(backend, pending_map, rejected, chunk, feeder,
-                                             on_complete, done)
-        self._g_queue.set(0)
-        self._g_busy.set(0)
-        if not done:
-            return self._empty_stats(len(rejected), mode="continuous")
-        t0 = min(r.t_submit for r in done)
-        t1 = max(r.t_done for r in done)
-        stats = self._stats(mode="continuous", done=done, n_rejected=len(rejected),
-                            chunks=chunks, ticks=chunks * chunk,
-                            slot_ticks=chunks * chunk * self.slots, wall_s=t1 - t0)
-        self._c_spikes.inc(stats["spikes_out"])
-        self._g_goodput.set(stats["slot_ticks_per_s"])
-        self._g_useful_goodput.set(stats["goodput_slot_ticks_per_s"])
-        return stats
-
-    def _clock(self, stage: str, t0: float) -> None:
-        entry = self.host_time[stage]
-        entry[0] += time.perf_counter() - t0
-        entry[1] += 1
+        with span("snn/serve"):
+            t_start = time.time()
+            self._reset_stages()
+            requests, rejected = self._reject_unknown(list(requests or []))
+            for r in requests:
+                if not r.t_submit:
+                    r.t_submit = t_start
+            pending_map: Dict[str, Deque[ServeRequest]] = {}
+            for r in requests:
+                pending_map.setdefault(self.tenants[r.tenant].backend, deque()).append(r)
+            done: List[ServeRequest] = []
+            chunks = 0
+            while True:
+                live = [b for b, q in pending_map.items() if q]
+                if not live:
+                    if feeder is None:
+                        break
+                    # One more poll: a request may have arrived since the last chunk.
+                    n_before, got = len(rejected), False
+                    with span("snn/feed"):
+                        while (r := feeder()) is not None:
+                            self._route(r, pending_map, rejected)
+                            got = True
+                    if not got and len(rejected) == n_before:
+                        break
+                    continue
+                # FIFO across programs: the oldest waiting request's program runs.
+                backend = min(live, key=lambda b: pending_map[b][0].t_submit)
+                chunks += self._continuous_group(backend, pending_map, rejected, chunk, feeder,
+                                                 on_complete, done)
+            self._g_queue.set(0)
+            self._g_busy.set(0)
+            if not done:
+                return self._empty_stats(len(rejected), mode="continuous")
+            t0 = min(r.t_submit for r in done)
+            t1 = max(r.t_done for r in done)
+            stats = self._stats(mode="continuous", done=done, n_rejected=len(rejected),
+                                chunks=chunks, ticks=chunks * chunk,
+                                slot_ticks=chunks * chunk * self.slots, wall_s=t1 - t0)
+            self._c_spikes.inc(stats["spikes_out"])
+            self._g_goodput.set(stats["slot_ticks_per_s"])
+            self._g_useful_goodput.set(stats["goodput_slot_ticks_per_s"])
+            return stats
 
     def _continuous_group(self, backend: str, pending_map: Dict[str, Deque[ServeRequest]],
                           rejected: List[ServeRequest], chunk: int, feeder, on_complete,
@@ -900,57 +924,64 @@ class SNNServer:
         until = np.zeros((S,), np.int32)     # learning bounds on the shared clock
         clock = 0
         chunks = 0
+        st = self._stages
+        on = False   # whether a profiler records, asked once a round
 
         def fill(i: int, r: ServeRequest) -> None:
             nonlocal res
-            t0 = time.perf_counter()
-            t = self.tenants[r.tenant]
-            slot_req[i], slot_tenant[i] = r, t
-            offset[i] = 0
-            budget[i] = min(int(r.n_ticks), self.max_ticks)
-            until[i] = clock + budget[i] if t.plastic else 0
-            if t.plastic:
-                busy_plastic.add(t.name)
-            if res is None:
-                # The first fill seeds every slot with this image; idle slots
-                # ride along at budget 0, like the wave path's padding.
-                res = _Resident(self, backend, t)
-            else:
-                res.fill(i, t)
-                self._compiles.setdefault(f"fill/{backend}", 1)
-            self._clock("fill", t0)
+            with span("snn/fill", total=st["fill"], on=on, rid=r.rid, slot=i):
+                t = self.tenants[r.tenant]
+                slot_req[i], slot_tenant[i] = r, t
+                offset[i] = 0
+                budget[i] = min(int(r.n_ticks), self.max_ticks)
+                until[i] = clock + budget[i] if t.plastic else 0
+                if t.plastic:
+                    busy_plastic.add(t.name)
+                if res is None:
+                    # The first fill seeds every slot with this image; idle slots
+                    # ride along at budget 0, like the wave path's padding.
+                    res = _Resident(self, backend, t)
+                else:
+                    res.fill(i, t)
+                    self._compiles.setdefault(f"fill/{backend}", 1)
 
         def retire(i: int, now: float, row: Optional[np.ndarray] = None,
-                   tel: Optional[Dict[str, np.ndarray]] = None) -> None:
+                   tel: Optional[Dict[str, np.ndarray]] = None, total=None) -> None:
+            # ``total``: the round's retires count into ``host_time``; a
+            # zero-budget request's (retired at its fill) does not.
             r, t = slot_req[i], slot_tenant[i]
-            if row is None:   # a request that ran no tick: its row is still zero
-                row = np.zeros((N,), np.float32)
-            out = row[t.n - t.n_out: t.n]
-            r.counts = out
-            r.pred = int(out.argmax())
-            r.t_first = r.t_done = now
-            if tel is not None and offset[i] > 0:
-                self._observe_slot(t, tel, i)
-                self._c_overflow.inc(float(tel["overflow"][i]))
-                self._c_policy.inc(float(tel["policy_dense"][i]))
-                self._c_dw.inc(float(tel["dw_l1"][i]))
-            if t.plastic:
-                # Register write-back: the tenant's next request starts from
-                # what this one learned (a copy: the slot's row is reused).
-                t.params = dataclasses.replace(t.params, w=res.w[i].clone())
-                busy_plastic.discard(t.name)
-            until[i] = 0
-            slot_req[i] = slot_tenant[i] = None
-            done.append(r)
-            self._c_requests.inc()
-            self._c_useful_ticks.inc(int(budget[i]))
-            self._h_ttft.observe(r.t_done - r.t_submit)
-            if on_complete is not None:
-                on_complete(r)
+            with span("snn/retire", total=total, on=on, rid=r.rid):
+                if row is None:   # a request that ran no tick: its row is still zero
+                    row = np.zeros((N,), np.float32)
+                out = row[t.n - t.n_out: t.n]
+                r.counts = out
+                r.pred = int(out.argmax())
+                r.t_first = r.t_done = now
+                if tel is not None and offset[i] > 0:
+                    self._observe_slot(t, tel, i)
+                    self._c_overflow.inc(float(tel["overflow"][i]))
+                    self._c_policy.inc(float(tel["policy_dense"][i]))
+                    self._c_dw.inc(float(tel["dw_l1"][i]))
+                if t.plastic:
+                    # Register write-back: the tenant's next request starts from
+                    # what this one learned (a copy: the slot's row is reused).
+                    t.params = dataclasses.replace(t.params, w=res.w[i].clone())
+                    busy_plastic.discard(t.name)
+                until[i] = 0
+                slot_req[i] = slot_tenant[i] = None
+                done.append(r)
+                self._c_requests.inc()
+                self._c_useful_ticks.inc(int(budget[i]))
+                self._h_ttft.observe(r.t_done - r.t_submit)
+                if on_complete is not None:
+                    on_complete(r)
 
         while True:
-            while feeder is not None and (r := feeder()) is not None:
-                self._route(r, pending_map, rejected)
+            on = tracing.profiling()
+            if feeder is not None:
+                with span("snn/feed", on=on):
+                    while (r := feeder()) is not None:
+                        self._route(r, pending_map, rejected)
             # Refill free slots in queue order; a zero-budget request
             # completes without running a tick (zero counts, nothing learned).
             for i in range(S):
@@ -983,13 +1014,12 @@ class SNNServer:
             if due:
                 # One (S, N) read (and one telemetry pull) serves every retire
                 # of the round: the only time the host waits for the device.
-                t0 = time.perf_counter()
-                rows = res.counts.to("cpu", copy=True).numpy()   # a copy on the CPU too
-                tel = res.telem.numpy() if res.telem is not None else None
+                with span("snn/readback", total=st["readback"], on=on):
+                    rows = res.counts.to("cpu", copy=True).numpy()   # a copy on the CPU too
+                    tel = res.telem.numpy() if res.telem is not None else None
                 now = time.time()
                 for i in due:
-                    retire(i, now, rows[i], tel)
-                self._clock("retire", t0)
+                    retire(i, now, rows[i], tel, st["retire"])
         return chunks
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
@@ -1013,26 +1043,27 @@ class SNNServer:
         The count mask compares each absolute tick ``offset + t`` with the
         budget, so the partial counts add up to the wave path's masked sum
         exactly (small integers in f32)."""
-        t0 = time.perf_counter()
+        on = tracing.profiling()   # once for the chunk's spans
         S, N = self.slots, self.n_max
-        ext = np.zeros((chunk, S, N), np.float32)
-        rew = np.zeros((chunk, S), np.float32) if learning else None
-        for i, r in enumerate(slot_req):
-            if r is None:
-                continue
-            o = int(offset[i])
-            if r.ext is not None and o < r.ext.shape[0]:
-                seg = np.asarray(r.ext[o:o + chunk], np.float32)
-                ext[:seg.shape[0], i, :seg.shape[1]] = seg
-            if learning and r.rewards is not None and o < len(r.rewards):
-                seg = np.asarray(r.rewards[o:o + chunk], np.float32)
-                rew[:seg.shape[0], i] = seg
-        meta = np.stack([offset.astype(np.int32), budget, until])    # (3, S)
-        ext_d, meta_d = self._upload(ext), self._upload(meta)
-        rew_d = None if rew is None else self._upload(rew)
-        self._clock("assemble", t0)
-        t0 = time.perf_counter()
-        with span(f"snn/chunk/{backend}", histogram=self._h_chunk, backend=backend):
+        with span("snn/assemble", total=self._stages["assemble"], on=on):
+            ext = np.zeros((chunk, S, N), np.float32)
+            rew = np.zeros((chunk, S), np.float32) if learning else None
+            for i, r in enumerate(slot_req):
+                if r is None:
+                    continue
+                o = int(offset[i])
+                if r.ext is not None and o < r.ext.shape[0]:
+                    seg = np.asarray(r.ext[o:o + chunk], np.float32)
+                    ext[:seg.shape[0], i, :seg.shape[1]] = seg
+                if learning and r.rewards is not None and o < len(r.rewards):
+                    seg = np.asarray(r.rewards[o:o + chunk], np.float32)
+                    rew[:seg.shape[0], i] = seg
+            meta = np.stack([offset.astype(np.int32), budget, until])    # (3, S)
+            with span("snn/upload", on=on):
+                ext_d, meta_d = self._upload(ext), self._upload(meta)
+                rew_d = None if rew is None else self._upload(rew)
+        with span(f"snn/chunk/{backend}", histogram=self._h_chunk,
+                  total=self._stages["dispatch"], on=on, backend=backend):
             params = SNNParams(w=res.w, c=res.c, w_in=res.w_in, lif=res.lif)
             fan = None if res.fan_idx is None else EventFanIn(idx=res.fan_idx, mask=res.fan_mask)
             if learning:
@@ -1048,7 +1079,6 @@ class SNNServer:
             t_abs = meta_d[0][None, :] + res.ticks[:chunk, None]           # (chunk, S)
             tmask = (t_abs < meta_d[1][None, :]).to(raster.dtype)
             res.counts += (raster * tmask[:, :, None]).sum(dim=0)
-        self._clock("dispatch", t0)
 
 
 class _Resident:
@@ -1200,12 +1230,12 @@ def device_profile(fn: Callable[[], object], device: torch.device):
         wall = time.perf_counter() - t0
     # Device-side events only (kernels and copies): the CPU ops that launched
     # them carry the same device time and would count it twice, and so do the
-    # wave and chunk spans and tick scopes ("snn/...", "tick/...") on the device
-    # timeline. (By name: the profiler's user-annotation flag left B4's kernel
-    # out of a device-time sum on the card.)
+    # tick scopes ("tick/...") on the device timeline (the stage spans' records
+    # stay on the host's). (By name: the profiler's user-annotation flag left
+    # B4's kernel out of a device-time sum on the card.)
     rows = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
-                   and not e.key.startswith(("snn/", "tick/"))), reverse=True)
+                   and not e.key.startswith("tick/")), reverse=True)
     return out, wall, sum(r[0] for r in rows) / 1e6, rows, prof
 
 

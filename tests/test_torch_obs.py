@@ -53,7 +53,7 @@ from repro_torch.kernels import telemetry as t_telemetry
 from repro_torch.kernels.ref import fused_stdp_step_ref
 from repro_torch.launch import serve as t_serve
 from repro_torch.obs import (
-    EventLog, MetricsRegistry, TickTelemetry, get_event_log, profile, span, trace_scope,
+    EventLog, MetricsRegistry, TickTelemetry, span, trace_scope,
 )
 from repro_torch.obs import tracing
 from repro_torch.plasticity import PlasticityParams, PlasticityState
@@ -491,38 +491,6 @@ def test_span_observes_into_histogram_and_scope_toggles():
     assert not tracing.profiling()
     with trace_scope("unit/off", enabled=False):
         pass
-
-
-def test_profile_none_is_a_no_op_and_captures_a_trace(tmp_path):
-    """``profile(None)`` does nothing; a directory receives a Chrome trace in
-    which the tick loop's scopes appear (the loop asks once per rollout
-    whether a profiler runs)."""
-    log = get_event_log()
-    log.clear()
-    with profile(None):
-        pass
-    assert log.events() == []
-    tp = interop.params_from_numpy(_tree(N, seed=0), "cpu")
-    with profile(str(tmp_path / "prof")):
-        assert tracing.profiling()
-        t_net.rollout(tp, t_net.SNNState.zeros((), N, device="cpu"),
-                      torch.as_tensor(_ext(N, 3, seed=1)), 3, telemetry=True)
-    trace = (tmp_path / "prof" / "trace.json").read_text()
-    assert "tick/jnp" in trace
-    assert [e["event"] for e in log.events()] == ["profile_captured"]
-
-
-def test_profile_bad_directory_is_logged_not_raised(tmp_path):
-    log = get_event_log()
-    log.clear()
-    blocker = tmp_path / "file"
-    blocker.write_text("not a directory")
-    ran = []
-    with profile(str(blocker / "sub")):
-        ran.append(1)
-    assert ran == [1]
-    events = log.events("profile_failed")
-    assert len(events) == 1 and events[0]["outdir"] == str(blocker / "sub")
 
 
 def test_event_log_mirrors_json_lines():
