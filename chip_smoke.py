@@ -1732,20 +1732,37 @@ def plan_misses() -> dict:
 def watch_chunks(server, log):
     """Run every chunk dispatch of ``server`` under
     ``torch.cuda.set_sync_debug_mode("error")`` (a host sync in it raises) and
-    log ``(learning, B2's plan)`` after each."""
+    log ``(learning, B2's plan, how)`` after each, ``how`` one of ``eager``,
+    ``captured`` (recorded as a CUDA graph, then replayed) and ``replayed``.
+    A replay calls no kernel wrapper: its plan is the one the wrapper saw
+    while its graph was captured. A frozen chunk that ran its wrappers
+    though its size had a graph raises."""
     import torch
 
     from repro_torch.kernels import tick_fused
 
     run = server._run_chunk
+    captured = {}   # a resident's graph -> B2's plan in its capture
 
-    def watched(*args, learning, **kw):
+    def watched(res, engine, backend, chunk, *args, learning, **kw):
+        tick_fused.last_plan = None
+        before = res.graphs.get(chunk)
         torch.cuda.set_sync_debug_mode("error")
         try:
-            run(*args, learning=learning, **kw)
+            run(res, engine, backend, chunk, *args, learning=learning, **kw)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        log.append((learning, tick_fused.last_plan))
+        plan, graph = tick_fused.last_plan, res.graphs.get(chunk)
+        if learning or graph is None:
+            how = "eager"
+        elif before is None and plan is not None:
+            how, captured[graph] = "captured", plan
+        elif before is graph and plan is None:
+            how, plan = "replayed", captured[graph]
+        else:
+            raise AssertionError(f"continuous: a frozen chunk of {chunk} ticks ran its "
+                                 f"wrappers (plan {plan}) beside its graph")
+        log.append((learning, plan, how))
 
     server._run_chunk = watched
 
@@ -1884,6 +1901,8 @@ def run_continuous_phase(dev):
     sw, names = continuous_server(dev, cfg, cfg.snn_backend)
     sw.serve(make_demo_requests(sw, names, SLOTS, seed=99))
     sc, _ = continuous_server(dev, cfg, cfg.snn_backend)
+    chunk_log = []
+    watch_chunks(sc, chunk_log)   # from the first chunk: the captures too
     sc.serve_continuous(make_demo_requests(sc, names, SLOTS, seed=99))
     learner = names[-1]
     if not sc.tenants[learner].plastic:
@@ -1895,9 +1914,9 @@ def run_continuous_phase(dev):
     stats_w = sw.serve(reqs_w)
     torch.cuda.synchronize()
     wall_w1 = time.perf_counter() - t0
-    chunk_log = []
-    watch_chunks(sc, chunk_log)
     torch.cuda.synchronize()
+    warm_log = list(chunk_log)
+    del chunk_log[:]
     zero_launches()
     t0 = time.perf_counter()
     stats_c = sc.serve_continuous(reqs_c)
@@ -1907,21 +1926,32 @@ def run_continuous_phase(dev):
     misses1 = plan_misses()
     del sc._run_chunk
     host = {k: list(v) for k, v in sc.host_time.items()}
-    chunks, learning = stats_c["chunks"], sum(l for l, _ in chunk_log)
+    chunks, learning = stats_c["chunks"], sum(l for l, _, _ in chunk_log)
+    replayed = sum(how == "replayed" for _, _, how in chunk_log)
     exact = same_results(reqs_w, reqs_c)
     if not exact:
         raise AssertionError("continuous: a count or prediction differs from the wave path")
     if not torch.equal(sw.tenants[learner].params.w, sc.tenants[learner].params.w):
         raise AssertionError(f"continuous: {learner}'s learned weights differ from the wave "
                              "path's")
-    expected = {"tick_fused": chunks * CONT_CHUNK, "lif_step": 0,
+    # A chunk replayed from its CUDA graph launches through no wrapper (the
+    # profiled serve below counts its kernels on the device); the captured
+    # one called them once, while it was recorded. Every frozen chunk but
+    # the server's first (the warm-up) runs as its graph.
+    eager = chunks - replayed
+    expected = {"tick_fused": eager * CONT_CHUNK, "lif_step": 0,
                 "stdp_update": learning * CONT_CHUNK, "event_dispatch_db": 0,
-                "event_dispatch": 0, "spike_matmul": 0, "telemetry": chunks * CONT_CHUNK}
-    if launches != expected or len(chunk_log) != chunks or not 0 < learning < chunks:
+                "event_dispatch": 0, "spike_matmul": 0, "telemetry": eager * CONT_CHUNK}
+    frozen_eager = sum(not l and how == "eager" for l, _, how in warm_log + chunk_log)
+    graphed = sum(how != "eager" for _, _, how in chunk_log)
+    if launches != expected or len(chunk_log) != chunks or not 0 < learning < chunks \
+            or frozen_eager > 1 or not graphed:
         raise AssertionError(f"continuous: launches {launches}, expected {expected} (chunks "
-                             f"{chunks}, learning {learning}, logged {len(chunk_log)})")
-    frozen_plans = {(p.has_c, str(p)) for l, p in chunk_log if not l}
-    if any(has_c for has_c, _ in frozen_plans) or any(not p.has_c for l, p in chunk_log if l):
+                             f"{chunks}, learning {learning}, as CUDA graphs {graphed}, of "
+                             f"them replayed {replayed}; frozen and eager since the first "
+                             f"serve {frozen_eager}, logged {len(chunk_log)})")
+    frozen_plans = {(p.has_c, str(p)) for l, p, _ in chunk_log if not l}
+    if any(has_c for has_c, _ in frozen_plans) or any(not p.has_c for l, p, _ in chunk_log if l):
         raise AssertionError(f"continuous: a frozen chunk streamed w and c: {frozen_plans}")
     recompiles = sc.compiles - warm_compiles
     if misses1 != misses0 or recompiles or stats_c["recompiles_after_warmup"]:
@@ -1941,7 +1971,8 @@ def run_continuous_phase(dev):
     del sj
     log(f"continuous: {stats_c['n_requests']} requests in {chunks} chunks of {CONT_CHUNK} "
         f"ticks ({learning} learning, {chunks - learning} frozen on the premasked stack) "
-        f"against {stats_w['waves']} waves of {cfg.n_ticks}; every count and prediction == "
+        f"against {stats_w['waves']} waves of {cfg.n_ticks}, {graphed} as CUDA graphs "
+        f"({replayed} replayed, {graphed - replayed} captured); every count and prediction == "
         f"the wave path, {learner}'s weights == the wave path's bitwise, {len(frozen)} frozen "
         f"requests == jnp; launches {launches}; no host sync in {chunks} dispatches; plans "
         f"{misses1} (unchanged), compiles {sc.compiles} (unchanged), frozen B2 plan "
@@ -1989,13 +2020,22 @@ def run_continuous_phase(dev):
                              "after the same timed mixes")
     if stats_p["chunks"] != chunks_c[last]:
         raise AssertionError("continuous: the profiled serve ran another schedule")
+    # On the device, replays included: every chunk's B2 and telemetry
+    # launches, one a tick.
+    on_device = {k: sum(n for _, n, key in rows if f"{k}_kernel" in key)
+                 for k in ("tick_fused", "telemetry")}
+    if on_device != dict.fromkeys(on_device, stats_p["chunks"] * CONT_CHUNK):
+        raise AssertionError(f"continuous: the profiled serve's {stats_p['chunks']} chunks "
+                             f"launched {on_device} on the device, expected "
+                             f"{stats_p['chunks'] * CONT_CHUNK} each")
     log(f"continuous profile (mix seed {last}, {stats_p['chunks']} chunks): "
         + (f"device busy {busy_p:.4f} s, {busy_p / walls_c[last]:.4f} of the unprofiled wall "
            f"{walls_c[last]:.4f} s ({busy_p / wall_p:.4f} of {wall_p:.4f} s under the "
            "profiler); " if busy_p > 0 else
            f"device busy not measured (the profiler recorded no device time; unprofiled "
            f"wall {walls_c[last]:.4f} s)")
-        + "; ".join(f"{key[:60]} {us / 1e3:.3f} ms {n}x" for us, n, key in rows[:8]))
+        + "; ".join(f"{key[:60]} {us / 1e3:.3f} ms {n}x" for us, n, key in rows[:8])
+        + f"; device launches {on_device}")
     clone_ms = device_ms(lambda: sc.tenants[learner].params.w.expand(
         SLOTS, -1, -1).clone(), runs=10)
     log(f"continuous: the learning carry's clone that the owned carry avoids, {SLOTS} x "

@@ -51,6 +51,13 @@ round. The slots share one tick counter, so a plastic slot's learning bound
 is put on that clock (its fill tick plus its budget). A chunk runs the
 learning tick only while a plastic request is resident, otherwise the
 premasked frozen tick on a resident ``W*C`` stack, as frozen-only waves do.
+On the card a frozen chunk of a dense program is one CUDA graph replay
+(:func:`chunk_graph_engages`): the program's first frozen chunk of a size
+runs eager, the second is captured and replayed, every later one replayed,
+in this group and the program's later ones; the drive, the budgets and the
+carried state sit in the program's resident buffers, which the server keeps
+from group to group, so an upload, a refill or a new group's seeding lands
+where the graph reads.
 :mod:`repro_torch.launch.serve_async` puts the asyncio front-end on it.
 
 :func:`serve_sharded_main` is the other end of the scale axis: one network
@@ -338,6 +345,11 @@ def _stack(trees: List[SNNParams]) -> SNNParams:
                      w_in=torch.stack([t.w_in for t in trees]), lif=lif)
 
 
+# The port's own counters (the reference has no CUDA graph): the replay share
+# is replays over ``snn_chunks_total``.
+GRAPH_COUNTERS = ("snn_chunk_graph_captures_total", "snn_chunk_graph_replays_total")
+
+
 class SNNServer:
     """Slot-batched multi-tenant serving of frozen and plastic tenants.
 
@@ -418,6 +430,14 @@ class SNNServer:
             "snn_chunks_total",
             "continuous-admission chunks run, by resident program",
             ("backend",))
+        self._c_graph_captures = r.counter(
+            GRAPH_COUNTERS[0], "frozen chunks captured as one CUDA graph, by resident program",
+            ("backend",))
+        self._c_graph_replays = r.counter(
+            GRAPH_COUNTERS[1], "chunks run as one CUDA graph replay, by resident program",
+            ("backend",))
+        self._graph_stream: Optional[torch.cuda.Stream] = None
+        self._residents: Dict[str, _Resident] = {}
         self._c_spikes = r.counter(
             "snn_spikes_out_total", "rate-decoded output spikes")
         self._c_slot_ticks = r.counter(
@@ -850,9 +870,10 @@ class SNNServer:
         while a profiler runs (asked once per chunk): ``snn/serve`` around
         the call, and inside it ``snn/feed`` (a feeder poll and its
         routing), ``snn/fill`` (``rid``, ``slot``), ``snn/assemble`` (with
-        ``snn/upload``), ``snn/chunk/<backend>`` (the dispatch),
-        ``snn/readback`` (the round's one wait for the device) and
-        ``snn/retire`` (``rid``; ``on_complete`` inside it).
+        ``snn/upload``), ``snn/chunk/<backend>`` (the dispatch; ``graph=1``
+        where it is one CUDA graph replay), ``snn/readback`` (the round's
+        one wait for the device) and ``snn/retire`` (``rid``;
+        ``on_complete`` inside it).
         """
         chunk = self._check_chunk(self.chunk_ticks if chunk_ticks is None else chunk_ticks)
         with span("snn/serve"):
@@ -907,11 +928,11 @@ class SNNServer:
 
         Which request holds a slot, its tick offset and budget live on the
         host; the registers, carry and running counts live on the device in
-        a :class:`_Resident`, which a refill rewrites one slot of. The slots
-        share one tick counter, which starts at 0 for the group (a fresh
-        carry), so a plastic slot's learning bound is its fill tick plus its
-        budget on that clock (``clock`` mirrors it on the host), and 0 for a
-        frozen slot."""
+        the program's :class:`_Resident` (:meth:`_resident`), which a refill
+        rewrites one slot of. The slots share one tick counter, which starts
+        at 0 for the group (a fresh carry), so a plastic slot's learning
+        bound is its fill tick plus its budget on that clock (``clock``
+        mirrors it on the host), and 0 for a frozen slot."""
         S, N = self.slots, self.n_max
         pending = pending_map.setdefault(backend, deque())
         engine = self._engine_for(backend)
@@ -940,7 +961,7 @@ class SNNServer:
                 if res is None:
                     # The first fill seeds every slot with this image; idle slots
                     # ride along at budget 0, like the wave path's padding.
-                    res = _Resident(self, backend, t)
+                    res = self._resident(backend, t)
                 else:
                     res.fill(i, t)
                     self._compiles.setdefault(f"fill/{backend}", 1)
@@ -1022,23 +1043,40 @@ class SNNServer:
                     retire(i, now, rows[i], tel, st["retire"])
         return chunks
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
+    def _resident(self, backend: str, t: Tenant) -> "_Resident":
+        """The program's resident buffers with every slot seeded from
+        ``t``'s image and a fresh carry: made by the program's first group,
+        reseeded in place by every later one (:meth:`_Resident.reseed`), so
+        a later group replays the chunk graphs an earlier one captured."""
+        res = self._residents.get(backend)
+        if res is None:
+            res = self._residents[backend] = _Resident(self, backend, t)
+        else:
+            res.reseed(t)
+        return res
+
+    def _upload(self, a: np.ndarray, out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """A host array on the server's device without waiting for it: on the
         card from pinned memory, asynchronously (a pageable copy would
-        synchronize the stream)."""
+        synchronize the stream); into ``out`` when given, by one copy."""
         t = torch.from_numpy(a)
-        if self.device.type != "cuda":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+            if out is None:
+                return t.to(self.device, non_blocking=True)
+        return t if out is None else out.copy_(t, non_blocking=True)
 
     def _run_chunk(self, res: "_Resident", engine: TickEngine, backend: str, chunk: int,
                    slot_req: List[Optional[ServeRequest]], offset: np.ndarray,
                    budget: np.ndarray, until: np.ndarray, *, learning: bool) -> None:
         """One chunk of every slot from its carried state: assemble the
         ``(chunk, S, N)`` drive (and ``(chunk, S)`` rewards when learning) on
-        the host, upload it, run ``TickEngine.chunk`` on the resident stacks
-        (which it updates in place) and add the in-budget spikes to the
-        device counts. Nothing here waits for the device.
+        the host, upload it into the resident's drive and budget buffers, run
+        ``TickEngine.chunk`` on the resident stacks (which it updates in
+        place), copy the final state back into the resident's state and add
+        the in-budget spikes to the device counts. Nothing here waits for the
+        device. Where :func:`chunk_graph_engages`, that dispatch is one CUDA
+        graph replay after the first chunk of its size (:meth:`_graphed`).
 
         The count mask compares each absolute tick ``offset + t`` with the
         budget, so the partial counts add up to the wave path's masked sum
@@ -1060,37 +1098,89 @@ class SNNServer:
                     rew[:seg.shape[0], i] = seg
             meta = np.stack([offset.astype(np.int32), budget, until])    # (3, S)
             with span("snn/upload", on=on):
-                ext_d, meta_d = self._upload(ext), self._upload(meta)
+                self._upload(ext, res.ext[:chunk])
+                self._upload(meta, res.meta)
                 rew_d = None if rew is None else self._upload(rew)
+        graphed = chunk_graph_engages(self.device, backend, learning)
+        replay = {"graph": 1} if graphed and chunk in res.graphs else None
         with span(f"snn/chunk/{backend}", histogram=self._h_chunk,
-                  total=self._stages["dispatch"], on=on, backend=backend):
-            params = SNNParams(w=res.w, c=res.c, w_in=res.w_in, lif=res.lif)
-            fan = None if res.fan_idx is None else EventFanIn(idx=res.fan_idx, mask=res.fan_mask)
+                  total=self._stages["dispatch"], on=on, note=replay, backend=backend):
             if learning:
+                params, fan = res.operands()
                 carry = TickCarry(state=res.state, plast=res.plast, w=res.w, telem=res.telem)
-                carry, raster = engine.chunk(params, carry, ext_d, chunk, rewards=rew_d,
-                                             learn_until=meta_d[2], neighbors=fan, owned=True)
+                carry, raster = engine.chunk(params, carry, res.ext[:chunk], chunk,
+                                             rewards=rew_d, learn_until=res.meta[2],
+                                             neighbors=fan, owned=True)
+                if carry.w is not res.w:
+                    res.graphs.clear()   # a frozen graph reads w where it was (``pallas``)
                 res.w, res.plast = carry.w, carry.plast
+                res.keep(carry.state, raster, chunk)
+            elif graphed:
+                self._graphed(res, engine, backend, chunk)
             else:
-                carry, raster = engine.chunk(params, TickCarry(state=res.state, telem=res.telem),
-                                             ext_d, chunk, neighbors=fan, wc=res.wc,
-                                             w_edges=res.w_edges, owned=True)
-            res.state, res.telem = carry.state, carry.telem
-            t_abs = meta_d[0][None, :] + res.ticks[:chunk, None]           # (chunk, S)
-            tmask = (t_abs < meta_d[1][None, :]).to(raster.dtype)
-            res.counts += (raster * tmask[:, :, None]).sum(dim=0)
+                res.frozen_chunk(engine, chunk)
+
+    def _graphed(self, res: "_Resident", engine: TickEngine, backend: str, chunk: int) -> None:
+        """A frozen chunk through the program's CUDA graph of its size: the
+        first runs eager (the warm-up: cuBLAS, the kernels' shared-memory
+        opt-in, the allocator), on the side stream the capture uses; the
+        second is captured there (thread-local capture mode, so the async
+        front end's worker can capture) and replayed, since a capture
+        records and does not run; every later one is replayed. Replays run
+        on the current stream, after the uploads into the buffers they
+        read. A capture that fails raises."""
+        cur = torch.cuda.current_stream(self.device)
+        if self._graph_stream is None:
+            self._graph_stream = torch.cuda.Stream(device=self.device)
+        side = self._graph_stream
+        if chunk not in res.graphs:
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                res.frozen_chunk(engine, chunk)
+            cur.wait_stream(side)
+            res.graphs[chunk] = None
+            return
+        graph = res.graphs[chunk]
+        if graph is None:
+            graph = torch.cuda.CUDAGraph()
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    res.frozen_chunk(engine, chunk)
+                finally:
+                    graph.capture_end()
+            res.graphs[chunk] = graph
+            self._c_graph_captures.inc(backend=backend)
+        graph.replay()
+        self._c_graph_replays.inc(backend=backend)
+
+
+def chunk_graph_engages(device: torch.device, backend: str, learning: bool) -> bool:
+    """Whether a continuous chunk runs as a CUDA graph: on the card, for a
+    frozen chunk of a dense program. A learning chunk rebinds the resident's
+    weights and reads rewards; an event chunk prepares its operands per
+    chunk and may read its overflow flag back: both stay eager."""
+    return device.type == "cuda" and not learning and backend != "event"
 
 
 class _Resident:
-    """One continuous group's program inputs, resident on the device: the
-    slots' register images (weights, connection list, the premasked ``W*C``
-    the frozen tick reads on every program but ``pallas`` -- whose kernel
-    masks per tile --, input weights, LIF rows; on the event program the
-    fan-in lists and the per-edge weights of the frozen tick), their carry
-    (state, traces and eligibility, telemetry) and their running counts.
-    The state's tick counter is shared by the slots. Chunks update the
-    stacks in place (the learning ones through an owned carry); a refill
-    rewrites one slot."""
+    """One program's continuous inputs, resident on the device and kept by
+    the server from group to group: the slots' register images (weights,
+    connection list, the premasked ``W*C`` the frozen tick reads on every
+    program but ``pallas`` -- whose kernel masks per tile --, input weights,
+    LIF rows; on the event program the fan-in lists and the per-edge
+    weights of the frozen tick), their carry (state, traces and
+    eligibility, telemetry), their running counts, and the chunk's drive
+    and ``(offset, budget, until)`` rows, uploaded into them. The state's
+    tick counter is shared by the slots. Chunks update the stacks in place
+    (the learning ones through an owned carry) and copy their final state
+    back into :attr:`state`'s buffers; a refill rewrites one slot, and a new
+    group reseeds every slot (:meth:`reseed`). So every buffer a frozen
+    chunk reads keeps its address (a learning chunk that hands back new
+    weights drops the graphs), which is what lets :attr:`graphs` (per chunk
+    size: None once a frozen chunk has warmed it, then its CUDA graph)
+    replay."""
 
     def __init__(self, server: SNNServer, backend: str, t: Tenant):
         S, N, dev = server.slots, server.n_max, server.device
@@ -1116,6 +1206,9 @@ class _Resident:
         self.telem = TickTelemetry.zeros((S,), device=dev) if server.telemetry else None
         self.counts = torch.zeros((S, N), dtype=torch.float32, device=dev)
         self.ticks = torch.arange(server.max_ticks, device=dev)
+        self.ext = torch.zeros((server.max_ticks, S, N), dtype=torch.float32, device=dev)
+        self.meta = torch.zeros((3, S), dtype=torch.int32, device=dev)
+        self.graphs: Dict[int, Optional[torch.cuda.CUDAGraph]] = {}
 
     @property
     def fill_copies(self) -> int:
@@ -1126,6 +1219,30 @@ class _Resident:
         lists and per-edge weights on the event program."""
         return (15 + (self.wc is not None) + self.rstdp + (self.telem is not None)
                 + 3 * (self.fan_idx is not None))
+
+    def reseed(self, t: Tenant) -> None:
+        """A new group's start, in place: every slot holds ``t``'s image (as
+        a new resident's would) with zero state, tick, traces, telemetry
+        and counts."""
+        p = t.params
+        self.w.copy_(p.w)
+        self.c.copy_(p.c)
+        self.w_in.copy_(p.w_in)
+        for f in dataclasses.fields(LIFParams):
+            getattr(self.lif, f.name).copy_(getattr(p.lif, f.name))
+        if self.wc is not None:
+            self.wc.copy_(masked_weights(p))
+        if self.fan_idx is not None:
+            self.fan_idx.copy_(t.fan_idx)
+            self.fan_mask.copy_(t.fan_mask)
+            self.w_edges.copy_(fan_in_edges(self.wc, EventFanIn(idx=self.fan_idx,
+                                                                mask=self.fan_mask)))
+        st, pl = self.state, self.plast
+        for x in (st.lif.v, st.lif.r, st.lif.y, st.delay_buf, st.tick, pl.x_pre, pl.x_post,
+                  pl.elig, self.counts):
+            x.zero_()
+        if self.telem is not None:
+            self.telem.buf.zero_()
 
     def fill(self, i: int, t: Tenant) -> None:
         """The register download: tenant ``t``'s image into slot ``i``, with
@@ -1153,6 +1270,34 @@ class _Resident:
             self.plast.elig[i].zero_()
         if self.telem is not None:
             self.telem.buf[:, i].zero_()
+
+    def operands(self):
+        """The slots' parameters and, on the event program, their fan-in lists."""
+        fan = None if self.fan_idx is None else EventFanIn(idx=self.fan_idx, mask=self.fan_mask)
+        return SNNParams(w=self.w, c=self.c, w_in=self.w_in, lif=self.lif), fan
+
+    def frozen_chunk(self, engine: TickEngine, chunk: int) -> None:
+        """``chunk`` frozen ticks of every slot from the resident buffers
+        alone (what a CUDA graph of the chunk records)."""
+        params, fan = self.operands()
+        carry, raster = engine.chunk(params, TickCarry(state=self.state, telem=self.telem),
+                                     self.ext[:chunk], chunk, neighbors=fan, wc=self.wc,
+                                     w_edges=self.w_edges, owned=True)
+        self.keep(carry.state, raster, chunk)
+
+    def keep(self, state: SNNState, raster: torch.Tensor, chunk: int) -> None:
+        """A chunk's end: its final state copied into :attr:`state`'s own
+        buffers, and its spikes at ticks inside each slot's budget added to
+        the counts."""
+        mine = self.state
+        for dst, src in ((mine.lif.v, state.lif.v), (mine.lif.r, state.lif.r),
+                         (mine.lif.y, state.lif.y), (mine.delay_buf, state.delay_buf),
+                         (mine.tick, state.tick)):
+            if src is not dst:
+                dst.copy_(src)
+        t_abs = self.meta[0][None, :] + self.ticks[:chunk, None]           # (chunk, S)
+        tmask = (t_abs < self.meta[1][None, :]).to(raster.dtype)
+        self.counts += (raster * tmask[:, :, None]).sum(dim=0)
 
 
 def make_demo_tenants(server: SNNServer, n_tenants: int = 8, *, seed: int = 0) -> List[str]:

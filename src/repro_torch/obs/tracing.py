@@ -128,16 +128,19 @@ class span:
         are added to.
       on: whether a profiler is recording, as the caller last asked
         :func:`profiling` (a loop asks once per iteration); None asks now.
+      note: optional attributes kept on the record only, not labels of the
+        histogram (``graph``).
       attrs: kept on the record (``rid``, ``slot``, ``backend``).
 
     Off, with neither sink, it does nothing.
     """
 
-    __slots__ = ("name", "histogram", "total", "on", "attrs", "_t0", "_rf", "_i")
+    __slots__ = ("name", "histogram", "total", "on", "attrs", "note", "_t0", "_rf", "_i")
 
     def __init__(self, name: str, histogram=None, *, total: Optional[List] = None,
-                 on: Optional[bool] = None, **attrs):
+                 on: Optional[bool] = None, note: Optional[Dict] = None, **attrs):
         self.name, self.histogram, self.total, self.attrs = name, histogram, total, attrs
+        self.note = note
         self.on = profiling() if on is None else on
 
     def __enter__(self) -> "span":
@@ -146,7 +149,8 @@ class span:
             self._rf = torch._C._profiler._RecordFunctionFast(self.name)
             self._rf.__enter__()
             self._t0 = time.time_ns()
-            self._i = _DEFAULT.open(self.name, self._t0, self.attrs)
+            self._i = _DEFAULT.open(self.name, self._t0,
+                                    {**self.attrs, **self.note} if self.note else self.attrs)
         elif self.histogram is not None or self.total is not None:
             self._t0 = time.perf_counter()
         return self

@@ -529,6 +529,10 @@ def test_server_registry_matches_reference(served):
     present), histogram counts equal."""
     (js, jstats), (ts, tstats) = served
     jd, td = js.registry.to_dict(), ts.registry.to_dict()
+    # The port's own: the reference runs no CUDA graph to count.
+    assert sorted(set(td) - set(jd)) == list(t_serve.GRAPH_COUNTERS)
+    for name in t_serve.GRAPH_COUNTERS:
+        assert not td.pop(name)["values"], name
     assert sorted(jd) == sorted(td)
     for name, want in jd.items():
         got = td[name]

@@ -397,6 +397,10 @@ def test_tenant_report_and_registry_match_reference(ref_continuous, backend):
                 assert got[name][k] == v, (name, k)
     assert got[names[-1]]["dw_l1"] > 0
     jd, td = j_server.registry.to_dict(), sc.registry.to_dict()
+    # The port's own: no CUDA graph on the CPU, and none in the reference.
+    assert sorted(set(td) - set(jd)) == list(t_serve.GRAPH_COUNTERS)
+    for name in t_serve.GRAPH_COUNTERS:
+        assert not td.pop(name)["values"], name
     assert sorted(jd) == sorted(td)
     for name, want_i in jd.items():
         got_i = td[name]
@@ -597,6 +601,132 @@ def test_refill_makes_its_stated_writes_in_place(program, rule, telemetry):
     assert not res.counts[1].any() and not res.plast.x_pre[1].any()
     if res.wc is not None:
         assert torch.equal(res.wc[1], p.w * p.c)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_resident_state_keeps_its_buffers_across_refills(backend):
+    """Every chunk reads and leaves the group's state, drive and budgets in
+    the resident's own buffers (what a CUDA graph of the chunk records):
+    ``v``, ``r``, ``y`` and ``tick`` keep their addresses from chunk to
+    chunk across refills mid-group, learning chunks included, and the
+    results stay bitwise the wave path's."""
+    sc, names = _port(backend)
+    sw, _ = _port(backend)
+    seen, fills, held = {}, [], []
+    run, fill = sc._run_chunk, t_serve._Resident.fill
+
+    def leaves(res):
+        st = res.state
+        return tuple(x.data_ptr() for x in (st.lif.v, st.lif.r, st.lif.y, st.tick,
+                                            res.ext, res.meta, res.counts))
+
+    def wrapped(res, *args, **kw):
+        held.append(res)   # no resident's id is reused within the call
+        seen.setdefault(id(res), set()).add(leaves(res))
+        run(res, *args, **kw)
+        seen[id(res)].add(leaves(res))
+
+    def counted(res, i, t):
+        fills.append(id(res) in seen)   # after the group's first chunk
+        fill(res, i, t)
+
+    sc._run_chunk = wrapped
+    t_serve._Resident.fill = counted
+    try:
+        reqs = _reqs(t_serve, sc, names, 16, 1)
+        sc.serve_continuous(reqs, chunk_ticks=2)
+    finally:
+        t_serve._Resident.fill = fill
+    waves = _reqs(t_serve, sw, names, 16, 1)
+    sw.serve(waves)
+    _same_counts(waves, reqs)
+    assert any(fills), "no refill mid-group"
+    assert all(len(ptrs) == 1 for ptrs in seen.values()), seen
+
+
+def _resident_leaves(res):
+    """Every tensor a resident holds, by name (None where its program has none)."""
+    st, pl = res.state, res.plast
+    out = {"w": res.w, "c": res.c, "w_in": res.w_in, "wc": res.wc, "fan_idx": res.fan_idx,
+           "fan_mask": res.fan_mask, "w_edges": res.w_edges, "v": st.lif.v, "r": st.lif.r,
+           "y": st.lif.y, "delay_buf": st.delay_buf, "tick": st.tick, "x_pre": pl.x_pre,
+           "x_post": pl.x_post, "elig": pl.elig, "counts": res.counts, "ext": res.ext,
+           "meta": res.meta, "telem": None if res.telem is None else res.telem.buf}
+    out.update({f"lif.{k}": v for k, v in vars(res.lif).items()})
+    return {k: v for k, v in out.items() if v is not None}
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_later_groups_reseed_the_programs_resident_in_place(backend):
+    """The server keeps each program's resident from group to group: a
+    later call's group reseeds it in place, so the buffers a frozen chunk
+    reads (what a CUDA graph of it records) keep their addresses, to
+    exactly what a new resident seeded from the same tenant holds (but the
+    drive and budget rows, which every chunk overwrites), and every call's
+    results stay bitwise the wave path's."""
+    sc, names = _port(backend)
+    sw, _ = _port(backend)
+    reseed, checked = t_serve._Resident.reseed, []
+
+    def spy(res, t):
+        reseed(res, t)
+        program = next(b for b, r in sc._residents.items() if r is res)
+        fresh = _resident_leaves(t_serve._Resident(sc, program, t))
+        got = _resident_leaves(res)
+        assert sorted(got) == sorted(fresh)
+        for k in set(got) - {"ext", "meta"}:
+            assert got[k].dtype == fresh[k].dtype and torch.equal(got[k], fresh[k]), (program, k)
+        checked.append(program)
+
+    ptrs = {}
+    t_serve._Resident.reseed = spy
+    try:
+        for seed in (1, 2, 3):
+            reqs = _reqs(t_serve, sc, names, 12, seed)
+            sc.serve_continuous(reqs, chunk_ticks=2)
+            waves = _reqs(t_serve, sw, names, 12, seed)
+            sw.serve(waves)
+            _same_counts(waves, reqs)
+            for program, res in sc._residents.items():
+                # A learning chunk may hand back new weights and traces (which
+                # drops the graphs; no frozen chunk reads the traces).
+                ptrs.setdefault(program, set()).add(tuple(
+                    (k, x.data_ptr()) for k, x in sorted(_resident_leaves(res).items())
+                    if k not in ("w", "x_pre", "x_post", "elig")))
+    finally:
+        t_serve._Resident.reseed = reseed
+    assert sorted(sc._residents) == sorted({backend, "event"})
+    assert sorted(set(checked)) == sorted(sc._residents) and len(checked) >= 4
+    assert all(len(p) == 1 for p in ptrs.values()), {
+        b: set.union(*map(set, p)) - set.intersection(*map(set, p)) for b, p in ptrs.items()}
+
+
+def test_chunk_graph_counters_exist_and_stay_zero_on_the_cpu():
+    """The capture and replay counters are registered with the chunk
+    counter and stay 0 on the CPU, where every chunk runs eager."""
+    sc, names = _port("pallas_fused")
+    stats = sc.serve_continuous(_reqs(t_serve, sc, names, 16, 1))
+    reg = sc.registry
+    assert stats["chunks"] > 0
+    for name in t_serve.GRAPH_COUNTERS:
+        counter = reg.get(name)
+        assert counter is not None and counter.labelnames == ("backend",), name
+        assert all(counter.value(backend=b) == 0 for b in ("pallas_fused", "event")), name
+        assert not reg.to_dict()[name]["values"], name
+    assert sum(reg.get("snn_chunks_total").value(backend=b)
+               for b in ("pallas_fused", "event")) == stats["chunks"]
+
+
+@pytest.mark.parametrize("learning", (False, True))
+@pytest.mark.parametrize("backend", BACKENDS + ("event",))
+@pytest.mark.parametrize("device", ("cpu", "cuda"))
+def test_chunk_graph_engages_on_frozen_dense_chunks_on_the_card(device, backend, learning):
+    """The rule itself: a CUDA graph for a frozen chunk of ``jnp``,
+    ``pallas`` or ``pallas_fused`` on the card; never a learning chunk,
+    never the event program, never the CPU."""
+    engaged = {("cuda", b, False) for b in ("jnp", "pallas", "pallas_fused")}
+    got = t_serve.chunk_graph_engages(torch.device(device), backend, learning)
+    assert got == ((device, backend, learning) in engaged)
 
 
 def test_cli_serves_continuously(capsys):

@@ -240,6 +240,26 @@ def test_span_sinks_when_off():
     assert log.records() == []
 
 
+def test_a_span_note_rides_on_the_record_and_the_labels_stay_checked():
+    """``note`` goes onto the record only: the histogram is labelled by the
+    attributes alone, and an attribute that is not one of its labels still
+    raises."""
+    reg = MetricsRegistry()
+    h = reg.histogram("t_seconds", "a span", ("backend",))
+    log = get_span_log()
+    log.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with span("unit/noted", histogram=h, on=True, note={"graph": 1}, backend="x"):
+            pass
+    assert h.count(backend="x") == 1
+    assert [(r.name, r.attrs) for r in log.records()] == [
+        ("unit/noted", {"backend": "x", "graph": 1})]
+    log.clear()
+    with pytest.raises(ValueError, match="expected labels"):
+        with span("unit/typo", histogram=h, on=False, bakend="x"):
+            pass
+
+
 def test_span_log_keeps_the_first_records_and_counts_the_rest():
     log = SpanLog(max_records=3)
     a = log.open("a", 10, {})
